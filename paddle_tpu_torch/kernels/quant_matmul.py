@@ -1,0 +1,160 @@
+"""Fused dequant-matmul for weight-only int8 serving.
+
+Counterpart of paddle_tpu/kernels/quant_matmul.py. `quant_matmul`
+computes (x @ w_q) * scale with an f32 accumulator and casts to
+x.dtype: x [..., K] float, w_q [K, N] int8, scale [N] f32 (the stored
+abs-max / 127 of quantization/serving.py).
+
+- On a CUDA tensor it launches the hand-written Hopper kernel
+  (csrc/quant_matmul.cu, the port of the TPU kernel
+  `_pallas_quant_matmul`/`_qmm_kernel`), after checking dtype, shape,
+  contiguity and device, and raises on anything else. It never falls
+  back to the plain version on the card.
+- On a CPU tensor it runs `quant_matmul_ref`, the plain PyTorch version
+  of the same function (the reference's `_xla_quant_matmul`).
+
+`launches` counts kernel launches; it moves only where the kernel is
+launched, so a run can show that its path went through the kernel.
+
+Selection and the kill switch follow the reference: env
+PADDLE_TPU_QUANT off-values disable weight-only quant even for engines
+built with quant="int8"; on-values and the impl names 'xla'/'pallas'
+enable it; anything else warns on stderr and counts as off (a typo must
+kill, not enable). Without the env var the default is off. The port has
+no kernel registry yet, so no adopted winner sits between env and
+default.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import sys
+
+import torch
+
+__all__ = ["ENV_QUANT", "quant_impl", "resolve_quant", "quant_matmul",
+           "quant_matmul_ref", "leaf_matmul", "launches"]
+
+ENV_QUANT = "PADDLE_TPU_QUANT"
+
+_OFF_VALUES = frozenset({"0", "off", "false", "no", "fp", "dense"})
+_ON_VALUES = frozenset({"1", "on", "true", "yes", "int8"})
+_IMPL_VALUES = frozenset({"xla", "pallas"})
+
+launches = 0
+
+_SUPPORTED_X = {torch.bfloat16: "quant_matmul_bf16",
+                torch.float32: "quant_matmul_f32"}
+
+
+def _env_value() -> str:
+    """Read and classify PADDLE_TPU_QUANT: '' (unset), 'off', 'xla' or
+    'pallas'. Unrecognized values are 'off' with a stderr warning."""
+    env = os.environ.get(ENV_QUANT, "").strip().lower()
+    if not env:
+        return ""
+    if env in _IMPL_VALUES:
+        return env
+    if env in _ON_VALUES:
+        return "xla"
+    if env not in _OFF_VALUES:
+        print(f"[quant_matmul] {ENV_QUANT}={env!r} is not one of "
+              f"{sorted(_IMPL_VALUES | _ON_VALUES)} / "
+              f"{sorted(_OFF_VALUES)}; treating as 'off' (the kill "
+              "switch fails safe)", file=sys.stderr, flush=True)
+    return "off"
+
+
+def quant_impl() -> str:
+    """Selector: env PADDLE_TPU_QUANT > 'off'."""
+    return _env_value() or "off"
+
+
+def resolve_quant(knob: str) -> bool:
+    """Engine-build resolution of the quant knob ('auto'|'off'|'int8').
+    An env off value disables quantization even for knob='int8'."""
+    if _env_value() == "off":
+        return False
+    if knob == "off":
+        return False
+    if knob == "int8":
+        return True
+    if knob == "auto":
+        return quant_impl() != "off"
+    raise ValueError(f"quant {knob!r} (auto|off|int8)")
+
+
+def quant_matmul_ref(x, w_q, scale):
+    """The plain version: (x @ w_q) * scale in f32, cast to x.dtype."""
+    lead = x.shape[:-1]
+    y = (x.reshape(-1, x.shape[-1]).float() @ w_q.float()) * scale.float()
+    return y.reshape(*lead, w_q.shape[1]).to(x.dtype)
+
+
+def _launch(x2d, w_q, scale):
+    global launches
+    from . import _build
+    fn_name = _SUPPORTED_X[x2d.dtype]
+    lib = _build.load("quant_matmul")
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    M, K = x2d.shape
+    N = w_q.shape[1]
+    y = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = fn(x2d.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                 y.data_ptr(), M, K, N, stream)
+    if err != 0:
+        raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
+                           f"{err} at M={M} K={K} N={N}")
+    launches += 1
+    return y
+
+
+def _check_cuda_operands(x, w_q, scale) -> None:
+    dev = x.device
+    for name, t in (("w_q", w_q), ("scale", scale)):
+        if t.device != dev:
+            raise ValueError(f"quant_matmul: {name} on {t.device}, x on "
+                             f"{dev}")
+    if x.dtype not in _SUPPORTED_X:
+        raise TypeError(f"quant_matmul: x dtype {x.dtype} (bfloat16|float32)")
+    if w_q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"quant_matmul: w_q {w_q.dtype} / scale "
+                        f"{scale.dtype} (int8 / float32)")
+    if w_q.dim() != 2 or scale.dim() != 1 or scale.shape[0] != w_q.shape[1] \
+            or x.shape[-1] != w_q.shape[0]:
+        raise ValueError(f"quant_matmul: shapes x {tuple(x.shape)}, w_q "
+                         f"{tuple(w_q.shape)}, scale {tuple(scale.shape)}")
+    for name, t in (("x", x), ("w_q", w_q), ("scale", scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"quant_matmul: {name} is not contiguous")
+
+
+def quant_matmul(x, w_q, scale):
+    """y = x @ dequant(w_q): [..., K] x [K, N] -> [..., N] in x.dtype.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise."""
+    if x.device.type == "cpu":
+        return quant_matmul_ref(x, w_q, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul: unsupported device {x.device}")
+    _check_cuda_operands(x, w_q, scale)
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1])
+    if x2d.shape[0] == 0 or w_q.shape[1] == 0:
+        return x.new_zeros(*lead, w_q.shape[1])
+    return _launch(x2d, w_q, scale).reshape(*lead, w_q.shape[1])
+
+
+def leaf_matmul(x, leaves, name: str, qmm=quant_matmul):
+    """x [B, T, K] @ leaf `name` [K, N]: the fp einsum when the tree holds
+    the fp weight, `qmm` (the fused dequant-matmul) when it holds the
+    int8 pair `<name>_q` + `<name>_scale`."""
+    w_q = leaves.get(name + "_q")
+    if w_q is not None:
+        return qmm(x, w_q, leaves[name + "_scale"])
+    return torch.einsum("btk,kn->btn", x, leaves[name].to(x.dtype))

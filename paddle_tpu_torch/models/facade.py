@@ -1,0 +1,75 @@
+"""`GPTModel` — the model object over the functional GPT core, with
+`generate` over a cached serving engine.
+
+Counterpart of the serving half of paddle_tpu/models/facade.py
+(`FacadeModel.generate`) and paddle_tpu/models/gpt.py `GPTModel`. The
+leaves live on the module: floating leaves as frozen nn.Parameters,
+integer leaves (a quantized tree's int8 pairs) as buffers, under the
+reference's leaf names.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .gpt import GPTConfig, init_gpt_params
+
+__all__ = ["GPTModel"]
+
+
+class GPTModel(nn.Module):
+    _serving_family = "gpt"
+
+    def __init__(self, cfg: GPTConfig, seed: int = 0, device=None,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            params = init_gpt_params(cfg, seed, self.device)
+        self._leaf_names = tuple(params)
+        for name, v in params.items():
+            v = torch.as_tensor(v).to(self.device)
+            if v.is_floating_point():
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+            else:
+                self.register_buffer(name, v)
+        self._engine = None
+        self._engine_key = None
+
+    def param_tree(self) -> Dict[str, torch.Tensor]:
+        """{leaf name: tensor} in the functional core's layout."""
+        return {n: getattr(self, n).detach() for n in self._leaf_names}
+
+    def _weights_key(self):
+        # identity and in-place version of every leaf: replacing or
+        # updating a weight rebuilds the engine, so it never serves
+        # stale weights
+        return tuple((id(getattr(self, n)), getattr(self, n)._version)
+                     for n in self._leaf_names)
+
+    def generate(self, prompts, max_new_tokens, num_slots=8, max_len=None,
+                 temperature=0.0, top_k=0, eos_id=None, max_top_k=0, seed=0,
+                 quant=None, **engine_kw):
+        """Continuous-batching generation over this model's weights:
+        `prompts` is a list of 1-D token-id sequences of mixed lengths;
+        returns one array of generated ids per prompt, in order. The
+        engine is cached and reused while its knobs and the weights stay
+        the same."""
+        if quant is not None:
+            engine_kw["quant"] = quant
+        key = (num_slots, max_len, max_top_k, seed,
+               tuple(sorted(engine_kw.items())), self._weights_key())
+        if self._engine is None or self._engine_key != key:
+            from ..inference.serving import create_serving_engine
+            self._engine = create_serving_engine(
+                self, num_slots=num_slots, max_len=max_len,
+                max_top_k=max_top_k, seed=seed, **engine_kw)
+            self._engine_key = key
+        return self._engine.generate(prompts, max_new_tokens,
+                                     temperature=temperature, top_k=top_k,
+                                     eos_id=eos_id)

@@ -116,6 +116,9 @@ def pytest_configure(config):
         "slow'` — the ROADMAP verify command); full-suite-only. For "
         "redundant bench-style re-measurements on this noisy host, "
         "not for unique coverage")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written "
+        "kernels); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
