@@ -7,34 +7,54 @@ Phases, each failing the script (non-zero exit) when it fails:
 
 1. The card's name and power limit (nvidia-smi), the torch/CUDA
    versions, and the build of every hand-written kernel from the
-   sources in this checkout, with nvcc's -Xptxas -v register and
-   shared-memory report.
-2. Kernel check: the fused int8 dequant-matmul kernel against its plain
-   PyTorch version on the card, with bf16 x, at the shapes of the GPT
-   serving path (M = 8 slots at decode, 128 and 512 at prefill; K, N of
-   the qkv, attention-out, MLP-up, MLP-down and head matmuls). One JSON
-   line per shape: kernel, plain and library times from CUDA events
-   over a replayed CUDA graph, the bound, and the error.
-3. Serving: the int8 ServingEngine at the full width of the repo's
-   headline GPT (vocab 32768, hidden 1024, 24 layers, 16 heads,
-   max_seq_len 1024; bf16 activations, f32 parameters; random weights
-   from a seed), 8 slots, 16 requests (prompt lengths 16..512 from a
-   seeded rng, 64 new tokens each, two of them sampled with top-k).
-   Every request must end with "length", and the kernel must launch
-   exactly 97 times per prefill and per decode tick (24 layers x 4
-   leaves + the head). One prefill's logits and 16 greedy tokens from
-   the kernel are held against the same forward built on the plain
-   version; 16 decode ticks run under torch.profiler (device busy share,
-   device time by kernel); a 2-request fp (quant="off") engine runs too.
-4. The kernels line, the card line, and as the last line
+   sources in this checkout (one nvcc per source, all at once), with
+   nvcc's -Xptxas -v register, shared-memory and spill summary.
+2. Kernel checks, each kernel against its plain PyTorch version on the
+   card at the shapes of its main path, with kernel, plain and library
+   times from CUDA events, the bound and the error (one JSON line per
+   shape):
+   - the fused int8 dequant-matmul, bf16 x, at the GPT serving shapes
+     (M = 8 slots at decode, 128 and 512 at prefill; K, N of the qkv,
+     attention-out, MLP-up, MLP-down and head matmuls);
+   - the flash-attention forward and its dq and dk/dv backward kernels,
+     bf16, causal, at the train step's [8, 1024, 16, 64] (q, k, v
+     strided views of one qkv tensor, as the GPT block makes them), a
+     ragged S 1000 with kv_len 900, and head dim 128;
+   - the one-pass cross entropy, bf16, at [8192, 32768] (the train
+     step's logits) and [8192, 50304].
+3. Training: the GPT train step at the full width of the repo's
+   headline configuration (bench.py's `tpu` rung: vocab 32768, hidden
+   1024, 24 layers, 16 heads, max_seq_len 1024, batch 8 x 1024 tokens,
+   remat "dots", bf16 activations, f32 parameters, random weights from
+   seed 0) through make_train_step: 2 warm-up and 10 timed steps (step
+   ms p50/p90, tokens/s, MFU, peak memory), with the exact kernel
+   launches per step asserted (flash forward 2L, forward and its
+   recompute; dq L; dk/dv L; cross entropy 1). From one starting state,
+   5 steps on the kernels and 5 on their plain versions: step-1 losses
+   within 2e-3 relative, the trajectories within 1e-2, every step-1
+   gradient leaf with cosine similarity >= 0.999. 2 steps run under
+   torch.profiler (device busy share, device time by kernel).
+4. Serving: the int8 ServingEngine at the same full width, 8 slots, 16
+   requests (prompt lengths 16..512 from a seeded rng, 64 new tokens
+   each, two of them sampled with top-k). Every request must end with
+   "length", and the int8 kernel must launch exactly 97 times per
+   prefill and per decode tick (24 layers x 4 leaves + the head). One
+   prefill's logits and 16 greedy tokens from the kernel are held
+   against the same forward built on the plain version; 16 decode ticks
+   run under torch.profiler; a 2-request fp (quant="off") engine runs
+   too.
+5. The kernels line (five kernels), the card line, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 float32 matmuls run in full float32 here: TF32 is switched off for
 matmul and cuDNN, so the plain versions are exact-f32 references.
 """
+import contextlib
+import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -50,6 +70,7 @@ PEAK_BYTES = 3.35e12
 
 FULL = dict(vocab_size=32768, hidden_size=1024, num_layers=24, num_heads=16,
             max_seq_len=1024)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024          # bench.py's tpu rung
 LEAF_KN = {"qkv_w": (1024, 3072), "attn_out_w": (1024, 1024),
            "mlp_up_w": (1024, 4096), "mlp_down_w": (4096, 1024),
            "head": (1024, 32768)}
@@ -72,10 +93,7 @@ def bound(M, K, N):
     """Least time (ms) for (x[M,K] bf16 . w[K,N] int8) * scale[N] f32 ->
     y[M,N] bf16: each input read once and the output written once over
     the HBM rate, or the 2MKN operations over the bf16 peak."""
-    t_ops = 2.0 * M * K * N / PEAK_BF16_FLOPS
-    t_bytes = (K * N + 2 * M * K + 2 * M * N + 4 * N) / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    return bound_ms(2.0 * M * K * N, K * N + 2 * M * K + 2 * M * N + 4 * N)
 
 
 def graph_ms(torch, fn, n_iters):
@@ -177,6 +195,428 @@ def tick_aggregate(rows, L):
                   for leaf, (k, n) in LEAF_KN.items()) / PEAK_BYTES
     agg["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
     return agg
+
+
+def ptxas_summary(report):
+    """One line per compiled kernel from nvcc's -Xptxas -v report:
+    registers, shared memory and spills."""
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+            name = name[name.find("_cu_") + 4:] if "_cu_" in name else name
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            out.append(f"{name[:70]}: {line.split(':', 1)[1].strip()}; "
+                       f"{spill}")
+    return out
+
+
+def event_ms(torch, fn, n_iters=10):
+    """Device time per call from CUDA events around n_iters calls, after
+    2 warm-up calls (each call here runs >= tens of microseconds, so
+    launch overhead is a small share)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n_iters
+
+
+def bound_ms(ops, nbytes):
+    """Least time (ms): the larger of the operations over the bf16 tensor
+    peak and the bytes over the HBM rate, and which of the two it is."""
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+# (B, S, H, D, kv_len): the train step's attention, a ragged S with a
+# kv_len bound, and head dim 128 (the 6.7B/13B head width)
+ATTN_SHAPES = [(8, 1024, 16, 64, None), (8, 1000, 16, 64, 900),
+               (8, 1024, 8, 128, None)]
+ATTN_MAIN = ATTN_SHAPES[0]
+
+
+def live_pairs(S, kv_len):
+    """(q, k) pairs a causal attention over S rows with keys below
+    kv_len computes: the work this run's data needs."""
+    kl = S if kv_len is None else kv_len
+    return sum(min(q + 1, kl) for q in range(S))
+
+
+def flash_tol(ref):
+    """Elementwise tolerance of a bf16 flash kernel's output against its
+    plain version, [B, S, H, D]: 2^-6 of the entry and 2^-6 of its row's
+    rms over D (2 to 4 bf16 steps: each side rounds its result once, and
+    p and ds once before their products, at places that differ by the
+    softmax scale: the kernel scales dq and dk at the end, the plain
+    version scales ds first), plus 2^-10 of the tensor's rms for rows
+    that are zero but for f32 rounding noise (dq of the first causal
+    row). Rows differ in scale by 10x and more (a causal row attends to
+    1 to S keys), so the rms is taken per row; an error of an entry's
+    typical size fails."""
+    r = ref.float()
+    row = r.square().mean(-1, keepdim=True).sqrt()
+    return (2.0 ** -6 * (r.abs() + row)
+            + 2.0 ** -10 * r.square().mean().sqrt()).clamp_min(1e-30)
+
+
+def attention_check(torch, dev):
+    """Phase 2b. Returns {(B, S, H, D, kv_len): {kernel: row}}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    ops = torch.ops.paddle_tpu_torch
+    out_rows = {}
+    for B, S, H, D, kv_len in ATTN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(S + D)
+        qkv = torch.randn(B, S, 3, H, D, generator=g,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)                 # strided views
+        do = torch.randn(B, S, H, D, generator=g,
+                         device=dev).to(torch.bfloat16)
+        klen = S if kv_len is None else kv_len
+        out, lse = fa.mha_fwd(q, k, v, causal=True, kv_len=kv_len)
+        grads = fa.mha_bwd(q, k, v, out, lse, do, causal=True,
+                           kv_len=kv_len)
+        r_out, r_lse = fa.mha_fwd_ref(q, k, v, True, kv_len)
+        r_grads = fa.mha_bwd_ref(q, k, v, out, lse, do, True, kv_len)
+        torch.cuda.synchronize()
+        errs, over = {}, {}
+        for name, got, ref in (("out", out, r_out), ("dq", grads[0],
+                                                      r_grads[0]),
+                               ("dk", grads[1], r_grads[1]),
+                               ("dv", grads[2], r_grads[2])):
+            err = (got.float() - ref.float()).abs()
+            errs[name] = float(err.max())
+            over[name] = float((err / flash_tol(ref)).max())
+            if not bool(torch.isfinite(got).all()):
+                over[name] = math.inf
+        lse_err = float((lse - r_lse).abs().max())
+        log(json.dumps({"phase": "flash_err_over_tol",
+                        "shape": [B, S, H, D, kv_len], **over,
+                        "lse_max_abs_err": lse_err}))
+        if max(over.values()) > 1.0 or lse_err > 1e-3:
+            raise AssertionError(
+                f"flash kernels disagree with their plain versions at "
+                f"{(B, S, H, D, kv_len)}: worst |err| / tolerance {over}, "
+                f"lse max |err| {lse_err} (tolerance 1e-3)")
+
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        t_fwd = event_ms(torch, lambda: ops.flash_fwd(q, k, v, True, klen))
+        t_dq = event_ms(torch, lambda: ops.flash_bwd_dq(
+            q, k, v, do, lse, delta, True, klen))
+        t_dkv = event_ms(torch, lambda: ops.flash_bwd_dkv(
+            q, k, v, do, lse, delta, True, klen))
+        p_fwd = event_ms(torch, lambda: fa.mha_fwd_ref(q, k, v, True,
+                                                       kv_len), 3)
+        p_bwd = event_ms(torch, lambda: fa.mha_bwd_ref(
+            q, k, v, out, lse, do, True, kv_len), 3)
+        # library yardstick: SDPA on [B, H, S, D] views, causal (with the
+        # kv_len bound as an explicit boolean mask where there is one)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        qT, kT, vT = (t.transpose(1, 2) for t in (lq, lk, lv))
+        if kv_len is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(qT, kT, vT,
+                                                      is_causal=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < kv_len)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qT, kT, vT,
+                                                      attn_mask=mask)
+        with torch.no_grad():
+            l_fwd = event_ms(torch, sdpa)
+        lo = sdpa()
+        doT = do.transpose(1, 2)
+        l_bwd = event_ms(torch, lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), doT, retain_graph=True))
+        del lo
+
+        pairs = B * H * live_pairs(S, kv_len)
+        e = 2                                   # bf16 bytes
+        q_bytes = B * S * H * D * e
+        kv_bytes = B * min(S, klen) * H * D * e
+        row_bytes = B * H * S * 4               # lse or delta, f32
+        b_fwd = bound_ms(4 * pairs * D, q_bytes + 2 * kv_bytes + q_bytes
+                         + row_bytes)
+        b_dq = bound_ms(6 * pairs * D, 2 * q_bytes + 2 * kv_bytes
+                        + 2 * row_bytes + q_bytes)
+        b_dkv = bound_ms(8 * pairs * D, 2 * q_bytes + 2 * kv_bytes
+                         + 2 * row_bytes + 2 * B * S * H * D * e)
+        shape = {"B": B, "S": S, "H": H, "D": D, "kv_len": kv_len,
+                 "causal": True, "dtype": "bfloat16"}
+        rows = {
+            "flash_fwd": dict(ms=t_fwd, plain_ms=p_fwd, library_ms=l_fwd,
+                              bound=b_fwd, max_abs_err=errs["out"],
+                              err_over_tol=over["out"],
+                              lse_max_abs_err=lse_err),
+            "flash_bwd_dq": dict(ms=t_dq, plain_ms=p_bwd, library_ms=None,
+                                 bound=b_dq, max_abs_err=errs["dq"],
+                                 err_over_tol=over["dq"]),
+            "flash_bwd_dkv": dict(ms=t_dkv, plain_ms=p_bwd,
+                                  library_ms=None, bound=b_dkv,
+                                  max_abs_err=max(errs["dk"],
+                                                  errs["dv"]),
+                                  err_over_tol=max(over["dk"],
+                                                   over["dv"])),
+        }
+        for name, r in rows.items():
+            r["bound_ms"], r["bound_by"] = r.pop("bound")
+            line = {"phase": "kernel_check", "kernel": name, **shape, **r,
+                    "roofline_share": r["bound_ms"] / r["ms"],
+                    "tolerance": "per entry 2^-6*(|ref| + rms of its row "
+                                 "over D) + 2^-10*rms(ref); lse 1e-3"}
+            if name != "flash_fwd":
+                line["plain_note"] = ("mha_bwd_ref computes dq, dk and dv "
+                                      "together")
+                line["library_bwd_pair_ms"] = l_bwd
+                line["library_note"] = (
+                    "no library call computes this pass alone; "
+                    "library_bwd_pair_ms is SDPA's whole backward "
+                    "(dq, dk, dv), against the sum of the two kernels")
+            else:
+                line["library"] = "F.scaled_dot_product_attention forward"
+            log(json.dumps(line))
+        out_rows[(B, S, H, D, kv_len)] = rows
+        del qkv, q, k, v, do, out, lse, grads, r_out, r_lse, r_grads
+        del lq, lk, lv, qT, kT, vT, delta
+    return out_rows
+
+
+CE_SHAPES = [(8192, 32768), (8192, 50304)]
+
+
+def ce_check(torch, dev):
+    """Phase 2c. Returns {(T, V): row}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import fused_ce as fce
+    rows = {}
+    for T, V in CE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(V)
+        x = (torch.randn(T, V, generator=g, device=dev) * 2).to(
+            torch.bfloat16)
+        t = torch.randint(0, V, (T,), generator=g, device=dev)
+        loss, dx = fce.ce_fused(x, t)
+        r_loss, r_dx = fce.ce_fused_ref(x, t)
+        torch.cuda.synchronize()
+        # tolerance: f32 sums of exps in another order (loss), and dx
+        # rounded once to bf16 from f32 values ~1e-6 apart: one step
+        loss_err = float((loss - r_loss).abs().max())
+        err = (dx.float() - r_dx.float()).abs()
+        dx_err = float(err.max())
+        if loss_err > 1e-3 or not bool(
+                (err <= 2.0 ** -7 * r_dx.float().abs() + 1e-6).all()):
+            raise AssertionError(
+                f"fused_ce kernel disagrees with its plain version at "
+                f"T={T} V={V}: loss |err| {loss_err}, dx |err| {dx_err}")
+        del r_loss, r_dx, err
+        t_k = event_ms(torch, lambda: fce.ce_fused(x, t))
+        t_p = event_ms(torch, lambda: fce.ce_fused_ref(x, t), 3)
+        xl = x.detach().requires_grad_()
+        t_l = event_ms(torch, lambda: torch.autograd.grad(
+            F.cross_entropy(xl, t, reduction="sum"), xl))
+        b_ms, b_by = bound_ms(0, 2 * T * V * 2 + T * 8 + T * 4)
+        row = {"phase": "kernel_check", "kernel": "fused_ce", "T": T,
+               "V": V, "dtype": "bfloat16", "ms": t_k, "plain_ms": t_p,
+               "library_ms": t_l,
+               "library": "F.cross_entropy forward + backward (bf16 "
+                          "logits; a yardstick the port never calls)",
+               "bound_ms": b_ms, "bound_by": b_by,
+               "roofline_share": b_ms / t_k, "max_abs_err": max(loss_err,
+                                                                dx_err),
+               "loss_max_abs_err": loss_err, "dx_max_abs_err": dx_err,
+               "tolerance": "loss 1e-3; dx 2^-7*|ref| + 1e-6"}
+        log(json.dumps(row))
+        rows[(T, V)] = row
+        del x, t, loss, dx, xl
+    return rows
+
+
+def _cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    den = float(a.norm() * b.norm())
+    return float(a @ b) / den if den > 0 else (1.0 if float(
+        (a - b).abs().max()) == 0 else 0.0)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The GPT train step on the kernels' plain versions: rebinds the
+    attention and loss that models/gpt.py looks up at each call to
+    partials over mha_fwd_ref / mha_bwd_ref and ce_fused_ref, and
+    restores them after."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fce
+    from paddle_tpu_torch.models import gpt
+    saved = gpt.flash_attention_fn, gpt.fused_softmax_ce
+    gpt.flash_attention_fn = functools.partial(
+        saved[0], fwd=fa.mha_fwd_ref, bwd=fa.mha_bwd_ref)
+    gpt.fused_softmax_ce = functools.partial(saved[1],
+                                             fused=fce.ce_fused_ref)
+    try:
+        yield
+    finally:
+        gpt.flash_attention_fn, gpt.fused_softmax_ce = saved
+
+
+def train_profile(torch, step, params, opt, tokens, card, n_steps=2):
+    """Where a train step's time goes: n_steps under torch.profiler.
+    Prints the device busy share of the window and the device time by
+    kernel name (top 12)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(params, opt, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    rows = [(dev_us(e), e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(json.dumps({
+        "phase": "train_profile", "card": card, "steps": n_steps,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if rows else "not measured",
+        "device_busy_share": busy_ms / wall_ms if rows else "not measured",
+        "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
+                         "calls": n} for us, n, k in rows[:12]]}))
+
+
+def training(torch, dev, card):
+    """Phase 3. Returns {kernel: launches over the 10 timed steps}."""
+    from paddle_tpu_torch.cost_model import train_flops_per_token
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fce
+    from paddle_tpu_torch.models.facade import make_train_step
+    from paddle_tpu_torch.models.gpt import (GPTConfig, init_gpt_params,
+                                             init_opt_state, loss_and_grads,
+                                             train_step)
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, FULL["num_layers"]
+    cfg = GPTConfig(**FULL, remat=True, remat_policy="dots")
+    t0 = time.perf_counter()
+    params = init_gpt_params(cfg, seed=0)
+    opt = init_opt_state(params)
+    n_params = sum(p.numel() for p in params.values())
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(B, S + 1)), device=dev)
+    log(f"train: params {n_params} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    state0 = ({k: v.clone() for k, v in params.items()},
+              {k: ({n: t.clone() for n, t in v.items()}
+                   if isinstance(v, dict) else v.clone())
+               for k, v in opt.items()})
+
+    def restore():
+        for k, v in state0[0].items():
+            params[k].copy_(v)
+        for k, v in state0[1].items():
+            if isinstance(v, dict):
+                for n, t in v.items():
+                    opt[k][n].copy_(t)
+            else:
+                opt[k].copy_(v)
+
+    # step 1's gradients on the kernels and on their plain versions
+    k_loss, k_grads = loss_and_grads(params, tokens, cfg)
+    with plain_versions():
+        p_loss, p_grads = loss_and_grads(params, tokens, cfg)
+    cos = {n: _cos(k_grads[n], p_grads[n]) for n in k_grads}
+    del k_grads, p_grads
+    k_loss, p_loss = float(k_loss), float(p_loss)
+    log(json.dumps({"phase": "train_grads_kernel_vs_plain",
+                    "loss_kernel": k_loss, "loss_plain": p_loss,
+                    "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
+                    "min_cosine": min(cos.values()),
+                    "cosine_by_leaf": cos}))
+    if not math.isfinite(k_loss) or abs(k_loss - p_loss) > 2e-3 * abs(
+            p_loss):
+        raise AssertionError(f"step-1 loss: kernel {k_loss} vs plain "
+                             f"{p_loss} (tolerance 2e-3 relative)")
+    bad = {n: c for n, c in cos.items() if not c >= 0.999}
+    if bad:
+        raise AssertionError(f"step-1 gradient cosine < 0.999: {bad}")
+
+    # 5 steps from the same state on the kernels, then on the plain
+    # versions; the snapshot is dropped before the timed steps, so their
+    # peak memory is the step's own
+    traj = {}
+    for label, ctx in (("kernel", contextlib.nullcontext),
+                       ("plain", plain_versions)):
+        restore()
+        with ctx():
+            traj[label] = [float(train_step(params, opt, tokens, cfg)[0])
+                           for _ in range(5)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(traj["kernel"],
+                                               traj["plain"])]
+    log(json.dumps({"phase": "train_trajectory", "kernel": traj["kernel"],
+                    "plain": traj["plain"], "rel_diff": rel}))
+    if abs(traj["kernel"][0] - k_loss) > 1e-6 * abs(k_loss) + 1e-6 or \
+            max(rel) > 1e-2:
+        raise AssertionError(f"trajectories differ: {traj}")
+    restore()
+    del state0
+    torch.cuda.empty_cache()
+
+    step = make_train_step(train_step, cfg=cfg)
+    for _ in range(2):                            # warm-up
+        step(params, opt, tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.launches:                      # the main path starts
+        fa.launches[name] = 0
+    fce.launches = 0
+    step_ms, losses = [], []
+    for _ in range(10):
+        t_s = time.perf_counter()
+        loss, _, _ = step(params, opt, tokens)
+        losses.append(float(loss))                # waits for the step
+        step_ms.append((time.perf_counter() - t_s) * 1e3)
+    launches = dict(fa.launches, fused_ce=fce.launches)   # ... and ends
+    want = {"flash_fwd": 2 * L * 10, "flash_bwd_dq": L * 10,
+            "flash_bwd_dkv": L * 10, "fused_ce": 10}
+    if launches != want:
+        raise AssertionError(f"launches over 10 steps {launches} != "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    p50 = statistics.median(step_ms)
+    tok_s = B * S / (p50 / 1e3)
+    fpt = train_flops_per_token(n_params, L, FULL["hidden_size"], S)
+    log(json.dumps({
+        "phase": "train", "card": card, "batch": B, "seq": S,
+        "remat_policy": cfg.remat_policy, "steps": 10,
+        "step_ms": step_ms, "step_ms_p50": p50,
+        "step_ms_p90": float(np.percentile(step_ms, 90)),
+        "tokens_per_s": tok_s, "flops_per_token": fpt,
+        "mfu": fpt * tok_s / PEAK_BF16_FLOPS,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "losses": losses, "launches": launches,
+        "launches_per_step": {k: v // 10 for k, v in launches.items()}}))
+
+    train_profile(torch, step, params, opt, tokens, card)
+    del params, opt
+    torch.cuda.empty_cache()
+    return launches
 
 
 def tick_profile(torch, eng, prompts, card):
@@ -357,17 +797,23 @@ def main():
     log("tf32: off for matmul and cuDNN (plain versions run in full f32)")
 
     t0 = time.perf_counter()
-    _build.build("quant_matmul")
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    _build.build(*_build.KERNELS)
+    log(f"build: {time.perf_counter() - t0:.1f} s (one nvcc per source, "
+        f"in parallel)")
     for name, rec in _build.build_logs.items():
-        log(f"nvcc -Xptxas -v report for {name}:\n{rec['ptxas'].strip()}")
+        log(f"nvcc -Xptxas -v summary for {name} ({rec['seconds']:.1f} s):")
+        for line in ptxas_summary(rec["ptxas"]):
+            log("  " + line)
 
     dev = torch.device("cuda:0")
     rows = kernel_check(torch, qm, dev)
+    attn_rows = attention_check(torch, dev)
+    ce_rows = ce_check(torch, dev)
+    train_launches = training(torch, dev, card)
     launches, _ = serving(torch, qm, dev, card)
 
     agg = tick_aggregate(rows, FULL["num_layers"])
-    kernels = {"kernels": [{
+    entries = [{
         "name": "quant_matmul", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
         "replaces": "paddle_tpu/kernels/quant_matmul.py:181",
@@ -378,7 +824,35 @@ def main():
         "library_ms": agg["library_ms"],
         "per": "one decode tick at M=8: 24 layers x 4 leaves + the head "
                "(97 launches), from the kernel_check lines",
-    }]}
+    }]
+    replaces = {"flash_fwd": "paddle_tpu/kernels/pallas_attention.py:119",
+                "flash_bwd_dq": "paddle_tpu/kernels/pallas_attention.py:310",
+                "flash_bwd_dkv":
+                    "paddle_tpu/kernels/pallas_attention.py:327"}
+    for name, where in replaces.items():
+        main_row = attn_rows[ATTN_MAIN][name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": where, "launches": train_launches[name],
+            "max_abs_err": max(r[name]["max_abs_err"]
+                               for r in attn_rows.values()),
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "per": "one call at the train step's [8, 1024, 16, 64] bf16 "
+                   "causal; launches over the 10 timed train steps"})
+    ce_main = ce_rows[CE_SHAPES[0]]
+    entries.append({
+        "name": "fused_ce", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
+        "replaces": "paddle_tpu/kernels/pallas_ce.py:143",
+        "launches": train_launches["fused_ce"],
+        "max_abs_err": max(r["max_abs_err"] for r in ce_rows.values()),
+        **{k: ce_main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+        "per": "one call at the train step's [8192, 32768] bf16 logits; "
+               "launches over the 10 timed train steps"})
+    kernels = {"kernels": entries}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(card)

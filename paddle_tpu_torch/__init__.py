@@ -6,9 +6,15 @@ Pallas kernel on a ported path rewritten by hand for NVIDIA Hopper
 (sm_90a). It imports torch and numpy only: never jax, and nothing of
 paddle_tpu.
 
-Ported so far: GPT serving (dense KV slot pool, bucketed prefill, one
-decode tick for all slots) with weight-only int8 through the
-hand-written dequant-matmul kernel (kernels/csrc/quant_matmul.cu).
+Ported so far:
+- GPT serving (dense KV slot pool, bucketed prefill, one decode tick for
+  all slots) with weight-only int8 through the hand-written
+  dequant-matmul kernel (kernels/csrc/quant_matmul.cu);
+- the GPT train step on one GPU (models/gpt.py train_step through
+  models/facade.py make_train_step, remat "full" or "dots", AdamW),
+  with attention through the hand-written flash-attention forward and
+  two-pass backward (kernels/csrc/flash_attention.cu) and the loss
+  through the one-pass cross entropy (kernels/csrc/fused_ce.cu).
 Entry points run on the card unless the caller passes device="cpu".
 """
 from .device import resolve_device

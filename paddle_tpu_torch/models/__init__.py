@@ -1,5 +1,7 @@
-"""Model families of the port (GPT's cached serving path so far)."""
-from .facade import GPTModel
-from .gpt import GPTConfig, init_gpt_params
+"""Model families of the port (GPT: the train step and the cached
+serving path so far)."""
+from .facade import GPTModel, make_train_step
+from .gpt import GPTConfig, init_gpt_params, init_opt_state, train_step
 
-__all__ = ["GPTModel", "GPTConfig", "init_gpt_params"]
+__all__ = ["GPTModel", "GPTConfig", "init_gpt_params", "init_opt_state",
+           "make_train_step", "train_step"]

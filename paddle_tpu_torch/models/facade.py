@@ -1,23 +1,39 @@
 """`GPTModel` — the model object over the functional GPT core, with
-`generate` over a cached serving engine.
+`forward`, `loss` and `generate` over a cached serving engine — and
+`make_train_step`, which makes the train-step callable.
 
-Counterpart of the serving half of paddle_tpu/models/facade.py
-(`FacadeModel.generate`) and paddle_tpu/models/gpt.py `GPTModel`. The
-leaves live on the module: floating leaves as frozen nn.Parameters,
-integer leaves (a quantized tree's int8 pairs) as buffers, under the
-reference's leaf names.
+Counterpart of paddle_tpu/models/facade.py (`make_train_step` :95,
+`FacadeModel.generate`) and paddle_tpu/models/gpt.py `GPTModel`
+(`forward` :650, `loss` :658). The leaves live on the module: floating
+leaves as frozen nn.Parameters, integer leaves (a quantized tree's int8
+pairs) as buffers, under the reference's leaf names.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
-from .gpt import GPTConfig, init_gpt_params
+from .gpt import GPTConfig, gpt_forward, gpt_loss, init_gpt_params
 
-__all__ = ["GPTModel"]
+__all__ = ["GPTModel", "make_train_step"]
+
+
+def make_train_step(step_fn, cfg=None, mesh=None, plan=None, **step_kw):
+    """The step callable `(params, opt_state, batch) -> (loss, params,
+    opt_state)`: `step_fn` (models/gpt.py train_step) with `cfg` and the
+    optimizer keywords bound. PyTorch runs eagerly, so there is nothing
+    to jit; the reference's buffer donation is the step's in-place
+    update. The planner-driven sharded step (`mesh=`, `plan=`) is not
+    ported."""
+    if mesh is not None or plan is not None:
+        raise NotImplementedError(
+            "make_train_step(mesh=, plan=): the sharded multi-GPU step is "
+            "not ported yet (ROADMAP A6)")
+    return functools.partial(step_fn, cfg=cfg, **step_kw)
 
 
 class GPTModel(nn.Module):
@@ -51,6 +67,18 @@ class GPTModel(nn.Module):
         # stale weights
         return tuple((id(getattr(self, n)), getattr(self, n)._version)
                      for n in self._leaf_names)
+
+    def forward(self, tokens):
+        """tokens [B, S] -> logits [B, S, V] (gpt_forward)."""
+        return gpt_forward(self.param_tree(),
+                           torch.as_tensor(tokens, device=self.device),
+                           self.cfg)
+
+    def loss(self, tokens):
+        """Causal LM loss of tokens [B, S+1] (gpt_loss)."""
+        return gpt_loss(self.param_tree(),
+                        torch.as_tensor(tokens, device=self.device),
+                        self.cfg)
 
     def generate(self, prompts, max_new_tokens, num_slots=8, max_len=None,
                  temperature=0.0, top_k=0, eos_id=None, max_top_k=0, seed=0,

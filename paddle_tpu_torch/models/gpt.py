@@ -1,9 +1,13 @@
-"""GPT — the cached (serving) half of the flagship model family.
+"""GPT — the flagship model family: the train step and the cached
+(serving) forward.
 
 Counterpart of paddle_tpu/models/gpt.py: `GPTConfig`, `init_gpt_params`
 (the same leaf names and stacked [L, ...] shapes, so a JAX params tree
-converts one to one — models/convert.py), `_ln`, `init_kv_cache`,
-`_cached_attention`, `gpt_forward_cached` and `greedy_generate`.
+converts one to one — models/convert.py), `_ln`; the training half
+`_attention`, `_dense_ffn`, `_block`, `_apply_stack` (with the remat
+policies), `gpt_forward`, `gpt_loss`, `init_opt_state`, `apply_adamw`
+and `train_step`; the serving half `init_kv_cache`, `_cached_attention`,
+`gpt_forward_cached` and `greedy_generate`.
 
 The reference scans the stacked leaves with lax.scan; here a Python
 loop over the layer axis indexes them (`leaf[l]` is a view, so nothing
@@ -15,8 +19,17 @@ Numerics kept from the reference: LayerNorm statistics in f32 with eps
 default of jax.nn.gelu); the fp head is einsum("bsd,vd->bsv") in the
 activation dtype; the int8 head is the fused dequant-matmul.
 
-The training half (train_step, flash attention, fused CE, AdamW) is a
-later slice.
+The train step runs attention through the flash kernels
+(kernels/flash_attention.py) and the loss through the one-pass fused CE
+kernel (models/losses.py, kernels/fused_ce.py); the AdamW update is
+plain torch per leaf, as the reference's default jax-level update is.
+`_attention` and `gpt_loss` look `flash_attention_fn` and
+`fused_softmax_ce` up in this module's namespace at each call, so the
+same step runs on the kernels' plain versions once those two names are
+rebound to partials with `fwd=mha_fwd_ref, bwd=mha_bwd_ref` and
+`fused=ce_fused_ref` (chip_smoke.py does, to hold the step against
+them). The single-GPU path has no mesh, so the reference's sharding
+constraints have nothing to pin and are not carried.
 """
 from __future__ import annotations
 
@@ -29,11 +42,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.decode_attention import cached_attention, write_kv
-from ..kernels.quant_matmul import leaf_matmul, quant_matmul
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                   create_selective_checkpoint_contexts)
 
-__all__ = ["GPTConfig", "init_gpt_params", "init_kv_cache",
-           "gpt_forward_cached", "greedy_generate"]
+from ..kernels.decode_attention import cached_attention, write_kv
+from ..kernels.flash_attention import flash_attention_fn
+from ..kernels.quant_matmul import leaf_matmul, quant_matmul
+from .losses import fused_softmax_ce
+
+__all__ = ["GPTConfig", "init_gpt_params", "gpt_forward", "gpt_loss",
+           "loss_and_grads", "init_opt_state", "apply_adamw", "train_step",
+           "init_kv_cache", "gpt_forward_cached", "greedy_generate"]
 
 
 @dataclasses.dataclass
@@ -48,6 +67,11 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16       # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True                        # checkpoint each block
+    # "full" recomputes the whole block in the backward; "dots" saves the
+    # matmul outputs and recomputes the rest, the flash forward included
+    # (JAX's dots_with_no_batch_dims_saveable)
+    remat_policy: str = "full"
 
     def __post_init__(self):
         if self.ffn_hidden is None:
@@ -109,6 +133,162 @@ def _ln(x, scale, bias, eps):
     var = (xf - mu).square().mean(-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
     return (out * scale + bias).to(x.dtype)
+
+
+# --------------------------------------------------------- training half
+def _attention(x, w_qkv, b_qkv, w_out, b_out, cfg):
+    """x [B,S,D] -> the attention block's output [B,S,D]. The fused
+    projection is the reference's [D, 3, H, hd] one (gpt.py:269-276) as
+    a single matmul whose [B, S, 3D] output is viewed [B, S, 3, H, hd];
+    q, k and v are strided views of it, read in place by the kernels."""
+    B, S, D = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    p = x @ w_qkv.to(x.dtype)
+    if b_qkv is not None:
+        p = p + b_qkv.to(x.dtype)
+    p = p.view(B, S, 3, H, hd)
+    ctx = flash_attention_fn(p[:, :, 0], p[:, :, 1], p[:, :, 2],
+                             causal=True)
+    out = ctx.reshape(B, S, D) @ w_out.to(x.dtype)
+    if b_out is not None:
+        out = out + b_out.to(x.dtype)
+    return out
+
+
+def _dense_ffn(x, up_w, up_b, down_w, down_b):
+    h = x @ up_w.to(x.dtype)
+    if up_b is not None:
+        h = h + up_b.to(x.dtype)
+    h = F.gelu(h, approximate="tanh")
+    out = h @ down_w.to(x.dtype)
+    if down_b is not None:
+        out = out + down_b.to(x.dtype)
+    return out
+
+
+def _block(params_l, x, cfg):
+    """One transformer block on the layer slice `params_l`."""
+    a_in = _ln(x, params_l["ln1_scale"], params_l["ln1_bias"],
+               cfg.layer_norm_eps)
+    x = x + _attention(a_in, params_l["qkv_w"], params_l.get("qkv_b"),
+                       params_l["attn_out_w"], params_l.get("attn_out_b"),
+                       cfg)
+    m_in = _ln(x, params_l["ln2_scale"], params_l["ln2_bias"],
+               cfg.layer_norm_eps)
+    return x + _dense_ffn(m_in, params_l["mlp_up_w"],
+                          params_l.get("mlp_up_b"), params_l["mlp_down_w"],
+                          params_l.get("mlp_down_b"))
+
+
+# "dots": matmul outputs are saved across the backward, everything else
+# (norms, GELU, casts, the flash forward's custom op) is recomputed
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+_UNPORTED_REMAT = ("dots_flash", "offload_dots", "all_but_mlp")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _apply_stack(stacked, x, cfg: GPTConfig):
+    """The block stack as a loop over layer views of the stacked leaves,
+    each block checkpointed per cfg.remat / cfg.remat_policy."""
+    if cfg.remat and cfg.remat_policy in _UNPORTED_REMAT:
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet "
+            "(ROADMAP A2a); use 'full' or 'dots'")
+    layers = {k: v.unbind(0) for k, v in stacked.items()}
+    for layer in range(cfg.num_layers):
+        p = {k: v[layer] for k, v in layers.items()}
+        if not cfg.remat:
+            x = _block(p, x, cfg)
+        elif cfg.remat_policy == "dots":
+            x = checkpoint(_block, p, x, cfg, use_reentrant=False,
+                           context_fn=_dots_context)
+        else:
+            x = checkpoint(_block, p, x, cfg, use_reentrant=False)
+    return x
+
+
+def gpt_forward(params, tokens, cfg: GPTConfig):
+    """tokens [B, S] -> logits [B, S, V] in cfg.dtype."""
+    B, S = tokens.shape
+    x = F.embedding(tokens.long(), params["wte"]).to(cfg.dtype)
+    x = x + params["wpe"][:S][None].to(cfg.dtype)
+    stacked = {k: params[k] for k in _BLOCK_KEYS_DENSE if k in params}
+    x = _apply_stack(stacked, x, cfg)
+    x = _ln(x, params["ln_f_scale"], params["ln_f_bias"], cfg.layer_norm_eps)
+    # tied head, "bsd,vd->bsv"
+    return x @ params["wte"].to(x.dtype).t()
+
+
+def gpt_loss(params, batch, cfg: GPTConfig):
+    """Causal LM loss of `batch` (tokens [B, S+1], or {"tokens": ...}):
+    the mean fused cross entropy of the logits of tokens[:, :-1] against
+    tokens[:, 1:]."""
+    tokens = batch["tokens"] if isinstance(batch, dict) else batch
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    return fused_softmax_ce(gpt_forward(params, inp, cfg), tgt)
+
+
+def loss_and_grads(params, batch, cfg: GPTConfig):
+    """(loss, {leaf: gradient}) of gpt_loss at `params`, the port's
+    jax.value_and_grad(gpt_loss)."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = gpt_loss(leaves, batch, cfg)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def init_opt_state(params):
+    """AdamW state: f32 moments like each leaf, and the step count."""
+    dev = next(iter(params.values())).device
+    return {
+        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for k, p in params.items()},
+        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for k, p in params.items()},
+        "step": torch.zeros((), dtype=torch.float32, device=dev),
+    }
+
+
+@torch.no_grad()
+def apply_adamw(grads, params, opt_state, lr, beta1=0.9, beta2=0.95,
+                eps=1e-8, weight_decay=0.1):
+    """One AdamW update over the param tree, the reference's default
+    jax-level rule (gpt.py:598-620): f32 moments, bias corrections from
+    the step, decoupled decay p * (1 - lr * wd), the param stored back in
+    its own dtype. Unlike the reference, which returns new trees, this
+    updates `params` and `opt_state` IN PLACE (their buffers are reused,
+    as JAX's donation aliases them) and returns them."""
+    step = opt_state["step"].add_(1.0)
+    bc1 = 1.0 - beta1 ** step
+    bc2 = 1.0 - beta2 ** step
+    for k, p in params.items():
+        gf = grads[k].float()
+        m, v = opt_state["m"][k], opt_state["v"][k]
+        m.mul_(beta1).add_(gf, alpha=1 - beta1)
+        v.mul_(beta2).addcmul_(gf, gf, value=1 - beta2)
+        den = torch.sqrt(v / bc2) + eps
+        p.copy_(p.float() * (1.0 - lr * weight_decay)
+                - lr * (m / bc1) / den)
+    return params, opt_state
+
+
+def train_step(params, opt_state, batch, cfg: GPTConfig, lr=3e-4,
+               beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1):
+    """One step: the loss and its gradients, then AdamW. Returns (loss,
+    params, opt_state); params and opt_state are updated in place."""
+    loss, grads = loss_and_grads(params, batch, cfg)
+    apply_adamw(grads, params, opt_state, lr, beta1=beta1, beta2=beta2,
+                eps=eps, weight_decay=weight_decay)
+    return loss, params, opt_state
 
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None):

@@ -1,7 +1,10 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card. Run them where there is one:
+versions, on the card: the int8 dequant-matmul, the flash-attention
+forward and its two backward passes, and the one-pass cross entropy.
+Run them where there is one (the card's machine has no JAX, hence
+--noconftest):
 
-    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Without a card every test here skips (decided inside the `cuda_device`
 fixture, never at import or collection time, so every pytest-xdist
@@ -10,6 +13,8 @@ worker collects the same tests).
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_ce as fce
 from paddle_tpu_torch.kernels import quant_matmul as qm
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +98,209 @@ def test_wrapper_raises_on_bad_operands(cuda_device):
     with pytest.raises(ValueError):
         qm.quant_matmul(x, w.cpu(), s)
     assert qm.launches == before
+
+
+# ---------------------------------------------------------- flash attention
+# (B, Sq, Skv, H, D, causal, kv_len): GPT's training shape at a smaller
+# batch, ragged S with kv_len, Sq != Skv both ways, and head widths 16 to
+# 128; q/k/v are strided views of one [B, S, 3, H, D] tensor where
+# Sq == Skv, as the GPT block makes them
+FLASH_SHAPES = [
+    (2, 1024, 1024, 4, 64, True, None),
+    (2, 256, 256, 4, 64, False, None),
+    (1, 1000, 1000, 2, 64, True, 900),
+    (1, 100, 200, 2, 80, False, 150),
+    (1, 200, 100, 2, 16, True, None),
+    (1, 256, 256, 2, 128, True, None),
+    (1, 77, 77, 3, 48, True, None),
+    (1, 130, 130, 2, 96, False, None),
+    (1, 64, 64, 1, 112, True, None),
+    (1, 64, 64, 1, 32, True, 40),
+]
+
+
+def _flash_operands(B, Sq, Skv, H, D, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if Sq == Skv:
+        qkv = torch.randn(B, Sq, 3, H, D, generator=g, device=dev).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, Skv, H, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, Skv, H, D, generator=g, device=dev).to(dtype)
+    do = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _close_to_plain(got, ref, dtype):
+    # per entry, |err| <= a*(|ref| + rms of its row over D) + c*rms(ref),
+    # so an error of an entry's typical size fails; the rms is per row
+    # because a causal row attends to 1 to S keys and rows differ in
+    # scale by 10x and more, and c covers rows that are zero but for f32
+    # rounding noise (dq of the first causal row). f32: the same f32
+    # arithmetic summed in another order, a = 2^-16, c = 2^-15. bf16:
+    # each side rounds its result once, and p and ds once before their
+    # products, at places that differ by the scale (the kernel scales dq
+    # and dk at the end, the plain version scales ds): a = 2^-6, 2 to 4
+    # bf16 steps, c = 2^-10
+    a, c = (2.0 ** -16, 2.0 ** -15) if dtype == torch.float32 else (
+        2.0 ** -6, 2.0 ** -10)
+    r = ref.float()
+    row = r.square().mean(-1, keepdim=True).sqrt()
+    tol = a * (r.abs() + row) + c * r.square().mean().sqrt()
+    return bool(((got.float() - r).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Skv,H,D,causal,kv_len", FLASH_SHAPES)
+def test_flash_kernels_match_plain_versions(cuda_device, B, Sq, Skv, H, D,
+                                            causal, kv_len, dtype):
+    q, k, v, do = _flash_operands(B, Sq, Skv, H, D, dtype, cuda_device)
+    before = dict(fa.launches)
+    out, lse = fa.mha_fwd(q, k, v, causal=causal, kv_len=kv_len)
+    dq, dk, dv = fa.mha_bwd(q, k, v, out, lse, do, causal=causal,
+                            kv_len=kv_len)
+    assert fa.launches == {n: c + 1 for n, c in before.items()}
+    r_out, r_lse = fa.mha_fwd_ref(q, k, v, causal, kv_len)
+    grads_ref = fa.mha_bwd_ref(q, k, v, out, lse, do, causal, kv_len)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert _close_to_plain(out, r_out, dtype)
+    assert (lse - r_lse).abs().max() <= 1e-3
+    for g, r in zip((dq, dk, dv), grads_ref):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert bool(torch.isfinite(g).all())
+        assert _close_to_plain(g, r, dtype)
+
+
+def test_flash_autograd_function_launches_the_kernels(cuda_device):
+    q, k, v, do = _flash_operands(2, 128, 128, 2, 64, torch.bfloat16,
+                                  cuda_device, seed=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.launches)
+    out = fa.flash_attention_fn(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert fa.launches == {n: c + 1 for n, c in before.items()}
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    r_out = fa.flash_attention_fn(*plain, causal=True, fwd=fa.mha_fwd_ref,
+                                  bwd=fa.mha_bwd_ref)
+    r_grads = torch.autograd.grad(r_out, plain, do)
+    assert fa.launches == {n: c + 1 for n, c in before.items()}
+    for g, r in zip(grads, r_grads):
+        assert _close_to_plain(g, r, torch.bfloat16)
+
+
+def test_flash_wrappers_raise_on_bad_operands(cuda_device):
+    q, k, v, do = _flash_operands(1, 64, 64, 2, 64, torch.bfloat16,
+                                  cuda_device)
+    before = dict(fa.launches)
+    with pytest.raises(TypeError):
+        fa.mha_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        fa.mha_fwd(q[..., :40], k[..., :40], v[..., :40])
+    with pytest.raises(ValueError, match="unit last stride"):
+        fa.mha_fwd(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    with pytest.raises(ValueError, match="shapes"):
+        fa.mha_fwd(q, k[:, :, :1], v)
+    with pytest.raises(ValueError):
+        fa.mha_fwd(q, k.cpu(), v)
+    out, lse = fa.mha_fwd_ref(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        fa.mha_bwd(q, k, v, out, lse[:, :1], do)
+    assert fa.launches == before
+
+
+# ------------------------------------------------------------ fused CE
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,V", [(300, 32768), (64, 50304), (33, 600),
+                                 (5, 1)])
+def test_fused_ce_kernel_matches_plain_version(cuda_device, T, V, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(T + V)
+    x = (torch.randn(T, V, generator=g, device=cuda_device) * 3).to(dtype)
+    t = torch.randint(0, V, (T,), generator=g, device=cuda_device)
+    t[0] = -1                                   # gathers nothing
+    before = fce.launches
+    loss, dx = fce.ce_fused(x, t)
+    assert fce.launches == before + 1
+    r_loss, r_dx = fce.ce_fused_ref(x, t)
+    torch.cuda.synchronize()
+    assert loss.dtype == torch.float32 and dx.dtype == dtype
+    # f32 sums of exps in another order; d_logits rounded once to the
+    # dtype from f32 values that differ by ~1e-6 relative: one step
+    assert (loss - r_loss).abs().max() <= 1e-4
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    err = (dx.float() - r_dx.float()).abs()
+    assert bool((err <= step * r_dx.float().abs() + 1e-6).all())
+
+
+def test_fused_ce_train_launches_once_per_step(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(64, 1000, generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    t = torch.randint(0, 1000, (64,), generator=g, device=cuda_device)
+    before = fce.launches
+    loss = fce.ce_fused_train(x, t)
+    (dx,) = torch.autograd.grad(loss.sum(), x)
+    assert fce.launches == before + 1
+    r_loss, r_dx = fce.ce_fused_ref(x.detach(), t)
+    torch.testing.assert_close(loss.detach(), r_loss, rtol=0, atol=1e-4)
+    assert (dx.float() - r_dx.float()).abs().max() <= 2.0 ** -7
+
+
+def test_fused_ce_raises_on_bad_operands(cuda_device):
+    x = torch.zeros(4, 8, device=cuda_device, dtype=torch.bfloat16)
+    t = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    before = fce.launches
+    with pytest.raises(TypeError):
+        fce.ce_fused(x.half(), t)
+    with pytest.raises(ValueError, match="contiguous"):
+        fce.ce_fused(torch.zeros(8, 4, device=cuda_device,
+                                 dtype=torch.bfloat16).t(), t)
+    with pytest.raises(ValueError, match="shapes"):
+        fce.ce_fused(x, t[:3])
+    with pytest.raises(ValueError):
+        fce.ce_fused(x, t.cpu())
+    assert fce.launches == before
+
+
+# ------------------------------------------------------ GPT train step
+@pytest.mark.parametrize("remat,policy", [(False, "full"), (True, "full"),
+                                          (True, "dots")])
+def test_gpt_train_step_launches_each_kernel(cuda_device, monkeypatch, remat,
+                                            policy):
+    """A 2-layer bf16 GPT step on the card: the flash forward launches
+    once per layer, twice under remat (the recompute), dq and dk/dv once
+    per layer, the cross entropy once; the loss agrees with the same
+    step on the plain versions."""
+    import functools
+    from paddle_tpu_torch.models import gpt as tg
+    from paddle_tpu_torch.models.gpt import (GPTConfig, init_gpt_params,
+                                             loss_and_grads)
+    from paddle_tpu_torch.models.losses import fused_softmax_ce
+    cfg = GPTConfig(vocab_size=1000, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128, remat=remat,
+                    remat_policy=policy)
+    params = init_gpt_params(cfg, seed=0, device=cuda_device)
+    tokens = torch.randint(0, 1000, (2, 129), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(0))
+    before = dict(fa.launches, fused_ce=fce.launches)
+    loss, grads = loss_and_grads(params, tokens, cfg)
+    after = dict(fa.launches, fused_ce=fce.launches)
+    L = cfg.num_layers
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_fwd": 2 * L if remat else L, "flash_bwd_dq": L,
+        "flash_bwd_dkv": L, "fused_ce": 1}
+    # the same step on the plain versions: the model looks both names up
+    # at each call
+    monkeypatch.setattr(tg, "flash_attention_fn", functools.partial(
+        fa.flash_attention_fn, fwd=fa.mha_fwd_ref, bwd=fa.mha_bwd_ref))
+    monkeypatch.setattr(tg, "fused_softmax_ce", functools.partial(
+        fused_softmax_ce, fused=fce.ce_fused_ref))
+    p_loss, p_grads = loss_and_grads(params, tokens, cfg)
+    assert dict(fa.launches, fused_ce=fce.launches) == after
+    assert abs(float(loss) - float(p_loss)) <= 2e-3 * abs(float(p_loss))
+    for name, g in grads.items():
+        cos = torch.nn.functional.cosine_similarity(
+            g.double().flatten(), p_grads[name].double().flatten(), dim=0)
+        assert float(cos) >= 0.999, name

@@ -39,6 +39,7 @@ def _submodules():
 def test_import_pulls_in_no_jax_and_no_reference_package():
     mods = ["paddle_tpu_torch"] + _submodules()
     assert "paddle_tpu_torch.inference.serving" in mods
+    assert "paddle_tpu_torch.kernels.fused_ce" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -53,24 +54,31 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert res.returncode == 0, res.stderr + res.stdout
 
 
-def test_no_jax_or_reference_import_in_source():
-    found = []
+def _sources():
+    """Every .py of the package, and chip_smoke.py, which the same rule
+    covers."""
     for root, _, files in os.walk(PKG_DIR):
         for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(root, f)
-            tree = ast.parse(open(path).read(), path)
-            for node in ast.walk(tree):
-                names = []
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    names = [node.module or ""]
-                for n in names:
-                    top = n.split(".")[0]
-                    if top in ("jax", "jaxlib", "paddle_tpu"):
-                        found.append(f"{path}:{node.lineno} {n}")
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_or_reference_import_in_source():
+    found = []
+    sources = list(_sources())
+    assert os.path.join(REPO, "chip_smoke.py") in sources
+    for path in sources:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"):
+                    found.append(f"{path}:{node.lineno} {n}")
     assert not found, found
 
 
