@@ -17,24 +17,41 @@ Phases, each failing the script (non-zero exit) when it fails:
      (M = 8 slots at decode, 128 and 512 at prefill; K, N of the qkv,
      attention-out, MLP-up, MLP-down and head matmuls);
    - the flash-attention forward and its dq and dk/dv backward kernels,
-     bf16, causal, at the train step's [8, 1024, 16, 64] (q, k, v
+     bf16, causal, at the GPT train step's [8, 1024, 16, 64] (q, k, v
      strided views of one qkv tensor, as the GPT block makes them), a
-     ragged S 1000 with kv_len 900, and head dim 128;
-   - the one-pass cross entropy, bf16, at [8192, 32768] (the train
-     step's logits) and [8192, 50304].
-3. Training: the GPT train step at the full width of the repo's
-   headline configuration (bench.py's `tpu` rung: vocab 32768, hidden
-   1024, 24 layers, 16 heads, max_seq_len 1024, batch 8 x 1024 tokens,
-   remat "dots", bf16 activations, f32 parameters, random weights from
-   seed 0) through make_train_step: 2 warm-up and 10 timed steps (step
-   ms p50/p90, tokens/s, MFU, peak memory), with the exact kernel
-   launches per step asserted (flash forward 2L, forward and its
-   recompute; dq L; dk/dv L; cross entropy 1). From one starting state,
-   5 steps on the kernels and 5 on their plain versions: step-1 losses
-   within 2e-3 relative, the trajectories within 1e-2, every step-1
-   gradient leaf with cosine similarity >= 0.999. 2 steps run under
-   torch.profiler (device busy share, device time by kernel).
-4. Serving: the int8 ServingEngine at the same full width, 8 slots, 16
+     ragged S 1000 with kv_len 900, head dim 128, and the Llama train
+     step's [4, 2048, 32, 64];
+   - the one-pass cross entropy, bf16, at [8192, 32768] (the GPT train
+     step's logits) and [8192, 50304];
+   - the two-pass cross entropy (forward saving the lse, backward from
+     it), bf16, at [8192, 32000] (the Llama train step's logits) and
+     [8192, 50257] (rows off a 16-byte boundary), the backward at
+     g = 1/T (the mean loss) and g = 1;
+   - the AdamW leaf update, f32, at each of the 11 leaf shapes of the
+     TinyLlama-width tree, with torch._fused_adamw_ as the yardstick.
+3. GPT training at the full width of the repo's headline configuration
+   (bench.py's `tpu` rung: vocab 32768, hidden 1024, 24 layers, 16
+   heads, max_seq_len 1024, batch 8 x 1024 tokens, remat "dots", bf16
+   activations, f32 parameters, random weights from seed 0), with the
+   registry's "ce" winner forced to "pallas_fused" (the one-pass CE) as
+   the reference's tools/ablate_step.py forces its own.
+4. Llama training at TinyLlama-1.1B's widths (vocab 32000, hidden 2048,
+   22 layers, 32 heads over 4 KV heads, FFN 5632, max_seq_len 2048; the
+   head tied to wte, 1,034,512,384 parameters), batch 4 x 2048 tokens,
+   remat on, bf16 activations, f32 parameters, with the registry's
+   "fused_update" winner forced to "pallas" (the fused AdamW kernel) and
+   the cross entropy on its default two-pass route. Then a primal-only
+   eval loss under torch.no_grad(), which must launch the CE forward
+   alone.
+   Phases 3 and 4 each run: step 1's loss and gradients on the kernels
+   and on their plain versions (losses within 2e-3 relative, every
+   gradient leaf's cosine >= 0.999); from one starting state (kept on
+   the host), 5 steps on each (trajectories within 1e-2); 2 warm-up and
+   10 timed steps through make_train_step (step ms p50/p90, tokens/s,
+   MFU, peak memory) with the exact kernel launches asserted; and 2
+   steps under torch.profiler (device busy share, device time by
+   kernel).
+5. Serving: the int8 ServingEngine at the GPT width, 8 slots, 16
    requests (prompt lengths 16..512 from a seeded rng, 64 new tokens
    each, two of them sampled with top-k). Every request must end with
    "length", and the int8 kernel must launch exactly 97 times per
@@ -43,8 +60,9 @@ Phases, each failing the script (non-zero exit) when it fails:
    against the same forward built on the plain version; 16 decode ticks
    run under torch.profiler; a 2-request fp (quant="off") engine runs
    too.
-5. The kernels line (five kernels), the card line, and as the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+6. The kernels line (all eight kernels), the card line, and as the last
+   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+   1}}.
 
 float32 matmuls run in full float32 here: TF32 is switched off for
 matmul and cuDNN, so the plain versions are exact-f32 references.
@@ -71,6 +89,19 @@ PEAK_BYTES = 3.35e12
 FULL = dict(vocab_size=32768, hidden_size=1024, num_layers=24, num_heads=16,
             max_seq_len=1024)
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024          # bench.py's tpu rung
+# TinyLlama-1.1B (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T
+# config.json; the repo's Llama ties the head to wte)
+LLAMA = dict(vocab_size=32000, hidden_size=2048, num_layers=22,
+             num_heads=32, num_kv_heads=4, max_seq_len=2048,
+             rope_theta=10000.0, rms_eps=1e-5)
+LLAMA_BATCH, LLAMA_SEQ = 4, 2048
+_D, _L, _F, _KV = 2048, 22, 5632, 4 * 64
+LLAMA_LEAVES = {"wte": (32000, _D), "norm_f": (_D,), "attn_norm": (_L, _D),
+                "q_w": (_L, _D, _D), "k_w": (_L, _D, _KV),
+                "v_w": (_L, _D, _KV), "o_w": (_L, _D, _D),
+                "ffn_norm": (_L, _D), "gate_w": (_L, _D, _F),
+                "up_w": (_L, _D, _F), "down_w": (_L, _F, _D)}
+ADAMW = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
 LEAF_KN = {"qkv_w": (1024, 3072), "attn_out_w": (1024, 1024),
            "mlp_up_w": (1024, 4096), "mlp_down_w": (4096, 1024),
            "head": (1024, 32768)}
@@ -239,11 +270,13 @@ def bound_ms(ops, nbytes):
                                        else "bytes")
 
 
-# (B, S, H, D, kv_len): the train step's attention, a ragged S with a
-# kv_len bound, and head dim 128 (the 6.7B/13B head width)
+# (B, S, H, D, kv_len): the GPT train step's attention, a ragged S with
+# a kv_len bound, head dim 128 (the 6.7B/13B head width), and the Llama
+# train step's (32 query heads, the 4 KV heads repeated to match)
 ATTN_SHAPES = [(8, 1024, 16, 64, None), (8, 1000, 16, 64, 900),
-               (8, 1024, 8, 128, None)]
+               (8, 1024, 8, 128, None), (4, 2048, 32, 64, None)]
 ATTN_MAIN = ATTN_SHAPES[0]
+ATTN_LLAMA = ATTN_SHAPES[3]
 
 
 def live_pairs(S, kv_len):
@@ -396,10 +429,11 @@ def attention_check(torch, dev):
 
 
 CE_SHAPES = [(8192, 32768), (8192, 50304)]
+CE_PAIR_SHAPES = [(8192, 32000), (8192, 50257)]
 
 
 def ce_check(torch, dev):
-    """Phase 2c. Returns {(T, V): row}."""
+    """Phase 2c, the one-pass CE. Returns {(T, V): row}."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import fused_ce as fce
     rows = {}
@@ -413,6 +447,7 @@ def ce_check(torch, dev):
         torch.cuda.synchronize()
         # tolerance: f32 sums of exps in another order (loss), and dx
         # rounded once to bf16 from f32 values ~1e-6 apart: one step
+        # (the unit cotangent: every |dx| entry is up to 1)
         loss_err = float((loss - r_loss).abs().max())
         err = (dx.float() - r_dx.float()).abs()
         dx_err = float(err.max())
@@ -444,6 +479,170 @@ def ce_check(torch, dev):
     return rows
 
 
+def ce_pair_check(torch, dev):
+    """Phase 2d, the two-pass CE. Returns {(T, V): {"ce_fwd": row,
+    "ce_bwd": row}}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import fused_ce as fce
+    out = {}
+    for T, V in CE_PAIR_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(V)
+        x = (torch.randn(T, V, generator=gen, device=dev) * 2).to(
+            torch.bfloat16)
+        t = torch.randint(0, V, (T,), generator=gen, device=dev)
+        loss, lse = fce.ce_fwd(x, t)
+        r_loss, r_lse = fce.ce_fwd_ref(x, t)
+        torch.cuda.synchronize()
+        # f32 sums of exps in another order
+        loss_err = float((loss - r_loss).abs().max())
+        lse_err = float((lse - r_lse).abs().max())
+        if not loss_err <= 1e-3 or not lse_err <= 1e-3:
+            raise AssertionError(
+                f"ce_fwd kernel disagrees with its plain version at T={T} "
+                f"V={V}: loss |err| {loss_err}, lse |err| {lse_err}")
+        # both backward versions read the kernel's lse: the check is of
+        # kernel 6 alone. dx within one bf16 step of the entry plus 1e-6
+        # of the row's |g| (exps in another order): the bound scales
+        # with g, so it means as much at g = 1/T (every entry ~1e-9) as
+        # at g = 1
+        dx_err, dx_over = {}, {}
+        for label, gval in (("mean", 1.0 / T), ("one", 1.0)):
+            g = torch.full((T,), gval, device=dev)
+            dx = fce.ce_bwd(x, t, lse, g)
+            r_dx = fce.ce_bwd_ref(x, t, lse, g)
+            torch.cuda.synchronize()
+            err = (dx.float() - r_dx.float()).abs()
+            tol = 2.0 ** -7 * r_dx.float().abs() + 1e-6 * gval
+            dx_err[label] = float(err.max())
+            dx_over[label] = float((err / tol).max())
+            if not dx_over[label] <= 1.0 or not bool(
+                    torch.isfinite(dx).all()):
+                raise AssertionError(
+                    f"ce_bwd kernel disagrees with its plain version at "
+                    f"T={T} V={V} g={gval}: max |err| {dx_err[label]}, "
+                    f"worst err/tol {dx_over[label]}")
+            del dx, r_dx, err, tol
+        g = torch.full((T,), 1.0 / T, device=dev)
+        t_fwd = event_ms(torch, lambda: fce.ce_fwd(x, t))
+        t_bwd = event_ms(torch, lambda: fce.ce_bwd(x, t, lse, g))
+        p_fwd = event_ms(torch, lambda: fce.ce_fwd_ref(x, t), 3)
+        p_bwd = event_ms(torch, lambda: fce.ce_bwd_ref(x, t, lse, g), 3)
+        with torch.no_grad():
+            l_fwd = event_ms(torch, lambda: F.cross_entropy(
+                x, t, reduction="none"))
+        xl = x.detach().requires_grad_()
+        lo = F.cross_entropy(xl, t, reduction="none")
+        l_bwd = event_ms(torch, lambda: torch.autograd.grad(
+            lo, xl, g, retain_graph=True))
+        del lo, xl
+        rows_b = T * 8 + 2 * T * 4          # targets in; loss+lse or lse+g
+        shape = {"T": T, "V": V, "dtype": "bfloat16"}
+        rows = {
+            "ce_fwd": dict(ms=t_fwd, plain_ms=p_fwd, library_ms=l_fwd,
+                           bound=bound_ms(0, T * V * 2 + rows_b),
+                           max_abs_err=max(loss_err, lse_err),
+                           loss_max_abs_err=loss_err,
+                           lse_max_abs_err=lse_err,
+                           library="F.cross_entropy(reduction='none') "
+                                   "forward",
+                           tolerance="loss and lse 1e-3"),
+            "ce_bwd": dict(ms=t_bwd, plain_ms=p_bwd, library_ms=l_bwd,
+                           bound=bound_ms(0, 2 * T * V * 2 + rows_b),
+                           max_abs_err=max(dx_err.values()),
+                           dx_max_abs_err=dx_err, dx_err_over_tol=dx_over,
+                           library="backward of F.cross_entropy("
+                                   "reduction='none') at g = 1/T, the "
+                                   "forward outside the timed window",
+                           tolerance="dx 2^-7*|ref| + 1e-6*|g|, at "
+                                     "g = 1/T and g = 1"),
+        }
+        for name, r in rows.items():
+            r["bound_ms"], r["bound_by"] = r.pop("bound")
+            log(json.dumps({"phase": "kernel_check", "kernel": name,
+                            **shape, **r,
+                            "roofline_share": r["bound_ms"] / r["ms"]}))
+        out[(T, V)] = rows
+        del x, t, loss, lse, r_loss, r_lse, g
+    return out
+
+
+def update_check(torch, dev):
+    """Phase 2e, the AdamW leaf update, f32, at every leaf shape of the
+    TinyLlama-width tree. Returns {leaf: row} and a "step" row, the sums
+    over the 11 leaves (one train step's update), whose library time is
+    one torch._fused_adamw_ call over all of them."""
+    from paddle_tpu_torch.kernels import fused_update as fu
+    gen = torch.Generator(device=dev).manual_seed(7)
+    step = torch.full((), 3.0, device=dev)
+    hp = torch.stack([torch.full((), ADAMW[k], device=dev) for k in
+                      ("lr", "beta1", "beta2", "eps", "weight_decay")]
+                     + [1.0 - ADAMW["beta1"] ** step,
+                        1.0 - ADAMW["beta2"] ** step])
+    leaves, rows = {}, {}
+    for name, shape in LLAMA_LEAVES.items():
+        p = torch.randn(shape, generator=gen, device=dev) * 0.02
+        g = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        m = torch.randn(shape, generator=gen, device=dev) * 1e-4
+        v = torch.rand(shape, generator=gen, device=dev) * 1e-7
+        ref = fu.leaf_update_ref(p, g, m, v, hp)
+        fu.leaf_update(p, g, m, v, hp)
+        torch.cuda.synchronize()
+        # both round every operation on its own in one order, and the
+        # card divides and takes square roots correctly rounded: 0 ulps
+        # expected, 1 ulp allowed
+        errs = [float((got - want).abs().max())
+                for got, want in zip((p, m, v), ref)]
+        ok = all(bool(((got - want).abs()
+                       <= 2.0 ** -23 * want.abs()).all())
+                 for got, want in zip((p, m, v), ref))
+        if not ok:
+            raise AssertionError(f"leaf_update kernel disagrees with its "
+                                 f"plain version at {name} {shape}: max "
+                                 f"|err| p/m/v {errs}")
+        del ref
+        n = p.numel()
+        t_k = event_ms(torch, lambda: fu.leaf_update(p, g, m, v, hp))
+        t_p = event_ms(torch, lambda: fu.leaf_update_ref(p, g, m, v, hp), 3)
+        t_l = event_ms(torch, lambda: torch._fused_adamw_(
+            [p], [g], [m], [v], [], [step], lr=ADAMW["lr"],
+            beta1=ADAMW["beta1"], beta2=ADAMW["beta2"],
+            weight_decay=ADAMW["weight_decay"], eps=ADAMW["eps"],
+            amsgrad=False, maximize=False))
+        b_ms, b_by = bound_ms(10 * n, 28 * n)
+        rows[name] = {"phase": "kernel_check", "kernel": "leaf_update",
+                      "leaf": name, "shape": list(shape), "n": n,
+                      "dtype": "float32", "ms": t_k, "plain_ms": t_p,
+                      "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+                      "roofline_share": b_ms / t_k,
+                      "max_abs_err": max(errs),
+                      "p_m_v_max_abs_err": errs,
+                      "tolerance": "p, m, v within 1 f32 ulp (0 expected)"}
+        log(json.dumps(rows[name]))
+        leaves[name] = (p, g, m, v)
+    n_all = sum(p.numel() for p, _, _, _ in leaves.values())
+    lists = list(zip(*leaves.values()))
+    t_lib = event_ms(torch, lambda: torch._fused_adamw_(
+        list(lists[0]), list(lists[1]), list(lists[2]), list(lists[3]), [],
+        [step] * len(leaves), lr=ADAMW["lr"], beta1=ADAMW["beta1"],
+        beta2=ADAMW["beta2"], weight_decay=ADAMW["weight_decay"],
+        eps=ADAMW["eps"], amsgrad=False, maximize=False))
+    b_ms, b_by = bound_ms(10 * n_all, 28 * n_all)
+    rows["step"] = {
+        "phase": "kernel_check", "kernel": "leaf_update", "leaf": "all 11",
+        "n": n_all, "ms": sum(r["ms"] for r in rows.values()),
+        "plain_ms": sum(r["plain_ms"] for r in rows.values()),
+        "library_ms": t_lib,
+        "library": "one torch._fused_adamw_ call over the 11 leaves (the "
+                   "function behind torch.optim.AdamW(fused=True))",
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+    rows["step"]["roofline_share"] = b_ms / rows["step"]["ms"]
+    log(json.dumps(rows["step"]))
+    del leaves, lists
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _cos(a, b):
     a, b = a.double().flatten(), b.double().flatten()
     den = float(a.norm() * b.norm())
@@ -452,26 +651,63 @@ def _cos(a, b):
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """The GPT train step on the kernels' plain versions: rebinds the
-    attention and loss that models/gpt.py looks up at each call to
-    partials over mha_fwd_ref / mha_bwd_ref and ce_fused_ref, and
-    restores them after."""
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.kernels import fused_ce as fce
-    from paddle_tpu_torch.models import gpt
-    saved = gpt.flash_attention_fn, gpt.fused_softmax_ce
-    gpt.flash_attention_fn = functools.partial(
-        saved[0], fwd=fa.mha_fwd_ref, bwd=fa.mha_bwd_ref)
-    gpt.fused_softmax_ce = functools.partial(saved[1],
-                                             fused=fce.ce_fused_ref)
+def forced_registry(**table):
+    """Force the port registry's answers for the named kernels, through
+    the `registry.winner` seam every consult site reads, as the
+    reference's tools/ablate_step.py forces its own; restored after."""
+    from paddle_tpu_torch.kernels import registry
+    orig = registry.winner
+
+    def winner(kernel, backend=None, bucket="*", path=None):
+        return table.get(kernel) or orig(kernel, backend=backend,
+                                         bucket=bucket, path=path)
+    registry.winner = winner
     try:
         yield
     finally:
-        gpt.flash_attention_fn, gpt.fused_softmax_ce = saved
+        registry.winner = orig
 
 
-def train_profile(torch, step, params, opt, tokens, card, n_steps=2):
+@contextlib.contextmanager
+def plain_versions():
+    """The train steps on the kernels' plain versions: rebinds the
+    attention and loss that models/gpt.py and models/llama.py look up at
+    each call to partials over mha_fwd_ref / mha_bwd_ref and ce_fwd_ref /
+    ce_bwd_ref / ce_fused_ref, and forces the plain per-leaf AdamW;
+    restores them after."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fce
+    from paddle_tpu_torch.models import gpt, llama
+    saved = [(mod, mod.flash_attention_fn, mod.fused_softmax_ce)
+             for mod in (gpt, llama)]
+    for mod, attn, ce in saved:
+        mod.flash_attention_fn = functools.partial(
+            attn, fwd=fa.mha_fwd_ref, bwd=fa.mha_bwd_ref)
+        mod.fused_softmax_ce = functools.partial(
+            ce, fwd=fce.ce_fwd_ref, bwd=fce.ce_bwd_ref,
+            fused=fce.ce_fused_ref)
+    try:
+        with forced_registry(fused_update="jax"):
+            yield
+    finally:
+        for mod, attn, ce in saved:
+            mod.flash_attention_fn, mod.fused_softmax_ce = attn, ce
+
+
+@contextlib.contextmanager
+def plain_attention_block(block):
+    """The plain attention with kv blocks of `block`: the same function,
+    summed in another order."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    saved, fa._BLOCK_KV = fa._BLOCK_KV, block
+    try:
+        yield
+    finally:
+        fa._BLOCK_KV = saved
+
+
+def train_profile(torch, step, params, opt, tokens, card, label,
+                  n_steps=2):
     """Where a train step's time goes: n_steps under torch.profiler.
     Prints the device busy share of the window and the device time by
     kernel name (top 12)."""
@@ -494,7 +730,7 @@ def train_profile(torch, step, params, opt, tokens, card, n_steps=2):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     log(json.dumps({
-        "phase": "train_profile", "card": card, "steps": n_steps,
+        "phase": f"{label}_profile", "card": card, "steps": n_steps,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if rows else "not measured",
         "device_busy_share": busy_ms / wall_ms if rows else "not measured",
@@ -502,28 +738,44 @@ def train_profile(torch, step, params, opt, tokens, card, n_steps=2):
                          "calls": n} for us, n, k in rows[:12]]}))
 
 
-def training(torch, dev, card):
-    """Phase 3. Returns {kernel: launches over the 10 timed steps}."""
-    from paddle_tpu_torch.cost_model import train_flops_per_token
+def launch_counts():
+    """Every kernel counter of the train steps, by kernel name."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_ce as fce
+    from paddle_tpu_torch.kernels import fused_update as fu
+    return dict(fa.launches, **fce.launches, **fu.launches)
+
+
+def zero_launch_counts():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fce
+    from paddle_tpu_torch.kernels import fused_update as fu
+    for counts in (fa.launches, fce.launches, fu.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
+                seed, per_step):
+    """One family's train step at full width (phases 3 and 4): step 1
+    against the plain versions, 5-step trajectories, 10 timed steps with
+    the launches per step asserted equal to `per_step`, a profile.
+    `mod` is models.gpt or models.llama. Returns (launches over the 10
+    timed steps, the "train" line, the tokens)."""
+    from paddle_tpu_torch.cost_model import train_flops_per_token
     from paddle_tpu_torch.models.facade import make_train_step
-    from paddle_tpu_torch.models.gpt import (GPTConfig, init_gpt_params,
-                                             init_opt_state, loss_and_grads,
-                                             train_step)
-    B, S, L = TRAIN_BATCH, TRAIN_SEQ, FULL["num_layers"]
-    cfg = GPTConfig(**FULL, remat=True, remat_policy="dots")
-    t0 = time.perf_counter()
-    params = init_gpt_params(cfg, seed=0)
+    from paddle_tpu_torch.models.gpt import init_opt_state
+    L = cfg.num_layers
     opt = init_opt_state(params)
     n_params = sum(p.numel() for p in params.values())
-    tokens = torch.as_tensor(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, size=(B, S + 1)), device=dev)
-    log(f"train: params {n_params} built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    state0 = ({k: v.clone() for k, v in params.items()},
-              {k: ({n: t.clone() for n, t in v.items()}
-                   if isinstance(v, dict) else v.clone())
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(batch, seq + 1)), device=dev)
+    # the starting state waits on the host, so it takes no device memory
+    def host(t):
+        return t.to("cpu", copy=True)
+    state0 = ({k: host(v) for k, v in params.items()},
+              {k: ({n: host(t) for n, t in v.items()}
+                   if isinstance(v, dict) else host(v))
                for k, v in opt.items()})
 
     def restore():
@@ -536,87 +788,154 @@ def training(torch, dev, card):
             else:
                 opt[k].copy_(v)
 
-    # step 1's gradients on the kernels and on their plain versions
-    k_loss, k_grads = loss_and_grads(params, tokens, cfg)
+    # step 1's gradients on the kernels and on their plain versions; and,
+    # for the noise floor of bf16 training, the plain versions against
+    # themselves with only the plain attention's summation order changed
+    # (kv blocks of 256 instead of 512)
+    k_loss, k_grads = mod.loss_and_grads(params, tokens, cfg)
     with plain_versions():
-        p_loss, p_grads = loss_and_grads(params, tokens, cfg)
+        p_loss, p_grads = mod.loss_and_grads(params, tokens, cfg)
+        with plain_attention_block(256):
+            _, q_grads = mod.loss_and_grads(params, tokens, cfg)
     cos = {n: _cos(k_grads[n], p_grads[n]) for n in k_grads}
-    del k_grads, p_grads
+    floor = {n: _cos(q_grads[n], p_grads[n]) for n in p_grads}
+    del k_grads, p_grads, q_grads
     k_loss, p_loss = float(k_loss), float(p_loss)
-    log(json.dumps({"phase": "train_grads_kernel_vs_plain",
+    log(json.dumps({"phase": f"{label}_grads_kernel_vs_plain",
                     "loss_kernel": k_loss, "loss_plain": p_loss,
                     "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
                     "min_cosine": min(cos.values()),
-                    "cosine_by_leaf": cos}))
+                    "cosine_by_leaf": cos,
+                    "plain_vs_plain_block256_min_cosine":
+                        min(floor.values()),
+                    "plain_vs_plain_block256_cosine_by_leaf": floor}))
     if not math.isfinite(k_loss) or abs(k_loss - p_loss) > 2e-3 * abs(
             p_loss):
-        raise AssertionError(f"step-1 loss: kernel {k_loss} vs plain "
-                             f"{p_loss} (tolerance 2e-3 relative)")
+        raise AssertionError(f"{label} step-1 loss: kernel {k_loss} vs "
+                             f"plain {p_loss} (tolerance 2e-3 relative)")
     bad = {n: c for n, c in cos.items() if not c >= 0.999}
     if bad:
-        raise AssertionError(f"step-1 gradient cosine < 0.999: {bad}")
+        raise AssertionError(f"{label} step-1 gradient cosine < 0.999: "
+                             f"{bad}")
 
     # 5 steps from the same state on the kernels, then on the plain
-    # versions; the snapshot is dropped before the timed steps, so their
-    # peak memory is the step's own
+    # versions
     traj = {}
-    for label, ctx in (("kernel", contextlib.nullcontext),
-                       ("plain", plain_versions)):
+    for name, ctx in (("kernel", contextlib.nullcontext),
+                      ("plain", plain_versions)):
         restore()
         with ctx():
-            traj[label] = [float(train_step(params, opt, tokens, cfg)[0])
-                           for _ in range(5)]
+            traj[name] = [float(mod.train_step(params, opt, tokens, cfg,
+                                               **ADAMW)[0])
+                          for _ in range(5)]
     rel = [abs(a - b) / abs(b) for a, b in zip(traj["kernel"],
                                                traj["plain"])]
-    log(json.dumps({"phase": "train_trajectory", "kernel": traj["kernel"],
-                    "plain": traj["plain"], "rel_diff": rel}))
+    log(json.dumps({"phase": f"{label}_trajectory",
+                    "kernel": traj["kernel"], "plain": traj["plain"],
+                    "rel_diff": rel}))
     if abs(traj["kernel"][0] - k_loss) > 1e-6 * abs(k_loss) + 1e-6 or \
             max(rel) > 1e-2:
-        raise AssertionError(f"trajectories differ: {traj}")
+        raise AssertionError(f"{label} trajectories differ: {traj}")
     restore()
     del state0
     torch.cuda.empty_cache()
 
-    step = make_train_step(train_step, cfg=cfg)
+    step = make_train_step(mod.train_step, cfg=cfg, **ADAMW)
     for _ in range(2):                            # warm-up
         step(params, opt, tokens)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for name in fa.launches:                      # the main path starts
-        fa.launches[name] = 0
-    fce.launches = 0
+    zero_launch_counts()                          # the main path starts
     step_ms, losses = [], []
     for _ in range(10):
         t_s = time.perf_counter()
         loss, _, _ = step(params, opt, tokens)
         losses.append(float(loss))                # waits for the step
         step_ms.append((time.perf_counter() - t_s) * 1e3)
-    launches = dict(fa.launches, fused_ce=fce.launches)   # ... and ends
-    want = {"flash_fwd": 2 * L * 10, "flash_bwd_dq": L * 10,
-            "flash_bwd_dkv": L * 10, "fused_ce": 10}
+    launches = launch_counts()                    # ... and ends
+    want = {k: 10 * per_step.get(k, 0) for k in launches}
     if launches != want:
-        raise AssertionError(f"launches over 10 steps {launches} != "
-                             f"{want}")
+        raise AssertionError(f"{label}: launches over 10 steps {launches} "
+                             f"!= {want}")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite losses {losses}")
+        raise AssertionError(f"{label}: non-finite losses {losses}")
     p50 = statistics.median(step_ms)
-    tok_s = B * S / (p50 / 1e3)
-    fpt = train_flops_per_token(n_params, L, FULL["hidden_size"], S)
-    log(json.dumps({
-        "phase": "train", "card": card, "batch": B, "seq": S,
-        "remat_policy": cfg.remat_policy, "steps": 10,
+    tok_s = batch * seq / (p50 / 1e3)
+    fpt = train_flops_per_token(n_params, L, cfg.hidden_size, seq)
+    line = {
+        "phase": label, "card": card, "params": n_params, "batch": batch,
+        "seq": seq, "remat": cfg.remat,
+        "remat_policy": getattr(cfg, "remat_policy", "full"), "steps": 10,
         "step_ms": step_ms, "step_ms_p50": p50,
         "step_ms_p90": float(np.percentile(step_ms, 90)),
         "tokens_per_s": tok_s, "flops_per_token": fpt,
         "mfu": fpt * tok_s / PEAK_BF16_FLOPS,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "losses": losses, "launches": launches,
-        "launches_per_step": {k: v // 10 for k, v in launches.items()}}))
+        "launches_per_step": {k: v // 10 for k, v in launches.items()}}
+    log(json.dumps(line))
+    train_profile(torch, step, params, opt, tokens, card, label)
+    return launches, line, tokens
 
-    train_profile(torch, step, params, opt, tokens, card)
-    del params, opt
+
+def training(torch, dev, card):
+    """Phase 3, GPT, with the one-pass CE forced. Returns the launches
+    over the 10 timed steps."""
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig(**FULL, remat=True, remat_policy="dots")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = gpt.init_gpt_params(cfg, seed=0)
+    log(f"gpt_train: params built in {time.perf_counter() - t0:.1f} s")
+    with forced_registry(ce="pallas_fused"):
+        launches, _, _ = train_phase(
+            torch, dev, card, "gpt_train", gpt, cfg, params, TRAIN_BATCH,
+            TRAIN_SEQ, 2, {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                           "flash_bwd_dkv": L, "fused_ce": 1})
+    del params
     torch.cuda.empty_cache()
     return launches
+
+
+def llama_training(torch, dev, card):
+    """Phase 4, Llama at TinyLlama-1.1B widths, with the fused AdamW
+    selected and the CE on its default route; then the primal-only eval
+    loss. Returns (launches over the 10 timed steps, the eval line)."""
+    from paddle_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(**LLAMA, remat=True)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = llama.init_llama_params(cfg, seed=0)
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    if shapes != LLAMA_LEAVES:
+        raise AssertionError(f"llama leaves {shapes} != {LLAMA_LEAVES}")
+    log(f"llama_train: params built in {time.perf_counter() - t0:.1f} s")
+    with forced_registry(fused_update="pallas"):
+        launches, _, tokens = train_phase(
+            torch, dev, card, "llama_train", llama, cfg, params,
+            LLAMA_BATCH, LLAMA_SEQ, 3,
+            {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+             "ce_fwd": 1, "ce_bwd": 1, "leaf_update": len(params)})
+
+    # a primal-only call (an eval loss) launches the CE forward alone
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t_s = time.perf_counter()
+    with torch.no_grad():
+        loss = float(llama.llama_loss(params, tokens, cfg))
+    eval_ms = (time.perf_counter() - t_s) * 1e3
+    got = launch_counts()
+    want = {k: 0 for k in got}
+    want.update(flash_fwd=L, ce_fwd=1)
+    line = {"phase": "llama_eval_loss", "card": card, "loss": loss,
+            "ms": eval_ms, "launches": got}
+    log(json.dumps(line))
+    if got != want or not math.isfinite(loss):
+        raise AssertionError(f"eval loss under no_grad: launches {got} != "
+                             f"{want}, loss {loss}")
+    del params, tokens
+    torch.cuda.empty_cache()
+    return launches, line
 
 
 def tick_profile(torch, eng, prompts, card):
@@ -776,6 +1095,92 @@ def serving(torch, qm, dev, card):
     return launches, summary
 
 
+def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
+                 gpt_launches, llama_launches, launches):
+    """The kernels line: every kernel with its route, source, the TPU
+    kernel it replaces, its launches on the main paths, and its times,
+    bound and error from the kernel checks."""
+    agg = tick_aggregate(rows, FULL["num_layers"])
+    entries = [{
+        "name": "quant_matmul", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+        "replaces": "paddle_tpu/kernels/quant_matmul.py:181",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": agg["kernel_ms"], "plain_ms": agg["plain_ms"],
+        "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
+        "library_ms": agg["library_ms"],
+        "per": "one decode tick at M=8: 24 layers x 4 leaves + the head "
+               "(97 launches), from the kernel_check lines; launches over "
+               "the 16-request serving run",
+    }]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    replaces = {"flash_fwd": "paddle_tpu/kernels/pallas_attention.py:119",
+                "flash_bwd_dq": "paddle_tpu/kernels/pallas_attention.py:310",
+                "flash_bwd_dkv":
+                    "paddle_tpu/kernels/pallas_attention.py:327"}
+    for name, where in replaces.items():
+        main_row = attn_rows[ATTN_LLAMA][name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": where,
+            "launches": gpt_launches[name] + llama_launches[name],
+            "launches_by_path": {"gpt_train": gpt_launches[name],
+                                 "llama_train": llama_launches[name]},
+            "max_abs_err": max(r[name]["max_abs_err"]
+                               for r in attn_rows.values()),
+            **{k: main_row[k] for k in keys},
+            "per": "one call at the Llama train step's [4, 2048, 32, 64] "
+                   "bf16 causal (the GPT step's [8, 1024, 16, 64] is in "
+                   "its kernel_check line); launches over the 10 timed "
+                   "steps of each train path"})
+    ce_main = ce_rows[CE_SHAPES[0]]
+    entries.append({
+        "name": "fused_ce", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
+        "replaces": "paddle_tpu/kernels/pallas_ce.py:143",
+        "launches": gpt_launches["fused_ce"] + llama_launches["fused_ce"],
+        "launches_by_path": {"gpt_train": gpt_launches["fused_ce"],
+                             "llama_train": llama_launches["fused_ce"]},
+        "max_abs_err": max(r["max_abs_err"] for r in ce_rows.values()),
+        **{k: ce_main[k] for k in keys},
+        "per": "one call at the GPT train step's [8192, 32768] bf16 "
+               "logits; launches over the 10 timed steps of each train "
+               "path (the GPT path forces this route)"})
+    pair_main = pair_rows[CE_PAIR_SHAPES[0]]
+    for name, where in (("ce_fwd", "paddle_tpu/kernels/pallas_ce.py:179"),
+                        ("ce_bwd", "paddle_tpu/kernels/pallas_ce.py:218")):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
+            "replaces": where,
+            "launches": gpt_launches[name] + llama_launches[name],
+            "launches_by_path": {"gpt_train": gpt_launches[name],
+                                 "llama_train": llama_launches[name]},
+            "max_abs_err": max(r[name]["max_abs_err"]
+                               for r in pair_rows.values()),
+            **{k: pair_main[name][k] for k in keys},
+            "per": "one call at the Llama train step's [8192, 32000] bf16 "
+                   "logits; launches over the 10 timed steps of each "
+                   "train path"})
+    upd = upd_rows["step"]
+    entries.append({
+        "name": "leaf_update", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/fused_update.cu",
+        "replaces": "paddle_tpu/kernels/pallas_update.py:87",
+        "launches": gpt_launches["leaf_update"]
+        + llama_launches["leaf_update"],
+        "launches_by_path": {"gpt_train": gpt_launches["leaf_update"],
+                             "llama_train": llama_launches["leaf_update"]},
+        "max_abs_err": upd["max_abs_err"], **{k: upd[k] for k in keys},
+        "per": "one Llama step's update: the 11 leaves of the "
+               "TinyLlama-width tree in f32, summed (library: one "
+               "torch._fused_adamw_ call over all 11); launches over the "
+               "10 timed steps of each train path"})
+    return {"kernels": entries}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -809,50 +1214,13 @@ def main():
     rows = kernel_check(torch, qm, dev)
     attn_rows = attention_check(torch, dev)
     ce_rows = ce_check(torch, dev)
-    train_launches = training(torch, dev, card)
+    pair_rows = ce_pair_check(torch, dev)
+    upd_rows = update_check(torch, dev)
+    gpt_launches = training(torch, dev, card)
+    llama_launches, _ = llama_training(torch, dev, card)
     launches, _ = serving(torch, qm, dev, card)
-
-    agg = tick_aggregate(rows, FULL["num_layers"])
-    entries = [{
-        "name": "quant_matmul", "route": "cuda",
-        "source": "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
-        "replaces": "paddle_tpu/kernels/quant_matmul.py:181",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": agg["kernel_ms"], "plain_ms": agg["plain_ms"],
-        "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
-        "library_ms": agg["library_ms"],
-        "per": "one decode tick at M=8: 24 layers x 4 leaves + the head "
-               "(97 launches), from the kernel_check lines",
-    }]
-    replaces = {"flash_fwd": "paddle_tpu/kernels/pallas_attention.py:119",
-                "flash_bwd_dq": "paddle_tpu/kernels/pallas_attention.py:310",
-                "flash_bwd_dkv":
-                    "paddle_tpu/kernels/pallas_attention.py:327"}
-    for name, where in replaces.items():
-        main_row = attn_rows[ATTN_MAIN][name]
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
-            "replaces": where, "launches": train_launches[name],
-            "max_abs_err": max(r[name]["max_abs_err"]
-                               for r in attn_rows.values()),
-            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
-            "per": "one call at the train step's [8, 1024, 16, 64] bf16 "
-                   "causal; launches over the 10 timed train steps"})
-    ce_main = ce_rows[CE_SHAPES[0]]
-    entries.append({
-        "name": "fused_ce", "route": "cuda",
-        "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
-        "replaces": "paddle_tpu/kernels/pallas_ce.py:143",
-        "launches": train_launches["fused_ce"],
-        "max_abs_err": max(r["max_abs_err"] for r in ce_rows.values()),
-        **{k: ce_main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")},
-        "per": "one call at the train step's [8192, 32768] bf16 logits; "
-               "launches over the 10 timed train steps"})
-    kernels = {"kernels": entries}
+    kernels = kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
+                           gpt_launches, llama_launches, launches)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(card)

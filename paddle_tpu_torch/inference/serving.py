@@ -600,11 +600,11 @@ class ServingEngine:
 
 
 def create_serving_engine(model_or_params, cfg=None, **kw) -> ServingEngine:
-    """Build a ServingEngine from a facade model (GPTModel — family,
-    params and device are taken from it) or from a (params, cfg) pair
-    plus family=..."""
-    from ..models.facade import GPTModel
-    if isinstance(model_or_params, GPTModel):
+    """Build a ServingEngine from a facade model (GPTModel, LlamaModel —
+    family, params and device are taken from it) or from a (params, cfg)
+    pair plus family=..."""
+    from ..models.facade import FacadeModel
+    if isinstance(model_or_params, FacadeModel):
         model = model_or_params
         kw.setdefault("family", model._serving_family)
         kw.setdefault("device", model.device)

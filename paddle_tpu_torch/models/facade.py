@@ -1,12 +1,14 @@
-"""`GPTModel` — the model object over the functional GPT core, with
-`forward`, `loss` and `generate` over a cached serving engine — and
+"""The model objects over the functional cores — `GPTModel` (`forward`,
+`loss`, and `generate` over a cached serving engine) and `LlamaModel`
+(`forward`) on one leaf-holding base, `FacadeModel` — and
 `make_train_step`, which makes the train-step callable.
 
 Counterpart of paddle_tpu/models/facade.py (`make_train_step` :95,
-`FacadeModel.generate`) and paddle_tpu/models/gpt.py `GPTModel`
-(`forward` :650, `loss` :658). The leaves live on the module: floating
-leaves as frozen nn.Parameters, integer leaves (a quantized tree's int8
-pairs) as buffers, under the reference's leaf names.
+`FacadeModel` :515 with its `generate`), paddle_tpu/models/gpt.py
+`GPTModel` (`forward` :650, `loss` :658) and paddle_tpu/models/llama.py
+`LlamaModel` (:350-367). The leaves live on the module: floating leaves
+as frozen nn.Parameters, integer leaves (a quantized tree's int8 pairs)
+as buffers, under the reference's leaf names.
 """
 from __future__ import annotations
 
@@ -17,18 +19,19 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .gpt import GPTConfig, gpt_forward, gpt_loss, init_gpt_params
+from .gpt import gpt_forward, gpt_loss, init_gpt_params
+from .llama import init_llama_params, llama_forward
 
-__all__ = ["GPTModel", "make_train_step"]
+__all__ = ["FacadeModel", "GPTModel", "LlamaModel", "make_train_step"]
 
 
 def make_train_step(step_fn, cfg=None, mesh=None, plan=None, **step_kw):
     """The step callable `(params, opt_state, batch) -> (loss, params,
-    opt_state)`: `step_fn` (models/gpt.py train_step) with `cfg` and the
-    optimizer keywords bound. PyTorch runs eagerly, so there is nothing
-    to jit; the reference's buffer donation is the step's in-place
-    update. The planner-driven sharded step (`mesh=`, `plan=`) is not
-    ported."""
+    opt_state)`: `step_fn` (the train_step of models/gpt.py or
+    models/llama.py) with `cfg` and the optimizer keywords bound.
+    PyTorch runs eagerly, so there is nothing to jit; the reference's
+    buffer donation is the step's in-place update. The planner-driven
+    sharded step (`mesh=`, `plan=`) is not ported."""
     if mesh is not None or plan is not None:
         raise NotImplementedError(
             "make_train_step(mesh=, plan=): the sharded multi-GPU step is "
@@ -36,16 +39,20 @@ def make_train_step(step_fn, cfg=None, mesh=None, plan=None, **step_kw):
     return functools.partial(step_fn, cfg=cfg, **step_kw)
 
 
-class GPTModel(nn.Module):
-    _serving_family = "gpt"
+class FacadeModel(nn.Module):
+    """The leaves of a functional core on a module, and `generate` over
+    the family's serving engine. A subclass names its `_init_fn` and
+    `_serving_family`."""
+    _init_fn = None
+    _serving_family = None
 
-    def __init__(self, cfg: GPTConfig, seed: int = 0, device=None,
+    def __init__(self, cfg, seed: int = 0, device=None,
                  params: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
-            params = init_gpt_params(cfg, seed, self.device)
+            params = self._init_fn(cfg, seed, self.device)
         self._leaf_names = tuple(params)
         for name, v in params.items():
             v = torch.as_tensor(v).to(self.device)
@@ -68,18 +75,6 @@ class GPTModel(nn.Module):
         return tuple((id(getattr(self, n)), getattr(self, n)._version)
                      for n in self._leaf_names)
 
-    def forward(self, tokens):
-        """tokens [B, S] -> logits [B, S, V] (gpt_forward)."""
-        return gpt_forward(self.param_tree(),
-                           torch.as_tensor(tokens, device=self.device),
-                           self.cfg)
-
-    def loss(self, tokens):
-        """Causal LM loss of tokens [B, S+1] (gpt_loss)."""
-        return gpt_loss(self.param_tree(),
-                        torch.as_tensor(tokens, device=self.device),
-                        self.cfg)
-
     def generate(self, prompts, max_new_tokens, num_slots=8, max_len=None,
                  temperature=0.0, top_k=0, eos_id=None, max_top_k=0, seed=0,
                  quant=None, **engine_kw):
@@ -101,3 +96,33 @@ class GPTModel(nn.Module):
         return self._engine.generate(prompts, max_new_tokens,
                                      temperature=temperature, top_k=top_k,
                                      eos_id=eos_id)
+
+
+class GPTModel(FacadeModel):
+    _init_fn = staticmethod(init_gpt_params)
+    _serving_family = "gpt"
+
+    def forward(self, tokens):
+        """tokens [B, S] -> logits [B, S, V] (gpt_forward)."""
+        return gpt_forward(self.param_tree(),
+                           torch.as_tensor(tokens, device=self.device),
+                           self.cfg)
+
+    def loss(self, tokens):
+        """Causal LM loss of tokens [B, S+1] (gpt_loss)."""
+        return gpt_loss(self.param_tree(),
+                        torch.as_tensor(tokens, device=self.device),
+                        self.cfg)
+
+
+class LlamaModel(FacadeModel):
+    """`forward` only, as the reference's LlamaModel; `generate` raises
+    NotImplementedError until Llama serving is ported (ROADMAP A4)."""
+    _init_fn = staticmethod(init_llama_params)
+    _serving_family = "llama"
+
+    def forward(self, tokens):
+        """tokens [B, S] -> logits [B, S, V] (llama_forward)."""
+        return llama_forward(self.param_tree(),
+                             torch.as_tensor(tokens, device=self.device),
+                             self.cfg)

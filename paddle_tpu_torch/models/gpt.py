@@ -20,16 +20,18 @@ default of jax.nn.gelu); the fp head is einsum("bsd,vd->bsv") in the
 activation dtype; the int8 head is the fused dequant-matmul.
 
 The train step runs attention through the flash kernels
-(kernels/flash_attention.py) and the loss through the one-pass fused CE
-kernel (models/losses.py, kernels/fused_ce.py); the AdamW update is
-plain torch per leaf, as the reference's default jax-level update is.
-`_attention` and `gpt_loss` look `flash_attention_fn` and
+(kernels/flash_attention.py) and the loss through the CE route the
+port's registry selects (models/losses.py: by default the two-pass CE
+kernels); the AdamW update is plain torch per leaf, as the reference's
+default jax-level update is, unless the registry selects the fused
+kernel. `_attention` and `gpt_loss` look `flash_attention_fn` and
 `fused_softmax_ce` up in this module's namespace at each call, so the
 same step runs on the kernels' plain versions once those two names are
 rebound to partials with `fwd=mha_fwd_ref, bwd=mha_bwd_ref` and
-`fused=ce_fused_ref` (chip_smoke.py does, to hold the step against
-them). The single-GPU path has no mesh, so the reference's sharding
-constraints have nothing to pin and are not carried.
+`fwd=ce_fwd_ref, bwd=ce_bwd_ref, fused=ce_fused_ref` (chip_smoke.py
+does, to hold the step against them). The single-GPU path has no mesh,
+so the reference's sharding constraints have nothing to pin and are not
+carried.
 """
 from __future__ import annotations
 
@@ -47,12 +49,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..kernels.decode_attention import cached_attention, write_kv
 from ..kernels.flash_attention import flash_attention_fn
+from ..kernels.fused_update import fused_apply_adamw, fused_update_enabled
 from ..kernels.quant_matmul import leaf_matmul, quant_matmul
 from .losses import fused_softmax_ce
 
 __all__ = ["GPTConfig", "init_gpt_params", "gpt_forward", "gpt_loss",
-           "loss_and_grads", "init_opt_state", "apply_adamw", "train_step",
-           "init_kv_cache", "gpt_forward_cached", "greedy_generate"]
+           "value_and_grad", "loss_and_grads", "init_opt_state",
+           "apply_adamw", "train_step", "init_kv_cache",
+           "gpt_forward_cached", "greedy_generate"]
 
 
 @dataclasses.dataclass
@@ -237,13 +241,18 @@ def gpt_loss(params, batch, cfg: GPTConfig):
     return fused_softmax_ce(gpt_forward(params, inp, cfg), tgt)
 
 
-def loss_and_grads(params, batch, cfg: GPTConfig):
-    """(loss, {leaf: gradient}) of gpt_loss at `params`, the port's
-    jax.value_and_grad(gpt_loss)."""
+def value_and_grad(loss_fn, params, batch, cfg):
+    """(loss, {leaf: gradient}) of loss_fn(params, batch, cfg) at
+    `params`, the port's jax.value_and_grad."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss = gpt_loss(leaves, batch, cfg)
+    loss = loss_fn(leaves, batch, cfg)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
+
+
+def loss_and_grads(params, batch, cfg: GPTConfig):
+    """(loss, {leaf: gradient}) of gpt_loss at `params`."""
+    return value_and_grad(gpt_loss, params, batch, cfg)
 
 
 def init_opt_state(params):
@@ -266,7 +275,17 @@ def apply_adamw(grads, params, opt_state, lr, beta1=0.9, beta2=0.95,
     the step, decoupled decay p * (1 - lr * wd), the param stored back in
     its own dtype. Unlike the reference, which returns new trees, this
     updates `params` and `opt_state` IN PLACE (their buffers are reused,
-    as JAX's donation aliases them) and returns them."""
+    as JAX's donation aliases them) and returns them. Shared by the GPT
+    and Llama train steps.
+
+    Where the registry names "pallas" for "fused_update" and the leaves
+    are on the card, every leaf goes through the fused kernel instead
+    (kernels/fused_update.py, as gpt.py:592-597 consults it); this plain
+    per-leaf loop stays the default and the parity oracle."""
+    if fused_update_enabled(opt_state["step"].device):
+        return fused_apply_adamw(grads, params, opt_state, lr, beta1=beta1,
+                                 beta2=beta2, eps=eps,
+                                 weight_decay=weight_decay)
     step = opt_state["step"].add_(1.0)
     bc1 = 1.0 - beta1 ** step
     bc2 = 1.0 - beta2 ** step

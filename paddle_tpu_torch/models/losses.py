@@ -1,33 +1,56 @@
 """Model losses — counterpart of paddle_tpu/models/losses.py.
 
-`fused_softmax_ce` is the mean cross entropy the GPT loss uses:
-loss_i = logsumexp(logits_i) - logits_i[target_i].
+`fused_softmax_ce` is the mean cross entropy the GPT and Llama losses
+use: loss_i = logsumexp(logits_i) - logits_i[target_i]. Its route is
+resolved as the reference resolves it (losses.py:50-58), from the port's
+kernel registry (kernels/registry.py, kernel "ce", class "cuda"):
 
-- On CUDA it always runs through `ce_fused_train` (kernels/fused_ce.py):
-  the one-pass kernel emits the loss and d_logits together, as the
-  reference's `pallas_fused` route does. The kernel masks a ragged vocab
-  itself, so the reference's cut at V < 512 (pallas_ce.suitable) is not
-  carried over.
-- On the CPU it runs the reference's jax-level form in f32
-  (losses.py:63-67).
+- CUDA logits, no entry or "pallas": `ce_with_logits`, the two-pass
+  pair (kernels 5 and 6 of csrc/fused_ce.cu): the forward saves the row
+  lse, the backward rebuilds d_logits from it; a call without a
+  gradient launches the forward alone;
+- CUDA logits, "pallas_fused": `ce_fused_train`, the one-pass kernel
+  that emits d_logits with the loss, for paths that always take the
+  gradient;
+- CUDA logits, "jax", and CPU logits always: the reference's jax-level
+  form in f32 (losses.py:63-67).
+
+The kernels mask a ragged vocab themselves, so the reference's cut at
+V < 512 (pallas_ce.suitable) is not carried over on either kernel route.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.fused_ce import ce_fused, ce_fused_train
+from ..kernels import registry
+from ..kernels.fused_ce import (ce_bwd, ce_fused, ce_fused_train, ce_fwd,
+                                ce_with_logits)
 
-__all__ = ["fused_softmax_ce"]
+__all__ = ["fused_softmax_ce", "ce_route"]
 
 
-def fused_softmax_ce(logits, targets, valid_mask=None, fused=ce_fused):
+def ce_route(logits) -> str:
+    """The route `fused_softmax_ce` takes for these logits: "pallas",
+    "pallas_fused" or "jax"."""
+    if logits.device.type != "cuda":
+        return "jax"
+    return registry.winner("ce", backend="cuda") or "pallas"
+
+
+def fused_softmax_ce(logits, targets, valid_mask=None, fused=ce_fused,
+                     fwd=ce_fwd, bwd=ce_bwd):
     """logits [..., V], targets [...] int, valid_mask [...] (bool/0-1)
     selecting the positions that count (None = all) -> the mean loss over
-    them, f32. `fused` is the one-pass CE of the CUDA route: the kernel
-    wrapper, or ce_fused_ref for the same route without the kernel."""
+    them, f32. `fwd`/`bwd` are the two-pass route's kernel wrappers and
+    `fused` the one-pass route's; ce_fwd_ref, ce_bwd_ref and
+    ce_fused_ref give the same routes without the kernels."""
     lead = logits.shape[:-1]
     V = logits.shape[-1]
-    if logits.device.type == "cuda":
+    route = ce_route(logits)
+    if route == "pallas":
+        per_pos = ce_with_logits(logits.reshape(-1, V), targets.reshape(-1),
+                                 fwd, bwd).reshape(lead)
+    elif route == "pallas_fused":
         per_pos = ce_fused_train(logits.reshape(-1, V), targets.reshape(-1),
                                  fused).reshape(lead)
     else:

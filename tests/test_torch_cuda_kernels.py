@@ -1,6 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card: the int8 dequant-matmul, the flash-attention
-forward and its two backward passes, and the one-pass cross entropy.
+forward and its two backward passes, the one-pass cross entropy and the
+two-pass pair (forward, backward), and the fused AdamW leaf update; then
+the launches of each kernel in a GPT and a Llama train step.
 Run them where there is one (the card's machine has no JAX, hence
 --noconftest):
 
@@ -15,7 +17,9 @@ import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_ce as fce
+from paddle_tpu_torch.kernels import fused_update as fu
 from paddle_tpu_torch.kernels import quant_matmul as qm
+from paddle_tpu_torch.kernels import registry
 
 pytestmark = pytest.mark.cuda
 
@@ -219,9 +223,9 @@ def test_fused_ce_kernel_matches_plain_version(cuda_device, T, V, dtype):
     x = (torch.randn(T, V, generator=g, device=cuda_device) * 3).to(dtype)
     t = torch.randint(0, V, (T,), generator=g, device=cuda_device)
     t[0] = -1                                   # gathers nothing
-    before = fce.launches
+    before = fce.launches["fused_ce"]
     loss, dx = fce.ce_fused(x, t)
-    assert fce.launches == before + 1
+    assert fce.launches["fused_ce"] == before + 1
     r_loss, r_dx = fce.ce_fused_ref(x, t)
     torch.cuda.synchronize()
     assert loss.dtype == torch.float32 and dx.dtype == dtype
@@ -238,10 +242,10 @@ def test_fused_ce_train_launches_once_per_step(cuda_device):
     x = torch.randn(64, 1000, generator=g, device=cuda_device).to(
         torch.bfloat16).requires_grad_()
     t = torch.randint(0, 1000, (64,), generator=g, device=cuda_device)
-    before = fce.launches
+    before = fce.launches["fused_ce"]
     loss = fce.ce_fused_train(x, t)
     (dx,) = torch.autograd.grad(loss.sum(), x)
-    assert fce.launches == before + 1
+    assert fce.launches["fused_ce"] == before + 1
     r_loss, r_dx = fce.ce_fused_ref(x.detach(), t)
     torch.testing.assert_close(loss.detach(), r_loss, rtol=0, atol=1e-4)
     assert (dx.float() - r_dx.float()).abs().max() <= 2.0 ** -7
@@ -250,7 +254,7 @@ def test_fused_ce_train_launches_once_per_step(cuda_device):
 def test_fused_ce_raises_on_bad_operands(cuda_device):
     x = torch.zeros(4, 8, device=cuda_device, dtype=torch.bfloat16)
     t = torch.zeros(4, dtype=torch.int64, device=cuda_device)
-    before = fce.launches
+    before = dict(fce.launches)
     with pytest.raises(TypeError):
         fce.ce_fused(x.half(), t)
     with pytest.raises(ValueError, match="contiguous"):
@@ -263,15 +267,214 @@ def test_fused_ce_raises_on_bad_operands(cuda_device):
     assert fce.launches == before
 
 
-# ------------------------------------------------------ GPT train step
+# ------------------------------------------- two-pass cross entropy
+def _ce_inputs(T, V, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + T + V)
+    x = (torch.randn(T, V, generator=g, device=dev) * 3).to(dtype)
+    t = torch.randint(0, V, (T,), generator=g, device=dev)
+    t[0] = -1                                   # gathers nothing
+    return x, t
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,V", [(256, 32000), (64, 50257), (33, 600),
+                                 (5, 1), (3, 7)])
+def test_ce_fwd_kernel_matches_plain_version(cuda_device, T, V, dtype):
+    """V 50257 in bf16 starts most rows off a 16-byte boundary, so the
+    kernel's scalar head and tail carry part of every row."""
+    x, t = _ce_inputs(T, V, dtype, cuda_device)
+    before = fce.launches["ce_fwd"]
+    loss, lse = fce.ce_fwd(x, t)
+    assert fce.launches["ce_fwd"] == before + 1
+    r_loss, r_lse = fce.ce_fwd_ref(x, t)
+    torch.cuda.synchronize()
+    assert loss.dtype == lse.dtype == torch.float32
+    # f32 sums of exps in another order
+    assert (loss - r_loss).abs().max() <= 1e-4
+    assert (lse - r_lse).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("g_scale", ["one", "mean"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,V", [(256, 32000), (64, 50257), (33, 600),
+                                 (3, 7)])
+def test_ce_bwd_kernel_matches_plain_version(cuda_device, T, V, dtype,
+                                             g_scale):
+    """dx within one rounding step of the dtype at the entry, plus 1e-6
+    of the row's |g| (exps in another order): the bound scales with g,
+    so it holds at g = 1/T, where every entry is ~1e-9, as well."""
+    x, t = _ce_inputs(T, V, dtype, cuda_device)
+    _, lse = fce.ce_fwd_ref(x, t)
+    g = torch.full((T,), 1.0 if g_scale == "one" else 1.0 / T,
+                   device=cuda_device)
+    g[::5] *= -3.0
+    before = fce.launches["ce_bwd"]
+    dx = fce.ce_bwd(x, t, lse, g)
+    assert fce.launches["ce_bwd"] == before + 1
+    ref = fce.ce_bwd_ref(x, t, lse, g)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dx.shape == (T, V)
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
+    tol = step * ref.float().abs() + 1e-6 * g.abs()[:, None]
+    assert bool(((dx.float() - ref.float()).abs() <= tol).all())
+
+
+def test_ce_with_logits_launches_forward_and_backward_once(cuda_device):
+    x, t = _ce_inputs(64, 1000, torch.bfloat16, cuda_device)
+    x.requires_grad_()
+    before = dict(fce.launches)
+    loss = fce.ce_with_logits(x, t)
+    (dx,) = torch.autograd.grad(loss.mean(), x)
+    assert {k: fce.launches[k] - before[k] for k in before} == {
+        "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0}
+    with torch.no_grad():
+        fce.ce_with_logits(x, t)
+    assert {k: fce.launches[k] - before[k] for k in before} == {
+        "ce_fwd": 2, "ce_bwd": 1, "fused_ce": 0}
+    r_loss, lse = fce.ce_fwd_ref(x.detach(), t)
+    torch.testing.assert_close(loss.detach(), r_loss, rtol=0, atol=1e-4)
+    ref = fce.ce_bwd_ref(x.detach(), t, lse, torch.full((64,), 1 / 64,
+                                                        device=cuda_device))
+    assert bool(((dx.float() - ref.float()).abs()
+                 <= 2.0 ** -7 * ref.float().abs() + 1e-6 / 64).all())
+
+
+def test_ce_pair_raises_on_bad_operands(cuda_device):
+    x = torch.zeros(4, 8, device=cuda_device, dtype=torch.bfloat16)
+    t = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    row = torch.zeros(4, device=cuda_device)
+    before = dict(fce.launches)
+    with pytest.raises(TypeError):
+        fce.ce_fwd(x.half(), t)
+    with pytest.raises(ValueError, match="contiguous"):
+        fce.ce_fwd(torch.zeros(8, 4, device=cuda_device,
+                               dtype=torch.bfloat16).t(), t)
+    with pytest.raises(ValueError, match="shapes"):
+        fce.ce_fwd(x, t[:3])
+    with pytest.raises(ValueError, match="row operand"):
+        fce.ce_bwd(x, t, row[:3], row)
+    with pytest.raises(ValueError, match="row operand"):
+        fce.ce_bwd(x, t, row, row.double())
+    with pytest.raises(ValueError, match="row operand"):
+        fce.ce_bwd(x, t, row.cpu(), row)
+    assert fce.launches == before
+
+
+# ---------------------------------------------------------- fused AdamW
+def _leaf(n_shape, p_dtype, g_dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = (torch.randn(n_shape, generator=g, device=dev) * 0.02).to(p_dtype)
+    gr = (torch.randn(n_shape, generator=g, device=dev) * 1e-3).to(g_dtype)
+    m = torch.randn(n_shape, generator=g, device=dev) * 1e-4
+    v = torch.rand(n_shape, generator=g, device=dev) * 1e-7
+    return p, gr, m, v
+
+
+def _hp(dev, step=3.0):
+    b1, b2 = 0.9, 0.95
+    return torch.tensor([3e-4, b1, b2, 1e-8, 0.1, 1 - b1 ** step,
+                         1 - b2 ** step], device=dev)
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(2048, 2048), (22, 2048), (1,), (1031,),
+                                   (7, 5, 3)])
+def test_leaf_update_kernel_matches_plain_version(cuda_device, shape,
+                                                  p_dtype, g_dtype):
+    """Both round every operation on its own in the same order, and the
+    card's division and square root are correctly rounded: p, m and v
+    agree exactly (0 ulps)."""
+    p, g, m, v = _leaf(shape, p_dtype, g_dtype, cuda_device)
+    hp = _hp(cuda_device)
+    want = fu.leaf_update_ref(p, g, m, v, hp)
+    before = fu.launches["leaf_update"]
+    out = fu.leaf_update(p, g, m, v, hp)
+    assert fu.launches["leaf_update"] == before + 1
+    torch.cuda.synchronize()
+    assert out[0] is p and out[1] is m and out[2] is v
+    for got, ref in zip(out, want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_leaf_update_unaligned_views(cuda_device):
+    """Leaves that start off a 16-byte boundary take the scalar loop."""
+    p, g, m, v = _leaf((1001,), torch.float32, torch.float32, cuda_device)
+    views = [t[1:] for t in (p, g, m, v)]
+    hp = _hp(cuda_device)
+    want = fu.leaf_update_ref(*views, hp)
+    fu.leaf_update(*views, hp)
+    for got, ref in zip((views[0], views[2], views[3]), want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_leaf_update_raises_on_bad_operands(cuda_device):
+    p, g, m, v = _leaf((64, 8), torch.float32, torch.float32, cuda_device)
+    hp = _hp(cuda_device)
+    before = fu.launches["leaf_update"]
+    with pytest.raises(TypeError):
+        fu.leaf_update(p.half(), g, m, v, hp)
+    with pytest.raises(TypeError):
+        fu.leaf_update(p, g, m.bfloat16(), v, hp)
+    with pytest.raises(ValueError, match="contiguous"):
+        fu.leaf_update(p.t(), g.t(), m.t(), v.t(), hp)
+    with pytest.raises(ValueError, match="shapes"):
+        fu.leaf_update(p, g[:3], m, v, hp)
+    with pytest.raises(ValueError, match="hp"):
+        fu.leaf_update(p, g, m, v, hp[:6])
+    with pytest.raises(ValueError):
+        fu.leaf_update(p, g, m, v, hp.cpu())
+    assert fu.launches["leaf_update"] == before
+
+
+def test_fused_apply_adamw_never_waits_on_the_card(cuda_device):
+    """The hyperparameter vector is formed on the device from the step
+    count: no host synchronisation in a step (the sync debug mode raises
+    on one)."""
+    from paddle_tpu_torch.models.gpt import init_opt_state
+    params = {k: _leaf(s, torch.float32, torch.float32, cuda_device, i)[0]
+              for i, (k, s) in enumerate({"a": (300, 7), "b": (5,)}.items())}
+    opt = init_opt_state(params)
+    grads = {k: torch.randn_like(p) * 1e-3 for k, p in params.items()}
+    torch.cuda.synchronize()
+    before = fu.launches["leaf_update"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            fu.fused_apply_adamw(grads, params, opt, 3e-4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fu.launches["leaf_update"] == before + 6
+    assert float(opt["step"]) == 3.0
+
+
+@pytest.fixture
+def forced(monkeypatch):
+    """Force registry answers in-process, as chip_smoke.py does."""
+    table = {}
+    orig = registry.winner
+    monkeypatch.setattr(registry, "winner",
+                        lambda kernel, backend=None, bucket="*", path=None:
+                        table.get(kernel) or orig(kernel, backend=backend,
+                                                  bucket=bucket, path=path))
+    return table
+
+
+# ------------------------------------------------------ train steps
+def _launch_counts():
+    return dict(fa.launches, **fce.launches, **fu.launches)
+
+
 @pytest.mark.parametrize("remat,policy", [(False, "full"), (True, "full"),
                                           (True, "dots")])
 def test_gpt_train_step_launches_each_kernel(cuda_device, monkeypatch, remat,
                                             policy):
-    """A 2-layer bf16 GPT step on the card: the flash forward launches
-    once per layer, twice under remat (the recompute), dq and dk/dv once
-    per layer, the cross entropy once; the loss agrees with the same
-    step on the plain versions."""
+    """A 2-layer bf16 GPT step on the card with no registry entry: the
+    flash forward launches once per layer, twice under remat (the
+    recompute), dq and dk/dv once per layer, the two-pass cross entropy
+    once each way (the reference's default route); the loss agrees with
+    the same step on the plain versions."""
     import functools
     from paddle_tpu_torch.models import gpt as tg
     from paddle_tpu_torch.models.gpt import (GPTConfig, init_gpt_params,
@@ -284,23 +487,79 @@ def test_gpt_train_step_launches_each_kernel(cuda_device, monkeypatch, remat,
     tokens = torch.randint(0, 1000, (2, 129), device=cuda_device,
                            generator=torch.Generator(
                                device=cuda_device).manual_seed(0))
-    before = dict(fa.launches, fused_ce=fce.launches)
+    before = _launch_counts()
     loss, grads = loss_and_grads(params, tokens, cfg)
-    after = dict(fa.launches, fused_ce=fce.launches)
+    after = _launch_counts()
     L = cfg.num_layers
     assert {k: after[k] - before[k] for k in after} == {
         "flash_fwd": 2 * L if remat else L, "flash_bwd_dq": L,
-        "flash_bwd_dkv": L, "fused_ce": 1}
+        "flash_bwd_dkv": L, "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0,
+        "leaf_update": 0}
     # the same step on the plain versions: the model looks both names up
     # at each call
     monkeypatch.setattr(tg, "flash_attention_fn", functools.partial(
         fa.flash_attention_fn, fwd=fa.mha_fwd_ref, bwd=fa.mha_bwd_ref))
     monkeypatch.setattr(tg, "fused_softmax_ce", functools.partial(
-        fused_softmax_ce, fused=fce.ce_fused_ref))
+        fused_softmax_ce, fwd=fce.ce_fwd_ref, bwd=fce.ce_bwd_ref,
+        fused=fce.ce_fused_ref))
     p_loss, p_grads = loss_and_grads(params, tokens, cfg)
-    assert dict(fa.launches, fused_ce=fce.launches) == after
+    assert _launch_counts() == after
     assert abs(float(loss) - float(p_loss)) <= 2e-3 * abs(float(p_loss))
     for name, g in grads.items():
         cos = torch.nn.functional.cosine_similarity(
             g.double().flatten(), p_grads[name].double().flatten(), dim=0)
         assert float(cos) >= 0.999, name
+
+
+def test_ce_routes_follow_the_registry_on_the_card(cuda_device, forced):
+    """"pallas_fused" launches the one-pass kernel once; "jax" launches
+    none; a primal-only call on the default route launches the forward
+    alone."""
+    from paddle_tpu_torch.models.losses import fused_softmax_ce
+    x, t = _ce_inputs(64, 1000, torch.bfloat16, cuda_device)
+    t[0] = 3
+    x.requires_grad_()
+    runs = {}
+    for impl in (None, "pallas_fused", "jax"):
+        forced["ce"] = impl
+        before = dict(fce.launches)
+        loss = fused_softmax_ce(x, t)
+        torch.autograd.grad(loss, x)
+        runs[impl] = {k: fce.launches[k] - before[k] for k in before}
+    assert runs == {
+        None: {"ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0},
+        "pallas_fused": {"ce_fwd": 0, "ce_bwd": 0, "fused_ce": 1},
+        "jax": {"ce_fwd": 0, "ce_bwd": 0, "fused_ce": 0}}
+    forced["ce"] = None
+    before = dict(fce.launches)
+    with torch.no_grad():
+        fused_softmax_ce(x, t)
+    assert {k: fce.launches[k] - before[k] for k in before} == {
+        "ce_fwd": 1, "ce_bwd": 0, "fused_ce": 0}
+
+
+def test_llama_train_step_launches_each_kernel(cuda_device, forced):
+    """A 2-layer bf16 GQA Llama step on the card with the fused update
+    selected: flash forward 2L (remat), dq and dk/dv L, the two-pass CE
+    once each way, the update once per leaf (11); the loss agrees with
+    the step on the plain versions."""
+    from paddle_tpu_torch.models.gpt import init_opt_state
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               init_llama_params,
+                                               train_step)
+    forced["fused_update"] = "pallas"
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=128)
+    params = init_llama_params(cfg, seed=0, device=cuda_device)
+    opt = init_opt_state(params)
+    tokens = torch.randint(0, 1000, (2, 129), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(0))
+    before = _launch_counts()
+    loss, _, _ = train_step(params, opt, tokens, cfg)
+    after = _launch_counts()
+    L = cfg.num_layers
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+        "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0, "leaf_update": 11}
+    assert torch.isfinite(loss)

@@ -13,7 +13,9 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.models import LlamaModel
 from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,6 +42,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     mods = ["paddle_tpu_torch"] + _submodules()
     assert "paddle_tpu_torch.inference.serving" in mods
     assert "paddle_tpu_torch.kernels.fused_ce" in mods
+    for new in ("kernels.registry", "kernels.fused_update", "models.llama"):
+        assert f"paddle_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -99,6 +103,14 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     eng = ServingEngine(params, cfg, num_slots=1, device="cpu")
     out = eng.generate([np.array([1, 2, 3])], 2)
     assert len(out[0]) == 2
+    lcfg = LlamaConfig(vocab_size=32, hidden_size=16, num_layers=1,
+                       num_heads=2, num_kv_heads=1, max_seq_len=16,
+                       dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_llama_params(lcfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LlamaModel(lcfg)
+    assert init_llama_params(lcfg, device="cpu")["wte"].device.type == "cpu"
 
 
 def test_version_and_device_validation():
