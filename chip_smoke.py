@@ -8,7 +8,8 @@ Phases, each failing the script (non-zero exit) when it fails:
 1. The card's name and power limit (nvidia-smi), the torch/CUDA
    versions, and the build of every hand-written kernel from the
    sources in this checkout (one nvcc per source, all at once), with
-   nvcc's -Xptxas -v register, shared-memory and spill summary.
+   nvcc's -Xptxas -v register, shared-memory and spill summary; the
+   D = 64 instantiations of the backward pair must not spill.
 2. Kernel checks, each kernel against its plain PyTorch version on the
    card at the shapes of its main path, with kernel, plain and library
    times from CUDA events, the bound and the error (one JSON line per
@@ -20,7 +21,9 @@ Phases, each failing the script (non-zero exit) when it fails:
      bf16, causal, at the GPT train step's [8, 1024, 16, 64] (q, k, v
      strided views of one qkv tensor, as the GPT block makes them), a
      ragged S 1000 with kv_len 900, head dim 128, and the Llama train
-     step's [4, 2048, 32, 64];
+     step's [4, 2048, 32, 64]; the backward pair (tensor cores on bf16)
+     run twice must give the same bits, and its time is set beside
+     SDPA's whole backward (vs_library);
    - the one-pass cross entropy, bf16, at [8192, 32768] (the GPT train
      step's logits) and [8192, 50304];
    - the two-pass cross entropy (forward saving the lse, backward from
@@ -245,6 +248,26 @@ def ptxas_summary(report):
     return out
 
 
+def check_no_spills(report, names=("flash_bwd_dq_kernelILi64E",
+                                   "flash_bwd_dkv_kernelILi64E")):
+    """Raise unless nvcc's -Xptxas -v report shows each named kernel
+    (a mangled-name fragment) compiled with no spill stores or loads."""
+    found = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((n for n in names if n in m.group(1)), None)
+        elif name and "spill" in line:
+            found[name] = line.strip()
+            name = None
+    bad = {n: found.get(n) for n in names
+           if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                            found.get(n) or "")}
+    if bad:
+        raise AssertionError(f"ptxas reports spills (or no entry): {bad}")
+
+
 def event_ms(torch, fn, n_iters=10):
     """Device time per call from CUDA events around n_iters calls, after
     2 warm-up calls (each call here runs >= tens of microseconds, so
@@ -277,6 +300,10 @@ ATTN_SHAPES = [(8, 1024, 16, 64, None), (8, 1000, 16, 64, 900),
                (8, 1024, 8, 128, None), (4, 2048, 32, 64, None)]
 ATTN_MAIN = ATTN_SHAPES[0]
 ATTN_LLAMA = ATTN_SHAPES[3]
+# how each attention kernel computes its products on bf16 operands
+ATTN_DESIGN = {"flash_fwd": "CUDA-core f32 FMA",
+               "flash_bwd_dq": "mma.sync bf16",
+               "flash_bwd_dkv": "mma.sync bf16"}
 
 
 def live_pairs(S, kv_len):
@@ -334,14 +361,26 @@ def attention_check(torch, dev):
             if not bool(torch.isfinite(got).all()):
                 over[name] = math.inf
         lse_err = float((lse - r_lse).abs().max())
+        # the backward pair is two passes without atomics: a second run
+        # on the same inputs gives the same bits
+        again = fa.mha_bwd(q, k, v, out, lse, do, causal=True,
+                           kv_len=kv_len)
+        same_bits = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                        for a, b in zip(grads, again))
+        del again
         log(json.dumps({"phase": "flash_err_over_tol",
                         "shape": [B, S, H, D, kv_len], **over,
-                        "lse_max_abs_err": lse_err}))
+                        "lse_max_abs_err": lse_err,
+                        "bwd_same_bits_twice": same_bits}))
         if max(over.values()) > 1.0 or lse_err > 1e-3:
             raise AssertionError(
                 f"flash kernels disagree with their plain versions at "
                 f"{(B, S, H, D, kv_len)}: worst |err| / tolerance {over}, "
                 f"lse max |err| {lse_err} (tolerance 1e-3)")
+        if not same_bits:
+            raise AssertionError(
+                f"flash backward differs between two runs on the same "
+                f"inputs at {(B, S, H, D, kv_len)}")
 
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()
@@ -394,16 +433,19 @@ def attention_check(torch, dev):
             "flash_fwd": dict(ms=t_fwd, plain_ms=p_fwd, library_ms=l_fwd,
                               bound=b_fwd, max_abs_err=errs["out"],
                               err_over_tol=over["out"],
-                              lse_max_abs_err=lse_err),
+                              lse_max_abs_err=lse_err,
+                              design=ATTN_DESIGN["flash_fwd"]),
             "flash_bwd_dq": dict(ms=t_dq, plain_ms=p_bwd, library_ms=None,
                                  bound=b_dq, max_abs_err=errs["dq"],
-                                 err_over_tol=over["dq"]),
+                                 err_over_tol=over["dq"],
+                                 design=ATTN_DESIGN["flash_bwd_dq"]),
             "flash_bwd_dkv": dict(ms=t_dkv, plain_ms=p_bwd,
                                   library_ms=None, bound=b_dkv,
                                   max_abs_err=max(errs["dk"],
                                                   errs["dv"]),
                                   err_over_tol=max(over["dk"],
-                                                   over["dv"])),
+                                                   over["dv"]),
+                                  design=ATTN_DESIGN["flash_bwd_dkv"]),
         }
         for name, r in rows.items():
             r["bound_ms"], r["bound_by"] = r.pop("bound")
@@ -415,6 +457,9 @@ def attention_check(torch, dev):
                 line["plain_note"] = ("mha_bwd_ref computes dq, dk and dv "
                                       "together")
                 line["library_bwd_pair_ms"] = l_bwd
+                line["pair_ms"] = t_dq + t_dkv
+                line["vs_library"] = (t_dq + t_dkv) / l_bwd
+                line["bwd_same_bits_twice"] = same_bits
                 line["library_note"] = (
                     "no library call computes this pass alone; "
                     "library_bwd_pair_ms is SDPA's whole backward "
@@ -1131,6 +1176,7 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
             "max_abs_err": max(r[name]["max_abs_err"]
                                for r in attn_rows.values()),
             **{k: main_row[k] for k in keys},
+            "design": main_row["design"],
             "per": "one call at the Llama train step's [4, 2048, 32, 64] "
                    "bf16 causal (the GPT step's [8, 1024, 16, 64] is in "
                    "its kernel_check line); launches over the 10 timed "
@@ -1206,9 +1252,12 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s (one nvcc per source, "
         f"in parallel)")
     for name, rec in _build.build_logs.items():
-        log(f"nvcc -Xptxas -v summary for {name} ({rec['seconds']:.1f} s):")
+        how = "cached" if rec["cached"] else f"{rec['seconds']:.1f} s"
+        log(f"nvcc -Xptxas -v summary for {name} ({how}):")
         for line in ptxas_summary(rec["ptxas"]):
             log("  " + line)
+    check_no_spills(_build.build_logs["flash_attention"]["ptxas"])
+    log("ptxas: no spills in the D = 64 backward pair")
 
     dev = torch.device("cuda:0")
     rows = kernel_check(torch, qm, dev)

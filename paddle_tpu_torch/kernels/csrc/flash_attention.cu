@@ -18,40 +18,71 @@
 // Reference analog: the flash-attention library the reference builds
 // into phi/kernels/gpu/flash_attn_kernel.cu (and its grad kernel).
 //
-// What bounds it on an H100: at GPT's [8, 1024, 16, 64] bf16 causal
-// shape, the forward's least time is set by its bytes (q, k, v read and
-// out written once, ~20 us) and just below it by its operations; each
-// backward pass is bound by operations (the S = q k^T recompute, dp and
-// one or two more products per live tile). All of that assumes tensor
-// cores. This first design does every product as f32 FMAs from shared
-// memory on the CUDA cores, far from either bound; tensor cores
-// (mma.sync / wgmma on bf16 tiles fed by TMA) are the next kernel PR.
-//
-// Design (simple and right first), shared by the three kernels:
-// - One block of 256 threads owns one 64-row tile of one (batch, head):
-//   a q tile for the forward and dq, a kv tile for dk/dv. The Pallas
-//   grid's sequential innermost axis becomes a loop inside the block
-//   over the other operand's 64-row tiles.
-// - Tiles are staged in shared memory as f32 with a row pitch of D + 1
-//   floats, so both row-wise and column-wise reads are free of bank
-//   conflicts. Thread (ty, tx) = (tid / 16, tid % 16) owns tile rows
-//   ty + 16 i and columns tx + 16 j; row statistics reduce over the 16
-//   lanes of a half-warp with shuffles.
-// - Online softmax (m, l, acc) in f32 registers; masked scores hold
-//   NEG_INF and their probabilities are zeroed. lse = m + log(max(l,
-//   1e-30)), out = acc / max(l, 1e-30), as primitives.py finalizes.
+// Shared by all kernels:
+// - One block owns one 64-row tile of one (batch, head): a q tile for
+//   the forward and dq, a kv tile for dk/dv. The Pallas grid's
+//   sequential innermost axis becomes a loop inside the block over the
+//   other operand's tiles. The backward is two passes without atomics,
+//   as in the reference: each output is written once, by one block, so
+//   it is the same to the bit from run to run.
 // - Rounding follows the Pallas kernels: p is rounded to the input
-//   dtype before p.v and p^T.do, ds before ds.k and ds^T.q, and the
-//   softmax scale multiplies dq and dk once at the end.
+//   dtype before p.v and p^T.do, ds = p * (dp - delta) before ds.k and
+//   ds^T.q, and the softmax scale multiplies dq and dk once at the end.
 // - Tiles entirely above the causal diagonal (causal_block_live) and
 //   entirely past kv_len are skipped. Padded q rows (past Sq) get p = 0:
 //   the Pallas wrapper killed them with lse = 1e30 instead.
 // - Rows with no valid key (possible only with kv_len) are outside the
 //   contract; here they produce out = 0.
+//
+// The backward pair on bf16 operands (the train steps' dtype):
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel. What bounds them on an
+// H100 is operations: 6 P D for dq (s = q k^T, dp = do v^T, ds k) and
+// 8 P D for dk/dv (s^T, dp^T, p^T do, ds^T q), P the live (q, k) pairs,
+// against 989 TFLOP/s of bf16 on tensor cores; their bytes (each operand
+// read once) are 10-30x below that at S >= 1024. The design follows
+// FlashAttention-2's backward:
+// - every product is mma.sync.m16n8k16 on bf16 fragments with f32
+//   accumulators; operand tiles reach shared memory by 16-byte cp.async
+//   copies, two stages deep (the next tile is in flight while this one
+//   is computed), with rows padded by 16 bytes so that ldmatrix and
+//   cp.async are free of bank conflicts;
+// - dq: q, do, lse and delta stay resident, k and v stream in;
+//   s = q k^T and dp = do v^T read k and v with ldmatrix, ds is packed
+//   to bf16 A fragments in registers and dq += ds k reads k with
+//   ldmatrix.trans;
+// - dk/dv: k and v stay resident, q, do, lse and delta stream in, in
+//   the transposed form s^T = k q^T and dp^T = v do^T, so p^T and ds^T
+//   are packed to A fragments in registers and dv += p^T do and
+//   dk += ds^T q read do and q with ldmatrix.trans. p and ds never make
+//   a round trip through shared memory;
+// - the operands' rows must start on 16-byte boundaries (the wrapper
+//   checks it and raises otherwise).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, at
+// the Llama step's [4, 2048, 32, 64] bf16 causal: dq 0.509 ms and dk/dv
+// 0.699 ms (the CUDA-core pair before them: 6.233 + 7.153), about 200
+// TFLOP/s or 20% of the operation bound, 1.84x the time of SDPA's whole
+// backward in the same run; at GPT's [8, 1024, 16, 64] 0.163 + 0.214 ms.
+// ptxas at D = 64: dq 128 registers, dk/dv 166, no spills.
+//
+// The forward, and the backward on f32 operands, keep the first
+// design: every product as f32 FMAs from shared memory on the CUDA
+// cores. One block of 256 threads; tiles staged as f32 with a row pitch
+// of D + 1 floats, so row-wise and column-wise reads are free of bank
+// conflicts; thread (ty, tx) = (tid / 16, tid % 16) owns tile rows
+// ty + 16 i and columns tx + 16 j; row statistics reduce over the 16
+// lanes of a half-warp with shuffles; online softmax (m, l, acc) in f32
+// registers, masked scores hold NEG_INF and their probabilities are
+// zeroed, lse = m + log(max(l, 1e-30)), out = acc / max(l, 1e-30), as
+// primitives.py finalizes. f32 attention stays off the tensor cores:
+// TF32 keeps 10 bits of mantissa, and the f32 path is held to 2^-16 of
+// its plain version; no train step runs attention in f32. The forward's
+// redesign for tensor cores is the next kernel step.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -252,7 +283,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Args a) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_simt_kernel(Args a) {
   constexpr int P = D + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
@@ -364,7 +395,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Args a) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_simt_kernel(Args a) {
   constexpr int P = D + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
@@ -497,10 +528,449 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
   }
 }
 
-enum Which { FWD = 0, BWD_DQ = 1, BWD_DKV = 2 };
+// ------------------------------------------------------------------
+// The bf16 backward pair on tensor cores (FlashAttention-2's backward).
+//
+// Every product is mma.sync.m16n8k16 with bf16 operands and f32
+// accumulators. Operand tiles sit in shared memory as bf16 with a row
+// pitch of D + 8 elements (2D + 16 bytes: an odd multiple of 16 bytes
+// modulo 128, so the 8 row addresses of every ldmatrix phase fall in
+// distinct banks), and arrive by 16-byte cp.async copies, two stages
+// deep, so the next tile is in flight while this one is computed.
+// Warp w owns 16 rows of the block's tile. The accumulator fragment of
+// an m16n8 product (lane holds row lane/4 and lane/4 + 8, columns
+// 2(lane%4) and +1) is the A fragment of an m16k16 product once two
+// neighbouring n-tiles are packed to bf16 pairs, so p and ds go from
+// the first products to the second in registers.
+
+constexpr int MMA_THREADS = 128;   // 4 warps x 16 rows
+constexpr int MMA_ROWS = 64;       // rows of the tile a block owns
+constexpr float LOG2E = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !pred
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes global -> shared; zero-filled when !pred
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Shared-memory addresses of one lane's ldmatrix.x4 row, for a tile
+// X[rows][pitch P] starting at (r0, c0):
+// - A fragment of X[r0:+16][c0:+16] (row-major A);
+__device__ __forceinline__ uint32_t a_addr(const bf16* x, int P, int r0,
+                                           int c0, int lane) {
+  return smem_u32(x + (r0 + (lane & 15)) * P + c0 + (lane >> 4) * 8);
+}
+// - B fragments of two n8 tiles where B[k][n] = X[r0 + n][c0 + k], the
+//   operand of X^T (k on X's columns): regs 0-1 are n-tile 0, 2-3 n-tile 1;
+__device__ __forceinline__ uint32_t bt_addr(const bf16* x, int P, int r0,
+                                            int c0, int lane) {
+  return smem_u32(x + (r0 + (lane & 7) + ((lane >> 4) << 3)) * P + c0 +
+                  ((lane >> 3) & 1) * 8);
+}
+// - B fragments of two n8 tiles where B[k][n] = X[r0 + k][c0 + n], read
+//   with ldmatrix.trans: regs 0-1 are n-tile 0, 2-3 n-tile 1.
+__device__ __forceinline__ uint32_t b_addr(const bf16* x, int P, int r0,
+                                           int c0, int lane) {
+  return smem_u32(x + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + c0 +
+                  (lane >> 4) * 8);
+}
+
+// rows row0 .. row0+ROWS-1 of (b, h) into dst[ROWS][D + 8] by 16-byte
+// cp.async (not committed); rows at or past `limit` are zero-filled
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* base,
+                                                Strides st, int b, int h,
+                                                int row0, int limit) {
+  constexpr int CH = D / 8;                 // 16-byte chunks a row
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += MMA_THREADS) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    const int pos = row0 + r;
+    const bool ok = pos < limit;
+    const bf16* src = ok ? base + (long long)b * st.b +
+                               (long long)pos * st.s + (long long)h * st.h + c
+                         : base;
+    cp_async16(smem_u32(dst + r * (D + 8) + c), src, ok);
+  }
+}
 
 template <int D>
-constexpr size_t smem_bytes(Which w) {
+constexpr size_t dq_smem() {                // q, do; 2 stages of k, v
+  return sizeof(bf16) * (size_t)(2 + 4) * MMA_ROWS * (D + 8);
+}
+
+// q tile rows of the dk/dv kernel: its four accumulators (s^T, dp^T, dk,
+// dv) fit the register file at 64 up to D = 64, at 32 above
+template <int D>
+__host__ __device__ constexpr int dkv_bq() { return D <= 64 ? 64 : 32; }
+
+template <int D>
+constexpr size_t dkv_smem() {               // k, v; 2 stages of q, do,
+  return sizeof(bf16) * (size_t)(2 * MMA_ROWS + 4 * dkv_bq<D>()) * (D + 8) +
+         sizeof(float) * 4 * dkv_bq<D>();   // ... lse, delta
+}
+
+// dq = scale * sum over live kv tiles of ds . k, ds = p * (dp - delta),
+// p = exp(q k^T * scale - lse), dp = do v^T. One block: 64 q rows of one
+// (batch, head); q and do resident, k and v double-buffered.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_kernel(Args a) {
+  constexpr int P = D + 8;
+  constexpr int BK = MMA_ROWS;
+  constexpr int NS = BK / 8;                // n-tiles of s and dp
+  constexpr int ND = D / 8;                 // n-tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_mma);
+  bf16* Os = Qs + MMA_ROWS * P;             // do
+  bf16* Ks = Os + MMA_ROWS * P;             // 2 stages
+  bf16* Vs = Ks + 2 * BK * P;               // 2 stages
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // the heaviest causal tiles (last q rows) are scheduled first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_ROWS;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+
+  int n_tiles = (a.kv_len + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + MMA_ROWS - 1) / BK + 1);
+
+  load_tile_async<MMA_ROWS, D>(Qs, q, a.sq, b, h, q0, a.Sq);
+  load_tile_async<MMA_ROWS, D>(Os, dout, a.sdo, b, h, q0, a.Sq);
+  load_tile_async<BK, D>(Ks, k, a.sk, b, h, 0, a.Skv);
+  load_tile_async<BK, D>(Vs, v, a.sv, b, h, 0, a.Skv);
+  cp_async_commit();
+
+  // this lane's rows: r and r + 8 of the warp's 16
+  const int r = warp * 16 + (lane >> 2);
+  const float scale_log2 = a.scale * LOG2E;
+  int qpos[2];
+  bool row_ok[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qpos[i] = q0 + r + 8 * i;
+    row_ok[i] = qpos[i] < a.Sq;
+    const long long o = (long long)bh * a.Sq + qpos[i];
+    lse2[i] = row_ok[i] ? a.lse[o] * LOG2E : 0.f;
+    dlt[i] = row_ok[i] ? a.delta[o] : 0.f;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int stage = jt & 1;
+    if (jt + 1 < n_tiles) {
+      load_tile_async<BK, D>(Ks + (stage ^ 1) * BK * P, k, a.sk, b, h,
+                             (jt + 1) * BK, a.Skv);
+      load_tile_async<BK, D>(Vs + (stage ^ 1) * BK * P, v, a.sv, b, h,
+                             (jt + 1) * BK, a.Skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                     // tile jt has landed
+    __syncthreads();
+    const bf16* Kt = Ks + stage * BK * P;
+    const bf16* Vt = Vs + stage * BK * P;
+
+    // s = q k^T, dp = do v^T: 16 x 64 per warp
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, a_addr(Qs, P, warp * 16, kk * 16, lane));
+      ldsm_x4(oa, a_addr(Os, P, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, bt_addr(Kt, P, np * 16, kk * 16, lane));
+        ldsm_x4(vb, bt_addr(Vt, P, np * 16, kk * 16, lane));
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
+        mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+      }
+    }
+
+    // p and ds in the accumulators; ds rounded to bf16 A fragments
+    const int k0 = jt * BK;
+    const bool masked = q0 + MMA_ROWS > a.Sq || k0 + BK > a.kv_len ||
+                        (a.causal && k0 + BK - 1 > q0);
+    uint32_t dsa[BK / 16][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f(fmaf(s[n][e], scale_log2, -lse2[i]));
+        if (masked) {
+          const int kpos = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+          const bool ok = row_ok[i] && kpos < a.kv_len &&
+                          (!a.causal || qpos[i] >= kpos);
+          p = ok ? p : 0.f;
+        }
+        ds[e] = p * (dp[n][e] - dlt[i]);
+      }
+      dsa[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dq += ds . k
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+      for (int dp2 = 0; dp2 < ND / 2; ++dp2) {
+        uint32_t kb[4];
+        ldsm_x4_t(kb, b_addr(Kt, P, j * 16, dp2 * 16, lane));
+        mma_bf16(acc[2 * dp2], dsa[j], kb[0], kb[1]);
+        mma_bf16(acc[2 * dp2 + 1], dsa[j], kb[2], kb[3]);
+      }
+    __syncthreads();                        // stage free for tile jt + 2
+  }
+
+  bf16* dq = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!row_ok[i]) continue;
+    bf16* row = dq + (((long long)b * a.Sq + qpos[i]) * a.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * (lane & 3)) =
+          __floats2bfloat162_rn(acc[n][2 * i] * a.scale,
+                                acc[n][2 * i + 1] * a.scale);
+  }
+}
+
+// dv = sum over live q tiles of p^T . do, dk = scale * sum of ds^T . q,
+// in the transposed form: s^T = k q^T and dp^T = v do^T, so each warp's
+// 16 kv rows are the rows of every product. One block: 64 kv rows of one
+// (batch, head); k and v resident, q, do, lse and delta double-buffered.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_kernel(Args a) {
+  constexpr int P = D + 8;
+  constexpr int BQ = dkv_bq<D>();
+  constexpr int NS = BQ / 8;                // n-tiles of s^T and dp^T
+  constexpr int ND = D / 8;                 // n-tiles of dk and dv
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_mma);
+  bf16* Vs = Ks + MMA_ROWS * P;
+  bf16* Qs = Vs + MMA_ROWS * P;             // 2 stages
+  bf16* Os = Qs + 2 * BQ * P;               // 2 stages (do)
+  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * P);   // 2 stages
+  float* Ds = Ls + 2 * BQ;                  // 2 stages (delta)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * MMA_ROWS;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+
+  const int n_q = (a.Sq + BQ - 1) / BQ;
+  // first q tile that reaches this kv tile (causal_block_live); a kv
+  // tile wholly past kv_len gets no gradient
+  int i_start = a.causal ? k0 / BQ : 0;
+  if (k0 >= a.kv_len) i_start = n_q;
+
+  // q, do, lse and delta of q tile `it` into stage `st` (not committed)
+  auto load_q_tile = [&](int it, int st) {
+    const int q0 = it * BQ;
+    load_tile_async<BQ, D>(Qs + st * BQ * P, q, a.sq, b, h, q0, a.Sq);
+    load_tile_async<BQ, D>(Os + st * BQ * P, dout, a.sdo, b, h, q0, a.Sq);
+    if (tid < 2 * BQ) {
+      const int c = tid % BQ, pos = q0 + c;
+      const float* src = tid < BQ ? a.lse : a.delta;
+      float* dst = (tid < BQ ? Ls : Ds) + st * BQ + c;
+      const bool ok = pos < a.Sq;
+      cp_async4(smem_u32(dst), ok ? src + (long long)bh * a.Sq + pos : src,
+                ok);
+    }
+  };
+
+  if (i_start < n_q) {
+    load_tile_async<MMA_ROWS, D>(Ks, k, a.sk, b, h, k0, a.Skv);
+    load_tile_async<MMA_ROWS, D>(Vs, v, a.sv, b, h, k0, a.Skv);
+    load_q_tile(i_start, 0);
+  }
+  cp_async_commit();
+
+  // this lane's kv rows: r and r + 8 of the warp's 16
+  const int r = warp * 16 + (lane >> 2);
+  const float scale_log2 = a.scale * LOG2E;
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = i_start; it < n_q; ++it) {
+    const int stage = (it - i_start) & 1;
+    if (it + 1 < n_q) load_q_tile(it + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                     // tile it has landed
+    __syncthreads();
+    const bf16* Qt = Qs + stage * BQ * P;
+    const bf16* Ot = Os + stage * BQ * P;
+    const float* Lt = Ls + stage * BQ;
+    const float* Dt = Ds + stage * BQ;
+
+    // s^T = k q^T, dp^T = v do^T: 16 x BQ per warp
+    float st[NS][4], dpt[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, a_addr(Ks, P, warp * 16, kk * 16, lane));
+      ldsm_x4(va, a_addr(Vs, P, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t qb[4], ob[4];
+        ldsm_x4(qb, bt_addr(Qt, P, np * 16, kk * 16, lane));
+        ldsm_x4(ob, bt_addr(Ot, P, np * 16, kk * 16, lane));
+        mma_bf16(st[2 * np], ka, qb[0], qb[1]);
+        mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
+        mma_bf16(dpt[2 * np], va, ob[0], ob[1]);
+        mma_bf16(dpt[2 * np + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    // p^T and ds^T in the accumulators, rounded to bf16 A fragments
+    const int q0 = it * BQ;
+    const bool masked = q0 + BQ > a.Sq || k0 + MMA_ROWS > a.kv_len ||
+                        (a.causal && k0 + MMA_ROWS - 1 > q0);
+    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * (lane & 3) + (e & 1);    // q column
+        float pv = exp2f(fmaf(st[n][e], scale_log2, -Lt[c] * LOG2E));
+        if (masked) {
+          const int qpos = q0 + c, kpos = k0 + r + 8 * (e >> 1);
+          const bool ok = qpos < a.Sq && kpos < a.kv_len &&
+                          (!a.causal || qpos >= kpos);
+          pv = ok ? pv : 0.f;
+        }
+        p[e] = pv;
+        ds[e] = pv * (dpt[n][e] - Dt[c]);
+      }
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      dsa[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dv += p^T . do, dk += ds^T . q
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j)
+#pragma unroll
+      for (int dp2 = 0; dp2 < ND / 2; ++dp2) {
+        uint32_t ob[4], qb[4];
+        ldsm_x4_t(ob, b_addr(Ot, P, j * 16, dp2 * 16, lane));
+        ldsm_x4_t(qb, b_addr(Qt, P, j * 16, dp2 * 16, lane));
+        mma_bf16(dv_acc[2 * dp2], pa[j], ob[0], ob[1]);
+        mma_bf16(dv_acc[2 * dp2 + 1], pa[j], ob[2], ob[3]);
+        mma_bf16(dk_acc[2 * dp2], dsa[j], qb[0], qb[1]);
+        mma_bf16(dk_acc[2 * dp2 + 1], dsa[j], qb[2], qb[3]);
+      }
+    __syncthreads();                        // stage free for tile it + 2
+  }
+
+  bf16* dk = static_cast<bf16*>(a.dk);
+  bf16* dv = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = k0 + r + 8 * i;
+    if (kpos >= a.Skv) continue;
+    const long long o = (((long long)b * a.Skv + kpos) * a.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * (lane & 3);
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + c) = __floats2bfloat162_rn(
+          dk_acc[n][2 * i] * a.scale, dk_acc[n][2 * i + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + c) =
+          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
+enum Which { FWD = 0, BWD_DQ = 1, BWD_DKV = 2 };
+
+// shared memory of the CUDA-core kernels (the forward; the backward on
+// f32 operands)
+template <int D>
+constexpr size_t simt_smem(Which w) {
   return sizeof(float) *
          (w == FWD ? (size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * PS
           : w == BWD_DQ ? (size_t)(2 * BQ + 2 * BK) * (D + 1) +
@@ -509,20 +979,36 @@ constexpr size_t smem_bytes(Which w) {
                               (size_t)2 * BK * PS + 2 * BQ);
 }
 
-template <typename T, int D>
-int launch_d(Which w, const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(w);
-  void (*kern)(Args) = w == FWD      ? flash_fwd_kernel<T, D>
-                       : w == BWD_DQ ? flash_bwd_dq_kernel<T, D>
-                                     : flash_bwd_dkv_kernel<T, D>;
+int launch_kernel(void (*kern)(Args), int threads, size_t smem,
+                  const Args& a, int rows, int tile, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = w == BWD_DKV ? a.Skv : a.Sq;
-  const int tile = w == BWD_DKV ? BK : BQ;
   const dim3 grid((rows + tile - 1) / tile, a.B * a.H);
-  kern<<<grid, THREADS, smem, stream>>>(a);
+  kern<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_d(Which w, const Args& a, cudaStream_t stream) {
+  const int rows = w == BWD_DKV ? a.Skv : a.Sq;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // the bf16 backward pair runs on tensor cores
+    if (w == BWD_DQ)
+      return launch_kernel(flash_bwd_dq_kernel<D>, MMA_THREADS, dq_smem<D>(),
+                           a, rows, MMA_ROWS, stream);
+    if (w == BWD_DKV)
+      return launch_kernel(flash_bwd_dkv_kernel<D>, MMA_THREADS,
+                           dkv_smem<D>(), a, rows, MMA_ROWS, stream);
+    return launch_kernel(flash_fwd_kernel<T, D>, THREADS, simt_smem<D>(FWD),
+                         a, rows, BQ, stream);
+  } else {
+    void (*kern)(Args) = w == FWD      ? flash_fwd_kernel<T, D>
+                         : w == BWD_DQ ? flash_bwd_dq_simt_kernel<T, D>
+                                       : flash_bwd_dkv_simt_kernel<T, D>;
+    return launch_kernel(kern, THREADS, simt_smem<D>(w), a, rows,
+                         w == BWD_DKV ? BK : BQ, stream);
+  }
 }
 
 template <typename T>

@@ -168,6 +168,15 @@ def _clamp_kv_len(kv_len, Skv: int) -> int:
     return klen
 
 
+def _rows_on_16_bytes(t) -> bool:
+    """The bf16 tensor-core kernels copy rows in 16-byte cp.async pieces:
+    a bf16 operand starts on 16 bytes and its (batch, seq, head) strides
+    are multiples of 8 elements. f32 operands take the CUDA-core kernels,
+    which read element by element."""
+    return t.dtype != torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and not any(s % 8 for s in t.stride()[:3]))
+
+
 def _check_operands(name, q, k, v, *q_like):
     """dtype, device and layout of every operand; v like k, `q_like`
     (out, do) like q. The kernels read [B, S, H, D] through strides."""
@@ -186,6 +195,16 @@ def _check_operands(name, q, k, v, *q_like):
     if D % 16 or not 16 <= D <= 128:
         raise ValueError(f"{name}: head dim {D} (a multiple of 16 up to "
                          "128)")
+    # The rule is the backward's, and the forward (which reads element
+    # by element) is held to it on purpose: the q, k, v it saves go to
+    # the backward, so a view the backward would refuse fails up front.
+    for t in (q, k, v) + q_like:
+        if not _rows_on_16_bytes(t):
+            raise ValueError(
+                f"{name}: bf16 operands must start on a 16-byte "
+                f"boundary with (batch, seq, head) strides that are "
+                f"multiples of 8, got data_ptr() % 16 = "
+                f"{t.data_ptr() % 16}, strides {t.stride()}")
     if (k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]
             or v.shape != k.shape
             or any(t.shape != q.shape for t in q_like)):
@@ -327,10 +346,12 @@ class FlashMHA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            # e.g. the expanded cotangent of out.sum(); the kernels read
-            # [B, S, H, D] with a unit last stride
-            do = do.contiguous()
+        if do.stride(-1) != 1 or not _rows_on_16_bytes(do):
+            # e.g. the expanded cotangent of out.sum(), or a view off 16
+            # bytes: the kernels read [B, S, H, D] with a unit last
+            # stride and, in bf16, rows on 16 bytes. A fresh copy meets
+            # both (contiguous() would keep a contiguous misaligned view)
+            do = do.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = ctx.bwd(q, k, v, out, lse, do, causal=ctx.causal,
                              kv_len=ctx.kv_len)
         return dq, dk, dv, None, None, None, None

@@ -106,11 +106,13 @@ def test_wrapper_raises_on_bad_operands(cuda_device):
 
 # ---------------------------------------------------------- flash attention
 # (B, Sq, Skv, H, D, causal, kv_len): GPT's training shape at a smaller
-# batch, ragged S with kv_len, Sq != Skv both ways, and head widths 16 to
-# 128; q/k/v are strided views of one [B, S, 3, H, D] tensor where
-# Sq == Skv, as the GPT block makes them
+# batch, the Llama step's widths at a smaller batch, ragged S with kv_len,
+# Sq != Skv both ways, and head widths 16 to 128; q/k/v are strided views
+# of one [B, S, 3, H, D] tensor where Sq == Skv, as the GPT block makes
+# them
 FLASH_SHAPES = [
     (2, 1024, 1024, 4, 64, True, None),
+    (1, 2048, 2048, 8, 64, True, None),
     (2, 256, 256, 4, 64, False, None),
     (1, 1000, 1000, 2, 64, True, 900),
     (1, 100, 200, 2, 80, False, 150),
@@ -192,6 +194,94 @@ def test_flash_autograd_function_launches_the_kernels(cuda_device):
     assert fa.launches == {n: c + 1 for n, c in before.items()}
     for g, r in zip(grads, r_grads):
         assert _close_to_plain(g, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_is_deterministic(cuda_device, dtype):
+    """Two passes without atomics: each gradient entry is written once by
+    one block, so two runs on the same inputs agree to the bit."""
+    q, k, v, do = _flash_operands(2, 1000, 1000, 4, 64, dtype, cuda_device,
+                                  seed=2)
+    out, lse = fa.mha_fwd(q, k, v, causal=True, kv_len=900)
+    first = fa.mha_bwd(q, k, v, out, lse, do, causal=True, kv_len=900)
+    second = fa.mha_bwd(q, k, v, out, lse, do, causal=True, kv_len=900)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
+
+
+def test_flash_bf16_operand_off_16_bytes_raises(cuda_device):
+    """The tensor-core kernels copy rows in 16-byte pieces: a bf16 operand
+    that starts 2 bytes off a 16-byte boundary, or whose row stride is no
+    multiple of 8 elements, raises before any launch."""
+    B, S, H, D = 1, 64, 2, 64
+    q, k, v, do = _flash_operands(B, S, S, H, D, torch.bfloat16,
+                                  cuda_device)
+    buf = torch.randn(B * S * H * D + 8, device=cuda_device).to(
+        torch.bfloat16)
+    shifted = buf[1:1 + B * S * H * D].view(B, S, H, D)
+    wide = torch.randn(B, S, H, D + 4, device=cuda_device).to(
+        torch.bfloat16)[..., :D]
+    out, lse = fa.mha_fwd_ref(q, k, v, True)
+    before = dict(fa.launches)
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.mha_fwd(q, bad, v, causal=True)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.mha_bwd(q, k, v, out, lse, bad, causal=True)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.mha_bwd(bad, k, v, out, lse, do, causal=True)
+    assert fa.launches == before
+
+
+def test_flash_autograd_copies_a_misaligned_cotangent(cuda_device):
+    """FlashMHA.backward hands the kernels a fresh copy of a bf16
+    cotangent off 16 bytes (a contiguous view that the forward never
+    saw), so the backward launches both kernels and gives the bits an
+    aligned cotangent gives."""
+    B, S, H, D = 1, 128, 2, 64
+    q, k, v, do = _flash_operands(B, S, S, H, D, torch.bfloat16,
+                                  cuda_device, seed=3)
+    n = B * S * H * D
+    shifted = torch.empty(n + 8, dtype=torch.bfloat16,
+                          device=cuda_device)[1:1 + n].view(B, S, H, D)
+    shifted.copy_(do)
+    grads = []
+    for g in (do, shifted):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention_fn(*leaves, causal=True)
+        before = dict(fa.launches)
+        out.backward(g)
+        assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+        assert fa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_spill_check_reads_a_prebuilt_library(cuda_device, monkeypatch):
+    """chip_smoke.py's spill check holds when an earlier process built
+    the attention library: the ptxas report is read back from beside the
+    cached library, and the D = 64 backward pair shows no spills."""
+    import importlib.util
+    import pathlib
+    from paddle_tpu_torch.kernels import _build
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    _build.build("flash_attention")
+    monkeypatch.setattr(_build, "build_logs", {})
+    _build.build("flash_attention")
+    rec = _build.build_logs["flash_attention"]
+    assert rec["cached"]
+    cs.check_no_spills(rec["ptxas"])
+    assert any("flash_bwd_dq_kernel" in line
+               for line in cs.ptxas_summary(rec["ptxas"]))
 
 
 def test_flash_wrappers_raise_on_bad_operands(cuda_device):

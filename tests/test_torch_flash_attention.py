@@ -203,3 +203,91 @@ def test_card_tolerance_fails_an_error_of_typical_size():
         fails = (bad - r).abs() > tol(ref)
         assert bool(fails[:, S // 2:].any(-1).all())
         assert not bool(fails[:, :S // 2].any())
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+def _aligned_views():
+    """bf16 [B, S, H, D] operands the tensor-core backward takes: fresh
+    tensors, GPT's q/k/v as views of one fused qkv, a row slice of a
+    larger batch, and a head slice of a wider tensor."""
+    B, S, H, D = 2, 32, 3, 48
+    fresh = [_bf16(B, S, H, D) for _ in range(3)]
+    qkv = list(_bf16(B, S, 3, H, D).unbind(2))
+    rows = [_bf16(B, S + 8, H, D)[:, 8:] for _ in range(3)]
+    heads = [_bf16(B, S, H + 1, D)[:, :, 1:] for _ in range(3)]
+    return {"fresh": fresh, "qkv_unbind": qkv, "seq_slice": rows,
+            "head_slice": heads}
+
+
+@pytest.mark.parametrize("kind", ["fresh", "qkv_unbind", "seq_slice",
+                                  "head_slice"])
+def test_check_operands_takes_aligned_bf16_views(kind):
+    q, k, v = _aligned_views()[kind]
+    fa._check_operands("mha_fwd", q, k, v)
+    fa._check_operands("mha_bwd", q, k, v, q, q)
+
+
+def _misaligned(kind):
+    B, S, H, D = 1, 16, 2, 64
+    n = B * S * H * D
+    if kind == "offset_2_bytes":
+        return _bf16(n + 8)[1:1 + n].view(B, S, H, D)
+    if kind == "offset_8_bytes":
+        return _bf16(n + 8)[4:4 + n].view(B, S, H, D)
+    if kind == "row_stride_68":
+        return _bf16(B, S, H, D + 4)[..., :D]
+    return _bf16(B, S, H, D + 8)[..., 4:4 + D]          # "head_dim_slice"
+
+
+@pytest.mark.parametrize("kind", ["offset_2_bytes", "offset_8_bytes",
+                                  "row_stride_68", "head_dim_slice"])
+@pytest.mark.parametrize("slot", ["q", "k", "v", "out", "do"])
+def test_check_operands_raises_on_misaligned_bf16(kind, slot):
+    """The bf16 kernels copy rows by 16-byte cp.async: an operand whose
+    start or (batch, seq, head) strides leave a row off a 16-byte
+    boundary raises, in any operand slot."""
+    ops = {n: _bf16(1, 16, 2, 64) for n in ("q", "k", "v", "out", "do")}
+    ops[slot] = _misaligned(kind)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa._check_operands("mha_bwd", ops["q"], ops["k"], ops["v"],
+                           ops["out"], ops["do"])
+
+
+def test_check_operands_leaves_f32_alignment_alone():
+    """f32 operands run on the CUDA-core kernels, which read element by
+    element: an f32 view off a 16-byte boundary passes."""
+    n = 16 * 2 * 64
+    q = torch.zeros(n + 4)[1:1 + n].view(1, 16, 2, 64)
+    k = torch.zeros(1, 16, 2, 64)
+    fa._check_operands("mha_bwd", q, k, k, q, q)
+
+
+def test_flash_autograd_copies_a_misaligned_bf16_cotangent():
+    """A bf16 cotangent off 16 bytes (contiguous, so .contiguous() would
+    keep it) reaches the backward as a fresh copy that meets the
+    kernels' rule, and the gradients are those of an aligned one."""
+    B, S, H, D = 1, 32, 2, 64
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, S, H, D),
+                                                        dtype=np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    n = B * S * H * D
+    shifted = torch.empty(n + 8, dtype=torch.bfloat16)[1:1 + n] \
+        .view(B, S, H, D).copy_(do)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+
+    def bwd(q, k, v, out, lse, do, causal, kv_len):
+        fa._check_operands("mha_bwd", q, k, v, out, do)
+        return fa.mha_bwd_ref(q, k, v, out, lse, do, causal, kv_len)
+
+    grads = []
+    for g in (do, shifted):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention_fn(*leaves, causal=True, fwd=fa.mha_fwd_ref,
+                              bwd=bwd).backward(g)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
