@@ -9,21 +9,25 @@ Phases, each failing the script (non-zero exit) when it fails:
    versions, and the build of every hand-written kernel from the
    sources in this checkout (one nvcc per source, all at once), with
    nvcc's -Xptxas -v register, shared-memory and spill summary; the
-   D = 64 instantiations of the backward pair must not spill.
+   D = 64 instantiations of the three bf16 attention kernels and every
+   bf16 instantiation of the int8 dequant-matmul must not spill.
 2. Kernel checks, each kernel against its plain PyTorch version on the
    card at the shapes of its main path, with kernel, plain and library
    times from CUDA events, the bound and the error (one JSON line per
    shape):
    - the fused int8 dequant-matmul, bf16 x, at the GPT serving shapes
      (M = 8 slots at decode, 128 and 512 at prefill; K, N of the qkv,
-     attention-out, MLP-up, MLP-down and head matmuls);
+     attention-out, MLP-up, MLP-down and head matmuls), the same bits
+     twice at each, then one row for a decode tick (its 97 calls at
+     M = 8 summed);
    - the flash-attention forward and its dq and dk/dv backward kernels,
      bf16, causal, at the GPT train step's [8, 1024, 16, 64] (q, k, v
      strided views of one qkv tensor, as the GPT block makes them), a
      ragged S 1000 with kv_len 900, head dim 128, and the Llama train
-     step's [4, 2048, 32, 64]; the backward pair (tensor cores on bf16)
-     run twice must give the same bits, and its time is set beside
-     SDPA's whole backward (vs_library);
+     step's [4, 2048, 32, 64]; every kernel runs on tensor cores on
+     bf16; the forward and the backward pair run twice must give the
+     same bits; the forward's time is set beside SDPA's forward and the
+     pair's beside SDPA's whole backward (vs_library);
    - the one-pass cross entropy, bf16, at [8192, 32768] (the GPT train
      step's logits) and [8192, 50304];
    - the two-pass cross entropy (forward saving the lse, backward from
@@ -62,7 +66,12 @@ Phases, each failing the script (non-zero exit) when it fails:
    prefill's logits and 16 greedy tokens from the kernel are held
    against the same forward built on the plain version; 16 decode ticks
    run under torch.profiler; a 2-request fp (quant="off") engine runs
-   too.
+   too. Both greedy streams are replayed teacher-forced through both
+   versions on the decode path that made them: at every step the two
+   versions' logits agree within 5% of the span, and where the streams
+   part, the first differing step is a one-bf16-step tie in both
+   versions' logits, and the kernel leaves the plain stream nowhere
+   else beyond such a tie.
 6. The kernels line (all eight kernels), the card line, and as the last
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
    1}}.
@@ -173,8 +182,17 @@ def kernel_check(torch, qm, dev):
             ss = [torch.rand(N, generator=g, device=dev) * 1e-2 + 1e-4
                   for _ in range(n_copies)]
             y = qm.quant_matmul(x, ws[0], ss[0])
+            # a fixed reduction order (split-K included): the same bits
+            # from a second call
+            again = qm.quant_matmul(x, ws[0], ss[0])
             ref = qm.quant_matmul_ref(x, ws[0], ss[0])
             torch.cuda.synchronize()
+            same_bits = torch.equal(y.view(torch.int16),
+                                    again.view(torch.int16))
+            if not same_bits:
+                raise AssertionError(
+                    f"quant_matmul gives other bits on a second call at "
+                    f"M={M} K={K} N={N}")
             # tolerance: both round an f32 value to bf16 once (at most
             # one bf16 step apart, 2^-7 relative), and the two f32 sums
             # differ only by summation order over K (K * 2^-24 of the
@@ -206,11 +224,21 @@ def kernel_check(torch, qm, dev):
                               "bytes; a yardstick the port never calls)",
                    "bound_ms": b_ms, "bound_by": b_by,
                    "roofline_share": b_ms / kernel_ms,
-                   "max_abs_err": max_err,
+                   "vs_library": kernel_ms / library_ms,
+                   "max_abs_err": max_err, "same_bits_twice": same_bits,
+                   "plan": qm._plan(M, K, N, qm._sm_count(dev))._asdict(),
+                   "design": QMM_DESIGN,
                    "tolerance": "2^-7*|ref| + K*2^-24*(|x|@|w|)*scale"}
             log(json.dumps(row))
             rows[(M, K, N)] = row
             del ws, ss, wb
+    agg = tick_aggregate(rows, FULL["num_layers"])
+    log(json.dumps({"phase": "kernel_check", "kernel": "quant_matmul",
+                    "per": "one decode tick: 24 x (qkv, attn_out, mlp_up, "
+                           "mlp_down) + the head at M=8, 97 calls",
+                    **agg, "roofline_share": agg["bound_ms"]
+                    / agg["kernel_ms"],
+                    "vs_library": agg["kernel_ms"] / agg["library_ms"]}))
     return rows
 
 
@@ -248,8 +276,16 @@ def ptxas_summary(report):
     return out
 
 
-def check_no_spills(report, names=("flash_bwd_dq_kernelILi64E",
-                                   "flash_bwd_dkv_kernelILi64E")):
+FLASH_NO_SPILL = ("flash_fwd_kernelILi64E", "flash_bwd_dq_kernelILi64E",
+                  "flash_bwd_dkv_kernelILi64E")
+# the bf16 dequant-matmul's three tile heights (8, 16 and 64 rows)
+QMM_NO_SPILL = ("qmm_mma_kernelILi1E", "qmm_mma_kernelILi2E",
+                "qmm_mma_kernelILi8E")
+QMM_DESIGN = ("mma.sync bf16 (y^T = w^T x^T), int8 -> bf16 by byte "
+              "permute, cp.async stages, deterministic split-K at M <= 16")
+
+
+def check_no_spills(report, names=FLASH_NO_SPILL):
     """Raise unless nvcc's -Xptxas -v report shows each named kernel
     (a mangled-name fragment) compiled with no spill stores or loads."""
     found = {}
@@ -301,7 +337,7 @@ ATTN_SHAPES = [(8, 1024, 16, 64, None), (8, 1000, 16, 64, 900),
 ATTN_MAIN = ATTN_SHAPES[0]
 ATTN_LLAMA = ATTN_SHAPES[3]
 # how each attention kernel computes its products on bf16 operands
-ATTN_DESIGN = {"flash_fwd": "CUDA-core f32 FMA",
+ATTN_DESIGN = {"flash_fwd": "mma.sync bf16",
                "flash_bwd_dq": "mma.sync bf16",
                "flash_bwd_dkv": "mma.sync bf16"}
 
@@ -367,20 +403,26 @@ def attention_check(torch, dev):
                            kv_len=kv_len)
         same_bits = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
                         for a, b in zip(grads, again))
-        del again
+        out2, lse2 = fa.mha_fwd(q, k, v, causal=True, kv_len=kv_len)
+        fwd_same_bits = torch.equal(out.view(torch.int16),
+                                    out2.view(torch.int16)) and \
+            torch.equal(lse, lse2)
+        del again, out2, lse2
         log(json.dumps({"phase": "flash_err_over_tol",
                         "shape": [B, S, H, D, kv_len], **over,
                         "lse_max_abs_err": lse_err,
+                        "fwd_same_bits_twice": fwd_same_bits,
                         "bwd_same_bits_twice": same_bits}))
         if max(over.values()) > 1.0 or lse_err > 1e-3:
             raise AssertionError(
                 f"flash kernels disagree with their plain versions at "
                 f"{(B, S, H, D, kv_len)}: worst |err| / tolerance {over}, "
                 f"lse max |err| {lse_err} (tolerance 1e-3)")
-        if not same_bits:
+        if not (same_bits and fwd_same_bits):
             raise AssertionError(
-                f"flash backward differs between two runs on the same "
-                f"inputs at {(B, S, H, D, kv_len)}")
+                f"flash kernels differ between two runs on the same "
+                f"inputs at {(B, S, H, D, kv_len)}: forward same bits "
+                f"{fwd_same_bits}, backward {same_bits}")
 
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()
@@ -466,6 +508,8 @@ def attention_check(torch, dev):
                     "(dq, dk, dv), against the sum of the two kernels")
             else:
                 line["library"] = "F.scaled_dot_product_attention forward"
+                line["vs_library"] = t_fwd / l_fwd
+                line["fwd_same_bits_twice"] = fwd_same_bits
             log(json.dumps(line))
         out_rows[(B, S, H, D, kv_len)] = rows
         del qkv, q, k, v, do, out, lse, grads, r_out, r_lse, r_grads
@@ -1019,13 +1063,103 @@ def tick_profile(torch, eng, prompts, card):
     log(json.dumps(out))
 
 
+def forced_logits(torch, qmm, qp, prompt, tokens, cfg, dev, max_len):
+    """The logits each of `tokens` is picked from on greedy_generate's
+    path, the stream teacher-forced: the bucketed prompt's prefill, then
+    one-token steps through the KV cache, each fed the token before it.
+    prompt [T0] and tokens on the host; returns [len(tokens), V] f32."""
+    from paddle_tpu_torch.models.decode import prompt_bucket
+    from paddle_tpu_torch.models.gpt import gpt_forward_cached, init_kv_cache
+    T0 = len(prompt)
+    padded = torch.zeros((1, prompt_bucket(T0, max_len)), dtype=torch.int64,
+                         device=dev)
+    padded[0, :T0] = torch.as_tensor(prompt, device=dev)
+    cache = init_kv_cache(cfg, 1, max_len, device=dev)
+    with torch.no_grad():
+        lg, cache = gpt_forward_cached(qp, padded, cache, 0, cfg, qmm=qmm)
+        rows = [lg[0, T0 - 1].float()]
+        for i, tok in enumerate(tokens[:-1]):
+            step = torch.tensor([[tok]], dtype=torch.int64, device=dev)
+            lg, cache = gpt_forward_cached(qp, step, cache, T0 + i, cfg,
+                                           qmm=qmm)
+            rows.append(lg[0, -1].float())
+    return torch.stack(rows)
+
+
+def greedy_check(torch, qmm, qmm_ref, qp, prompt, cfg, dev, n=16,
+                 max_len=1024, logit_tol=0.05):
+    """n greedy tokens from `prompt` [T0] (host ints) with the kernel
+    (`qmm`) and with the plain version (`qmm_ref`), on greedy_generate's
+    decode path (M = 1 steps, the path that splits K). Each stream is
+    replayed teacher-forced through both versions (`forced_logits`):
+    - each version's replay of its own stream gives that stream back;
+    - at every step of each stream, the two versions' logits on the same
+      prefix agree within `logit_tol` of the plain logits' span (the
+      prefill check's tolerance), so every token of both streams comes
+      from logits that agree;
+    - where the streams part, the first step that differs is a tie: the
+      two tokens within one bf16 step (2^-7 of the larger logit) in both
+      versions' logits; and on the plain stream the kernel differs from
+      the plain pick nowhere else beyond such a tie.
+    The dequant-matmul is the f32 sum of exact products in another order
+    than the plain version's, rounded once to bf16, so logits one step
+    apart can swap; past a parting the streams' prefixes differ, and the
+    kernel's stream is held to the logit tolerance. Returns the report;
+    report["ok"] says whether it passed."""
+    from paddle_tpu_torch.models.gpt import greedy_generate
+    T0 = len(prompt)
+    p = torch.as_tensor(prompt, device=dev)[None]
+    gk, gr = (greedy_generate(qp, p, cfg, n, max_len=max_len, qmm=f)[
+        0, T0:].tolist() for f in (qmm, qmm_ref))
+
+    def replay(f, stream):
+        return forced_logits(torch, f, qp, prompt, stream, cfg, dev, max_len)
+    k_on_k, p_on_p = replay(qmm, gk), replay(qmm_ref, gr)
+    k_on_p = k_on_k if gk == gr else replay(qmm, gr)
+    p_on_k = p_on_p if gk == gr else replay(qmm_ref, gk)
+    report = {"greedy16_kernel": gk, "greedy16_plain": gr,
+              "greedy16_equal": gk == gr,
+              "replays_reproduce": (k_on_k.argmax(-1).tolist() == gk
+                                    and p_on_p.argmax(-1).tolist() == gr)}
+    worst = 0.0
+    for lk, lp in ((k_on_p, p_on_p), (k_on_k, p_on_k)):
+        err = (lk - lp).abs().amax(-1) / lp.abs().amax(-1)
+        worst = max(worst, float(err.max()))
+    report["decode_logit_err_over_span"] = worst
+
+    def one_step(lg, a, b):
+        hi = max(float(lg[a]), float(lg[b]))
+        return abs(float(lg[a]) - float(lg[b])) <= 2.0 ** -7 * abs(hi)
+    steps = []
+    for name, lg, stream in (("plain stream on the kernel", k_on_p, gr),
+                             ("kernel stream on the plain", p_on_k, gk)):
+        for j, tok in enumerate(stream):
+            top = int(lg[j].argmax())
+            if top != tok:
+                steps.append({"replay": name, "step": j, "token": tok,
+                              "argmax": top, "logits": [float(lg[j, tok]),
+                                                        float(lg[j, top])],
+                              "within_one_step": one_step(lg[j], tok, top)})
+    report["differing_steps"] = steps
+    parted = True
+    if gk != gr:
+        j0 = report["first_split_step"] = next(
+            j for j in range(n) if gk[j] != gr[j])
+        parted = (one_step(k_on_p[j0], gk[j0], gr[j0])
+                  and one_step(p_on_p[j0], gk[j0], gr[j0])
+                  and all(s["within_one_step"] for s in steps
+                          if s["replay"] == "plain stream on the kernel"))
+    report["ok"] = (report["replays_reproduce"] and worst <= logit_tol
+                    and parted)
+    return report
+
+
 def serving(torch, qm, dev, card):
     """Phase 3. Returns (launches per main-path run, summary dict)."""
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.models.decode import prompt_bucket
     from paddle_tpu_torch.models.gpt import (GPTConfig, gpt_forward_cached,
-                                             greedy_generate, init_gpt_params,
-                                             init_kv_cache)
+                                             init_gpt_params, init_kv_cache)
     cfg = GPTConfig(**FULL)
     t0 = time.perf_counter()
     # weights drawn on the host from a seed: the engine quantizes them
@@ -1110,18 +1244,13 @@ def serving(torch, qm, dev, card):
     if not bool(torch.isfinite(lk).all()) or logit_err > 0.05 * span:
         raise AssertionError(f"prefill logits: kernel vs plain max |err| "
                              f"{logit_err} > 5% of the logit span {span}")
-    prompt = torch.as_tensor(prompts[0], device=dev)[None]
-    gk = greedy_generate(qp, prompt, cfg, 16, max_len=1024,
-                         qmm=qm.quant_matmul)[0, t0p:].tolist()
-    gr = greedy_generate(qp, prompt, cfg, 16, max_len=1024,
-                         qmm=qm.quant_matmul_ref)[0, t0p:].tolist()
+    greedy = greedy_check(torch, qm.quant_matmul, qm.quant_matmul_ref, qp,
+                          prompts[0], cfg, dev)
     log(json.dumps({"phase": "reference", "prefill_logit_max_abs_err":
-                    logit_err, "logit_span": span,
-                    "greedy16_kernel": gk, "greedy16_plain": gr,
+                    logit_err, "logit_span": span, **greedy,
                     "engine_request0_first16": reqs[0].tokens[:16]}))
-    if gk != gr:
-        raise AssertionError(f"greedy tokens differ: kernel {gk} vs "
-                             f"plain {gr}")
+    if not greedy["ok"]:
+        raise AssertionError(f"greedy check failed: {json.dumps(greedy)}")
     tick_profile(torch, eng, prompts, card)
     del eng
 
@@ -1154,7 +1283,7 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": agg["kernel_ms"], "plain_ms": agg["plain_ms"],
         "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
-        "library_ms": agg["library_ms"],
+        "library_ms": agg["library_ms"], "design": QMM_DESIGN,
         "per": "one decode tick at M=8: 24 layers x 4 leaves + the head "
                "(97 launches), from the kernel_check lines; launches over "
                "the 16-request serving run",
@@ -1257,7 +1386,10 @@ def main():
         for line in ptxas_summary(rec["ptxas"]):
             log("  " + line)
     check_no_spills(_build.build_logs["flash_attention"]["ptxas"])
-    log("ptxas: no spills in the D = 64 backward pair")
+    check_no_spills(_build.build_logs["quant_matmul"]["ptxas"],
+                    QMM_NO_SPILL)
+    log("ptxas: no spills in the D = 64 bf16 attention kernels or the "
+        "bf16 dequant-matmul")
 
     dev = torch.device("cuda:0")
     rows = kernel_check(torch, qm, dev)

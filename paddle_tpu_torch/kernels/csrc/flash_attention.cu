@@ -34,18 +34,29 @@
 // - Rows with no valid key (possible only with kv_len) are outside the
 //   contract; here they produce out = 0.
 //
-// The backward pair on bf16 operands (the train steps' dtype):
-// flash_bwd_dq_kernel and flash_bwd_dkv_kernel. What bounds them on an
-// H100 is operations: 6 P D for dq (s = q k^T, dp = do v^T, ds k) and
-// 8 P D for dk/dv (s^T, dp^T, p^T do, ds^T q), P the live (q, k) pairs,
-// against 989 TFLOP/s of bf16 on tensor cores; their bytes (each operand
+// On bf16 operands (the train steps' dtype) all three kernels run on
+// tensor cores: flash_fwd_kernel, flash_bwd_dq_kernel and
+// flash_bwd_dkv_kernel. What bounds them on an H100 is operations:
+// 4 P D for the forward (s = q k^T, p v), 6 P D for dq (s, dp = do v^T,
+// ds k) and 8 P D for dk/dv (s^T, dp^T, p^T do, ds^T q), P the live
+// (q, k) pairs, against 989 TFLOP/s of bf16; their bytes (each operand
 // read once) are 10-30x below that at S >= 1024. The design follows
-// FlashAttention-2's backward:
+// FlashAttention-2:
 // - every product is mma.sync.m16n8k16 on bf16 fragments with f32
 //   accumulators; operand tiles reach shared memory by 16-byte cp.async
-//   copies, two stages deep (the next tile is in flight while this one
-//   is computed), with rows padded by 16 bytes so that ldmatrix and
-//   cp.async are free of bank conflicts;
+//   copies, at least two stages deep (the next tile is in flight while
+//   this one is computed), with rows padded by 16 bytes so that ldmatrix
+//   and cp.async are free of bank conflicts;
+// - forward: a block owns 128 q rows up to D = 64 (each warp two m16
+//   row tiles, so every k and v fragment feeds two products), 64 above;
+//   q stays in shared memory, k and v stream through a ring of three
+//   stages up to D = 64 (two above) with one barrier a tile;
+//   s = q k^T reads q and k with ldmatrix; the online softmax (m, l) is
+//   kept per fragment row in f32, reduced over the 4 lanes of a quad, in
+//   the log2 domain (exp2f of s * scale * log2 e; lse is converted back
+//   to natural-log units for the backward); p is packed to bf16 A
+//   fragments in registers (l sums it unrounded) and out += p v reads v
+//   with ldmatrix.trans;
 // - dq: q, do, lse and delta stay resident, k and v stream in;
 //   s = q k^T and dp = do v^T read k and v with ldmatrix, ds is packed
 //   to bf16 A fragments in registers and dq += ds k reads k with
@@ -54,29 +65,31 @@
 //   the transposed form s^T = k q^T and dp^T = v do^T, so p^T and ds^T
 //   are packed to A fragments in registers and dv += p^T do and
 //   dk += ds^T q read do and q with ldmatrix.trans. p and ds never make
-//   a round trip through shared memory;
+//   a round trip through shared memory in any of the three;
+// - causal forward and dq blocks run the last q tiles (the longest
+//   rows) first; only tiles that cross the diagonal or kv_len evaluate
+//   the mask;
 // - the operands' rows must start on 16-byte boundaries (the wrapper
 //   checks it and raises otherwise).
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, at
 // the Llama step's [4, 2048, 32, 64] bf16 causal: dq 0.509 ms and dk/dv
 // 0.699 ms (the CUDA-core pair before them: 6.233 + 7.153), about 200
-// TFLOP/s or 20% of the operation bound, 1.84x the time of SDPA's whole
-// backward in the same run; at GPT's [8, 1024, 16, 64] 0.163 + 0.214 ms.
-// ptxas at D = 64: dq 128 registers, dk/dv 166, no spills.
+// TFLOP/s; the forward's figures are in PERF.md (the CUDA-core forward
+// before it: 3.458 ms).
 //
-// The forward, and the backward on f32 operands, keep the first
-// design: every product as f32 FMAs from shared memory on the CUDA
-// cores. One block of 256 threads; tiles staged as f32 with a row pitch
-// of D + 1 floats, so row-wise and column-wise reads are free of bank
-// conflicts; thread (ty, tx) = (tid / 16, tid % 16) owns tile rows
-// ty + 16 i and columns tx + 16 j; row statistics reduce over the 16
-// lanes of a half-warp with shuffles; online softmax (m, l, acc) in f32
-// registers, masked scores hold NEG_INF and their probabilities are
-// zeroed, lse = m + log(max(l, 1e-30)), out = acc / max(l, 1e-30), as
-// primitives.py finalizes. f32 attention stays off the tensor cores:
-// TF32 keeps 10 bits of mantissa, and the f32 path is held to 2^-16 of
-// its plain version; no train step runs attention in f32. The forward's
-// redesign for tensor cores is the next kernel step.
+// f32 operands keep the first design: every product as f32 FMAs from
+// shared memory on the CUDA cores (flash_fwd_simt_kernel and the two
+// *_simt_kernel backward passes). One block of 256 threads; tiles staged
+// as f32 with a row pitch of D + 1 floats, so row-wise and column-wise
+// reads are free of bank conflicts; thread (ty, tx) = (tid / 16, tid % 16)
+// owns tile rows ty + 16 i and columns tx + 16 j; row statistics reduce
+// over the 16 lanes of a half-warp with shuffles; online softmax
+// (m, l, acc) in f32 registers, masked scores hold NEG_INF and their
+// probabilities are zeroed, lse = m + log(max(l, 1e-30)),
+// out = acc / max(l, 1e-30), as primitives.py finalizes. f32 attention
+// stays off the tensor cores: TF32 keeps 10 bits of mantissa, and the
+// f32 path is held to 2^-16 of its plain version; no train step runs
+// attention in f32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -172,7 +185,7 @@ __device__ __forceinline__ int kv_tiles_for(const Args& a, int q0) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS) flash_fwd_simt_kernel(Args a) {
   constexpr int P = D + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
@@ -649,6 +662,225 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* base,
   }
 }
 
+// m16 row tiles each warp of the forward owns: 2 (a 128-row q tile a
+// block, every k and v fragment feeding two products and each k/v tile
+// read from L2 half as often) up to D = 64, where the registers allow
+template <int D>
+__host__ __device__ constexpr int fwd_wm() { return D <= 64 ? 2 : 1; }
+
+// k/v stages of the forward: the copies of the next stages - 1 tiles
+// are in flight while one is computed. 3 up to D = 64 (72 KB a block at
+// D = 64, 2 blocks an SM), 2 above (a third would leave one block an SM)
+template <int D>
+__host__ __device__ constexpr int fwd_stages() { return D <= 64 ? 3 : 2; }
+
+template <int D>
+constexpr size_t fwd_smem() {               // q; the stages of k, v
+  return sizeof(bf16) * (size_t)(fwd_wm<D>() + 2 * fwd_stages<D>()) *
+         MMA_ROWS * (D + 8);
+}
+
+// out = softmax(q k^T * scale) v over the live kv tiles, online, with
+// lse = m + log(l). One block: 64 * WM q rows of one (batch, head); q
+// stays in shared memory (its A fragments are reloaded each tile, which
+// frees the registers of the second row tile), k and v stream through a
+// ring of
+// fwd_stages tiles with one barrier a tile. Scores live
+// in the log2 domain (s * scale * log2 e, m likewise) so each exp is one
+// exp2f; lse goes back to natural-log units at the end.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_kernel(Args a) {
+  constexpr int WM = fwd_wm<D>();
+  constexpr int FWD_STAGES = fwd_stages<D>();
+  constexpr int BQ = WM * MMA_ROWS;         // q rows a block
+  constexpr int P = D + 8;
+  constexpr int BK = MMA_ROWS;
+  constexpr int NS = BK / 8;                // n-tiles of s
+  constexpr int ND = D / 8;                 // n-tiles of out
+  constexpr int KD = D / 16;                // k-steps of q k^T
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_mma);
+  bf16* Ks = Qs + BQ * P;                   // FWD_STAGES stages
+  bf16* Vs = Ks + FWD_STAGES * BK * P;      // FWD_STAGES stages
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // the heaviest causal tiles (last q rows) are scheduled first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+
+  int n_tiles = (a.kv_len + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+
+  // one copy group a tile (q rides with tile 0)
+  auto load_kv = [&](int jt) {
+    const int st = jt % FWD_STAGES;
+    load_tile_async<BK, D>(Ks + st * BK * P, k, a.sk, b, h, jt * BK, a.Skv);
+    load_tile_async<BK, D>(Vs + st * BK * P, v, a.sv, b, h, jt * BK, a.Skv);
+  };
+  load_tile_async<BQ, D>(Qs, q, a.sq, b, h, q0, a.Sq);
+#pragma unroll
+  for (int jt = 0; jt < FWD_STAGES - 1; ++jt) {
+    if (jt < n_tiles) load_kv(jt);
+    cp_async_commit();
+  }
+
+  // this lane's rows in row tile mt: mt * 64 + r and + 8, r below
+  const int r = warp * 16 + (lane >> 2);
+  int qpos[WM][2];
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+    qpos[mt][0] = q0 + mt * MMA_ROWS + r;
+    qpos[mt][1] = qpos[mt][0] + 8;
+  }
+  const float scale_log2 = a.scale * LOG2E;
+  // m2: the row max in log2 units (the same in the 4 lanes of a quad);
+  // l: this lane's share of the row sum, reduced over the quad at the end
+  float m2[WM][2], l[WM][2], acc[WM][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m2[mt][i] = NEG_INF;
+      l[mt][i] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  }
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    cp_async_wait<FWD_STAGES - 2>();        // tile jt (and q) has landed
+    __syncthreads();                        // ... and tile jt - 1 is done
+    if (jt + FWD_STAGES - 1 < n_tiles) load_kv(jt + FWD_STAGES - 1);
+    cp_async_commit();
+    const int stage = jt % FWD_STAGES;
+    const bf16* Kt = Ks + stage * BK * P;
+    const bf16* Vt = Vs + stage * BK * P;
+
+    // s = q k^T: 16 x 64 per row tile
+    float s[WM][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[WM][4];
+#pragma unroll
+      for (int mt = 0; mt < WM; ++mt)
+        ldsm_x4(qa[mt], a_addr(Qs, P, mt * MMA_ROWS + warp * 16, kk * 16,
+                               lane));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, bt_addr(Kt, P, np * 16, kk * 16, lane));
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt) {
+          mma_bf16(s[mt][2 * np], qa[mt], kb[0], kb[1]);
+          mma_bf16(s[mt][2 * np + 1], qa[mt], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // the online softmax; only tiles that cross the diagonal or kv_len
+    // evaluate the mask, and a masked score holds NEG_INF. The row max is
+    // taken on the raw scores (scale > 0), the exponent is one fma.
+    const int k0 = jt * BK;
+    const bool masked = k0 + BK > a.kv_len || (a.causal && k0 + BK - 1 > q0);
+    uint32_t pa[WM][BK / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt) {
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (masked) {
+            const int kpos = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
+            const bool ok = kpos < a.kv_len &&
+                            (!a.causal || qpos[mt][e >> 1] >= kpos);
+            s[mt][n][e] = ok ? s[mt][n][e] : NEG_INF;
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][n][e]);
+        }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        // a row with no valid score yet keeps m2 = NEG_INF
+        const float m_new = fmaxf(m2[mt][i],
+                                  mx[i] == NEG_INF ? NEG_INF
+                                                   : mx[i] * scale_log2);
+        corr[i] = exp2f(m2[mt][i] - m_new);
+        m2[mt][i] = m_new;
+        l[mt][i] *= corr[i];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] *= corr[e >> 1];
+
+      // p, summed unrounded into l, rounded to bf16 A fragments for p v
+      // (a masked score is forced to 0: exp2 of NEG_INF - NEG_INF is 1)
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = exp2f(fmaf(s[mt][n][e], scale_log2, -m2[mt][e >> 1]));
+          if (masked && s[mt][n][e] == NEG_INF) p[e] = 0.f;
+          l[mt][e >> 1] += p[e];
+        }
+        pa[mt][n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[mt][n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+    }
+
+    // out += p . v
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+      for (int dp2 = 0; dp2 < ND / 2; ++dp2) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, b_addr(Vt, P, j * 16, dp2 * 16, lane));
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt) {
+          mma_bf16(acc[mt][2 * dp2], pa[mt][j], vb[0], vb[1]);
+          mma_bf16(acc[mt][2 * dp2 + 1], pa[mt][j], vb[2], vb[3]);
+        }
+      }
+  }
+
+  bf16* out = static_cast<bf16*>(a.out);
+  constexpr float LN2 = 0.6931471805599453f;
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[mt][i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int qp = qpos[mt][i];
+      if (qp >= a.Sq) continue;
+      const float lf = fmaxf(li, 1e-30f);
+      bf16* row = out + (((long long)b * a.Sq + qp) * a.H + h) * D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * (lane & 3)) =
+            __floats2bfloat162_rn(acc[mt][n][2 * i] / lf,
+                                  acc[mt][n][2 * i + 1] / lf);
+      if ((lane & 3) == 0)
+        a.lse_out[(long long)bh * a.Sq + qp] = m2[mt][i] * LN2 + logf(lf);
+    }
+}
+
 template <int D>
 constexpr size_t dq_smem() {                // q, do; 2 stages of k, v
   return sizeof(bf16) * (size_t)(2 + 4) * MMA_ROWS * (D + 8);
@@ -967,8 +1199,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_kernel(Args a) {
 
 enum Which { FWD = 0, BWD_DQ = 1, BWD_DKV = 2 };
 
-// shared memory of the CUDA-core kernels (the forward; the backward on
-// f32 operands)
+// shared memory of the CUDA-core kernels (f32 operands)
 template <int D>
 constexpr size_t simt_smem(Which w) {
   return sizeof(float) *
@@ -993,17 +1224,17 @@ template <typename T, int D>
 int launch_d(Which w, const Args& a, cudaStream_t stream) {
   const int rows = w == BWD_DKV ? a.Skv : a.Sq;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // the bf16 backward pair runs on tensor cores
+    // every bf16 kernel runs on tensor cores
     if (w == BWD_DQ)
       return launch_kernel(flash_bwd_dq_kernel<D>, MMA_THREADS, dq_smem<D>(),
                            a, rows, MMA_ROWS, stream);
     if (w == BWD_DKV)
       return launch_kernel(flash_bwd_dkv_kernel<D>, MMA_THREADS,
                            dkv_smem<D>(), a, rows, MMA_ROWS, stream);
-    return launch_kernel(flash_fwd_kernel<T, D>, THREADS, simt_smem<D>(FWD),
-                         a, rows, BQ, stream);
+    return launch_kernel(flash_fwd_kernel<D>, MMA_THREADS, fwd_smem<D>(), a,
+                         rows, fwd_wm<D>() * MMA_ROWS, stream);
   } else {
-    void (*kern)(Args) = w == FWD      ? flash_fwd_kernel<T, D>
+    void (*kern)(Args) = w == FWD      ? flash_fwd_simt_kernel<T, D>
                          : w == BWD_DQ ? flash_bwd_dq_simt_kernel<T, D>
                                        : flash_bwd_dkv_simt_kernel<T, D>;
     return launch_kernel(kern, THREADS, simt_smem<D>(w), a, rows,

@@ -195,9 +195,8 @@ def _check_operands(name, q, k, v, *q_like):
     if D % 16 or not 16 <= D <= 128:
         raise ValueError(f"{name}: head dim {D} (a multiple of 16 up to "
                          "128)")
-    # The rule is the backward's, and the forward (which reads element
-    # by element) is held to it on purpose: the q, k, v it saves go to
-    # the backward, so a view the backward would refuse fails up front.
+    # All three bf16 kernels copy q, k, v (and do) rows by 16-byte
+    # cp.async, so the rule is each kernel's own.
     for t in (q, k, v) + q_like:
         if not _rows_on_16_bytes(t):
             raise ValueError(

@@ -9,7 +9,11 @@ abs-max / 127 of quantization/serving.py).
   (csrc/quant_matmul.cu, the port of the TPU kernel
   `_pallas_quant_matmul`/`_qmm_kernel`), after checking dtype, shape,
   contiguity and device, and raises on anything else. It never falls
-  back to the plain version on the card.
+  back to the plain version on the card. bf16 x runs on tensor cores
+  with the tile and split-K plan of `_plan` (cached per shape); the
+  wrapper keeps the split-K workspace and a zeroed counter buffer per
+  (device, stream), which the kernel leaves zeroed after each call.
+  f32 x runs the CUDA-core kernel.
 - On a CPU tensor it runs `quant_matmul_ref`, the plain PyTorch version
   of the same function (the reference's `_xla_quant_matmul`).
 
@@ -27,8 +31,11 @@ default.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import os
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -43,8 +50,7 @@ _IMPL_VALUES = frozenset({"xla", "pallas"})
 
 launches = 0
 
-_SUPPORTED_X = {torch.bfloat16: "quant_matmul_bf16",
-                torch.float32: "quant_matmul_f32"}
+_SUPPORTED_X = (torch.bfloat16, torch.float32)
 
 
 def _env_value() -> str:
@@ -91,22 +97,119 @@ def quant_matmul_ref(x, w_q, scale):
     return y.reshape(*lead, w_q.shape[1]).to(x.dtype)
 
 
-def _launch(x2d, w_q, scale):
+# the bf16 kernel's tile: 128 output columns a block, K in 32-row chunks
+TILE_N, TILE_K = 128, 32
+# at most this many blocks share one output tile over K: the serial
+# reduction of more partials cost more than the SMs they filled
+# (tools/torch_qmm_plan_ab.py; PERF.md, PR 5)
+MAX_SPLITS = 16
+
+
+class QmmPlan(NamedTuple):
+    bm: int                 # rows of x a block: 8, 16 or 64
+    m_tiles: int
+    n_tiles: int
+    chunks: int             # TILE_K-row chunks of K
+    chunks_per_split: int   # chunks each split's block walks
+    splits: int             # blocks that share one output tile over K
+    workspace_floats: int   # f32 partials, 0 without a split
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(M: int, K: int, N: int, sm_count: int,
+          max_splits: int = MAX_SPLITS) -> QmmPlan:
+    """Tile and split-K plan of the bf16 kernel for x [M, K] . w [K, N].
+    Decode-sized M (<= 16 rows, bound by the weight bytes) splits K over
+    enough blocks to fill one wave of `sm_count` blocks, but over no more
+    than `max_splits` a tile; split s walks chunks s * chunks_per_split
+    onwards, so every K row is read by exactly one block. Prefill M
+    (64-row tiles, bound by operations) never splits."""
+    bm = 8 if M <= 8 else 16 if M <= 16 else 64
+    m_tiles, n_tiles = math.ceil(M / bm), math.ceil(N / TILE_N)
+    chunks = math.ceil(K / TILE_K)
+    tiles = m_tiles * n_tiles
+    cps, splits = max(chunks, 1), 1
+    if bm <= 16 and tiles < sm_count and chunks > 1:
+        cps = max(1, chunks // math.ceil(sm_count / tiles))
+        if math.ceil(chunks / cps) > max_splits:
+            cps = math.ceil(chunks / max_splits)
+        splits = math.ceil(chunks / cps)
+    ws = tiles * splits * bm * TILE_N if splits > 1 else 0
+    return QmmPlan(bm, m_tiles, n_tiles, chunks, cps, splits, ws)
+
+
+_SM_COUNT: dict = {}
+_SPLIT_BUFS: dict = {}
+_ENTRIES: dict = {}
+
+
+def _sm_count(dev) -> int:
+    n = _SM_COUNT.get(dev.index)
+    if n is None:
+        n = _SM_COUNT[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
+def _split_bufs(dev, stream: int, plan: QmmPlan):
+    """The split-K workspace (f32 partials) and one int32 counter a tile,
+    kept per (device, stream) and grown as needed, so the hot path
+    allocates nothing. The counters are zero between calls (the kernel's
+    last block of each tile resets its counter); calls on one stream run
+    in order, so they share both, and calls on two streams never race."""
+    key = (dev.index, stream)
+    ws, ctr = _SPLIT_BUFS.get(key, (None, None))
+    tiles = plan.m_tiles * plan.n_tiles
+    if ws is None or ws.numel() < plan.workspace_floats:
+        ws = torch.empty(max(plan.workspace_floats, 1 << 16),
+                         dtype=torch.float32, device=dev)
+    if ctr is None or ctr.numel() < tiles:
+        ctr = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
+    _SPLIT_BUFS[key] = (ws, ctr)
+    return ws, ctr
+
+
+def _entry(name: str):
+    """The library's C entry point `name`, its ctypes signature set once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        from . import _build
+        fn = getattr(_build.load("quant_matmul"), name)
+        if name == "quant_matmul_bf16":
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn
+
+
+def _launch(x2d, w_q, scale, plan=None):
+    """Launch the kernel; `plan` overrides `_plan`'s (the split A/B tool
+    times other plans through it)."""
     global launches
-    from . import _build
-    fn_name = _SUPPORTED_X[x2d.dtype]
-    lib = _build.load("quant_matmul")
-    fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     M, K = x2d.shape
     N = w_q.shape[1]
-    y = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    with torch.cuda.device(x2d.device):
-        stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        err = fn(x2d.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                 y.data_ptr(), M, K, N, stream)
+    dev = x2d.device
+    y = torch.empty((M, N), dtype=x2d.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if x2d.dtype == torch.bfloat16:
+            plan = plan or _plan(M, K, N, _sm_count(dev))
+            ws = ctr = None
+            if plan.splits > 1:
+                ws, ctr = _split_bufs(dev, stream, plan)
+            err = _entry("quant_matmul_bf16")(
+                x2d.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), None if ws is None else ws.data_ptr(),
+                None if ctr is None else ctr.data_ptr(), M, K, N,
+                plan.bm, plan.chunks_per_split, plan.splits, stream)
+        else:
+            err = _entry("quant_matmul_f32")(
+                x2d.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), M, K, N, stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{err} at M={M} K={K} N={N}")

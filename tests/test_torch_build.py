@@ -14,6 +14,10 @@ import pytest
 from paddle_tpu_torch.kernels import _build
 
 REPORT = """\
+ptxas info    : Compiling entry function '_Z16flash_fwd_kernelILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_fwd_kernelILi64EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers
 ptxas info    : Compiling entry function '_Z19flash_bwd_dq_kernelILi64EEvv' for 'sm_90a'
 ptxas info    : Function properties for _Z19flash_bwd_dq_kernelILi64EEvv
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads

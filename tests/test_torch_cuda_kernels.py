@@ -12,6 +12,9 @@ Without a card every test here skips (decided inside the `cuda_device`
 fixture, never at import or collection time, so every pytest-xdist
 worker collects the same tests).
 """
+import importlib.util
+import pathlib
+
 import pytest
 import torch
 
@@ -40,7 +43,22 @@ def _one_torch_thread():
 # plus ragged edges the kernel masks itself
 SHAPES = [(8, 1024, 3072), (8, 1024, 1024), (8, 1024, 4096),
           (8, 4096, 1024), (8, 1024, 32768), (512, 1024, 4096),
-          (1, 64, 128), (33, 256, 96), (5, 200, 130), (17, 70, 40)]
+          (1, 64, 128), (33, 256, 96), (5, 200, 130), (17, 70, 40),
+          (16, 512, 384), (128, 4096, 1024)]
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+# the (K, N) of a decode tick's M = 8 leaves (qkv, attention-out, MLP-up,
+# MLP-down, head), as chip_smoke.py drives them: each splits K over
+# blocks but the head
+DECODE_KN = list(_chip_smoke().LEAF_KN.values())
 
 
 @pytest.fixture
@@ -84,6 +102,57 @@ def test_kernel_batched_leading_dims(cuda_device):
     assert y.shape == (2, 12, 256)
     torch.testing.assert_close(y.reshape(24, 256), qm.quant_matmul(x, w, s),
                                rtol=0, atol=0)
+
+
+def _qmm_tol(x, w, s, ref):
+    # one bf16 output rounding apart at most, plus the f32 summation-order
+    # difference over K
+    absprod = (x.float().abs() @ w.float().abs()) * s
+    return 2.0 ** -7 * ref.float().abs() + x.shape[1] * 2.0 ** -24 * absprod
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 1024, 1024), (5, 200, 130),
+                                   (67, 96, 48), (16, 70, 40)])
+def test_kernel_masked_path_on_unaligned_operands(cuda_device, M, K, N):
+    """A weight or an x whose rows are off 16 bytes takes the kernel's
+    masked loads (still the kernel, one launch), within tolerance."""
+    x, w, s = _operands(M, K, N, torch.bfloat16, cuda_device, seed=4)
+    wbuf = torch.empty(K * N + 16, dtype=torch.int8, device=cuda_device)
+    w_off = wbuf[1:1 + K * N].view(K, N)
+    w_off.copy_(w)
+    xbuf = torch.empty(M * K + 8, dtype=torch.bfloat16, device=cuda_device)
+    x_off = xbuf[1:1 + M * K].view(M, K)
+    x_off.copy_(x)
+    assert w_off.data_ptr() % 16 and x_off.data_ptr() % 16
+    ref = qm.quant_matmul_ref(x, w, s)
+    for xi, wi in ((x, w_off), (x_off, w), (x_off, w_off)):
+        before = qm.launches
+        y = qm.quant_matmul(xi, wi, s)
+        assert qm.launches == before + 1
+        torch.cuda.synchronize()
+        assert bool(((y.float() - ref.float()).abs()
+                     <= _qmm_tol(x, w, s, ref)).all())
+
+
+@pytest.mark.parametrize("K,N", DECODE_KN)
+def test_kernel_same_bits_twice_at_decode(cuda_device, K, N):
+    """Split-K with a fixed reduction order: two calls give the same bits;
+    two calls back to back on one stream share the tile counters (the
+    last block of each tile resets its counter), so a second input right
+    behind the first gets its own right answer."""
+    x, w, s = _operands(8, K, N, torch.bfloat16, cuda_device, seed=5)
+    x2 = torch.randn_like(x.float()).to(torch.bfloat16)
+    first = qm.quant_matmul(x, w, s)
+    other = qm.quant_matmul(x2, w, s)
+    second = qm.quant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    for xi, y in ((x, first), (x2, other)):
+        ref = qm.quant_matmul_ref(xi, w, s)
+        assert bool(((y.float() - ref.float()).abs()
+                     <= _qmm_tol(xi, w, s, ref)).all())
+    for _, ctr in qm._SPLIT_BUFS.values():
+        assert int(ctr.abs().sum()) == 0
 
 
 def test_wrapper_raises_on_bad_operands(cuda_device):
@@ -179,6 +248,41 @@ def test_flash_kernels_match_plain_versions(cuda_device, B, Sq, Skv, H, D,
         assert _close_to_plain(g, r, dtype)
 
 
+@pytest.mark.parametrize("causal,kv_len", [(True, None), (False, None),
+                                           (True, 100), (False, 70)])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_flash_forward_bf16_at_every_head_dim(cuda_device, D, causal,
+                                              kv_len):
+    """The tensor-core forward at each instantiated head width, on GPT's
+    strided q/k/v views, a ragged Sq (131 rows: two 128-row q tiles up to
+    D = 64, three 64-row tiles above, the last mostly padding), with and
+    without the causal mask and kv_len."""
+    q, k, v, _ = _flash_operands(2, 131, 131, 3, D, torch.bfloat16,
+                                 cuda_device, seed=D)
+    assert q.stride(1) == 3 * 3 * D                # a view of one qkv
+    before = fa.launches["flash_fwd"]
+    out, lse = fa.mha_fwd(q, k, v, causal=causal, kv_len=kv_len)
+    assert fa.launches["flash_fwd"] == before + 1
+    r_out, r_lse = fa.mha_fwd_ref(q, k, v, causal, kv_len)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
+    assert bool(torch.isfinite(out).all())
+    assert _close_to_plain(out, r_out, torch.bfloat16)
+    assert (lse - r_lse).abs().max() <= 1e-3
+
+
+def test_flash_forward_is_deterministic(cuda_device):
+    """Each output row is written once by one block: the same bits twice."""
+    q, k, v, _ = _flash_operands(2, 1000, 1000, 4, 64, torch.bfloat16,
+                                 cuda_device, seed=6)
+    first = fa.mha_fwd(q, k, v, causal=True, kv_len=900)
+    second = fa.mha_fwd(q, k, v, causal=True, kv_len=900)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0].view(torch.int16),
+                       second[0].view(torch.int16))
+    assert torch.equal(first[1], second[1])
+
+
 def test_flash_autograd_function_launches_the_kernels(cuda_device):
     q, k, v, do = _flash_operands(2, 128, 128, 2, 64, torch.bfloat16,
                                   cuda_device, seed=1)
@@ -267,13 +371,8 @@ def test_spill_check_reads_a_prebuilt_library(cuda_device, monkeypatch):
     """chip_smoke.py's spill check holds when an earlier process built
     the attention library: the ptxas report is read back from beside the
     cached library, and the D = 64 backward pair shows no spills."""
-    import importlib.util
-    import pathlib
     from paddle_tpu_torch.kernels import _build
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     _build.build("flash_attention")
     monkeypatch.setattr(_build, "build_logs", {})
     _build.build("flash_attention")

@@ -4,8 +4,9 @@
     python3 tools/torch_flash_bwd_quick.py
 
 Builds csrc/flash_attention.cu alone (nvcc, sm_90a, or the cached
-library), prints the -Xptxas -v lines of the backward kernels, fails if
-the D = 64 pair spills, then runs chip_smoke.py's phase 2b
+library), prints the -Xptxas -v lines of the bf16 tensor-core kernels
+(forward, dq, dk/dv), fails if one of them spills at D = 64, then runs
+chip_smoke.py's phase 2b
 (`attention_check`: the kernels against their plain versions, the same
 bits twice, and their times beside SDPA's at ATTN_SHAPES). A short call
 for iterating on the attention kernels; chip_smoke.py is the full
@@ -29,7 +30,7 @@ def main():
     _build.build("flash_attention")
     report = _build.build_logs["flash_attention"]["ptxas"]
     for line in cs.ptxas_summary(report):
-        if "bwd" in line:
+        if "simt" not in line:
             print(line)
     cs.check_no_spills(report)
     print(cs.card_line())
