@@ -8,7 +8,8 @@ continuous batching): requests join and leave the running batch between
 decode ticks.
 
 - **Slot pool.** N decode slots backed by one stacked KV cache
-  {"k","v": [L, N, max_len, H, hd]} on the device, written in place.
+  {"k","v": [L, N, max_len, heads, hd]} on the device, written in place:
+  GPT caches its H heads, Llama its KV heads.
 - **One decode tick.** Every tick advances all N slots one token: the
   per-row-position cached forward runs the N current tokens as one
   batch, and greedy or temperature/top-k sampling happens on the device.
@@ -27,7 +28,9 @@ decode ticks.
 - **Weight-only int8.** quant="int8" rewrites the params tree at build
   (quantization/serving.py); the forward picks the int8 pairs up from
   the tree and every block matmul and the head run the hand-written
-  Hopper kernel (kernels/quant_matmul.py) on the card.
+  Hopper kernel (kernels/quant_matmul.py) on the card: per full pass,
+  the family's quantized leaves per layer times the depth, plus the
+  head (GPT 4 L + 1, Llama 7 L + 1).
 
 Sampled streams cannot match the reference bit for bit (it draws with
 threefry). The invariant is kept instead: a request's sampled stream
@@ -117,9 +120,9 @@ def family_for(name: str) -> ModelFamily:
         from ..models import gpt
         return ModelFamily("gpt", gpt.gpt_forward_cached, gpt.init_kv_cache)
     if name == "llama":
-        raise NotImplementedError(
-            "the llama family is not ported yet (ROADMAP A4: Llama "
-            "serving)")
+        from ..models import llama
+        return ModelFamily("llama", llama.llama_forward_cached,
+                           llama.init_kv_cache)
     raise ValueError(f"unknown model family {name!r} (gpt|llama)")
 
 
@@ -302,8 +305,9 @@ class ServingEngine:
         if self.max_len > cfg.max_seq_len:
             raise ValueError(
                 f"max_len ({self.max_len}) exceeds the model's "
-                f"max_seq_len ({cfg.max_seq_len}): position embeddings "
-                "beyond the table would clamp, not error")
+                f"max_seq_len ({cfg.max_seq_len}): positions past it "
+                "would clamp to GPT's position table or leave Llama's "
+                "trained RoPE range, not error")
         self.max_top_k = int(max_top_k)
         self.seed = int(seed)
         self.bucket_lo = int(bucket_lo)
@@ -311,7 +315,7 @@ class ServingEngine:
         # weight-only int8: a leaf rewrite at build, before the upload,
         # so the dropped fp matmul weights never reach the card
         from ..kernels.quant_matmul import resolve_quant
-        self.quant = resolve_quant(quant)
+        self.quant = resolve_quant(quant, self.device)
         self._quant_info = None
         if self.quant:
             from ..quantization.serving import quantize_serving_params

@@ -20,13 +20,13 @@ abs-max / 127 of quantization/serving.py).
 `launches` counts kernel launches; it moves only where the kernel is
 launched, so a run can show that its path went through the kernel.
 
-Selection and the kill switch follow the reference: env
-PADDLE_TPU_QUANT off-values disable weight-only quant even for engines
-built with quant="int8"; on-values and the impl names 'xla'/'pallas'
-enable it; anything else warns on stderr and counts as off (a typo must
-kill, not enable). Without the env var the default is off. The port has
-no kernel registry yet, so no adopted winner sits between env and
-default.
+Selection and the kill switch follow the reference
+(paddle_tpu/kernels/quant_matmul.py:91-103): env PADDLE_TPU_QUANT >
+the registry's winner for "quant_matmul" at the backend class of the
+engine's device (kernels/registry.py) > off. Env off-values disable
+weight-only quant even for engines built with quant="int8"; on-values
+and the impl names 'xla'/'pallas' enable it; anything else warns on
+stderr and counts as off (a typo must kill, not enable).
 """
 from __future__ import annotations
 
@@ -71,14 +71,22 @@ def _env_value() -> str:
     return "off"
 
 
-def quant_impl() -> str:
-    """Selector: env PADDLE_TPU_QUANT > 'off'."""
-    return _env_value() or "off"
+def quant_impl(device=None) -> str:
+    """Selector: env PADDLE_TPU_QUANT > registry winner ('quant_matmul',
+    the backend class of `device`; with none, "cuda" when a card is
+    present) > 'off'. Re-read at each engine build."""
+    env = _env_value()
+    if env:
+        return env
+    from . import registry
+    return registry.winner("quant_matmul",
+                           backend=registry.backend_class(device)) or "off"
 
 
-def resolve_quant(knob: str) -> bool:
-    """Engine-build resolution of the quant knob ('auto'|'off'|'int8').
-    An env off value disables quantization even for knob='int8'."""
+def resolve_quant(knob: str, device=None) -> bool:
+    """Engine-build resolution of the quant knob ('auto'|'off'|'int8')
+    for an engine on `device`. An env off value disables quantization
+    even for knob='int8'."""
     if _env_value() == "off":
         return False
     if knob == "off":
@@ -86,7 +94,7 @@ def resolve_quant(knob: str) -> bool:
     if knob == "int8":
         return True
     if knob == "auto":
-        return quant_impl() != "off"
+        return quant_impl(device) != "off"
     raise ValueError(f"quant {knob!r} (auto|off|int8)")
 
 

@@ -1,5 +1,5 @@
-"""Model families of the port: GPT (the train step and the cached
-serving path) and Llama (the train step)."""
+"""Model families of the port: GPT and Llama, each with its train step
+and its cached serving path."""
 from .facade import GPTModel, LlamaModel, make_train_step
 from .gpt import GPTConfig, init_gpt_params, init_opt_state, train_step
 from .llama import LlamaConfig, init_llama_params

@@ -1,7 +1,8 @@
 """The model objects over the functional cores — `GPTModel` (`forward`,
-`loss`, and `generate` over a cached serving engine) and `LlamaModel`
-(`forward`) on one leaf-holding base, `FacadeModel` — and
-`make_train_step`, which makes the train-step callable.
+`loss`) and `LlamaModel` (`forward`), each with `generate` over its
+family's cached serving engine, on one leaf-holding base,
+`FacadeModel` — and `make_train_step`, which makes the train-step
+callable.
 
 Counterpart of paddle_tpu/models/facade.py (`make_train_step` :95,
 `FacadeModel` :515 with its `generate`), paddle_tpu/models/gpt.py
@@ -116,8 +117,9 @@ class GPTModel(FacadeModel):
 
 
 class LlamaModel(FacadeModel):
-    """`forward` only, as the reference's LlamaModel; `generate` raises
-    NotImplementedError until Llama serving is ported (ROADMAP A4)."""
+    """`forward`, as the reference's LlamaModel, and `generate` over the
+    Llama serving engine (grouped KV cache; weight-only int8 with
+    quant="int8")."""
     _init_fn = staticmethod(init_llama_params)
     _serving_family = "llama"
 

@@ -340,9 +340,11 @@ def _cached_attention(x, params_l, kc, vc, pos, cfg, qmm=quant_matmul):
 
 
 def _position_embedding(wpe, pos, B: int, T: int, device):
-    """A scalar pos slices T rows with the start clamped to the table
-    (dynamic_slice semantics); a per-row pos [B] gathers with indices
-    clipped to the table (take(mode="clip") semantics)."""
+    """Rows of a position table (GPT's wpe, Llama's RoPE tables) for T
+    tokens at `pos`. A scalar pos slices T rows with the start clamped
+    to the table (dynamic_slice semantics) -> [1, T, ...]; a per-row pos
+    [B] gathers with indices clipped to the table (take(mode="clip")
+    semantics) -> [B, T, ...]."""
     n = wpe.shape[0]
     if not isinstance(pos, torch.Tensor) or pos.dim() == 0:
         start = min(max(int(pos), 0), n - T)

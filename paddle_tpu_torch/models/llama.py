@@ -1,5 +1,6 @@
-"""Llama-family decoder, the training half: RMSNorm, RoPE, grouped-query
-attention and SwiGLU over stacked per-layer leaves.
+"""Llama-family decoder: RMSNorm, RoPE, grouped-query attention and
+SwiGLU over stacked per-layer leaves; the train step and the cached
+(serving) forward.
 
 Counterpart of paddle_tpu/models/llama.py: `LlamaConfig` (:44),
 `init_llama_params` (:103, the same leaf names, stacked [L, ...] shapes
@@ -7,7 +8,9 @@ and init scales, so a JAX params tree converts one to one with
 models/convert.py), `_rmsnorm` (:127), `_rope_tables` (:133),
 `_apply_rope` (:140), `_block` (:161), `llama_forward` (:190),
 `llama_loss` (:207) and `train_step` (:217), which shares the GPT step's
-update rule (models/gpt.py apply_adamw).
+update rule (models/gpt.py apply_adamw); the serving half
+`init_kv_cache` (:235), `llama_forward_cached` (:243) and
+`greedy_generate` (:339).
 
 The reference scans the stacked leaves with lax.scan and wraps each
 block in a full jax.checkpoint when cfg.remat (:196-197); here a Python
@@ -26,14 +29,27 @@ take equal head counts, as the reference does (:171-174).
 `_attention` and `llama_loss` look `flash_attention_fn` and
 `fused_softmax_ce` up in this module's namespace at each call, so the
 same step runs on the kernels' plain versions once those two names are
-rebound (chip_smoke.py does). The cached serving half (`init_kv_cache`,
-`llama_forward_cached`, `greedy_generate`) is ROADMAP A4. The
-single-GPU path has no mesh, so the reference's sharding constraints
-have nothing to pin and are not carried.
+rebound (chip_smoke.py does). The single-GPU path has no mesh, so the
+reference's sharding constraints have nothing to pin and are not
+carried.
+
+The cached forward keeps the reference's dense layout: a cache of KV
+heads {"k","v": [L, B, max_len, KV, hd]}, written in place
+(kernels/decode_attention.write_kv), and grouped masked attention over
+it that never repeats KV (cached_attention folds the group axis). RoPE
+runs at absolute positions from tables built over the cache length; a
+scalar `pos` slices them with the start clamped (dynamic_slice), a [B]
+`pos` gathers with indices clamped to the table (take(mode="clip")), so
+a row parked past the cache ropes at the last position instead of
+raising. Every block matmul goes through leaf_matmul, so an int8 tree
+(quantization/serving.py) runs the fused dequant-matmul, the tied head
+too (`head_q`); `qmm=` swaps that matmul for its plain version, as
+gpt_forward_cached's does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional
 
@@ -42,12 +58,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.decode_attention import cached_attention, write_kv
 from ..kernels.flash_attention import flash_attention_fn
-from .gpt import apply_adamw, value_and_grad
+from ..kernels.quant_matmul import leaf_matmul, quant_matmul
+from .gpt import _position_embedding, apply_adamw, value_and_grad
 from .losses import fused_softmax_ce
 
 __all__ = ["LlamaConfig", "init_llama_params", "llama_forward",
-           "llama_loss", "loss_and_grads", "train_step"]
+           "llama_loss", "loss_and_grads", "train_step", "init_kv_cache",
+           "llama_forward_cached", "greedy_generate"]
 
 
 @dataclasses.dataclass
@@ -124,23 +143,32 @@ def _rmsnorm(x, scale, eps):
     return (xf * r * scale.float()).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
 def _rope_tables(seq: int, hd: int, theta: float, device=None):
-    """(cos, sin) [S, hd/2] f32: the half-dim frequency ladder."""
-    inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
-                                        device=device) / hd))
-    ang = torch.arange(seq, dtype=torch.float32, device=device)[:, None] \
-        * inv[None, :]
-    return torch.cos(ang), torch.sin(ang)
+    """(cos, sin) [S, hd/2] f32: the half-dim frequency ladder. Built
+    once per (seq, hd, theta, device), as the reference's are at trace
+    time; callers only read them."""
+    with torch.inference_mode(False):
+        inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                            device=device) / hd))
+        ang = torch.arange(seq, dtype=torch.float32,
+                           device=device)[:, None] * inv[None, :]
+        return torch.cos(ang), torch.sin(ang)
 
 
 def _apply_rope(x, cos, sin):
-    """x [B, S, H, hd]; rotate interleaved pairs by the position angle of
-    cos/sin [S, hd/2] (positions shared by every row)."""
+    """x [B, S, H, hd]; rotate interleaved pairs by the position angle.
+    cos/sin are [S, hd/2] (positions shared by every row) or
+    [B, S, hd/2] (per-row positions: the serving engine's slot decode)."""
     B, S, H, hd = x.shape
     xf = x.float().reshape(B, S, H, hd // 2, 2)
     x1, x2 = xf[..., 0], xf[..., 1]
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
+    if cos.dim() == 2:
+        c = cos[None, :, None, :]
+        s = sin[None, :, None, :]
+    else:
+        c = cos[:, :, None, :]
+        s = sin[:, :, None, :]
     rot = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], -1)
     return rot.reshape(B, S, H, hd).to(x.dtype)
 
@@ -209,3 +237,75 @@ def train_step(params, opt_state, batch, cfg: LlamaConfig, lr=3e-4,
     loss, grads = loss_and_grads(params, batch, cfg)
     apply_adamw(grads, params, opt_state, lr, **adamw_kw)
     return loss, params, opt_state
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, device=None):
+    """-> {"k","v": [L, B, max_len, KV, hd]} in the activation dtype: the
+    cache holds KV heads, not query heads."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def llama_forward_cached(params, tokens, cache, pos, cfg: LlamaConfig,
+                         layers: Optional[int] = None, qmm=quant_matmul):
+    """Forward `tokens` [B, T] against a cache holding `pos` tokens (a
+    scalar, or a [B] tensor of per-row slot positions) -> (logits
+    [B, T, V], cache), the cache updated in place. `qmm` is the
+    dequant-matmul of int8 trees: the kernel wrapper by default, or the
+    plain version where a caller wants the forward without the kernel.
+    The reference's `layers=` draft slice (speculative decode) is not
+    ported."""
+    if layers is not None:
+        raise NotImplementedError(
+            "llama_forward_cached(layers=): the speculative-decode draft "
+            "slice is not ported yet (ROADMAP A5)")
+    B, T = tokens.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = params["wte"][tokens.long()].to(cfg.dtype)
+    # RoPE over the cache's positions, taken at `pos` with the clamps of
+    # GPT's position embedding: [1, T, hd/2] or [B, T, hd/2]
+    cos_full, sin_full = _rope_tables(cache["k"].shape[2], hd,
+                                      cfg.rope_theta, x.device)
+    cos = _position_embedding(cos_full, pos, B, T, x.device)
+    sin = _position_embedding(sin_full, pos, B, T, x.device)
+    keys = _BLOCK_KEYS + tuple(
+        k2 for k in _BLOCK_KEYS for k2 in (k + "_q", k + "_scale"))
+    stacked = {k: params[k] for k in keys if k in params}
+    eps = cfg.rms_eps
+    for layer in range(cfg.num_layers):
+        lp = {k: v[layer] for k, v in stacked.items()}
+        kc, vc = cache["k"][layer], cache["v"][layer]
+        h = _rmsnorm(x, lp["attn_norm"], eps)
+        q = leaf_matmul(h, lp, "q_w", qmm).reshape(B, T, H, hd)
+        k = leaf_matmul(h, lp, "k_w", qmm).reshape(B, T, KV, hd)
+        v = leaf_matmul(h, lp, "v_w", qmm).reshape(B, T, KV, hd)
+        write_kv(kc, _apply_rope(k, cos, sin), pos)
+        write_kv(vc, v, pos)
+        ctx = cached_attention(_apply_rope(q, cos, sin), kc, vc, pos)
+        x = x + leaf_matmul(ctx.reshape(B, T, H * hd).to(x.dtype), lp,
+                            "o_w", qmm)
+        h = _rmsnorm(x, lp["ffn_norm"], eps)
+        gated = F.silu(leaf_matmul(h, lp, "gate_w", qmm)) * \
+            leaf_matmul(h, lp, "up_w", qmm)
+        x = x + leaf_matmul(gated, lp, "down_w", qmm)
+    x = _rmsnorm(x, params["norm_f"], eps)
+    if "head_q" in params:
+        # the tied head's transposed int8 copy; `wte` stays fp for the
+        # embedding (quantization/serving.py)
+        logits = qmm(x, params["head_q"], params["head_scale"])
+    else:
+        logits = torch.einsum("bsd,vd->bsv", x, params["wte"].to(x.dtype))
+    return logits, cache
+
+
+def greedy_generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int,
+                    max_len: Optional[int] = None, qmm=quant_matmul):
+    """Greedy decode through the grouped KV cache (models/decode.py).
+    prompt [B, T0] -> [B, T0 + max_new_tokens]."""
+    from .decode import greedy_generate_with
+    return greedy_generate_with(
+        functools.partial(llama_forward_cached, qmm=qmm), init_kv_cache,
+        params, prompt, cfg, max_new_tokens, max_len)

@@ -59,6 +59,8 @@ def _chip_smoke():
 # MLP-down, head), as chip_smoke.py drives them: each splits K over
 # blocks but the head
 DECODE_KN = list(_chip_smoke().LEAF_KN.values())
+# Llama's at TinyLlama widths (q/o, k/v, gate/up, down, head)
+LLAMA_KN = list(_chip_smoke().LLAMA_LEAF_KN.values())
 
 
 @pytest.fixture
@@ -153,6 +155,39 @@ def test_kernel_same_bits_twice_at_decode(cuda_device, K, N):
                      <= _qmm_tol(xi, w, s, ref)).all())
     for _, ctr in qm._SPLIT_BUFS.values():
         assert int(ctr.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("M", [8, 16, 128, 1024])
+@pytest.mark.parametrize("K,N", LLAMA_KN)
+def test_kernel_matches_plain_version_at_llama_leaves(cuda_device, M, K, N):
+    x, w, s = _operands(M, K, N, torch.bfloat16, cuda_device, seed=6)
+    before = qm.launches
+    y = qm.quant_matmul(x, w, s)
+    assert qm.launches == before + 1
+    ref = qm.quant_matmul_ref(x, w, s)
+    torch.cuda.synchronize()
+    assert y.shape == (M, N)
+    assert bool(((y.float() - ref.float()).abs()
+                 <= _qmm_tol(x, w, s, ref)).all())
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (M, K, N) for M in (8, 16, 128, 512) for K, N in DECODE_KN + LLAMA_KN
+] + [(1024, K, N) for K, N in LLAMA_KN])
+def test_kernel_within_the_f64_bound(cuda_device, M, K, N):
+    """Every element within one bf16 rounding of the f64 value of the
+    same inputs, plus the error of an f32 sum of K products (chip_smoke's
+    f64_oracle), on `_plan`'s plan and, where that splits K, unsplit; at
+    M 1024 (the Llama path's largest prefill bucket) on Llama's leaves."""
+    cs = _chip_smoke()
+    x, w, s = _operands(M, K, N, torch.bfloat16, cuda_device, seed=7)
+    oracle = cs.f64_oracle(torch, x, w, s)
+    sm = qm._sm_count(cuda_device)
+    plans = [qm._plan(M, K, N, sm), qm._plan(M, K, N, sm, max_splits=1)]
+    for plan in plans:
+        verdict = cs.f64_verdict(torch, qm._launch(x, w, s, plan=plan),
+                                 oracle)
+        assert verdict["ok"], (plan, verdict)
 
 
 def test_wrapper_raises_on_bad_operands(cuda_device):

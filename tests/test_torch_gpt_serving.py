@@ -265,8 +265,8 @@ def test_unported_knobs_and_families_raise(setup):
             ServingEngine(params, tc, device="cpu", **knob)
     with pytest.raises(TypeError):
         ServingEngine(params, tc, device="cpu", not_a_knob=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        family_for("llama")
+    with pytest.raises(ValueError, match="unknown model family"):
+        family_for("bert")
     eng = ServingEngine(params, tc, device="cpu", kv_layout="dense",
                         spec_decode="off", max_len=MAXLEN)
     with pytest.raises(ValueError):

@@ -15,7 +15,8 @@ from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.models import LlamaModel
 from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
-from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
+from paddle_tpu_torch.models.llama import (LlamaConfig, init_kv_cache,
+                                           init_llama_params)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -111,6 +112,11 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LlamaModel(lcfg)
     assert init_llama_params(lcfg, device="cpu")["wte"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_kv_cache(lcfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(init_llama_params(lcfg, device="cpu"), lcfg,
+                      family="llama")
 
 
 def test_version_and_device_validation():

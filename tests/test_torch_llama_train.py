@@ -271,5 +271,9 @@ def test_model_forward_and_no_serving_yet(ref):
     tokens = torch.from_numpy(ref["tokens"])
     np.testing.assert_allclose(model(tokens[:, :-1]).detach().numpy(),
                                ref["logits"], rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A4"):
-        model.generate([np.array([1, 2, 3])], 2)
+    # serving is ported: generate gives greedy_generate's stream
+    prompt = np.array([1, 2, 3])
+    got = model.generate([prompt], 4, num_slots=1, max_len=32)[0]
+    want = tl.greedy_generate(_params(ref), torch.from_numpy(prompt)[None],
+                              cfg, 4, max_len=32)[0, 3:]
+    np.testing.assert_array_equal(got, want.numpy())

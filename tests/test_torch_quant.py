@@ -172,6 +172,28 @@ def test_env_kill_switch_fails_safe(monkeypatch, capsys):
         qm.resolve_quant("fp8")
 
 
+def test_registry_winner_sits_between_env_and_default(monkeypatch):
+    from paddle_tpu_torch.kernels import registry
+    monkeypatch.delenv(qm.ENV_QUANT, raising=False)
+    asked = []
+
+    def winner(kernel, backend=None, bucket="*", path=None):
+        asked.append((kernel, backend))
+        return "pallas" if kernel == "quant_matmul" else None
+    monkeypatch.setattr(registry, "winner", winner)
+    assert qm.quant_impl("cpu") == "pallas"
+    assert qm.resolve_quant("auto", "cpu") is True     # the winner enables
+    assert asked[-1] == ("quant_matmul", "cpu")
+    assert qm.resolve_quant("off", "cpu") is False     # knob off wins
+    monkeypatch.setenv(qm.ENV_QUANT, "off")
+    assert qm.quant_impl("cpu") == "off"
+    assert qm.resolve_quant("auto", "cpu") is False    # env still kills
+    assert qm.resolve_quant("int8", "cpu") is False
+    monkeypatch.delenv(qm.ENV_QUANT)
+    monkeypatch.setattr(registry, "winner", lambda *a, **k: None)
+    assert qm.resolve_quant("auto", "cpu") is False    # no row: off
+
+
 @pytest.mark.parametrize("value", ["", "off", "0", "dense", "1", "on",
                                    "int8", "xla", "pallas", " PALLAS ",
                                    "pallsa", "enable"])

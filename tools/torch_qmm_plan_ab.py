@@ -6,11 +6,13 @@
 Builds csrc/quant_matmul.cu (or takes the cached library). For each cap
 on the splits a tile (0: no cap, the grid filled to one wave of SMs), it
 checks the kernel against its plain version and times it at M = 8 on
-each of chip_smoke.LEAF_KN's leaves, over cold weights in CUDA graphs as
-chip_smoke.py's kernel check does, and sums a decode tick's 97 calls
-(24 x the four block leaves + the head). The caps run in the given order
-and then reversed, so drift shows beside the difference. One JSON line
-per cap and pass; the card line first. These are the numbers behind
+each leaf shape of both serving paths (chip_smoke.LEAF_KN, GPT's, and
+chip_smoke.LLAMA_LEAF_KN, Llama's at TinyLlama widths), over cold
+weights in CUDA graphs as chip_smoke.py's kernel check does, and sums
+each family's decode tick (GPT 24 x 4 leaves + the head = 97 calls,
+Llama 22 x 7 + 1 = 155). The caps run in the given order and then
+reversed, so drift shows beside the difference. One JSON line per cap,
+family and pass; the card line first. These are the numbers behind
 quant_matmul.MAX_SPLITS. Exits non-zero without a card or when a check
 fails.
 """
@@ -23,12 +25,12 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def leaf_times(torch, cs, qm, dev, cap):
+def leaf_times(torch, cs, qm, dev, cap, leaf_kn):
     """{leaf: (splits, kernel ms)} at M = 8 under `cap`."""
     sm = qm._sm_count(dev)
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for leaf, (K, N) in cs.LEAF_KN.items():
+    for leaf, (K, N) in leaf_kn.items():
         plan = qm._plan(8, K, N, sm, max_splits=cap or 1 << 20)
         n_copies = max(2, math.ceil(150e6 / (K * N)))
         x = torch.randn(8, K, generator=g, device=dev).to(torch.bfloat16)
@@ -67,18 +69,22 @@ def main():
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
-    L = cs.FULL["num_layers"]
+    families = (("gpt", cs.LEAF_KN, cs.FULL["num_layers"]),
+                ("llama", cs.LLAMA_LEAF_KN, cs.LLAMA["num_layers"]))
     for n_pass, order in enumerate((caps, caps[::-1])):
         for cap in order:
-            t = leaf_times(torch, cs, qm, dev, cap)
-            tick = sum((1 if leaf == "head" else L) * ms
-                       for leaf, (_, ms) in t.items())
-            print(json.dumps({"tool": "torch_qmm_plan_ab", "pass": n_pass,
-                              "cap": cap or "one wave", "tick_ms": tick,
-                              "leaf_us": {k: round(ms * 1e3, 3) for k, (
-                                  _, ms) in t.items()},
-                              "splits": {k: s for k, (s, _) in t.items()}}),
-                  flush=True)
+            for family, leaf_kn, L in families:
+                t = leaf_times(torch, cs, qm, dev, cap, leaf_kn)
+                calls = cs.pass_calls(leaf_kn, L)
+                tick = sum(calls[leaf] * ms for leaf, (_, ms) in t.items())
+                print(json.dumps({
+                    "tool": "torch_qmm_plan_ab", "pass": n_pass,
+                    "cap": cap or "one wave", "family": family,
+                    "calls": sum(calls.values()), "tick_ms": tick,
+                    "leaf_us": {k: round(ms * 1e3, 3) for k, (
+                        _, ms) in t.items()},
+                    "splits": {k: s for k, (s, _) in t.items()}}),
+                    flush=True)
     return 0
 
 
