@@ -17,12 +17,15 @@ Phases, each failing the script (non-zero exit) when it fails:
    shape):
    - the fused int8 dequant-matmul, bf16 x, at the GPT and the Llama
      serving shapes (M = 8 slots at decode, 128 and 512 at prefill, and
-     1024, the Llama path's largest prefill bucket, at Llama's shapes;
+     at Llama's shapes 40, the spec verify pass of 8 slots x (gamma 4 +
+     1), 256, the paged prefill chunk, and 1024, the dense path's largest
+     prefill bucket;
      K, N of GPT's qkv, attention-out, MLP-up, MLP-down and head matmuls
      and of Llama's q/o, k/v, gate/up, down and head), the same bits
      twice at each, then one row for each family's decode tick (GPT's 97
      calls, Llama's 155, at M = 8 summed); then the f64 bound check: at
-     every leaf shape and M = 8, 16, 128 and 512 (and 1024 at Llama's),
+     every leaf shape and M = 8, 16, 128 and 512 (and 40, 256 and 1024 at
+     Llama's),
      on `_plan`'s plan and, where
      it splits K, unsplit too, every element of the kernel's bf16 output
      within ulp_bf16(y64) + K 2^-24 ((|x| @ |w|) scale) of the f64 value
@@ -99,6 +102,32 @@ Phases, each failing the script (non-zero exit) when it fails:
    carries two faithful roundings apart by more than one bf16 step, and
    the greedy verdict rests on the f64 bound of every int8 call of both
    replays (155 a forward).
+5c. Paged and speculative Llama serving at TinyLlama-1.1B widths, on
+   phase 5b's host-drawn weights: the int8 engine with kv_layout
+   "paged", page_size 16, prefill_chunk 256 and 513 pages (half the
+   dense-equivalent 1025), 8 slots, max_len 2048, over 16 requests of
+   64 new tokens (seed 7): a shared 512-token prefix and a suffix of
+   16..512 tokens, request 0's suffix 256 tokens (48 full pages),
+   requests 14 and 15 repeating request 0's prompt (every page mapped,
+   the last one copied), requests 3 and 11 sampled with top-k. Then a
+   dense engine on the same prompts, the paged engine with spec_decode
+   "spec", gamma 4 and draft_layers 11, and the dense one with it. Each
+   run: every request ends "length"; exactly 155 launches a prefill
+   chunk (a prefill, dense) and a tick, 155 + 4 x (11 x 7 + 1) = 467 a
+   spec tick; the page pool checked after every step (table references
+   equal refcounts, every page free, cached or live, reservations
+   conserved, no slot mapping a page past its position) and at the end
+   empty of live pages and reservations; prefix hits, COW copies and
+   chunks all > 0; tick ms p50/p90, prefill (chunk) ms p50/max,
+   tokens/s, peak memory and pages, and the acceptance rate and tokens
+   per spec tick (at random weights, which say nothing of a trained
+   model's); a tick profile of the paged and the paged spec engine.
+   Greedy streams are compared, paged against dense and each spec
+   engine against the non-spec engine of its layout; at every
+   parting both streams are replayed teacher-forced along the paths
+   that made them (a verify-shaped window for spec) and phase 5b's
+   verdict holds: every int8 call within the f64 bound, the two paths'
+   logits and each replay's own tokens within 5% of the span.
 6. The kernels line (all eight kernels), the card line, and as the last
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
    1}}.
@@ -108,6 +137,7 @@ matmul and cuDNN, so the plain versions are exact-f32 references.
 """
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -153,9 +183,11 @@ M_VALUES = (8, 128, 512)
 # rows of the f64 bound check: decode (8 slots; 16 takes the 16-row
 # tile) and prefill
 F64_M_VALUES = (8, 16, 128, 512)
-# the Llama serving path's largest prefill bucket (prompts up to 1024
-# tokens): an extra row of both checks at the Llama leaf shapes
-LLAMA_PREFILL_M = 1024
+# extra rows of both checks at the Llama leaf shapes: the paged engine's
+# spec verify pass (8 slots x (gamma 4 + 1) = 40 rows), its prefill chunk
+# (256) and the dense path's largest prefill bucket (prompts up to 1024
+# tokens)
+LLAMA_EXTRA_M = (40, 256, 1024)
 
 
 def pass_calls(leaf_kn, L):
@@ -165,17 +197,26 @@ def pass_calls(leaf_kn, L):
             for leaf in leaf_kn}
 
 
-def f64_oracle(torch, x, w_q, scale):
+def f64_oracle(torch, x, w_q, scale, weights64=None):
     """The f64 value of (x @ w_q) * scale from the same x [..., K] and
     its bound: (y64 [M, N], ulp_bf16(y64), ulp_bf16(y64) + K 2^-24
     ((|x| @ |w_q|) scale)_64). The first term is the one rounding to
     bf16; the second bounds an f32 sum of K exact products in any order,
     so an element near cancellation passes for a correct kernel, while a
-    dropped or doubled split or a wrong scale is orders past it."""
+    dropped or doubled split or a wrong scale is orders past it.
+    `weights64`, a dict, keeps each weight's f64 copy and its absolute
+    value across calls (a replay calls every weight many times)."""
     K = w_q.shape[0]
-    x64, w64, s64 = x.reshape(-1, K).double(), w_q.double(), scale.double()
-    y64 = (x64 @ w64) * s64
-    absprod = (x64.abs() @ w64.abs()) * s64
+    x64, s64 = x.reshape(-1, K).double(), scale.double()
+    key = (w_q.data_ptr(), tuple(w_q.shape))
+    pair = None if weights64 is None else weights64.get(key)
+    if pair is None:
+        w64 = w_q.double()
+        pair = (w64, w64.abs())
+        if weights64 is not None:
+            weights64[key] = pair
+    y64 = (x64 @ pair[0]) * s64
+    absprod = (x64.abs() @ pair[1]) * s64
     _, e = torch.frexp(y64.abs().clamp_min(2.0 ** -126))
     ulp = torch.ldexp(torch.ones_like(y64), e - 8)     # bf16: 8 bits
     return y64, ulp, ulp + K * 2.0 ** -24 * absprod
@@ -205,7 +246,7 @@ def qmm_f64_check(torch, qm, dev):
              "plain_max_ulps": 0.0, "plain_max_bound_share": 0.0}
     shapes = sorted(set(LEAF_KN.values()) | set(LLAMA_LEAF_KN.values()))
     llama_shapes = sorted(set(LLAMA_LEAF_KN.values()))
-    for M in F64_M_VALUES + (LLAMA_PREFILL_M,):
+    for M in F64_M_VALUES + LLAMA_EXTRA_M:
         for K, N in shapes if M in F64_M_VALUES else llama_shapes:
             x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
             w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
@@ -234,7 +275,7 @@ def qmm_f64_check(torch, qm, dev):
                     f"N={N} on the {bad} plan(s): {json.dumps(line)}")
             del x, w, s, oracle
     log(json.dumps({"phase": "qmm_f64_bound", "shapes": len(shapes),
-                    "M": F64_M_VALUES, "llama_M": LLAMA_PREFILL_M, **worst,
+                    "M": F64_M_VALUES, "llama_M": LLAMA_EXTRA_M, **worst,
                     "bound": "ulp_bf16(y64) + K*2^-24*((|x|@|w|)*scale)_64"}))
     return worst
 
@@ -301,7 +342,7 @@ def kernel_check(torch, qm, dev):
     shapes = list(LEAF_KN.values()) + [
         kn for kn in LLAMA_LEAF_KN.values() if kn not in LEAF_KN.values()]
     llama_shapes = list(dict.fromkeys(LLAMA_LEAF_KN.values()))
-    for M in M_VALUES + (LLAMA_PREFILL_M,):
+    for M in M_VALUES + LLAMA_EXTRA_M:
         for K, N in shapes if M in M_VALUES else llama_shapes:
             # cycle enough weight copies (>= 150 MB) that every call
             # finds its weight cold in the 50 MB L2, as the serving tick
@@ -1309,10 +1350,11 @@ def forced_logits(torch, qmm, qp, prompt, tokens, cfg, dev, max_len,
     return torch.stack(rows)
 
 
-def f64_checked(torch, qmm, qmm_ref, per_pass, keep=None):
+def f64_checked(torch, qmm, qmm_ref, per_pass, keep=None, weights64=None):
     """`qmm` with every call's output held to the f64 bound on its own
-    input (`f64_oracle`), the plain version (`qmm_ref`) on the same input
-    beside it. Returns (the wrapped qmm, stats): the calls, those of the
+    input (`f64_oracle`, with its `weights64` cache), the plain version
+    (`qmm_ref`; None: not run) on the same input beside it. Returns (the
+    wrapped qmm, stats): the calls, those of the
     kernel within the bound (in all and by forward, forwards counted in
     passes of `per_pass` calls), the worst ulps and bound shares of both
     versions, the first call outside the bound, and under "head" the
@@ -1325,9 +1367,10 @@ def f64_checked(torch, qmm, qmm_ref, per_pass, keep=None):
 
     def checked(x, w_q, scale):
         y = qmm(x, w_q, scale)
-        oracle = f64_oracle(torch, x, w_q, scale)
+        oracle = f64_oracle(torch, x, w_q, scale, weights64)
         kv = f64_verdict(torch, y, oracle)
-        pv = f64_verdict(torch, qmm_ref(x, w_q, scale), oracle)
+        pv = kv if qmm_ref is None else f64_verdict(
+            torch, qmm_ref(x, w_q, scale), oracle)
         fwd, call = divmod(stats["calls"], per_pass)
         if call == 0:
             stats["within_by_forward"].append(0)
@@ -1619,24 +1662,362 @@ def serving(torch, qm, dev, card):
                  per_pass)
 
 
-def llama_serving(torch, qm, dev, card):
-    """Phase 5b, Llama at TinyLlama-1.1B widths: 16 requests, prompts of
-    16..1024 tokens (seed 5), max_len 2048. Returns (launches on the
-    main path, summary dict)."""
+def llama_host_params():
+    """The TinyLlama-width config and its weights, drawn on the host from
+    seed 0 once for phases 5b and 5c (the draw takes ~15 s)."""
     from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
     cfg = LlamaConfig(**LLAMA)
     t0 = time.perf_counter()
     params = init_llama_params(cfg, seed=0, device="cpu")
-    log(f"llama_serving: host params drawn in {time.perf_counter() - t0:.1f}"
-        " s")
+    log(f"llama host params drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def llama_serving(torch, qm, dev, card, cfg, params):
+    """Phase 5b, Llama at TinyLlama-1.1B widths: 16 requests, prompts of
+    16..1024 tokens (seed 5), max_len 2048. Returns (launches on the
+    main path, summary dict)."""
     rng = np.random.default_rng(5)
     lens = rng.integers(16, 1025, size=16)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
     per_pass = sum(pass_calls(LLAMA_LEAF_KN, cfg.num_layers).values())
-    out = serve(torch, qm, dev, card, "llama", cfg, params, prompts, 2048,
-                per_pass)
-    del params
+    return serve(torch, qm, dev, card, "llama", cfg, params, prompts, 2048,
+                 per_pass)
+
+
+# phase 5c: the paged and speculative Llama engines
+PAGED = dict(kv_layout="paged", page_size=16, prefill_chunk=256,
+             num_pages=513)
+SPEC = dict(spec_decode="spec", gamma=4, draft_layers=11)
+SAMPLED = {3: (0.8, 40), 11: (1.0, 20)}
+
+
+def paged_prompts(vocab):
+    """16 prompts (seed 7): a shared 512-token prefix and a suffix of
+    16..512 tokens; request 0's suffix is 256 tokens (768 = 48 full
+    pages of 16) and requests 14 and 15 repeat request 0's prompt, so
+    their admission maps every page and copies the last one."""
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, vocab, size=512)
+    lens = rng.integers(16, 513, size=16)
+    lens[0] = 256
+    prompts = [np.concatenate([prefix, rng.integers(0, vocab, size=int(n))])
+               for n in lens]
+    prompts[14] = prompts[15] = prompts[0].copy()
+    return prompts
+
+
+def engine_forced_logits(torch, qmm, qp, prompt, tokens, cfg, dev, max_len,
+                         layout, page_size=16, chunk=256, window=0):
+    """The logits each of `tokens` is picked from on a Llama engine's own
+    path, the stream teacher-forced into a one-row cache: "dense", the
+    bucketed prefill into a bucket-long cache copied into a max_len row;
+    "paged", the prefill in `chunk`-token chunks at absolute positions
+    through a page table; then one-token steps at per-row positions.
+    With `window` > 0 the last `window` tokens come from one forward of
+    that many tokens, as a spec tick's verify pass makes them. prompt
+    [T0] and tokens on the host; returns [len(tokens), V] f32."""
+    from paddle_tpu_torch.models.decode import prompt_bucket
+    from paddle_tpu_torch.models.llama import (init_kv_cache,
+                                               llama_forward_cached)
+    T0, n = len(prompt), len(tokens)
+    window = min(window, n - 1)
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                               device=dev)[None]
+
+    def at(p):
+        return torch.tensor([p], dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        if layout == "dense":
+            tb = prompt_bucket(T0, max_len)
+            mini = init_kv_cache(cfg, 1, tb, device=dev)
+            padded = np.zeros(tb, np.int64)
+            padded[:T0] = prompt
+            lg, _ = llama_forward_cached(qp, ids(padded), mini, 0, cfg,
+                                         qmm=qmm)
+            cache = init_kv_cache(cfg, 1, max_len, device=dev)
+            for key in ("k", "v"):
+                cache[key][:, :, :tb] = mini[key]
+            last = T0 - 1
+        else:
+            mp = -(-max_len // page_size)
+            cache = init_kv_cache(cfg, mp + 1, page_size, device=dev)
+            cache["pt"] = torch.arange(1, mp + 1, device=dev)[None]
+            for start in range(0, T0, chunk):
+                clen = min(chunk, T0 - start)
+                padded = np.zeros(prompt_bucket(clen, max_len), np.int64)
+                padded[:clen] = prompt[start:start + clen]
+                lg, _ = llama_forward_cached(qp, ids(padded), cache,
+                                             at(start), cfg, qmm=qmm)
+            last = clen - 1
+        rows = [lg[0, last].float()]
+        steps = n - 1 - window
+        for i in range(steps):
+            lg, _ = llama_forward_cached(qp, ids([tokens[i]]), cache,
+                                         at(T0 + i), cfg, qmm=qmm)
+            rows.append(lg[0, -1].float())
+        if window:
+            lg, _ = llama_forward_cached(
+                qp, ids(tokens[steps:steps + window]), cache, at(T0 + steps),
+                cfg, qmm=qmm)
+            rows.extend(lg[0].float())
+    return torch.stack(rows)
+
+
+def parting_verdict(torch, qm, qp, cfg, dev, prompt, stream_a, stream_b,
+                    paths, weights64, logit_tol=0.05):
+    """Phase 5b's verdict at the first step j0 where two greedy streams
+    of one request part, each stream replayed teacher-forced (up to j0)
+    along the path that made it (`paths`: (name, engine_forced_logits
+    keywords) for stream_a's engine, then stream_b's):
+    - every int8 call of both replays within the f64 bound on its own
+      input;
+    - the two paths' logits on the common prefix within `logit_tol` of
+      the span at every step;
+    - each replay gives its own stream back, up to `logit_tol` of the
+      span: at every step its engine's token lies that close to the
+      replay's top logit (a made-up token is far outside).
+    A prompt whose prefix pages the engine shared is replayed from its
+    first token, as the donor computed those pages. `weights64` is
+    f64_oracle's cache. Returns the report; report["ok"] says whether it
+    passed."""
+    j0 = next(j for j in range(len(stream_a)) if stream_a[j] != stream_b[j])
+    per_pass = sum(pass_calls(LLAMA_LEAF_KN, cfg.num_layers).values())
+    out = {"step": j0, "tokens": [stream_a[j0], stream_b[j0]]}
+    logits = []
+    ok = True
+    for (name, kw), stream in zip(paths, (stream_a, stream_b)):
+        checked, f64 = f64_checked(torch, qm.quant_matmul, None, per_pass,
+                                   weights64=weights64)
+        lg = engine_forced_logits(torch, checked, qp, prompt,
+                                  stream[:j0 + 1], cfg, dev, 2048, **kw)
+        logits.append(lg)
+        own = lg.gather(1, torch.as_tensor(stream[:j0 + 1],
+                                           device=lg.device)[:, None])[:, 0]
+        behind = float(((lg.amax(-1) - own) / lg.abs().amax(-1)).max())
+        f64_ok = f64["kernel_calls_within_bound"] == f64["calls"]
+        ok &= f64_ok and behind <= logit_tol
+        hi = float(lg[j0].abs().max())
+        out[name] = {"calls": f64["calls"], "f64_ok": f64_ok,
+                     "kernel_max_bound_share": f64["kernel_max_bound_share"],
+                     "own_token_behind_top_over_span": behind,
+                     "logits_at_parting": [float(lg[j0, t])
+                                           for t in out["tokens"]],
+                     "gap_bf16_steps": abs(float(lg[j0, stream_a[j0]]
+                                                 - lg[j0, stream_b[j0]]))
+                     / (2.0 ** -7 * hi)}
+    la, lb = logits
+    err = float(((la - lb).abs().amax(-1) / lb.abs().amax(-1)).max())
+    out["logit_err_over_span"] = err
+    out["ok"] = ok and err <= logit_tol
     return out
+
+
+def compare_streams(torch, qm, qp, cfg, dev, prompts, got, want, label,
+                    paths):
+    """Greedy streams of two engines on the same prompts: how many agree
+    token for token, and phase 5b's verdict at every parting. Raises
+    unless every parting passes."""
+    greedy = [i for i in range(len(prompts)) if i not in SAMPLED]
+    parted = [i for i in greedy if got[i] != want[i]]
+    t0 = time.perf_counter()
+    weights64, verdicts, seen = {}, {}, {}
+    for i in parted:
+        # requests with one prompt and the same two streams (14 and 15
+        # repeat request 0's prompt) share one verdict
+        key = (prompts[i].tobytes(), tuple(got[i]), tuple(want[i]))
+        if key not in seen:
+            seen[key] = parting_verdict(torch, qm, qp, cfg, dev, prompts[i],
+                                        got[i], want[i], paths, weights64)
+        verdicts[i] = seen[key]
+    del weights64
+    line = {"phase": f"llama_{label}_streams",
+            "greedy_equal": len(greedy) - len(parted),
+            "greedy_requests": len(greedy),
+            "sampled_equal": sum(got[i] == want[i] for i in SAMPLED),
+            "partings": verdicts, "seconds": time.perf_counter() - t0}
+    log(json.dumps(line))
+    bad = [i for i, v in verdicts.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"{label}: partings of requests {bad} fail the "
+                             "f64 / logit verdict")
+    return line
+
+
+def pool_check(eng):
+    """The page pool's accounting between ticks: table references equal
+    the refcounts, every page but scratch is exactly one of free, cached
+    and live, reservations are conserved, and no active slot maps a page
+    past its position. Raises on a break; returns pages in use."""
+    pool, ptab = eng._pool, eng._ptab
+    refs = np.zeros(pool.num_pages, np.int64)
+    refs[0] = 1
+    np.add.at(refs, ptab[ptab != 0], 1)
+    free, cached = set(pool.free), set(pool.cached)
+    live = set(np.nonzero(pool.ref[1:] > 0)[0] + 1)
+    ps = eng.page_size
+    past = [i for i in np.nonzero(eng._active)[0]
+            if ptab[i, -(-int(eng._positions[i]) // ps):].any()]
+    if (not np.array_equal(refs, pool.ref) or free & cached or free & live
+            or cached & live
+            or len(free) + len(cached) + len(live) != pool.num_pages - 1
+            or pool.reserved != int(eng._slot_reserve.sum()) or past):
+        raise AssertionError(f"page pool accounting broke: {pool.stats()}, "
+                             f"slots mapping past their position {past}")
+    return len(live)
+
+
+def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
+    """Drive one 5c engine over `prompts` (64 new tokens each, SAMPLED
+    with top-k), step by step, with its launches asserted at `per_pass` a
+    prefill (a chunk under the paged layout) and `per_tick` a decode
+    tick, and under the paged layout the pool checked after every step
+    and empty at the end. Chunks are timed to a synchronize on each side
+    (an earlier chunk makes no host pull of its own). Returns (streams,
+    summary, launches)."""
+    chunk_ms = []
+    if eng.paged:
+        run_chunk = eng._run_chunk
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_chunk(*args)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        eng._run_chunk = timed
+    eng.generate([prompts[1][-12:]], 4)          # warm-up, registers nothing
+    torch.cuda.synchronize()
+    c0 = dict(eng.counters)
+    n_tick_ms0, n_pf_ms0 = len(eng.tick_ms), len(eng.prefill_ms)
+    del chunk_ms[:]
+    torch.cuda.reset_peak_memory_stats()
+    allocated0 = torch.cuda.memory_allocated()
+    peak_pages = 0
+
+    qm.launches = 0                          # the main path starts here
+    t_run = time.perf_counter()
+    reqs = [eng.submit(p, 64, temperature=SAMPLED.get(i, (0.0, 0))[0],
+                       top_k=SAMPLED.get(i, (0.0, 0))[1])
+            for i, p in enumerate(prompts)]
+    while eng.has_work():
+        eng.step()
+        if eng.paged:
+            peak_pages = max(peak_pages, pool_check(eng))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = qm.launches                   # ... and ends here
+
+    c = {k: v - c0[k] for k, v in eng.counters.items()}
+    passes = c["prefill_chunks"] if eng.paged else c["prefills"]
+    reasons = [r.finish_reason for r in reqs]
+    if any(r != "length" for r in reasons):
+        raise AssertionError(f"{label} finish reasons {reasons}")
+    if launches != per_pass * passes + per_tick * c["decode_ticks"] or \
+            c["quant_matmuls"] != launches:
+        raise AssertionError(
+            f"{label} kernel launches {launches} != {per_pass} x {passes} "
+            f"+ {per_tick} x {c['decode_ticks']} ticks")
+    for r in reqs:
+        toks = np.asarray(r.tokens)
+        if len(toks) != 64 or toks.min() < 0 or toks.max() >= \
+                eng.cfg.vocab_size:
+            raise AssertionError(f"{label} request {r.id}: bad tokens")
+    tick_ms = list(eng.tick_ms)[n_tick_ms0:]
+    pf_ms = chunk_ms if eng.paged else list(eng.prefill_ms)[n_pf_ms0:]
+    summary = {
+        "phase": f"llama_{label}", "card": card, "requests": len(reqs),
+        "new_tokens": 64 * len(reqs), "prefills": c["prefills"],
+        "prefill_chunks": c["prefill_chunks"],
+        "decode_ticks": c["decode_ticks"], "launches": launches,
+        "launches_per_pass": per_pass, "launches_per_tick": per_tick,
+        "wall_s": wall, "tokens_per_s": 64 * len(reqs) / wall,
+        "tick_ms_p50": statistics.median(tick_ms),
+        "tick_ms_p90": float(np.percentile(tick_ms, 90)),
+        "prefill_ms_p50": statistics.median(pf_ms),
+        "prefill_ms_max": max(pf_ms),
+        "prefill_timed": "each chunk between synchronizes" if eng.paged
+        else "each prefill to its host pull",
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_start_bytes": allocated0,
+        "kv_cache_bytes": sum(v.numel() * v.element_size()
+                              for k, v in eng._cache.items() if k != "pt"),
+    }
+    if eng.spec:
+        rate = c["spec_accepted"] / max(c["spec_proposed"], 1)
+        summary.update({
+            "spec_proposed": c["spec_proposed"],
+            "spec_accepted": c["spec_accepted"], "acceptance_rate": rate,
+            "tokens_per_tick": (c["tokens_emitted"] - c["prefills"])
+            / c["decode_ticks"],
+            "tokens_per_greedy_slot_tick": 1 + eng.spec_gamma * rate,
+            "acceptance_note": "random weights: says nothing of a trained "
+                               "model's acceptance or speed-up"})
+    if eng.paged:
+        st = eng.pool_stats()
+        summary.update({"peak_pages_in_use": peak_pages, "pool": st})
+        if st["pages_in_use"] or st["pages_reserved"] or \
+                st["pages_free"] + st["pages_cached"] != st["num_pages"] - 1:
+            raise AssertionError(f"{label}: the pool is not empty at the "
+                                 f"end: {st}")
+        if not (st["prefix_hits"] and st["cow_copies"]
+                and st["prefill_chunks"]):
+            raise AssertionError(f"{label}: no prefix hit, COW copy or "
+                                 f"chunk: {st}")
+    log(json.dumps(summary))
+    if eng.paged:
+        tick_profile(torch, eng, prompts, card, f"llama_{label}_")
+    return [list(r.tokens) for r in reqs], summary, launches
+
+
+def paged_serving(torch, qm, dev, card, cfg, params):
+    """Phase 5c: the int8 Llama engine at TinyLlama widths with the paged
+    cache (PAGED: page 16, chunks of 256, 513 pages, half the dense
+    equivalent), prefix sharing and copy-on-write, then with speculative
+    decode (SPEC), each beside a dense engine on the same prompts
+    (`paged_prompts`); streams compared, every parting held to phase 5b's
+    verdict. Returns the int8 kernel's launches {path: n}."""
+    from paddle_tpu_torch.inference import ServingEngine
+    prompts = paged_prompts(cfg.vocab_size)
+    per_pass = sum(pass_calls(LLAMA_LEAF_KN, cfg.num_layers).values())
+    draft = sum(pass_calls(LLAMA_LEAF_KN, SPEC["draft_layers"]).values())
+    spec_tick = per_pass + SPEC["gamma"] * draft        # 155 + 4 x 78
+    streams, launches = {}, {}
+    for label, kw in (("paged", PAGED), ("dense", {"kv_layout": "dense"}),
+                      ("spec", dict(PAGED, **SPEC)),
+                      ("dense_spec", dict(kv_layout="dense", **SPEC))):
+        t0 = time.perf_counter()
+        eng = ServingEngine(params, cfg, family="llama", num_slots=8,
+                            max_len=2048, max_top_k=50, seed=0, quant="int8",
+                            **kw)
+        log(json.dumps({"phase": f"llama_{label}_build", "knobs": kw,
+                        "seconds": time.perf_counter() - t0}))
+        streams[label], _, launches[label] = run_engine(
+            torch, qm, eng, prompts, label, card, per_pass,
+            spec_tick if eng.spec else per_pass)
+        # the int8 tree (the same from every build) for the verdicts
+        qp = eng._params if label == "dense_spec" else None
+        del eng
+        gc.collect()        # the chunk timer and the engine hold each other
+        torch.cuda.empty_cache()
+    dense_path = {"layout": "dense"}
+    paged_path = {"layout": "paged", "page_size": 16, "chunk": 256}
+    for label, got, want, paths in (
+            ("paged_vs_dense", "paged", "dense",
+             (("paged", paged_path), ("dense", dense_path))),
+            ("spec_vs_paged", "spec", "paged",
+             (("verify", dict(paged_path, window=SPEC["gamma"] + 1)),
+              ("paged", paged_path))),
+            ("dense_spec_vs_dense", "dense_spec", "dense",
+             (("verify", dict(dense_path, window=SPEC["gamma"] + 1)),
+              ("dense", dense_path)))):
+        compare_streams(torch, qm, qp, cfg, dev, prompts, streams[got],
+                        streams[want], label, paths)
+    del qp
+    torch.cuda.empty_cache()
+    return {"llama_paged": launches["paged"], "llama_spec": launches["spec"]}
 
 
 def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
@@ -1665,7 +2046,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
         "per": "one GPT decode tick at M=8: 24 layers x 4 leaves + the head "
                "(97 launches); llama_tick: 22 x 7 + 1 = 155; from the "
                "kernel_check lines; launches over the 16-request serving "
-               "run of each family",
+               "run of each family, and of phase 5c's paged and paged "
+               "spec engines (467 a spec tick)",
     }]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     replaces = {"flash_fwd": "paddle_tpu/kernels/pallas_attention.py:119",
@@ -1791,9 +2173,15 @@ def main():
                               card)
     serving_launches = {
         "gpt_serving": phase("gpt_serving", serving, torch, qm, dev,
-                             card)[0],
-        "llama_serving": phase("llama_serving", llama_serving, torch, qm,
-                               dev, card)[0]}
+                             card)[0]}
+    # phases 5b and 5c share the host-drawn TinyLlama-width weights
+    lcfg, lparams = llama_host_params()
+    serving_launches["llama_serving"] = phase(
+        "llama_serving", llama_serving, torch, qm, dev, card, lcfg,
+        lparams)[0]
+    serving_launches.update(phase("llama_paged", paged_serving, torch, qm,
+                                  dev, card, lcfg, lparams))
+    del lparams
     log(json.dumps({"phase": "memory_allocated_after", **held}))
     kernels = kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                            gpt_launches, llama_launches, serving_launches,

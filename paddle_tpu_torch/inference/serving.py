@@ -1,7 +1,9 @@
-"""Continuous-batching serving engine: dense slot-pool KV cache,
-power-of-two bucketed prefill, one decode tick for all slots.
+"""Continuous-batching serving engine: a dense slot-pool or paged KV
+cache, bucketed or chunked prefill, one decode tick for all slots, and
+speculative decode.
 
-Counterpart of paddle_tpu/inference/serving.py (the dense layout).
+Counterpart of paddle_tpu/inference/serving.py (the dense and paged
+layouts, prefix sharing, chunked prefill, speculative decode).
 Reference analog: AnalysisPredictor driving the FusedMultiTransformer
 decode loops, generalized to iteration-level scheduling (Orca-style
 continuous batching): requests join and leave the running batch between
@@ -22,6 +24,25 @@ decode ticks.
   of that length; the first token comes from the logits at the true
   length - 1 and the mini cache is copied into the slot's row. This is
   what makes engine streams identical to per-request greedy decode.
+- **Paged layout** (kv_layout="paged"; vLLM's PagedAttention block
+  manager, SGLang's prefix cache). K/V live in a page pool
+  {"k","v": [L, P, page_size, heads, hd], "pt": [N, max_pages]} and a
+  host allocator (`_PagePool`) hands out pages: free, live (refcount >
+  0) or cached (refcount 0 but registered under a prompt-prefix hash,
+  LRU-evictable). Page 0 is scratch. A prompt's full pages are
+  registered after its prefill; a later prompt with the same prefix
+  maps them (prefix sharing) and prefills only its suffix; writing a
+  shared or registered page copies it first (copy-on-write,
+  `_ensure_private`). Admission reserves the request's worst-case page
+  need, so decode never runs out of pages; a request that could never
+  fit raises PoolExhaustedError at submit, one that must wait stays
+  queued. A suffix longer than `prefill_chunk` prefills one chunk per
+  tick, interleaved with the decode ticks. The streams are those of
+  the dense layout: the gathered view puts position p at index p.
+- **Speculative decode** (spec_decode="spec"; inference/spec_decode.py):
+  each tick drafts `gamma` tokens through the first `draft_layers`
+  layers and verifies them in one full-depth pass; greedy streams are
+  the non-spec streams, and the host still pulls one array a tick.
 - **Quarantine.** With guardrails on, a row whose logits are not all
   finite folds into a -1 token on the device (real ids are never
   negative); the host finishes only that request as "poisoned".
@@ -30,7 +51,8 @@ decode ticks.
   the tree and every block matmul and the head run the hand-written
   Hopper kernel (kernels/quant_matmul.py) on the card: per full pass,
   the family's quantized leaves per layer times the depth, plus the
-  head (GPT 4 L + 1, Llama 7 L + 1).
+  head (GPT 4 L + 1, Llama 7 L + 1); a spec tick adds gamma draft
+  passes of draft_layers layers and the head.
 
 Sampled streams cannot match the reference bit for bit (it draws with
 threefry). The invariant is kept instead: a request's sampled stream
@@ -40,15 +62,16 @@ three values and the vocabulary index, computed on the device, and the
 draw is Gumbel-max over the temperature-scaled, top-k-masked logits.
 
 Every request resolves exactly once with a finish reason from
-TERMINAL_REASONS. Engine knobs of later slices (paged KV, speculative
-decode, multi-tick, host KV tier, tensor-parallel meshes, telemetry,
-tracing, watchdog and retries, queue bounds) raise NotImplementedError
-naming the ROADMAP item that ports them.
+TERMINAL_REASONS. Engine knobs of later slices (multi-tick, host KV
+tier, tensor-parallel meshes, telemetry, tracing, watchdog and retries,
+queue bounds) raise NotImplementedError naming the ROADMAP item that
+ports them. The reference's fault-injection hooks are not carried (A7).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import sys
 import time
 from typing import Callable, List, Optional, Sequence
@@ -60,21 +83,14 @@ from ..device import resolve_device
 from ..models.decode import prompt_bucket
 
 __all__ = ["ServingEngine", "Request", "ModelFamily", "family_for",
-           "create_serving_engine", "TERMINAL_REASONS"]
+           "create_serving_engine", "TERMINAL_REASONS",
+           "PoolExhaustedError"]
 
 TERMINAL_REASONS = frozenset(
     {"eos", "length", "cancelled", "poisoned", "evicted"})
 
 # knob -> (values that leave the knob inert, the ROADMAP item porting it)
 _UNPORTED = {
-    "kv_layout": (("auto", "dense"), "A5 (paged KV layout)"),
-    "page_size": ((16,), "A5 (paged KV layout)"),
-    "num_pages": ((0,), "A5 (paged KV layout)"),
-    "prefill_chunk": ((0,), "A5 (paged KV layout)"),
-    "prefix_sharing": ((True,), "A5 (paged KV layout)"),
-    "spec_decode": (("auto", "off"), "A5 (speculative decode)"),
-    "gamma": ((4,), "A5 (speculative decode)"),
-    "draft_layers": ((0,), "A5 (speculative decode)"),
     "multi_tick": ((0, 1), "A5 (multi-tick decode)"),
     "host_kv_bytes": ((0,), "A5 (host KV tier)"),
     "mesh": ((None,), "A6 (tensor-parallel serving)"),
@@ -105,6 +121,18 @@ def _check_unported(knobs: dict) -> None:
                 f"(ROADMAP {item})")
 
 
+class PoolExhaustedError(RuntimeError):
+    """submit() refused: the request's worst-case page need exceeds the
+    whole pool, so it could never be admitted. A request that merely has
+    to wait for pages is queued, not refused."""
+
+    def __init__(self, msg: str, pages_needed: int = 0,
+                 pages_total: int = 0):
+        super().__init__(msg)
+        self.pages_needed = pages_needed
+        self.pages_total = pages_total
+
+
 # --------------------------------------------------------------- families
 @dataclasses.dataclass(frozen=True)
 class ModelFamily:
@@ -126,13 +154,121 @@ def family_for(name: str) -> ModelFamily:
     raise ValueError(f"unknown model family {name!r} (gpt|llama)")
 
 
+# -------------------------------------------------------------- page pool
+class _PagePool:
+    """Host-side allocator of the paged KV pool (the scheduler half of
+    the vLLM block manager). Every page but scratch page 0 is in exactly
+    one state:
+
+    - free      unregistered, on the free list;
+    - live      refcount > 0 (mapped by one or more slot tables);
+    - cached    refcount 0 but registered under a prompt-prefix key (LRU,
+                evicted on demand: cross-request prefix reuse).
+
+    `reserved` counts admission reservations not yet turned into pages;
+    `available()` is what a new admission may claim without starving an
+    admitted slot. The reference's eviction hook (the host KV tier) is
+    not carried (ROADMAP A5)."""
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 2:
+            raise ValueError(f"num_pages must be >= 2 (page 0 is "
+                             f"reserved scratch); got {num_pages}")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.ref = np.zeros(num_pages, np.int64)
+        self.ref[0] = 1                      # scratch: pinned forever
+        # pop() takes from the end: low page ids hand out first
+        self.free: List[int] = list(range(num_pages - 1, 0, -1))
+        self.cached: "collections.OrderedDict[int, tuple]" = \
+            collections.OrderedDict()        # page id -> key, LRU order
+        self.by_key: dict = {}               # prefix key -> page id
+        self.key_of: dict = {}               # page id -> prefix key
+        self.reserved = 0
+
+    def available(self) -> int:
+        """Pages a new admission may still reserve: free + evictable
+        cached, less what earlier admissions reserved."""
+        return len(self.free) + len(self.cached) - self.reserved
+
+    def alloc(self) -> int:
+        """One private page (ref 1), evicting the LRU cached page (and
+        its prefix entry) when the free list is dry."""
+        if self.free:
+            pid = self.free.pop()
+        elif self.cached:
+            pid, key = self.cached.popitem(last=False)     # LRU
+            del self.by_key[key]
+            del self.key_of[pid]
+        else:
+            raise PoolExhaustedError(
+                "page pool exhausted (no free or evictable page)",
+                pages_needed=1, pages_total=self.num_pages)
+        self.ref[pid] = 1
+        return pid
+
+    def retain(self, pid: int) -> None:
+        """One more reference (prefix sharing): a cached page comes back
+        live and keeps its registration."""
+        if self.ref[pid] == 0:
+            self.cached.pop(pid, None)
+        self.ref[pid] += 1
+
+    def release(self, pid: int) -> None:
+        """Drop one reference. At zero a registered page parks in the
+        LRU cache, an unregistered one returns to the free list."""
+        if pid == 0:
+            return                           # scratch never releases
+        self.ref[pid] -= 1
+        assert self.ref[pid] >= 0, f"refcount underflow on page {pid}"
+        if self.ref[pid] == 0:
+            key = self.key_of.get(pid)
+            if key is not None:
+                self.cached[pid] = key
+                self.cached.move_to_end(pid)
+            else:
+                self.free.append(pid)
+
+    def register(self, pid: int, key) -> None:
+        """Publish `pid` under the prompt-prefix `key` (the first writer
+        wins; a racing identical prefix keeps its private copy)."""
+        if key not in self.by_key and pid not in self.key_of:
+            self.by_key[key] = pid
+            self.key_of[pid] = key
+
+    def lookup(self, key) -> Optional[int]:
+        return self.by_key.get(key)
+
+    def is_frozen(self, pid: int) -> bool:
+        """Writing `pid` needs a private copy first: shared (ref > 1) or
+        published in the prefix map."""
+        return self.ref[pid] > 1 or pid in self.key_of
+
+    def stats(self) -> dict:
+        return {"num_pages": self.num_pages,
+                "page_size": self.page_size,
+                "pages_in_use": int((self.ref[1:] > 0).sum()),
+                "pages_free": len(self.free),
+                "pages_cached": len(self.cached),
+                "pages_shared": int((self.ref[1:] > 1).sum()),
+                "pages_reserved": int(self.reserved)}
+
+
+def _prefix_key(prompt: np.ndarray, n: int) -> tuple:
+    """The rolled prompt-prefix hash of the page ending at token `n`:
+    equal token prefixes give equal K/V bits (causality), so the digest
+    of tokens [0, n) keys a reusable page; the length rides in the key."""
+    return (n, hashlib.blake2b(prompt[:n].tobytes(),
+                               digest_size=16).digest())
+
+
 # --------------------------------------------------------------- requests
 class Request:
     """One generation request riding through the engine."""
 
     __slots__ = ("id", "prompt", "max_new_tokens", "temperature", "top_k",
                  "eos_id", "tokens", "done", "finish_reason", "slot",
-                 "_engine")
+                 "_engine", "_pf_next", "_pfx_keys", "shared_tokens")
 
     def __init__(self, req_id, prompt, max_new_tokens, temperature, top_k,
                  eos_id):
@@ -147,6 +283,10 @@ class Request:
         self.finish_reason: Optional[str] = None
         self.slot: Optional[int] = None
         self._engine = None
+        self._pf_next = None            # next chunked-prefill position
+        self._pfx_keys = None           # memoized per-page prefix hashes
+        self.shared_tokens = 0          # prompt tokens served from
+        #                                 shared pages (prefix reuse)
 
     def cancel(self) -> bool:
         """Terminate this request now (finish_reason "cancelled")."""
@@ -217,12 +357,18 @@ def _sample(lg, temps, top_ks, seed, req_ids, gen_idx, max_top_k: int):
 #   (cur_tok, positions, active, temps, top_ks, req_ids, gen_idx)
 @torch.no_grad()
 def _decode_tick(params, cache, state, seed, *, fwd, cfg, max_top_k,
-                 sampling, guard):
+                 sampling, guard, oor_pos=None):
     """All N slots advance one token; inactive slots compute too (fixed
-    shape) but their output is masked, and they write their K/V at their
-    stale position, which the next prefill of that slot overwrites."""
+    shape) but their output is masked. A dense inactive row writes its
+    K/V at its stale position, which the next prefill of that slot
+    overwrites; under the paged layout the pool is shared, so an
+    inactive row (one mid-chunked-prefill maps real, possibly shared,
+    pages) writes at `oor_pos` = max_pages * page_size instead: past the
+    table, onto the scratch page."""
     toks, positions, active, temps, top_ks, req_ids, gen_idx = state
-    logits, cache = fwd(params, toks[:, None], cache, positions, cfg)
+    fpos = positions if oor_pos is None else torch.where(
+        active, positions, torch.full_like(positions, oor_pos))
+    logits, cache = fwd(params, toks[:, None], cache, fpos, cfg)
     lg = logits[:, 0].float()
     if sampling:
         nxt = _sample(lg, temps, top_ks, seed, req_ids, gen_idx, max_top_k)
@@ -263,6 +409,39 @@ def _prefill_slot(params, cache, padded, true_len: int, slot: int, temps,
     return first
 
 
+@torch.no_grad()
+def _prefill_chunk(params, cache, padded, true_len: int, start: int,
+                   slot: int, temps, top_ks, req_ids, seed, *, fwd, cfg,
+                   max_top_k, sampling, guard):
+    """Paged prefill of ONE chunk into slot `slot`: the padded chunk
+    [1, cb] runs at absolute positions start.. against the slot's
+    one-row paged view (its table row), scattering its K/V into the
+    pool in place, and a token is drawn from the chunk's last real
+    position, the first generated token when this is the prompt's last
+    chunk (the host ignores it otherwise)."""
+    sub = {"k": cache["k"], "v": cache["v"],
+           "pt": cache["pt"][slot:slot + 1]}
+    posv = torch.full((1,), start, dtype=torch.int64, device=padded.device)
+    logits, _ = fwd(params, padded, sub, posv, cfg)
+    last = logits[:, true_len - 1].float()                          # [1,V]
+    if sampling:
+        first = _sample(last, temps, top_ks, seed, req_ids,
+                        torch.zeros_like(req_ids), max_top_k)[0]
+    else:
+        first = torch.argmax(last, dim=-1).to(torch.int32)[0]
+    if guard:
+        first = torch.where(torch.isfinite(last).all(), first,
+                            torch.full_like(first, -1))
+    return first
+
+
+def _cow_copy(cache, src: int, dst: int) -> None:
+    """Copy page `src` onto page `dst` in every layer of the pool, k and
+    v: the copy-on-write materialization, in place."""
+    for key in ("k", "v"):
+        cache[key][:, dst] = cache[key][:, src]
+
+
 def _to_device(params: dict, device) -> dict:
     from ..models.convert import params_from_jax
     out = {}
@@ -289,12 +468,24 @@ class ServingEngine:
 
     `generate(prompts, ...)` wraps submit + drain for batch use. The
     engine runs on the card unless `device="cpu"` is passed.
+
+    Cache layout: `kv_layout` "dense" or "paged" ("auto": "paged" where
+    `decode_attn_impl` says so, else dense); `page_size` tokens a page;
+    `num_pages` in the pool (0: the dense-equivalent num_slots *
+    max_pages + 1, the +1 for scratch); `prefill_chunk` tokens a prefill
+    chunk (0: the whole suffix at once); `prefix_sharing` on or off.
+    Speculative decode: `spec_decode` ("auto"|"off"|"spec"), `gamma`
+    drafts a tick, `draft_layers` draft depth (0: half the layers).
     """
 
     def __init__(self, params, cfg, family="gpt", num_slots: int = 8,
                  max_len: Optional[int] = None, max_top_k: int = 0,
                  seed: int = 0, bucket_lo: int = 8, guardrails: bool = True,
-                 quant: str = "auto", device=None, **later_knobs):
+                 quant: str = "auto", device=None, kv_layout: str = "auto",
+                 page_size: int = 16, num_pages: int = 0,
+                 prefill_chunk: int = 0, prefix_sharing: bool = True,
+                 spec_decode: str = "auto", gamma: int = 4,
+                 draft_layers: int = 0, **later_knobs):
         _check_unported(later_knobs)
         self.device = resolve_device(device)
         self.family = (family_for(family) if isinstance(family, str)
@@ -312,6 +503,33 @@ class ServingEngine:
         self.seed = int(seed)
         self.bucket_lo = int(bucket_lo)
         self.guardrails = bool(guardrails)
+        # speculative decode: the env's off values kill-switch even an
+        # explicit "spec" (inference/spec_decode.resolve_spec)
+        from .spec_decode import resolve_spec
+        self.spec = resolve_spec(spec_decode, self.device)
+        n_layers = int(cfg.num_layers)
+        self.spec_gamma = int(gamma)
+        self.spec_draft_layers = int(draft_layers) or max(1, n_layers // 2)
+        if self.spec:
+            if self.spec_gamma < 1:
+                raise ValueError(f"gamma must be >= 1; got {gamma}")
+            if not 1 <= self.spec_draft_layers <= n_layers:
+                raise ValueError(
+                    f"draft_layers ({self.spec_draft_layers}) must be in "
+                    f"1..num_layers ({n_layers})")
+        # positions one tick writes per slot
+        self._tick_span = self.spec_gamma + 1 if self.spec else 1
+        # cache layout
+        if kv_layout == "auto":
+            from ..kernels.decode_attention import decode_attn_impl
+            kv_layout = ("paged" if decode_attn_impl(self.device) == "paged"
+                         else "dense")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout {kv_layout!r} (auto|dense|paged)")
+        self.paged = kv_layout == "paged"
+        self.page_size = int(page_size)
+        self.prefill_chunk = int(prefill_chunk)
+        self.prefix_sharing = bool(prefix_sharing)
         # weight-only int8: a leaf rewrite at build, before the upload,
         # so the dropped fp matmul weights never reach the card
         from ..kernels.quant_matmul import resolve_quant
@@ -322,10 +540,22 @@ class ServingEngine:
             params, self._quant_info = quantize_serving_params(
                 params, self.family.name)
         self._params = _to_device(params, self.device)
-        self._cache = self.family.init_cache(cfg, self.num_slots,
-                                             self.max_len,
-                                             device=self.device)
         n = self.num_slots
+        if self.paged:
+            if self.page_size < 1:
+                raise ValueError(f"page_size must be >= 1; "
+                                 f"got {self.page_size}")
+            self.max_pages = -(-self.max_len // self.page_size)     # ceil
+            self.num_pages = int(num_pages) or n * self.max_pages + 1
+            self._pool = _PagePool(self.num_pages, self.page_size)
+            self._ptab = np.zeros((n, self.max_pages), np.int64)
+            self._slot_reserve = np.zeros(n, np.int64)
+            self._prefilling: collections.deque = collections.deque()
+            self._pt_dirty = False
+            self._cache = self._init_paged_cache()
+        else:
+            self._cache = self.family.init_cache(cfg, n, self.max_len,
+                                                 device=self.device)
         # host mirrors of the slot state; the device copy is rebuilt
         # from them only when admission or a finish dirties them
         self._positions = np.zeros(n, np.int32)
@@ -341,24 +571,55 @@ class ServingEngine:
         self._queue: collections.deque = collections.deque()
         self._next_id = 0
         self._ticks = 0
-        # host-clock samples (ms) of each decode tick and each prefill,
-        # each ending in the host pull that waits for the device
+        # host-clock samples (ms) of each decode tick and each prefill
+        # (each prefill chunk under the paged layout); a tick and a
+        # final chunk end in the host pull that waits for the device, an
+        # earlier chunk makes no pull
         self.tick_ms: collections.deque = collections.deque(maxlen=8192)
         self.prefill_ms: collections.deque = collections.deque(maxlen=8192)
+        # prefix_hits: pages mapped from the prefix map at admission;
+        # spec_proposed/accepted: drafts of greedy slots
         self.counters = {"prefills": 0, "decode_ticks": 0,
-                         "tokens_emitted": 0, "quant_matmuls": 0}
+                         "tokens_emitted": 0, "quant_matmuls": 0,
+                         "prefill_chunks": 0, "cow_copies": 0,
+                         "prefix_hits": 0, "spec_proposed": 0,
+                         "spec_accepted": 0}
         # fused dequant-matmuls per full forward: quantized leaves per
-        # layer x depth + the head (the reference's formula)
-        self._qmm_full = 0
+        # layer x depth + the head (the reference's formula); a spec
+        # tick adds gamma draft passes of draft_layers layers + the head
+        self._qmm_full = self._qmm_draft = 0
         if self._quant_info:
-            self._qmm_full = (self._quant_info["per_layer"] * cfg.num_layers
-                              + self._quant_info["head"])
+            per, head = self._quant_info["per_layer"], \
+                self._quant_info["head"]
+            self._qmm_full = per * n_layers + head
+            self._qmm_draft = per * self.spec_draft_layers + head
+
+    def _init_paged_cache(self) -> dict:
+        """The page pool {"k","v": [L, P, page_size, heads, hd]} in the
+        family's cache dtype, and the device page table "pt"."""
+        probe = self.family.init_cache(self.cfg, 1, 1, device=self.device)
+        shp = probe["k"].shape                       # [L, 1, 1, heads, hd]
+        pages = (shp[0], self.num_pages, self.page_size) + tuple(shp[3:])
+        return {"k": torch.zeros(pages, dtype=probe["k"].dtype,
+                                 device=self.device),
+                "v": torch.zeros(pages, dtype=probe["v"].dtype,
+                                 device=self.device),
+                "pt": self._upload(self._ptab)}
 
     # ------------------------------------------------------- observables
     def quant_stats(self) -> dict:
         if not self._quant_info:
             return {"quant": "off"}
         return {"quant": "int8", **self._quant_info}
+
+    def pool_stats(self) -> dict:
+        """The page pool in plain numbers (paged layout): page states,
+        the COW copies, prefill chunks and prefix-hit pages so far."""
+        if not self.paged:
+            return {"layout": "dense"}
+        return {"layout": "paged", **self._pool.stats(),
+                **{k: self.counters[k] for k in
+                   ("cow_copies", "prefill_chunks", "prefix_hits")}}
 
     def has_work(self) -> bool:
         return (bool(self._queue) or bool(self._active.any())
@@ -387,6 +648,14 @@ class ServingEngine:
         if top_k > self.max_top_k:
             raise ValueError(f"top_k={top_k} exceeds the engine's "
                              f"max_top_k={self.max_top_k}")
+        if self.paged:
+            need = self._pages_needed(t0, max_new_tokens)
+            if need > self.num_pages - 1:
+                raise PoolExhaustedError(
+                    f"request needs {need} pages worst-case but the "
+                    f"pool holds {self.num_pages - 1} allocatable pages "
+                    f"(page_size={self.page_size})",
+                    pages_needed=need, pages_total=self.num_pages - 1)
         req = Request(self._next_id, prompt, int(max_new_tokens),
                       float(temperature), int(top_k), eos_id)
         req._engine = self
@@ -396,22 +665,30 @@ class ServingEngine:
 
     # --------------------------------------------------------- the tick
     def step(self):
-        """One engine tick: admit queued requests into free slots (one
-        bucketed prefill each), then advance every active slot one token
-        through the decode tick. Returns this tick's (request, token)
-        emissions."""
+        """One engine tick: advance ONE mid-prefill slot by one chunk
+        (paged), admit queued requests into free slots (one bucketed
+        prefill each; under the paged layout only when the request's
+        page reservation fits, else it waits at the head of the queue),
+        then advance every active slot through the decode tick. Returns
+        this tick's (request, token) emissions."""
         events: List[tuple] = []
+        if self.paged:
+            self._advance_prefill(events)
         while self._queue:
             slot = self._free_slot()
             if slot is None:
                 break
-            req = self._queue.popleft()
+            head = self._queue[0]
+            if self.paged and (self._plan_admission(head)[4]
+                               > self._pool.available()):
+                break       # FCFS: the head waits for pages to free
+            self._queue.popleft()
             try:
-                self._admit(slot, req, events)
+                self._admit(slot, head, events)
             except BaseException:
                 # no limbo: the request resolves before the error surfaces
-                self._rollback_slot(slot, req)
-                self._finish(req, "evicted")
+                self._rollback_slot(slot, head)
+                self._finish(head, "evicted")
                 raise
         if self._active.any():
             self._decode(events)
@@ -452,7 +729,10 @@ class ServingEngine:
     # ------------------------------------------------------ terminality
     def _clear_slot(self, slot: int) -> None:
         """Return a slot to the free pool: registry and every host
-        mirror; the device state is rebuilt before the next tick."""
+        mirror; the device state is rebuilt before the next tick. Under
+        the paged layout the slot's pages release here too (registered
+        ones park in the LRU cache), the table row snaps back to
+        scratch, and the unspent reservation returns to the pool."""
         self._slot_req[slot] = None
         self._active[slot] = False
         self._positions[slot] = 0
@@ -461,6 +741,18 @@ class ServingEngine:
         self._top_ks[slot] = 0
         self._gen_idx[slot] = 0
         self._dirty = True
+        if self.paged:
+            row = self._ptab[slot]
+            for j in np.nonzero(row)[0]:
+                self._pool.release(int(row[j]))
+            row[:] = 0
+            self._pool.reserved -= int(self._slot_reserve[slot])
+            self._slot_reserve[slot] = 0
+            self._pt_dirty = True
+            try:
+                self._prefilling.remove(slot)
+            except ValueError:
+                pass
 
     def _rollback_slot(self, slot: int, req: Request) -> None:
         if self._slot_req[slot] is req:
@@ -515,6 +807,8 @@ class ServingEngine:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def _admit(self, slot: int, req: Request, events: list) -> None:
+        if self.paged:
+            return self._admit_paged(slot, req, events)
         t0 = len(req.prompt)
         tb = prompt_bucket(t0, self.max_len, self.bucket_lo)
         padded = np.zeros((1, tb), np.int64)
@@ -560,6 +854,11 @@ class ServingEngine:
         self._maybe_finish(req)
 
     def _decode(self, events: list) -> None:
+        if self.paged:
+            # every active slot's write pages must exist and be private
+            # before the tick scatters into them
+            self._prepare_tick_pages()
+            self._sync_page_table()
         if self._dirty:
             self._dstate = (
                 self._upload(self._cur_tok), self._upload(self._positions),
@@ -568,16 +867,31 @@ class ServingEngine:
                 self._upload(self._gen_idx))
             self._dirty = False
         sampling = bool(np.any(self._temps[self._active] > 0.0))
+        kw = dict(fwd=self.family.forward_cached, cfg=self.cfg,
+                  max_top_k=self.max_top_k, sampling=sampling,
+                  guard=self.guardrails,
+                  oor_pos=(self.max_pages * self.page_size if self.paged
+                           else None))
         t_dev0 = time.perf_counter()
-        nxt, self._dstate = _decode_tick(
-            self._params, self._cache, self._dstate, self.seed,
-            fwd=self.family.forward_cached, cfg=self.cfg,
-            max_top_k=self.max_top_k, sampling=sampling,
-            guard=self.guardrails)
-        toks = nxt.cpu().numpy()         # ONE host pull per tick
+        if self.spec:
+            from .spec_decode import spec_tick
+            nxt, self._dstate = spec_tick(
+                self._params, self._cache, self._dstate, self.seed,
+                gamma=self.spec_gamma, draft_layers=self.spec_draft_layers,
+                **kw)
+        else:
+            nxt, self._dstate = _decode_tick(
+                self._params, self._cache, self._dstate, self.seed, **kw)
+        # ONE host pull per tick: [N] tokens, or the [N, gamma+1]
+        # emission matrix under spec decode
+        toks = nxt.cpu().numpy()
         self.tick_ms.append((time.perf_counter() - t_dev0) * 1e3)
         self.counters["decode_ticks"] += 1
-        self.counters["quant_matmuls"] += self._qmm_full
+        self.counters["quant_matmuls"] += self._qmm_full + (
+            self.spec_gamma * self._qmm_draft if self.spec else 0)
+        if self.spec:
+            self._apply_spec_emissions(toks, events)
+            return
         for i in np.nonzero(self._active)[0]:
             req = self._slot_req[i]
             tok = int(toks[i])
@@ -601,6 +915,246 @@ class ServingEngine:
         events.append((req, tok))
         self.counters["tokens_emitted"] += 1
         self._maybe_finish(req)
+
+    def _apply_spec_emissions(self, toks, events: list) -> None:
+        """Spec-tick bookkeeping over the [N, gamma+1] emission matrix.
+        The device advanced each active slot by its accepted count + 1;
+        the mirrors advance token by token through `_emit_token`, so a
+        request that finishes inside the accepted prefix drops the rest
+        (the non-spec engine would never have made them) and its finish
+        dirties the device state. Under the paged layout, pages past each
+        surviving slot's new position held only rejected drafts and roll
+        back to the pool."""
+        from .spec_decode import SPEC_PAD
+        for i in np.nonzero(self._active)[0]:
+            req = self._slot_req[i]
+            row = [int(t) for t in toks[i]]
+            if row[0] < 0:
+                self._poisoned(req, "decode")
+                continue
+            cut = row.index(SPEC_PAD) if SPEC_PAD in row else len(row)
+            if self._temps[i] <= 0.0:        # sampled slots never propose
+                self.counters["spec_proposed"] += self.spec_gamma
+                self.counters["spec_accepted"] += cut - 1
+            for tok in row[:cut]:
+                self._emit_token(i, req, tok, events)
+                if req.done:
+                    break
+        if self.paged:
+            for i in np.nonzero(self._active)[0]:
+                self._rollback_spec_pages(int(i))
+
+    # ------------------------------------------------- paged scheduling
+    def _sync_page_table(self) -> None:
+        if self._pt_dirty:
+            self._cache["pt"] = self._upload(self._ptab)
+            self._pt_dirty = False
+
+    def _pages_needed(self, t0: int, max_new: int) -> int:
+        """Worst-case page envelope of one request: positions 0 .. t0 +
+        max_new - 2 are written (the last sampled token never is)."""
+        return -(-(t0 + max_new - 1) // self.page_size)
+
+    def _plan_admission(self, req: Request):
+        """(matched shared page ids, aligned_full, suffix_start, need,
+        gross). `need` is the worst-case pages the request will still
+        allocate privately; `gross` also counts cached pages the match
+        pulls back live (they stop being evictable for others). The
+        suffix always re-runs at least one prompt token (its logits give
+        the first token), so a fully page-aligned match copies its last
+        page (aligned_full) and recomputes the last prompt token there."""
+        t0 = len(req.prompt)
+        ps = self.page_size
+        matched: List[int] = []
+        if self.prefix_sharing:
+            for key in self._prefix_keys(req):
+                pid = self._pool.lookup(key)
+                if pid is None:
+                    break
+                matched.append(pid)
+        aligned_full = (bool(matched) and len(matched) == t0 // ps
+                        and t0 % ps == 0)
+        suffix_start = (t0 - 1) if aligned_full else len(matched) * ps
+        need = (self._pages_needed(t0, req.max_new_tokens) - len(matched)
+                + (1 if aligned_full else 0))
+        gross = need + sum(1 for pid in matched if self._pool.ref[pid] == 0)
+        if gross > self.num_pages - 1:
+            # an aligned-full match costs one page over the envelope; in
+            # a pool sized exactly to it the request would queue forever,
+            # so admit it unshared (submit checked the envelope fits)
+            matched, aligned_full, suffix_start = [], False, 0
+            need = gross = self._pages_needed(t0, req.max_new_tokens)
+        return matched, aligned_full, suffix_start, need, gross
+
+    def _prefix_keys(self, req: Request):
+        """The request's per-page prefix hashes, memoized on the Request:
+        the head of the queue replans every tick while it waits."""
+        if req._pfx_keys is None:
+            ps = self.page_size
+            req._pfx_keys = [_prefix_key(req.prompt, (j + 1) * ps)
+                             for j in range(len(req.prompt) // ps)]
+        return req._pfx_keys
+
+    def _admit_paged(self, slot: int, req: Request, events: list) -> None:
+        """Paged admission: map the shared prompt-prefix pages (refcounts
+        up), reserve the worst-case remainder, then prefill the unshared
+        suffix, at once when it fits one chunk, else one chunk a tick
+        through `_advance_prefill`. step() checked the reservation fits."""
+        matched, aligned_full, suffix_start, need, _ = \
+            self._plan_admission(req)
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._pool.reserved += need
+        self._slot_reserve[slot] = need
+        for j, pid in enumerate(matched):
+            self._pool.retain(pid)
+            self._ptab[slot, j] = pid
+        if matched:
+            self._pt_dirty = True
+        self.counters["prefix_hits"] += len(matched)
+        req.shared_tokens = suffix_start
+        req._pf_next = suffix_start
+        t0 = len(req.prompt)
+        if aligned_full:
+            # the suffix rewrites the last prompt token's K/V into the
+            # last matched page: a private copy first
+            self._ensure_private(slot, (t0 - 1) // self.page_size)
+        if self.prefill_chunk <= 0 or t0 - suffix_start <= \
+                self.prefill_chunk:
+            self._run_chunk(slot, req, events)
+        else:
+            self._prefilling.append(slot)
+
+    def _run_chunk(self, slot: int, req: Request, events: list) -> None:
+        """One prefill chunk of `slot`: make the pages its real tokens
+        land in private, run the chunk, and on the prompt's last chunk
+        pull the first token, register the full prompt pages for later
+        sharers and activate the slot. Earlier chunks make no pull."""
+        t0 = len(req.prompt)
+        ps = self.page_size
+        start = req._pf_next
+        end = (t0 if self.prefill_chunk <= 0
+               else min(start + self.prefill_chunk, t0))
+        clen = end - start
+        for j in range(start // ps, (end - 1) // ps + 1):
+            self._ensure_private(slot, j)
+        cb = prompt_bucket(clen, self.max_len, self.bucket_lo)
+        padded = np.zeros((1, cb), np.int64)
+        padded[0, :clen] = req.prompt[start:end]
+        self._sync_page_table()
+        final = end == t0
+        t_pf0 = time.perf_counter()
+        first = _prefill_chunk(
+            self._params, self._cache, self._upload(padded), clen, start,
+            slot, self._upload([req.temperature], torch.float32),
+            self._upload([req.top_k], torch.int32),
+            self._upload([req.id], torch.int32), self.seed,
+            fwd=self.family.forward_cached, cfg=self.cfg,
+            max_top_k=self.max_top_k,
+            sampling=final and req.temperature > 0.0, guard=self.guardrails)
+        tok = int(first.item()) if final else None    # the one host pull
+        self.prefill_ms.append((time.perf_counter() - t_pf0) * 1e3)
+        self.counters["prefill_chunks"] += 1
+        self.counters["quant_matmuls"] += self._qmm_full
+        if not final:
+            req._pf_next = end
+            return
+        req._pf_next = None
+        self.counters["prefills"] += 1
+        if tok < 0:
+            # quarantined before registration: a poisoned prompt's pages
+            # are never published
+            self._poisoned(req, "prefill")
+            return
+        if self.prefix_sharing:
+            for j, key in enumerate(self._prefix_keys(req)):
+                self._pool.register(int(self._ptab[slot, j]), key)
+        self._activate_slot(slot, req, tok, events)
+
+    def _advance_prefill(self, events: list) -> None:
+        """The chunked-prefill interleave: at most ONE chunk a tick (FCFS
+        over the mid-prefill slots), so decoding streams wait at most one
+        chunk a token however long a joining prompt is."""
+        while self._prefilling:
+            slot = self._prefilling[0]
+            req = self._slot_req[slot]
+            if req is None or req.done or req._pf_next is None:
+                self._prefilling.popleft()       # evicted or cancelled
+                continue
+            try:
+                self._run_chunk(slot, req, events)
+            except BaseException:
+                self._finish(req, "evicted")     # frees its pages
+                raise
+            if req.done or req._pf_next is None:
+                if self._prefilling and self._prefilling[0] == slot:
+                    self._prefilling.popleft()
+            return
+
+    def _alloc_slot_page(self, slot: int, j: int) -> int:
+        """A private page for table entry (slot, j), drawn on the slot's
+        admission reservation while one remains."""
+        pid = self._pool.alloc()
+        if self._slot_reserve[slot] > 0:
+            self._slot_reserve[slot] -= 1
+            self._pool.reserved -= 1
+        self._ptab[slot, j] = pid
+        self._pt_dirty = True
+        return pid
+
+    def _ensure_private(self, slot: int, j: int) -> int:
+        """THE copy-on-write seam: make table entry (slot, j) safe to
+        write. Unmapped: allocate. Frozen (shared or registered): copy
+        its contents into a fresh page, swap the entry, drop the old
+        reference. Private: nothing to do."""
+        pid = int(self._ptab[slot, j])
+        if pid != 0 and not self._pool.is_frozen(pid):
+            return pid
+        new = self._alloc_slot_page(slot, j)
+        if pid != 0:
+            _cow_copy(self._cache, pid, new)
+            self._pool.release(pid)
+            self.counters["cow_copies"] += 1
+        return new
+
+    def _prepare_tick_pages(self) -> None:
+        """Every page an active slot writes this tick (positions pos ..
+        pos + span - 1; span gamma + 1 under spec decode) must exist and
+        be private before the tick. The span is clamped to the request's
+        write envelope (position t0 + max_new - 2 is the last ever
+        written), so a draft past it lands on scratch through the
+        unmapped table rather than drawing pages never reserved."""
+        ps = self.page_size
+        for i in np.nonzero(self._active)[0]:
+            pos = int(self._positions[i])
+            req = self._slot_req[int(i)]
+            last = min(pos + self._tick_span - 1,
+                       len(req.prompt) + req.max_new_tokens - 2)
+            for j in range(pos // ps, min(last // ps + 1, self.max_pages)):
+                self._ensure_private(int(i), j)
+
+    def _rollback_spec_pages(self, slot: int) -> None:
+        """After a spec tick, a page mapped past the slot's new position
+        holds only rejected drafts: it goes back to the pool and the
+        reservation is restored, so between ticks the pool accounts
+        exactly as the non-spec engine's does. Such pages are private and
+        unregistered (only prompt pages register), so release() frees
+        them."""
+        pos = int(self._positions[slot])
+        ps = self.page_size
+        row = self._ptab[slot]
+        first = -(-pos // ps)        # page j holds a token iff j*ps < pos
+        # only this tick's span can be mapped past `first`
+        last = min((pos + self._tick_span - 2) // ps + 1, self.max_pages)
+        for j in range(first, last):
+            pid = int(row[j])
+            if pid == 0:
+                continue
+            self._pool.release(pid)
+            self._slot_reserve[slot] += 1
+            self._pool.reserved += 1
+            row[j] = 0
+            self._pt_dirty = True
 
 
 def create_serving_engine(model_or_params, cfg=None, **kw) -> ServingEngine:

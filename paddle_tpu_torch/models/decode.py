@@ -1,7 +1,8 @@
 """Shared greedy-decode loop for the cached model families.
 
-Counterpart of paddle_tpu/models/decode.py: `next_pow2`, `prompt_bucket`
-and `greedy_generate_with`, the per-request oracle the serving engine is
+Counterpart of paddle_tpu/models/decode.py: `greedy_accept` (the
+speculative acceptance rule), `next_pow2`, `prompt_bucket` and
+`greedy_generate_with`, the per-request oracle the serving engine is
 held to. The prompt is padded to its power-of-two bucket and the true
 length picks the last real logits, exactly as the engine's bucketed
 prefill does, so the two give identical streams.
@@ -10,7 +11,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["next_pow2", "prompt_bucket", "greedy_generate_with"]
+__all__ = ["greedy_accept", "next_pow2", "prompt_bucket",
+           "greedy_generate_with"]
+
+
+def greedy_accept(draft, target):
+    """Greedy speculative acceptance (Leviathan et al. 2023, exact under
+    argmax decoding): draft [N, g] proposed tokens, target [N, g+1] the
+    target's greedy tokens at the same query positions. Returns m [N] in
+    0..g, the number of leading drafts equal to the target's own choice;
+    the emitter takes target[:, :m+1]."""
+    ok = (draft == target[:, :draft.shape[1]]).to(torch.int32)
+    return torch.cumprod(ok, dim=1).sum(dim=1).to(torch.int32)
 
 
 def next_pow2(n: int, lo: int = 8) -> int:

@@ -83,7 +83,10 @@ class FacadeModel(nn.Module):
         `prompts` is a list of 1-D token-id sequences of mixed lengths;
         returns one array of generated ids per prompt, in order. The
         engine is cached and reused while its knobs and the weights stay
-        the same."""
+        the same. Other engine knobs pass through `engine_kw`: the cache
+        layout (kv_layout, page_size, num_pages, prefill_chunk,
+        prefix_sharing) and speculative decode (spec_decode, gamma,
+        draft_layers) among them; a changed knob rebuilds the engine."""
         if quant is not None:
             engine_kw["quant"] = quant
         key = (num_slots, max_len, max_top_k, seed,

@@ -11,8 +11,9 @@ and `train_step`; the serving half `init_kv_cache`, `_cached_attention`,
 
 The reference scans the stacked leaves with lax.scan; here a Python
 loop over the layer axis indexes them (`leaf[l]` is a view, so nothing
-is copied). The KV cache {"k","v": [L, B, max_len, H, hd]} is written in
-place (kernels/decode_attention.write_kv).
+is copied). The KV cache {"k","v": [L, B, max_len, H, hd]}, or the
+serving engine's page pool {"k","v": [L, P, page_size, H, hd], "pt":
+[B, max_pages]}, is written in place (kernels/decode_attention).
 
 Numerics kept from the reference: LayerNorm statistics in f32 with eps
 1e-5, cast back to the activation dtype; GELU in its tanh form (the
@@ -47,7 +48,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                    create_selective_checkpoint_contexts)
 
-from ..kernels.decode_attention import cached_attention, write_kv
+from ..kernels.decode_attention import write_and_attend
 from ..kernels.flash_attention import flash_attention_fn
 from ..kernels.fused_update import fused_apply_adamw, fused_update_enabled
 from ..kernels.quant_matmul import leaf_matmul, quant_matmul
@@ -319,19 +320,19 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None):
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
-def _cached_attention(x, params_l, kc, vc, pos, cfg, qmm=quant_matmul):
+def _cached_attention(x, params_l, kc, vc, pos, cfg, qmm=quant_matmul,
+                      pt=None):
     """One block's attention with the cache update. x [B,T,D]; kc/vc
-    [B,max_len,H,hd] are written in place. Returns the attention out."""
+    [B,max_len,H,hd], or pages [P,page_size,H,hd] with the page table
+    `pt`, are written in place. Returns the attention out."""
     B, T, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     qkv = leaf_matmul(x, params_l, "qkv_w", qmm)
     if params_l.get("qkv_b") is not None:
         qkv = qkv + params_l["qkv_b"].to(x.dtype)
     q, k, v = torch.split(qkv, D, dim=-1)
-    q = q.reshape(B, T, H, hd)
-    write_kv(kc, k.reshape(B, T, H, hd), pos)
-    write_kv(vc, v.reshape(B, T, H, hd), pos)
-    ctx = cached_attention(q, kc, vc, pos)
+    ctx = write_and_attend(q.reshape(B, T, H, hd), k.reshape(B, T, H, hd),
+                           v.reshape(B, T, H, hd), kc, vc, pos, pt)
     ctx = ctx.reshape(B, T, D).to(x.dtype)
     out = leaf_matmul(ctx, params_l, "attn_out_w", qmm)
     if params_l.get("attn_out_b") is not None:
@@ -355,13 +356,23 @@ def _position_embedding(wpe, pos, B: int, T: int, device):
 
 
 def gpt_forward_cached(params, tokens, cache, pos, cfg: GPTConfig,
-                       qmm=quant_matmul):
+                       layers: Optional[int] = None, qmm=quant_matmul):
     """Forward `tokens` [B,T] against a cache holding `pos` tokens
     (a scalar, or a [B] tensor of per-row slot positions).
     -> (logits [B,T,V], cache), the cache updated in place. `qmm` is the
     dequant-matmul of int8 trees: the kernel wrapper by default, or the
-    plain version where a caller wants the forward without the kernel."""
+    plain version where a caller wants the forward without the kernel.
+
+    The cache is dense {"k","v": [L, B, max_len, H, hd]} or the serving
+    engine's page pool {"k","v": [L, P, page_size, H, hd], "pt": [B,
+    max_pages]}, the page table riding the dict. `layers` runs the first
+    `layers` blocks only, then the final norm and the head: the
+    self-draft pass of speculative decoding (inference/spec_decode.py).
+    It writes layers < `layers` of the cache it is given (the whole cache
+    or its first-`layers` view), with the bits the full pass writes
+    there, since layer l's K/V depends only on the layers below it."""
     B, T = tokens.shape
+    pt = cache.get("pt")
     x = params["wte"][tokens.long()].to(cfg.dtype)
     x = x + _position_embedding(params["wpe"], pos, B, T,
                                 x.device).to(cfg.dtype)
@@ -369,11 +380,11 @@ def gpt_forward_cached(params, tokens, cache, pos, cfg: GPTConfig,
         k2 for k in _BLOCK_KEYS_DENSE for k2 in (k + "_q", k + "_scale"))
     stacked = {k: params[k] for k in keys if k in params}
     eps = cfg.layer_norm_eps
-    for layer in range(cfg.num_layers):
+    for layer in range(cfg.num_layers if layers is None else int(layers)):
         p = {k: v[layer] for k, v in stacked.items()}
         a_in = _ln(x, p["ln1_scale"], p["ln1_bias"], eps)
         x = x + _cached_attention(a_in, p, cache["k"][layer],
-                                  cache["v"][layer], pos, cfg, qmm)
+                                  cache["v"][layer], pos, cfg, qmm, pt)
         m_in = _ln(x, p["ln2_scale"], p["ln2_bias"], eps)
         mh = leaf_matmul(m_in, p, "mlp_up_w", qmm)
         if p.get("mlp_up_b") is not None:

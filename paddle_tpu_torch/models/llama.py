@@ -33,11 +33,13 @@ rebound (chip_smoke.py does). The single-GPU path has no mesh, so the
 reference's sharding constraints have nothing to pin and are not
 carried.
 
-The cached forward keeps the reference's dense layout: a cache of KV
-heads {"k","v": [L, B, max_len, KV, hd]}, written in place
-(kernels/decode_attention.write_kv), and grouped masked attention over
+The cached forward keeps the reference's layouts: a dense cache of KV
+heads {"k","v": [L, B, max_len, KV, hd]} or the serving engine's page
+pool {"k","v": [L, P, page_size, KV, hd], "pt": [B, max_pages]}, written
+in place (kernels/decode_attention), and grouped masked attention over
 it that never repeats KV (cached_attention folds the group axis). RoPE
-runs at absolute positions from tables built over the cache length; a
+runs at absolute positions from tables built over the cache's logical
+length (max_len, or max_pages * page_size); a
 scalar `pos` slices them with the start clamped (dynamic_slice), a [B]
 `pos` gathers with indices clamped to the table (take(mode="clip")), so
 a row parked past the cache ropes at the last position instead of
@@ -58,7 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.decode_attention import cached_attention, write_kv
+from ..kernels.decode_attention import write_and_attend
 from ..kernels.flash_attention import flash_attention_fn
 from ..kernels.quant_matmul import leaf_matmul, quant_matmul
 from .gpt import _position_embedding, apply_adamw, value_and_grad
@@ -256,35 +258,32 @@ def llama_forward_cached(params, tokens, cache, pos, cfg: LlamaConfig,
     [B, T, V], cache), the cache updated in place. `qmm` is the
     dequant-matmul of int8 trees: the kernel wrapper by default, or the
     plain version where a caller wants the forward without the kernel.
-    The reference's `layers=` draft slice (speculative decode) is not
-    ported."""
-    if layers is not None:
-        raise NotImplementedError(
-            "llama_forward_cached(layers=): the speculative-decode draft "
-            "slice is not ported yet (ROADMAP A5)")
+    Cache layouts and `layers` (the speculative self-draft: the first
+    `layers` blocks, then the final norm and the head) as
+    gpt_forward_cached's."""
     B, T = tokens.shape
+    pt = cache.get("pt")
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = params["wte"][tokens.long()].to(cfg.dtype)
     # RoPE over the cache's positions, taken at `pos` with the clamps of
     # GPT's position embedding: [1, T, hd/2] or [B, T, hd/2]
-    cos_full, sin_full = _rope_tables(cache["k"].shape[2], hd,
-                                      cfg.rope_theta, x.device)
+    s_cache = cache["k"].shape[2] * (1 if pt is None else pt.shape[1])
+    cos_full, sin_full = _rope_tables(s_cache, hd, cfg.rope_theta, x.device)
     cos = _position_embedding(cos_full, pos, B, T, x.device)
     sin = _position_embedding(sin_full, pos, B, T, x.device)
     keys = _BLOCK_KEYS + tuple(
         k2 for k in _BLOCK_KEYS for k2 in (k + "_q", k + "_scale"))
     stacked = {k: params[k] for k in keys if k in params}
     eps = cfg.rms_eps
-    for layer in range(cfg.num_layers):
+    for layer in range(cfg.num_layers if layers is None else int(layers)):
         lp = {k: v[layer] for k, v in stacked.items()}
-        kc, vc = cache["k"][layer], cache["v"][layer]
         h = _rmsnorm(x, lp["attn_norm"], eps)
         q = leaf_matmul(h, lp, "q_w", qmm).reshape(B, T, H, hd)
         k = leaf_matmul(h, lp, "k_w", qmm).reshape(B, T, KV, hd)
         v = leaf_matmul(h, lp, "v_w", qmm).reshape(B, T, KV, hd)
-        write_kv(kc, _apply_rope(k, cos, sin), pos)
-        write_kv(vc, v, pos)
-        ctx = cached_attention(_apply_rope(q, cos, sin), kc, vc, pos)
+        ctx = write_and_attend(_apply_rope(q, cos, sin),
+                               _apply_rope(k, cos, sin), v,
+                               cache["k"][layer], cache["v"][layer], pos, pt)
         x = x + leaf_matmul(ctx.reshape(B, T, H * hd).to(x.dtype), lp,
                             "o_w", qmm)
         h = _rmsnorm(x, lp["ffn_norm"], eps)

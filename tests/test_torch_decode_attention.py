@@ -103,9 +103,15 @@ def test_cached_attention_mixed_matches_jax_with_bf16_cache(H, kv):
     # probabilities and context to bf16 (2^-8 relative) at its own
     # points; |ctx| <= max|v| < 5 here, so a few bf16 steps is 0.1
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=0.1)
+    # "paged" names a cache layout: its gathered view runs the dense
+    # math, as the reference's attn_math_impl maps it
+    paged = tda.cached_attention(bf(q), bf(kc), bf(vc), torch.from_numpy(pos),
+                                 impl="paged")
+    assert torch.equal(paged, tda.cached_attention(
+        bf(q), bf(kc), bf(vc), torch.from_numpy(pos), impl="dense"))
     with pytest.raises(ValueError):
         tda.cached_attention(bf(q), bf(kc), bf(vc), torch.from_numpy(pos),
-                             impl="paged")
+                             impl="blocked")
 
 
 def test_stale_cache_beyond_the_position_is_never_attended():

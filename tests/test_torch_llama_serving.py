@@ -145,12 +145,24 @@ def test_rope_at_per_row_positions_matches_jax():
 
 
 def test_draft_slice_is_not_ported(setup):
-    _, tc, params = setup
-    _, tp = _trees(params, False)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tl.llama_forward_cached(tp, torch.zeros(1, 1, dtype=torch.long),
-                                tl.init_kv_cache(tc, 1, 8, device="cpu"), 0,
-                                tc, layers=1)
+    """The draft slice (layers=), which raised before speculative decode
+    was ported, against the JAX package's: the first layer's logits and
+    cache, int8 too."""
+    jc, tc, params = setup
+    for quant in (False, True):
+        jp, tp = _trees(params, quant)
+        toks = np.random.RandomState(4).randint(0, V, (2, 5)).astype(np.int32)
+        lj, cj = jl.llama_forward_cached(
+            jp, jnp.asarray(toks),
+            {k: v[:1] for k, v in jl.init_kv_cache(jc, 2, 8).items()}, 0, jc,
+            layers=1)
+        cache = tl.init_kv_cache(tc, 2, 8, device="cpu")
+        lt, cache = tl.llama_forward_cached(tp, torch.from_numpy(toks), cache,
+                                            0, tc, layers=1)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+        np.testing.assert_allclose(cache["k"][:1].numpy(),
+                                   np.asarray(cj["k"]), **TOL)
+        assert not cache["k"][1:].any()
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
