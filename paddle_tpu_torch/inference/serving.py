@@ -1,9 +1,10 @@
 """Continuous-batching serving engine: a dense slot-pool or paged KV
-cache, bucketed or chunked prefill, one decode tick for all slots, and
-speculative decode.
+cache, bucketed or chunked prefill, one decode tick for all slots,
+speculative decode, K ticks a dispatch, and a host KV tier.
 
 Counterpart of paddle_tpu/inference/serving.py (the dense and paged
-layouts, prefix sharing, chunked prefill, speculative decode).
+layouts, prefix sharing, chunked prefill, speculative decode,
+multi-tick decode, the host KV tier).
 Reference analog: AnalysisPredictor driving the FusedMultiTransformer
 decode loops, generalized to iteration-level scheduling (Orca-style
 continuous batching): requests join and leave the running batch between
@@ -43,6 +44,25 @@ decode ticks.
   each tick drafts `gamma` tokens through the first `draft_layers`
   layers and verifies them in one full-depth pass; greedy streams are
   the non-spec streams, and the host still pulls one array a tick.
+- **Multi-tick decode** (multi_tick=K; inference/multi_tick.py): a
+  dispatch runs K ticks (K spec rounds under spec decode) and the host
+  pulls one [N, K] emission matrix, retiring slots on the device by the
+  host's finish rules. On the card a dispatch is one replay of a CUDA
+  graph of the K ticks, captured once per `sampling` flag over static
+  buffers: the slot state, the early-exit inputs and the page table are
+  copied into them, and the cache is only ever written in place, so no
+  address a graph holds changes; the tensors a family's forward reads
+  from a memo (Llama's RoPE tables) are held with the graph, so no
+  eviction frees one. The first dispatch of each flag runs
+  eagerly (its tokens are real) and is then captured; a capture or
+  replay that fails raises, the engine never falls back to eager ticks.
+  K = 1 is the eager single tick.
+- **Host KV tier** (host_kv_bytes=B, paged with prefix sharing;
+  inference/host_kv.py): a registered page the pool's LRU evicts is
+  copied to host RAM first; admission's prefix walk looks on the device,
+  then on the host, and swaps a host hit back into a fresh page in
+  place, so prefix reuse outlives device eviction. Streams are those of
+  an engine without the tier.
 - **Quarantine.** With guardrails on, a row whose logits are not all
   finite folds into a -1 token on the device (real ids are never
   negative); the host finishes only that request as "poisoned".
@@ -62,10 +82,9 @@ three values and the vocabulary index, computed on the device, and the
 draw is Gumbel-max over the temperature-scaled, top-k-masked logits.
 
 Every request resolves exactly once with a finish reason from
-TERMINAL_REASONS. Engine knobs of later slices (multi-tick, host KV
-tier, tensor-parallel meshes, telemetry, tracing, watchdog and retries,
-queue bounds) raise NotImplementedError naming the ROADMAP item that
-ports them. The reference's fault-injection hooks are not carried (A7).
+TERMINAL_REASONS. Engine knobs of later slices (tensor-parallel meshes,
+telemetry, tracing, watchdog and retries, queue bounds) raise
+NotImplementedError naming the ROADMAP item that ports them. The reference's fault-injection hooks are not carried (A7).
 """
 from __future__ import annotations
 
@@ -89,10 +108,13 @@ __all__ = ["ServingEngine", "Request", "ModelFamily", "family_for",
 TERMINAL_REASONS = frozenset(
     {"eos", "length", "cancelled", "poisoned", "evicted"})
 
+# device index -> the side stream every engine's multi-tick warm-ups and
+# CUDA graph captures run on: cuBLAS keeps a workspace for each stream it
+# has run on, so a stream per engine would leave one behind per build
+_CAPTURE_STREAMS: dict = {}
+
 # knob -> (values that leave the knob inert, the ROADMAP item porting it)
 _UNPORTED = {
-    "multi_tick": ((0, 1), "A5 (multi-tick decode)"),
-    "host_kv_bytes": ((0,), "A5 (host KV tier)"),
     "mesh": ((None,), "A6 (tensor-parallel serving)"),
     "tp_axis": (("tp",), "A6 (tensor-parallel serving)"),
     "telemetry": (("auto", "off"), "A7 (serving telemetry)"),
@@ -137,10 +159,13 @@ class PoolExhaustedError(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class ModelFamily:
     """The seam a model family exposes to the engine: a cached forward
-    that accepts per-row positions, and a cache factory."""
+    that accepts per-row positions, a cache factory, and the tensors the
+    forward reads beyond params and cache (a memo may free them; the
+    engine keeps them alive with each CUDA graph that baked them)."""
     name: str
     forward_cached: Callable    # (params, tokens[B,T], cache, pos, cfg)
     init_cache: Callable        # (cfg, batch, max_len, device) -> {"k","v"}
+    held_tensors: Callable = lambda cfg, cache: ()   # (cfg, cache) -> tuple
 
 
 def family_for(name: str) -> ModelFamily:
@@ -150,7 +175,7 @@ def family_for(name: str) -> ModelFamily:
     if name == "llama":
         from ..models import llama
         return ModelFamily("llama", llama.llama_forward_cached,
-                           llama.init_kv_cache)
+                           llama.init_kv_cache, llama.cached_rope_tables)
     raise ValueError(f"unknown model family {name!r} (gpt|llama)")
 
 
@@ -167,8 +192,9 @@ class _PagePool:
 
     `reserved` counts admission reservations not yet turned into pages;
     `available()` is what a new admission may claim without starving an
-    admitted slot. The reference's eviction hook (the host KV tier) is
-    not carried (ROADMAP A5)."""
+    admitted slot. `on_evict(pid, key)`, when set, is called just before
+    a registered page's eviction drops its prefix entry: the engine's
+    host tier copies the page there."""
 
     def __init__(self, num_pages: int, page_size: int):
         if num_pages < 2:
@@ -185,6 +211,7 @@ class _PagePool:
         self.by_key: dict = {}               # prefix key -> page id
         self.key_of: dict = {}               # page id -> prefix key
         self.reserved = 0
+        self.on_evict: Optional[Callable] = None
 
     def available(self) -> int:
         """Pages a new admission may still reserve: free + evictable
@@ -198,6 +225,8 @@ class _PagePool:
             pid = self.free.pop()
         elif self.cached:
             pid, key = self.cached.popitem(last=False)     # LRU
+            if self.on_evict is not None:
+                self.on_evict(pid, key)
             del self.by_key[key]
             del self.key_of[pid]
         else:
@@ -344,8 +373,7 @@ def _sample(lg, temps, top_ks, seed, req_ids, gen_idx, max_top_k: int):
             max_top_k)
         keep = torch.arange(max_top_k, device=lg.device)[None, :] \
             < k_eff[:, None]
-        masked = torch.where(keep, vals, torch.tensor(float("-inf"),
-                                                      device=lg.device))
+        masked = vals.masked_fill(~keep, float("-inf"))
         choice = torch.argmax(masked / safe_t + g.gather(1, idx), dim=-1)
         trunc = idx.gather(1, choice[:, None])[:, 0]
         sampled = torch.where(top_ks > 0, trunc, sampled)
@@ -476,6 +504,9 @@ class ServingEngine:
     chunk (0: the whole suffix at once); `prefix_sharing` on or off.
     Speculative decode: `spec_decode` ("auto"|"off"|"spec"), `gamma`
     drafts a tick, `draft_layers` draft depth (0: half the layers).
+    `multi_tick` ticks a dispatch (0: env > registry > 1). The host KV
+    tier: `host_kv_bytes` of host RAM behind the page pool (0: off;
+    paged layout with prefix sharing only).
     """
 
     def __init__(self, params, cfg, family="gpt", num_slots: int = 8,
@@ -485,7 +516,8 @@ class ServingEngine:
                  page_size: int = 16, num_pages: int = 0,
                  prefill_chunk: int = 0, prefix_sharing: bool = True,
                  spec_decode: str = "auto", gamma: int = 4,
-                 draft_layers: int = 0, **later_knobs):
+                 draft_layers: int = 0, multi_tick: int = 0,
+                 host_kv_bytes: int = 0, **later_knobs):
         _check_unported(later_knobs)
         self.device = resolve_device(device)
         self.family = (family_for(family) if isinstance(family, str)
@@ -517,8 +549,13 @@ class ServingEngine:
                 raise ValueError(
                     f"draft_layers ({self.spec_draft_layers}) must be in "
                     f"1..num_layers ({n_layers})")
-        # positions one tick writes per slot
-        self._tick_span = self.spec_gamma + 1 if self.spec else 1
+        # ticks a dispatch; the env's off values kill-switch even an
+        # explicit K (inference/multi_tick.resolve_multi_tick)
+        from .multi_tick import resolve_multi_tick
+        self.mt_k = resolve_multi_tick(multi_tick, self.device)
+        # positions one dispatch writes per slot
+        self._tick_span = self.mt_k * (self.spec_gamma + 1 if self.spec
+                                       else 1)
         # cache layout
         if kv_layout == "auto":
             from ..kernels.decode_attention import decode_attn_impl
@@ -553,7 +590,17 @@ class ServingEngine:
             self._prefilling: collections.deque = collections.deque()
             self._pt_dirty = False
             self._cache = self._init_paged_cache()
-        else:
+        # the host tier behind the pool's eviction (paged layout with
+        # prefix sharing: only registered pages spill)
+        from .host_kv import HostKVTier, resolve_host_kv
+        self.host_kv_bytes = resolve_host_kv(host_kv_bytes)
+        self._host_tier = None
+        self._host_stage: dict = {}   # prefix key -> uploaded (k, v)
+        if self.paged and self.prefix_sharing and self.host_kv_bytes > 0:
+            self._host_tier = HostKVTier(self.host_kv_bytes,
+                                         pin=self.device.type == "cuda")
+            self._pool.on_evict = self._spill_page
+        if not self.paged:
             self._cache = self.family.init_cache(cfg, n, self.max_len,
                                                  device=self.device)
         # host mirrors of the slot state; the device copy is rebuilt
@@ -565,8 +612,26 @@ class ServingEngine:
         self._top_ks = np.zeros(n, np.int32)
         self._req_ids = np.zeros(n, np.int32)
         self._gen_idx = np.zeros(n, np.int32)
+        # the multi-tick early-exit inputs: EOS id (-1: none), token budget
+        self._eos_ids = np.full(n, -1, np.int32)
+        self._max_new = np.zeros(n, np.int32)
         self._dstate = None
         self._dirty = True
+        if self.mt_k > 1:
+            # the static buffers a dispatch reads and advances in place
+            # (a CUDA graph holds their addresses): the state tuple, then
+            # eos_ids and max_new
+            self._gbufs = tuple(
+                torch.zeros(n, dtype=dt, device=self.device)
+                for dt in (torch.int32, torch.int32, torch.bool,
+                           torch.float32, torch.int32, torch.int32,
+                           torch.int32, torch.int32, torch.int32))
+            # on the card a dispatch is a CUDA graph replay
+            self._graphed = self.device.type == "cuda"
+            self._graphs: dict = {}          # sampling flag -> CUDAGraph
+            self._graph_out: dict = {}       # sampling flag -> emit
+            # sampling flag -> the family's held tensors the graph read
+            self._graph_held: dict = {}
         self._slot_req: List[Optional[Request]] = [None] * n
         self._queue: collections.deque = collections.deque()
         self._next_id = 0
@@ -577,13 +642,19 @@ class ServingEngine:
         # earlier chunk makes no pull
         self.tick_ms: collections.deque = collections.deque(maxlen=8192)
         self.prefill_ms: collections.deque = collections.deque(maxlen=8192)
-        # prefix_hits: pages mapped from the prefix map at admission;
-        # spec_proposed/accepted: drafts of greedy slots
+        # host ms of each CUDA graph capture
+        self.capture_ms: List[float] = []
+        # decode_ticks: dispatches (K ticks each under multi-tick);
+        # prefix_hits: pages mapped from the prefix map or swapped in
+        # from the host tier at admission; spec_proposed/accepted:
+        # drafts of greedy slots; graph_captures/replays: CUDA graphs of
+        # the K-tick dispatch captured and replayed
         self.counters = {"prefills": 0, "decode_ticks": 0,
                          "tokens_emitted": 0, "quant_matmuls": 0,
                          "prefill_chunks": 0, "cow_copies": 0,
                          "prefix_hits": 0, "spec_proposed": 0,
-                         "spec_accepted": 0}
+                         "spec_accepted": 0, "graph_captures": 0,
+                         "graph_replays": 0}
         # fused dequant-matmuls per full forward: quantized leaves per
         # layer x depth + the head (the reference's formula); a spec
         # tick adds gamma draft passes of draft_layers layers + the head
@@ -614,12 +685,33 @@ class ServingEngine:
 
     def pool_stats(self) -> dict:
         """The page pool in plain numbers (paged layout): page states,
-        the COW copies, prefill chunks and prefix-hit pages so far."""
+        the COW copies, prefill chunks and prefix-hit pages so far, and
+        the host tier's entries, bytes, spills, swap-ins and drops."""
         if not self.paged:
             return {"layout": "dense"}
-        return {"layout": "paged", **self._pool.stats(),
-                **{k: self.counters[k] for k in
-                   ("cow_copies", "prefill_chunks", "prefix_hits")}}
+        st = {"layout": "paged", **self._pool.stats(),
+              **{k: self.counters[k] for k in
+                 ("cow_copies", "prefill_chunks", "prefix_hits")}}
+        if self._host_tier is not None:
+            st["host_tier"] = self._host_tier.stats()
+        return st
+
+    def memory_ledger(self) -> dict:
+        """cost_model.serving_memory_ledger of this engine's live
+        configuration: device bytes by component, the host tier as
+        `kv_pool_host` outside the device total."""
+        from ..cost_model import serving_memory_ledger
+        return serving_memory_ledger(
+            self.cfg, family=self.family.name,
+            layout="paged" if self.paged else "dense",
+            quant="int8" if self._quant_info else "off",
+            num_slots=self.num_slots, max_len=self.max_len,
+            page_size=self.page_size,
+            num_pages=self.num_pages if self.paged else 0,
+            cache_bytes_per_elem=self._cache["k"].element_size(),
+            dtype_bytes=self.cfg.dtype.itemsize,
+            host_kv_bytes=(self._host_tier.bytes
+                           if self._host_tier is not None else 0))
 
     def has_work(self) -> bool:
         return (bool(self._queue) or bool(self._active.any())
@@ -681,7 +773,10 @@ class ServingEngine:
             head = self._queue[0]
             if self.paged and (self._plan_admission(head)[4]
                                > self._pool.available()):
-                break       # FCFS: the head waits for pages to free
+                # FCFS: the head waits for pages to free; its host-tier
+                # pages upload meanwhile
+                self._prefetch_host(head)
+                break
             self._queue.popleft()
             try:
                 self._admit(slot, head, events)
@@ -740,6 +835,8 @@ class ServingEngine:
         self._temps[slot] = 0.0
         self._top_ks[slot] = 0
         self._gen_idx[slot] = 0
+        self._eos_ids[slot] = -1
+        self._max_new[slot] = 0
         self._dirty = True
         if self.paged:
             row = self._ptab[slot]
@@ -778,6 +875,9 @@ class ServingEngine:
                 self._queue.remove(req)
             except ValueError:
                 pass
+            if self._host_stage:          # its prefetched host pages
+                for key in self._prefix_keys(req):
+                    self._host_stage.pop(key, None)
         self._finish(req, "cancelled")
         return True
 
@@ -847,6 +947,8 @@ class ServingEngine:
         self._top_ks[slot] = req.top_k
         self._req_ids[slot] = req.id
         self._gen_idx[slot] = 1
+        self._eos_ids[slot] = -1 if req.eos_id is None else int(req.eos_id)
+        self._max_new[slot] = req.max_new_tokens
         self._dirty = True
         req.tokens.append(tok)
         events.append((req, tok))
@@ -855,53 +957,116 @@ class ServingEngine:
 
     def _decode(self, events: list) -> None:
         if self.paged:
-            # every active slot's write pages must exist and be private
-            # before the tick scatters into them
+            # every active slot's write pages for the whole dispatch must
+            # exist and be private before it scatters into them
             self._prepare_tick_pages()
             self._sync_page_table()
-        if self._dirty:
-            self._dstate = (
-                self._upload(self._cur_tok), self._upload(self._positions),
-                self._upload(self._active), self._upload(self._temps),
-                self._upload(self._top_ks), self._upload(self._req_ids),
-                self._upload(self._gen_idx))
-            self._dirty = False
         sampling = bool(np.any(self._temps[self._active] > 0.0))
+        t_dev0 = time.perf_counter()
+        emit = self._dispatch(sampling)
+        # ONE host pull per dispatch: the [N, K] emission matrix, K
+        # blocks of gamma+1 columns under spec decode
+        toks = emit.cpu().numpy().reshape(self.num_slots, -1)
+        self.tick_ms.append((time.perf_counter() - t_dev0) * 1e3)
+        self.counters["decode_ticks"] += 1
+        self.counters["quant_matmuls"] += self.mt_k * (
+            self._qmm_full
+            + (self.spec_gamma * self._qmm_draft if self.spec else 0))
+        if self.spec:
+            self._apply_spec_emissions(toks, events)
+        else:
+            self._apply_multi_emissions(toks, events)
+
+    def _tick_kw(self, sampling: bool) -> dict:
         kw = dict(fwd=self.family.forward_cached, cfg=self.cfg,
                   max_top_k=self.max_top_k, sampling=sampling,
                   guard=self.guardrails,
                   oor_pos=(self.max_pages * self.page_size if self.paged
                            else None))
-        t_dev0 = time.perf_counter()
         if self.spec:
-            from .spec_decode import spec_tick
-            nxt, self._dstate = spec_tick(
-                self._params, self._cache, self._dstate, self.seed,
-                gamma=self.spec_gamma, draft_layers=self.spec_draft_layers,
-                **kw)
-        else:
-            nxt, self._dstate = _decode_tick(
-                self._params, self._cache, self._dstate, self.seed, **kw)
-        # ONE host pull per tick: [N] tokens, or the [N, gamma+1]
-        # emission matrix under spec decode
-        toks = nxt.cpu().numpy()
-        self.tick_ms.append((time.perf_counter() - t_dev0) * 1e3)
-        self.counters["decode_ticks"] += 1
-        self.counters["quant_matmuls"] += self._qmm_full + (
-            self.spec_gamma * self._qmm_draft if self.spec else 0)
-        if self.spec:
-            self._apply_spec_emissions(toks, events)
-            return
-        for i in np.nonzero(self._active)[0]:
-            req = self._slot_req[i]
-            tok = int(toks[i])
-            if tok < 0:
-                # evict ONLY this slot; the device state advanced its row,
-                # so _finish dirties it and co-batched rows rebuild from
-                # their clean mirrors
-                self._poisoned(req, "decode")
-                continue
-            self._emit_token(i, req, tok, events)
+            kw.update(gamma=self.spec_gamma,
+                      draft_layers=self.spec_draft_layers)
+        return kw
+
+    def _dispatch(self, sampling: bool):
+        """Run one dispatch on the device; returns the emission tensor.
+        K = 1: the eager tick over `_dstate`, re-uploaded from the host
+        mirrors when dirty. K >= 2: the K-tick function over the static
+        buffers, eagerly on the CPU; on the card the first dispatch of
+        each `sampling` flag runs it eagerly on a side stream and then
+        captures it in a CUDA graph, and every later one replays that
+        graph."""
+        if self.mt_k == 1:
+            if self._dirty:
+                self._dstate = (
+                    self._upload(self._cur_tok),
+                    self._upload(self._positions),
+                    self._upload(self._active), self._upload(self._temps),
+                    self._upload(self._top_ks), self._upload(self._req_ids),
+                    self._upload(self._gen_idx))
+                self._dirty = False
+            if self.spec:
+                from .spec_decode import spec_tick
+                nxt, self._dstate = spec_tick(
+                    self._params, self._cache, self._dstate, self.seed,
+                    **self._tick_kw(sampling))
+            else:
+                nxt, self._dstate = _decode_tick(
+                    self._params, self._cache, self._dstate, self.seed,
+                    **self._tick_kw(sampling))
+            return nxt
+        if self._dirty:
+            for buf, host in zip(self._gbufs, (
+                    self._cur_tok, self._positions, self._active,
+                    self._temps, self._top_ks, self._req_ids, self._gen_idx,
+                    self._eos_ids, self._max_new)):
+                buf.copy_(torch.from_numpy(host))
+            self._dirty = False
+        if not self._graphed:
+            return self._multi_ticks(sampling)
+        graph = self._graphs.get(sampling)
+        if graph is not None:
+            graph.replay()
+            self.counters["graph_replays"] += 1
+            return self._graph_out[sampling]
+        side = _CAPTURE_STREAMS.get(self.device.index)
+        if side is None:
+            side = _CAPTURE_STREAMS[self.device.index] = torch.cuda.Stream(
+                self.device)
+        main = torch.cuda.current_stream(self.device)
+        # the warm-up: a real dispatch, eagerly on the capture's stream,
+        # which also sizes every workspace the graph will bake
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            emit = self._multi_ticks(sampling)
+        main.wait_stream(side)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = self._multi_ticks(sampling)    # recorded, not run
+        self.capture_ms.append((time.perf_counter() - t0) * 1e3)
+        self._graphs[sampling] = graph
+        self._graph_out[sampling] = out
+        # the memoized tensors the capture just read (the RoPE tables):
+        # held here, so no eviction can free an address the graph baked
+        self._graph_held[sampling] = self.family.held_tensors(self.cfg,
+                                                              self._cache)
+        self.counters["graph_captures"] += 1
+        return emit
+
+    def _multi_ticks(self, sampling: bool):
+        """The K-tick function over the static buffers: the ticks, then
+        the advanced state copied back into the buffers in place (the
+        body a CUDA graph captures). Returns the emission matrix."""
+        from .multi_tick import multi_tick_spec_ticks, multi_tick_ticks
+        fn = multi_tick_spec_ticks if self.spec else multi_tick_ticks
+        state, (eos_ids, max_new) = self._gbufs[:7], self._gbufs[7:]
+        emit, new = fn(self._params, self._cache, state, self.seed, eos_ids,
+                       max_new, k_ticks=self.mt_k, max_len=self.max_len,
+                       **self._tick_kw(sampling))
+        for buf, val in zip(state, new):
+            buf.copy_(val)
+        return emit
 
     def _emit_token(self, i: int, req: Request, tok: int,
                     events: list) -> None:
@@ -916,38 +1081,74 @@ class ServingEngine:
         self.counters["tokens_emitted"] += 1
         self._maybe_finish(req)
 
-    def _apply_spec_emissions(self, toks, events: list) -> None:
-        """Spec-tick bookkeeping over the [N, gamma+1] emission matrix.
-        The device advanced each active slot by its accepted count + 1;
-        the mirrors advance token by token through `_emit_token`, so a
-        request that finishes inside the accepted prefix drops the rest
-        (the non-spec engine would never have made them) and its finish
-        dirties the device state. Under the paged layout, pages past each
-        surviving slot's new position held only rejected drafts and roll
-        back to the pool."""
-        from .spec_decode import SPEC_PAD
+    def _apply_multi_emissions(self, toks, events: list) -> None:
+        """Non-spec bookkeeping over the [N, K] emission matrix: column j
+        is the token tick j emitted, MT_PAD after the slot retired on the
+        device, -1 the quarantine verdict. The columns replay through
+        `_emit_token`, so the host's finish rules fire on the token the
+        device retired on and a surviving slot's mirrors land where the
+        device state did. A quarantined slot alone is finished; its
+        finish dirties the device state, so co-batched rows rebuild from
+        their clean mirrors."""
+        from .multi_tick import MT_PAD
         for i in np.nonzero(self._active)[0]:
             req = self._slot_req[i]
-            row = [int(t) for t in toks[i]]
-            if row[0] < 0:
-                self._poisoned(req, "decode")
-                continue
-            cut = row.index(SPEC_PAD) if SPEC_PAD in row else len(row)
-            if self._temps[i] <= 0.0:        # sampled slots never propose
-                self.counters["spec_proposed"] += self.spec_gamma
-                self.counters["spec_accepted"] += cut - 1
-            for tok in row[:cut]:
+            for tok in toks[i].tolist():
+                if tok == MT_PAD:
+                    break
+                if tok < 0:
+                    self._poisoned(req, "decode")
+                    break
                 self._emit_token(i, req, tok, events)
                 if req.done:
                     break
+
+    def _apply_spec_emissions(self, toks, events: list) -> None:
+        """Spec bookkeeping over the emission matrix: K blocks of
+        gamma+1 columns (one under the single tick). In a block, column 0
+        is a real token or the -1 verdict and the accepted drafts follow;
+        a block opening with SPEC_PAD means the slot retired in an
+        earlier one. The device advanced each slot by its accepted count
+        + 1 a block; the mirrors advance token by token through
+        `_emit_token`, so a request that finishes inside a block drops
+        the rest (the non-spec engine would never have made them) and
+        its finish dirties the device state. A slot flagged in a later
+        block is finished after the tokens it emitted before. Under the
+        paged layout, pages past each surviving slot's new position held
+        only rejected drafts and roll back to the pool."""
+        from .spec_decode import SPEC_PAD
+        width = self.spec_gamma + 1
+        for i in np.nonzero(self._active)[0]:
+            req = self._slot_req[i]
+            flat = toks[i].tolist()
+            emit, poisoned = [], False
+            for b in range(0, len(flat), width):
+                row = flat[b:b + width]
+                if b and row[0] == SPEC_PAD:
+                    break
+                if row[0] < 0:
+                    poisoned = True
+                    break
+                cut = row.index(SPEC_PAD) if SPEC_PAD in row else len(row)
+                if self._temps[i] <= 0.0:    # sampled slots never propose
+                    self.counters["spec_proposed"] += self.spec_gamma
+                    self.counters["spec_accepted"] += cut - 1
+                emit.extend(row[:cut])
+            for tok in emit:
+                self._emit_token(i, req, tok, events)
+                if req.done:
+                    break
+            if poisoned and not req.done:
+                self._poisoned(req, "decode")
         if self.paged:
             for i in np.nonzero(self._active)[0]:
                 self._rollback_spec_pages(int(i))
 
     # ------------------------------------------------- paged scheduling
     def _sync_page_table(self) -> None:
+        # in place: a captured graph holds the table's address
         if self._pt_dirty:
-            self._cache["pt"] = self._upload(self._ptab)
+            self._cache["pt"].copy_(torch.from_numpy(self._ptab))
             self._pt_dirty = False
 
     def _pages_needed(self, t0: int, max_new: int) -> int:
@@ -956,28 +1157,39 @@ class ServingEngine:
         return -(-(t0 + max_new - 1) // self.page_size)
 
     def _plan_admission(self, req: Request):
-        """(matched shared page ids, aligned_full, suffix_start, need,
-        gross). `need` is the worst-case pages the request will still
-        allocate privately; `gross` also counts cached pages the match
-        pulls back live (they stop being evictable for others). The
-        suffix always re-runs at least one prompt token (its logits give
-        the first token), so a fully page-aligned match copies its last
-        page (aligned_full) and recomputes the last prompt token there."""
+        """(matched, aligned_full, suffix_start, need, gross). `matched`
+        is the prompt's prefix as a chain of ("dev", page id) and
+        ("host", prefix key) entries: the walk looks in the device's
+        prefix map first, then in the host tier, and stops at the first
+        miss. `need` is the worst-case pages the request will still
+        allocate (a host hit costs one, its swap-in); `gross` also
+        counts cached pages the match pulls back live (they stop being
+        evictable for others). The suffix always re-runs at least one
+        prompt token (its logits give the first token), so a fully
+        page-aligned match copies its last page (aligned_full) and
+        recomputes the last prompt token there."""
         t0 = len(req.prompt)
         ps = self.page_size
-        matched: List[int] = []
+        matched: List[tuple] = []
+        n_dev = 0
         if self.prefix_sharing:
             for key in self._prefix_keys(req):
                 pid = self._pool.lookup(key)
-                if pid is None:
+                if pid is not None:
+                    matched.append(("dev", pid))
+                    n_dev += 1
+                elif self._host_tier is not None and (
+                        key in self._host_stage or key in self._host_tier):
+                    matched.append(("host", key))
+                else:
                     break
-                matched.append(pid)
         aligned_full = (bool(matched) and len(matched) == t0 // ps
                         and t0 % ps == 0)
         suffix_start = (t0 - 1) if aligned_full else len(matched) * ps
-        need = (self._pages_needed(t0, req.max_new_tokens) - len(matched)
+        need = (self._pages_needed(t0, req.max_new_tokens) - n_dev
                 + (1 if aligned_full else 0))
-        gross = need + sum(1 for pid in matched if self._pool.ref[pid] == 0)
+        gross = need + sum(1 for kind, pid in matched
+                           if kind == "dev" and self._pool.ref[pid] == 0)
         if gross > self.num_pages - 1:
             # an aligned-full match costs one page over the envelope; in
             # a pool sized exactly to it the request would queue forever,
@@ -997,18 +1209,41 @@ class ServingEngine:
 
     def _admit_paged(self, slot: int, req: Request, events: list) -> None:
         """Paged admission: map the shared prompt-prefix pages (refcounts
-        up), reserve the worst-case remainder, then prefill the unshared
-        suffix, at once when it fits one chunk, else one chunk a tick
-        through `_advance_prefill`. step() checked the reservation fits."""
+        up), swap the host tier's hits into fresh pages (re-registered,
+        so later sharers hit the device), reserve the worst-case
+        remainder, then prefill the unshared suffix, at once when it fits
+        one chunk, else one chunk a tick through `_advance_prefill`.
+        step() checked the reservation fits."""
         matched, aligned_full, suffix_start, need, _ = \
             self._plan_admission(req)
+        # the host pages' data before any alloc(): an eviction spills into
+        # the tier, whose own LRU could drop a key this admission needs
+        staged = {}
+        for kind, key in matched:
+            if kind == "host":
+                staged[key] = (self._host_stage.pop(key, None)
+                               or self._upload_pair(self._host_tier.get(key)))
+        if self._host_stage:
+            for key in self._prefix_keys(req):
+                self._host_stage.pop(key, None)     # uploads the plan skipped
         req.slot = slot
         self._slot_req[slot] = req
         self._pool.reserved += need
         self._slot_reserve[slot] = need
-        for j, pid in enumerate(matched):
-            self._pool.retain(pid)
-            self._ptab[slot, j] = pid
+        # retain every device hit before a swap-in's alloc() could evict
+        # one of them from the LRU cache
+        for j, (kind, pid) in enumerate(matched):
+            if kind == "dev":
+                self._pool.retain(pid)
+                self._ptab[slot, j] = pid
+        for j, (kind, key) in enumerate(matched):
+            if kind == "host":
+                pid = self._alloc_slot_page(slot, j)
+                for name, page in zip(("k", "v"), staged[key]):
+                    # in place: a captured graph holds the pool's address
+                    self._cache[name][:, pid].copy_(page)
+                self._pool.register(pid, key)
+                self._host_tier.swapins += 1
         if matched:
             self._pt_dirty = True
         self.counters["prefix_hits"] += len(matched)
@@ -1090,6 +1325,43 @@ class ServingEngine:
                 if self._prefilling and self._prefilling[0] == slot:
                     self._prefilling.popleft()
             return
+
+    # ---------------------------------------------------- host KV tier
+    def _spill_page(self, pid: int, key) -> None:
+        """The pool's on_evict tap: copy the evicting registered page to
+        the host tier before its prefix entry drops. A registered page is
+        immutable (COW), so the copy is bit-equal to what a device hit
+        would read. A key the tier holds already (a page that went host,
+        device and is evicted again) is not copied twice."""
+        if key not in self._host_tier:
+            self._host_tier.put(key, self._cache["k"][:, pid],
+                                self._cache["v"][:, pid])
+
+    def _upload_pair(self, pair):
+        """A host page pair on its way to the device: asynchronous from
+        pinned memory on the card."""
+        return tuple(t.to(self.device, non_blocking=True) for t in pair)
+
+    def _prefetch_host(self, req: Request) -> None:
+        """While the head of the queue waits for pages, start uploading
+        the host-tier pages its prefix walk will hit, so the transfers
+        overlap the wait; `_admit_paged` consumes them. Idempotent per
+        key. Only the head's uploads are kept: a head that left the
+        queue unadmitted (cancelled) leaves none behind once another
+        head waits."""
+        if self._host_tier is None:
+            return
+        keys = self._prefix_keys(req)
+        if self._host_stage:
+            for key in set(self._host_stage).difference(keys):
+                del self._host_stage[key]
+        for key in keys:
+            if key in self._host_stage or key in self._pool.by_key:
+                continue
+            pair = self._host_tier.get(key)
+            if pair is None:
+                break           # the walk stops at the first miss too
+            self._host_stage[key] = self._upload_pair(pair)
 
     def _alloc_slot_page(self, slot: int, j: int) -> int:
         """A private page for table entry (slot, j), drawn on the slot's

@@ -93,9 +93,18 @@ def write_kv(kc, k, pos):
         start = pos.to(device=kc.device, dtype=torch.int64).clamp(0, S - 1)
         kc[rows, start] = k[:, 0]
         return kc
+    # no boolean mask (a mask index is a nonzero, a host sync that CUDA
+    # graph capture refuses): a token past S is redirected to S - 1 with
+    # the value that already lands there, the row's token at S - 1 or,
+    # when the whole window is past S, the cache's own old value, so
+    # duplicate indices carry equal bits and nothing past S is written
     qpos = _query_positions(pos, B, T, kc.device)
-    keep = qpos < S
-    kc[rows[:, None].expand(B, T)[keep], qpos[keep]] = k[keep]
+    dst = qpos.clamp(max=S - 1)
+    src = (dst - qpos[:, :1]).clamp(min=0)
+    vals = k[rows[:, None], src]
+    vals = torch.where((qpos[:, :1] < S)[..., None, None], vals,
+                       kc[rows, S - 1][:, None])
+    kc[rows[:, None].expand(B, T), dst] = vals
     return kc
 
 
@@ -179,14 +188,16 @@ def cached_attention(q, kc, vc, pos, impl: str = "dense"):
         raise ValueError(f"unknown decode_attention impl {impl!r} "
                          "(dense|mixed|paged)")
     dot_dt = kc.dtype if impl == "mixed" else torch.float32
-    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=dot_dt)
-    qf = q.reshape(B, T, KV, G, hd).to(dot_dt) * scale.to(q.device)
+    # built on the device: a host tensor here would be an upload inside
+    # the tick, which CUDA graph capture refuses
+    scale = torch.full((), 1.0 / math.sqrt(hd), dtype=dot_dt,
+                       device=q.device)
+    qf = q.reshape(B, T, KV, G, hd).to(dot_dt) * scale
     s = torch.einsum("btkgd,bskd->bkgts", qf, kc.to(dot_dt))
     qpos = _query_positions(pos, B, T, q.device)                   # B,T
     mask = (torch.arange(S, device=q.device)[None, None, :]
             <= qpos[..., None])[:, None, None, :, :]
-    s = torch.where(mask, s.float(), torch.tensor(float("-inf"),
-                                                   device=q.device))
+    s = s.float().masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bkgts,bskd->btkgd",
                        p.to(dot_dt) if impl == "mixed" else p,

@@ -18,7 +18,10 @@ abs-max / 127 of quantization/serving.py).
   of the same function (the reference's `_xla_quant_matmul`).
 
 `launches` counts kernel launches; it moves only where the kernel is
-launched, so a run can show that its path went through the kernel.
+launched, so a run can show that its path went through the kernel. A
+call under CUDA graph capture only records the launch and does not
+count there; it counts in `captured`, the launches recorded into
+graphs, which each replay of such a graph runs once more.
 
 Selection and the kill switch follow the reference
 (paddle_tpu/kernels/quant_matmul.py:91-103): env PADDLE_TPU_QUANT >
@@ -40,7 +43,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["ENV_QUANT", "quant_impl", "resolve_quant", "quant_matmul",
-           "quant_matmul_ref", "leaf_matmul", "launches"]
+           "quant_matmul_ref", "leaf_matmul", "launches", "captured"]
 
 ENV_QUANT = "PADDLE_TPU_QUANT"
 
@@ -49,6 +52,7 @@ _ON_VALUES = frozenset({"1", "on", "true", "yes", "int8"})
 _IMPL_VALUES = frozenset({"xla", "pallas"})
 
 launches = 0
+captured = 0
 
 _SUPPORTED_X = (torch.bfloat16, torch.float32)
 
@@ -148,6 +152,9 @@ def _plan(M: int, K: int, N: int, sm_count: int,
 
 _SM_COUNT: dict = {}
 _SPLIT_BUFS: dict = {}
+# buffers `_split_bufs` outgrew: a CUDA graph that captured a launch
+# holds their addresses, so they are never freed
+_RETIRED_BUFS: list = []
 _ENTRIES: dict = {}
 
 
@@ -164,14 +171,20 @@ def _split_bufs(dev, stream: int, plan: QmmPlan):
     kept per (device, stream) and grown as needed, so the hot path
     allocates nothing. The counters are zero between calls (the kernel's
     last block of each tile resets its counter); calls on one stream run
-    in order, so they share both, and calls on two streams never race."""
+    in order, so they share both, and calls on two streams never race.
+    A buffer replaced by a larger one stays allocated (`_RETIRED_BUFS`):
+    a CUDA graph may have baked its address."""
     key = (dev.index, stream)
     ws, ctr = _SPLIT_BUFS.get(key, (None, None))
     tiles = plan.m_tiles * plan.n_tiles
     if ws is None or ws.numel() < plan.workspace_floats:
+        if ws is not None:
+            _RETIRED_BUFS.append(ws)
         ws = torch.empty(max(plan.workspace_floats, 1 << 16),
                          dtype=torch.float32, device=dev)
     if ctr is None or ctr.numel() < tiles:
+        if ctr is not None:
+            _RETIRED_BUFS.append(ctr)
         ctr = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
     _SPLIT_BUFS[key] = (ws, ctr)
     return ws, ctr
@@ -197,7 +210,7 @@ def _entry(name: str):
 def _launch(x2d, w_q, scale, plan=None):
     """Launch the kernel; `plan` overrides `_plan`'s (the split A/B tool
     times other plans through it)."""
-    global launches
+    global launches, captured
     M, K = x2d.shape
     N = w_q.shape[1]
     dev = x2d.device
@@ -221,7 +234,13 @@ def _launch(x2d, w_q, scale, plan=None):
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{err} at M={M} K={K} N={N}")
-    launches += 1
+    # a launch under CUDA graph capture is recorded, not run: the graph's
+    # replays run it, and the engine counts those (counters
+    # "graph_replays")
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return y
 
 

@@ -158,6 +158,17 @@ def _rope_tables(seq: int, hd: int, theta: float, device=None):
         return torch.cos(ang), torch.sin(ang)
 
 
+def cached_rope_tables(cfg: LlamaConfig, cache):
+    """The (cos, sin) tables `llama_forward_cached` reads for `cache`,
+    over its length (dense: max_len; paged: the table's reach). The
+    cache of `_rope_tables` may evict and free them, so whoever holds a
+    CUDA graph that baked their addresses keeps this pair with it."""
+    pt = cache.get("pt")
+    s_cache = cache["k"].shape[2] * (1 if pt is None else pt.shape[1])
+    return _rope_tables(s_cache, cfg.head_dim, cfg.rope_theta,
+                        cache["k"].device)
+
+
 def _apply_rope(x, cos, sin):
     """x [B, S, H, hd]; rotate interleaved pairs by the position angle.
     cos/sin are [S, hd/2] (positions shared by every row) or
@@ -267,8 +278,7 @@ def llama_forward_cached(params, tokens, cache, pos, cfg: LlamaConfig,
     x = params["wte"][tokens.long()].to(cfg.dtype)
     # RoPE over the cache's positions, taken at `pos` with the clamps of
     # GPT's position embedding: [1, T, hd/2] or [B, T, hd/2]
-    s_cache = cache["k"].shape[2] * (1 if pt is None else pt.shape[1])
-    cos_full, sin_full = _rope_tables(s_cache, hd, cfg.rope_theta, x.device)
+    cos_full, sin_full = cached_rope_tables(cfg, cache)
     cos = _position_embedding(cos_full, pos, B, T, x.device)
     sin = _position_embedding(sin_full, pos, B, T, x.device)
     keys = _BLOCK_KEYS + tuple(

@@ -787,3 +787,158 @@ def test_llama_train_step_launches_each_kernel(cuda_device, forced):
         "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
         "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0, "leaf_update": 11}
     assert torch.isfinite(loss)
+
+
+# --------------------------------------------------------------------------
+# the K-tick dispatch as a CUDA graph replay
+# --------------------------------------------------------------------------
+def _small_llama(dev):
+    from paddle_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                            num_heads=4, num_kv_heads=2, max_seq_len=256,
+                            dtype=torch.bfloat16, remat=False)
+    params = llama.init_llama_params(cfg, seed=0, device="cpu")
+    # std 0.02 weights repeat one token: widen them so streams move
+    params = {k: v * 8 if k.endswith("_w") or k == "wte" else v
+              for k, v in params.items()}
+    return cfg, params
+
+
+@pytest.mark.parametrize("layout,spec", [("dense", False), ("paged", False),
+                                         ("paged", True), ("dense", True)])
+def test_graphed_multi_tick_dispatch_equals_eager(cuda_device, layout, spec):
+    """A K = 4 dispatch replayed from its CUDA graph leaves the emission
+    matrix, the state buffers and the cache bit-equal to the same K-tick
+    function run eagerly from the same state; the replay launches no
+    counted kernel, the eager run 4 x the tick's int8 calls; the engine's
+    streams equal its K = 1 streams, with at most two graphs captured and
+    every later dispatch a replay."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import ServingEngine
+    cfg, params = _small_llama(cuda_device)
+    kw = dict(family="llama", num_slots=4, max_len=128, max_top_k=8,
+              quant="int8", kv_layout=layout, device=cuda_device)
+    if layout == "paged":
+        kw.update(page_size=16, prefill_chunk=32)
+    if spec:
+        kw.update(spec_decode="spec", gamma=2, draft_layers=1)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in
+               (9, 40, 17, 5, 23)]
+    temps = [(0.0, 0), (0.9, 5), (0.0, 0), (0.0, 0), (1.1, 0)]
+
+    def run(**extra):
+        eng = ServingEngine(params, cfg, **kw, **extra)
+        reqs = [eng.submit(p, 20, temperature=t, top_k=k)
+                for p, (t, k) in zip(prompts, temps)]
+        eng.drain()
+        return eng, [r.tokens for r in reqs]
+    eng1, want = run()
+    cap0 = qm.captured
+    eng, got = run(multi_tick=4)
+    assert got == want
+    c = eng.counters
+    assert 1 <= c["graph_captures"] == len(eng._graphs) <= 2
+    assert c["graph_replays"] == c["decode_ticks"] - c["graph_captures"]
+    per_tick = eng._qmm_full + (eng.spec_gamma * eng._qmm_draft
+                                if spec else 0)
+    # each graph recorded the kernel, 4 x the tick's int8 calls
+    assert qm.captured - cap0 == c["graph_captures"] * 4 * per_tick
+
+    # one more dispatch, replayed and then rerun eagerly from its state
+    reqs = [eng.submit(p, 12) for p in prompts[:4]]
+    eng.step()                                   # admits, one dispatch
+    if eng.paged:
+        eng._prepare_tick_pages()
+        eng._sync_page_table()
+    sampling = False
+    bufs = list(eng._gbufs) + [eng._cache["k"], eng._cache["v"]]
+    snap = [t.clone() for t in bufs]
+    n0 = qm.launches
+    eng._graphs[sampling].replay()
+    torch.cuda.synchronize()
+    assert qm.launches == n0                     # counted at replay: none
+    graphed = [eng._graph_out[sampling].clone()] + [t.clone() for t in bufs]
+    for t, s in zip(bufs, snap):
+        t.copy_(s)
+    emit = eng._multi_ticks(sampling)
+    torch.cuda.synchronize()
+    assert qm.launches - n0 == 4 * per_tick
+    eager = [emit] + bufs
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b)
+    assert (graphed[0] >= 0).any()               # real tokens came out
+    eng.drain()
+    assert all(r.finish_reason == "length" for r in reqs)
+
+
+def test_graph_replay_survives_rope_table_eviction(cuda_device):
+    """A graph bakes the RoPE tables' addresses, and `_rope_tables` is a
+    bounded memo: with the tables evicted by 20 other lengths and their
+    memory baited, a replay still equals the eager dispatch bit for bit
+    (the engine holds what its graph read)."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import llama
+    cfg, params = _small_llama(cuda_device)
+    eng = ServingEngine(params, cfg, family="llama", num_slots=4,
+                        max_len=128, quant="int8", multi_tick=4,
+                        device=cuda_device)
+    rng = np.random.default_rng(4)
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, size=n), 24)
+            for n in (9, 30, 17, 5)]
+    eng.step()                           # admits; warm-up, then capture
+    assert eng.counters["graph_captures"] == 1
+    bufs = list(eng._gbufs) + [eng._cache["k"], eng._cache["v"]]
+    snap = [t.clone() for t in bufs]
+    eager = [eng._multi_ticks(False).clone()] + [t.clone() for t in bufs]
+    for t, s in zip(bufs, snap):
+        t.copy_(s)
+    held = eng._graph_held[False]
+    for n in range(20):                  # evicts the engine's tables
+        llama._rope_tables(1000 + n, cfg.head_dim, cfg.rope_theta,
+                           cuda_device)
+    fresh = llama.cached_rope_tables(cfg, eng._cache)
+    assert fresh[0] is not held[0]
+    bait = [torch.full_like(t, 1e4) for t in held for _ in range(8)]
+    eng._graphs[False].replay()
+    torch.cuda.synchronize()
+    graphed = [eng._graph_out[False]] + bufs
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b)
+    del bait
+    eng.drain()
+    assert all(r.finish_reason == "length" for r in reqs)
+
+
+def test_split_bufs_outgrown_after_capture_stay_alive(cuda_device):
+    """A graph bakes the split-K workspace's address: a larger plan on
+    the same stream after capture replaces the buffer in `_split_bufs`,
+    but the old one stays allocated and the replay still gives the
+    eager bits."""
+    x, w, s = _operands(8, 2048, 1024, torch.bfloat16, cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = qm.quant_matmul(x, w, s)         # sizes the buffers
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = qm.quant_matmul(x, w, s)
+    key = (cuda_device.index, side.cuda_stream)
+    baked = [t.data_ptr() for t in qm._SPLIT_BUFS[key]]
+    plan = qm._plan(8, 2048, 1024, qm._sm_count(cuda_device))
+    assert plan.splits > 1
+    big = plan._replace(n_tiles=plan.n_tiles * 256,
+                        workspace_floats=plan.workspace_floats * 256)
+    grown = qm._split_bufs(cuda_device, side.cuda_stream, big)
+    assert all(g.data_ptr() != b for g, b in zip(grown, baked))
+    alive = {t.data_ptr() for t in qm._RETIRED_BUFS}
+    assert set(baked) <= alive
+    junk = torch.full((1 << 26,), 7.0, device=cuda_device)   # reuse bait
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    del junk

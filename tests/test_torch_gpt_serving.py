@@ -257,8 +257,7 @@ def test_cancel_and_poisoned_quarantine(setup):
 
 def test_unported_knobs_and_families_raise(setup):
     _, tc, params = setup
-    for knob in (dict(multi_tick=4), dict(host_kv_bytes=1 << 20),
-                 dict(telemetry="on"), dict(retries=5),
+    for knob in (dict(telemetry="on"), dict(retries=5),
                  dict(mesh=object()), dict(max_queue=4),
                  dict(tracing=True), dict(watchdog_timeout=1.0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -44,7 +44,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert "paddle_tpu_torch.inference.serving" in mods
     assert "paddle_tpu_torch.kernels.fused_ce" in mods
     for new in ("kernels.registry", "kernels.fused_update", "models.llama",
-                "inference.spec_decode"):
+                "inference.spec_decode", "inference.multi_tick",
+                "inference.host_kv"):
         assert f"paddle_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -193,9 +193,11 @@ def test_spec_knobs_and_kill_switch(families, monkeypatch):
         _engine(params, tc, "llama", "dense", spec_decode="spec", gamma=0)
     with pytest.raises(ValueError):
         spec_decode.resolve_spec("maybe")
-    for knob, item in (("multi_tick", 4), ("host_kv_bytes", 1 << 20)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            _engine(params, tc, "llama", "paged", **{knob: item})
+    # A5's knobs are ported: they build and take effect
+    eng = _engine(params, tc, "llama", "paged", spec_decode="spec",
+                  multi_tick=4, host_kv_bytes=1 << 20)
+    assert eng.mt_k == 4 and eng._host_tier is not None
+    assert eng._tick_span == 4 * (eng.spec_gamma + 1)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         _engine(params, tc, "llama", "paged", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
