@@ -9,8 +9,9 @@ Phases, each failing the script (non-zero exit) when it fails:
    versions, and the build of every hand-written kernel from the
    sources in this checkout (one nvcc per source, all at once), with
    nvcc's -Xptxas -v register, shared-memory and spill summary; the
-   D = 64 instantiations of the three bf16 attention kernels and every
-   bf16 instantiation of the int8 dequant-matmul must not spill.
+   D = 64 instantiations of the three bf16 attention kernels (the
+   forward at both q tiles) and every bf16 instantiation of the int8
+   dequant-matmul must not spill.
 2. Kernel checks, each kernel against its plain PyTorch version on the
    card at the shapes of its main path, with kernel, plain and library
    times from CUDA events, the bound and the error (one JSON line per
@@ -56,6 +57,32 @@ Phases, each failing the script (non-zero exit) when it fails:
    activations, f32 parameters, random weights from seed 0), with the
    registry's "ce" winner forced to "pallas_fused" (the one-pass CE) as
    the reference's tools/ablate_step.py forces its own.
+3b. The GPT step's selection surface at the same widths, the port's
+   counterpart of the rung's variant race (bench.py:270-320) with the
+   attention impl fixed to "pallas" (on CUDA "jax_flash" and "splash"
+   run the same kernels): from one starting state, 2 warm-up and 10
+   timed steps under remat "dots", "full", "dots_flash", "offload_dots"
+   and "all_but_mlp" at batch 8, "all_but_mlp" at 12, no remat at 4 and
+   "dots" at 16, the CE and the update on their default routes; each
+   variant's step ms p50/p90, tokens/s, MFU, peak memory, pinned host
+   bytes and a one-step profile, its kernel launches asserted (the flash
+   forward L a step under dots_flash, all_but_mlp and no remat, 2L
+   otherwise; dq and dk/dv L) and its first loss at batch 8 held to
+   "dots"'s (1e-6 relative); a variant out of device memory is printed
+   as OOM; then the fastest. Then one step at 4 layers under each
+   route: PADDLE_TPU_ATTN_IMPL=xla and PADDLE_TPU_DISABLE_PALLAS_ATTN=1
+   (no flash launch, loss within 2e-3 of the kernel step's),
+   PADDLE_TPU_DISABLE_PALLAS_BWD=1 (no dq or dk/dv launch),
+   PADDLE_TPU_DISABLE_PALLAS=1 (no launch at all, the CE on "jax"),
+   PADDLE_TPU_ATTN_IMPL=splash and jax_flash (the kernels), each set for
+   its own step, and a last default step. Then the forward's two q
+   tiles (128 x 64, the default, and 64 x 64) at the GPT and Llama
+   shapes: each against the plain version, against each other bit for
+   bit (printed), timed; the autotune (PADDLE_TPU_AUTOTUNE=1, its cache
+   in a temporary directory) times both on the first call, caches the
+   pick and hits on the second; an env tile outranks the cache, a
+   foreign cache entry is skipped and counted, an env tile the kernels
+   lack raises.
 4. Llama training at TinyLlama-1.1B's widths (vocab 32000, hidden 2048,
    22 layers, 32 heads over 4 KV heads, FFN 5632, max_seq_len 2048; the
    head tied to wte, 1,034,512,384 parameters), batch 4 x 2048 tokens,
@@ -478,8 +505,9 @@ def ptxas_summary(report):
     return out
 
 
-FLASH_NO_SPILL = ("flash_fwd_kernelILi64E", "flash_bwd_dq_kernelILi64E",
-                  "flash_bwd_dkv_kernelILi64E")
+# the D = 64 bf16 forward at both of its q tiles (128 rows, 64 rows)
+FLASH_NO_SPILL = ("flash_fwd_kernelILi64ELi2E", "flash_fwd_q64_kernelILi64E",
+                  "flash_bwd_dq_kernelILi64E", "flash_bwd_dkv_kernelILi64E")
 # the bf16 dequant-matmul's three tile heights (8, 16 and 64 rows)
 QMM_NO_SPILL = ("qmm_mma_kernelILi1E", "qmm_mma_kernelILi2E",
                 "qmm_mma_kernelILi8E")
@@ -628,11 +656,13 @@ def attention_check(torch, dev):
 
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()
-        t_fwd = event_ms(torch, lambda: ops.flash_fwd(q, k, v, True, klen))
+        tile = fa.flash_block_candidates(D, q.dtype)[0]    # the default
+        t_fwd = event_ms(torch, lambda: ops.flash_fwd(q, k, v, True, klen,
+                                                      *tile))
         t_dq = event_ms(torch, lambda: ops.flash_bwd_dq(
-            q, k, v, do, lse, delta, True, klen))
+            q, k, v, do, lse, delta, True, klen, *fa.BWD_BLOCKS[0]))
         t_dkv = event_ms(torch, lambda: ops.flash_bwd_dkv(
-            q, k, v, do, lse, delta, True, klen))
+            q, k, v, do, lse, delta, True, klen, *fa.BWD_BLOCKS[0]))
         p_fwd = event_ms(torch, lambda: fa.mha_fwd_ref(q, k, v, True,
                                                        kv_len), 3)
         p_bwd = event_ms(torch, lambda: fa.mha_bwd_ref(
@@ -1106,22 +1136,14 @@ def zero_launch_counts():
             counts[name] = 0
 
 
-def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
-                seed, per_step):
-    """One family's train step at full width (phases 3 and 4): step 1
-    against the plain versions, 5-step trajectories, 10 timed steps with
-    the launches per step asserted equal to `per_step`, a profile.
-    `mod` is models.gpt or models.llama. Returns (launches over the 10
-    timed steps, the "train" line, the tokens)."""
-    from paddle_tpu_torch.cost_model import train_flops_per_token
-    from paddle_tpu_torch.models.facade import make_train_step
-    from paddle_tpu_torch.models.gpt import init_opt_state
-    L = cfg.num_layers
-    opt = init_opt_state(params)
-    n_params = sum(p.numel() for p in params.values())
-    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+def train_tokens(torch, dev, cfg, batch, seq, seed):
+    return torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, size=(batch, seq + 1)), device=dev)
-    # the starting state waits on the host, so it takes no device memory
+
+
+def host_state(params, opt):
+    """A copy of (params, opt) on the host, so it takes no device memory,
+    and the function that copies it back in place."""
     def host(t):
         return t.to("cpu", copy=True)
     state0 = ({k: host(v) for k, v in params.items()},
@@ -1138,6 +1160,20 @@ def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
                     opt[k][n].copy_(t)
             else:
                 opt[k].copy_(v)
+    return restore
+
+
+def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
+                seed, per_step):
+    """One family's train step at full width (phases 3 and 4): step 1
+    against the plain versions, 5-step trajectories, 10 timed steps with
+    the launches per step asserted equal to `per_step`, a profile.
+    `mod` is models.gpt or models.llama. Returns (launches over the 10
+    timed steps, the "train" line, the tokens)."""
+    from paddle_tpu_torch.models.gpt import init_opt_state
+    opt = init_opt_state(params)
+    tokens = train_tokens(torch, dev, cfg, batch, seq, seed)
+    restore = host_state(params, opt)
 
     # step 1's gradients on the kernels and on their plain versions; and,
     # for the noise floor of bf16 training, the plain versions against
@@ -1204,12 +1240,28 @@ def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
             max(rel) > 1e-2:
         raise AssertionError(f"{label} trajectories differ: {traj}")
     restore()
-    del state0
+    del restore
     torch.cuda.empty_cache()
 
+    launches, line, step = timed_steps(torch, card, label, mod, cfg, params,
+                                       opt, tokens, per_step)
+    train_profile(torch, step, params, opt, tokens, card, label)
+    return launches, line, tokens
+
+
+def timed_steps(torch, card, label, mod, cfg, params, opt, tokens, per_step,
+                **extra):
+    """2 warm-up and 10 timed steps through make_train_step, the counts
+    set to 0 just before the timed steps and read just after, asserted
+    equal to 10 x `per_step`; prints the line (step ms p50/p90,
+    tokens/s, MFU, peak memory, the warm-up losses, `extra`). Returns
+    (launches over the 10 steps, the line, the step function)."""
+    from paddle_tpu_torch.cost_model import train_flops_per_token
+    from paddle_tpu_torch.models.facade import make_train_step
+    batch, seq = tokens.shape[0], tokens.shape[1] - 1
+    n_params = sum(p.numel() for p in params.values())
     step = make_train_step(mod.train_step, cfg=cfg, **ADAMW)
-    for _ in range(2):                            # warm-up
-        step(params, opt, tokens)
+    warm = [float(step(params, opt, tokens)[0]) for _ in range(2)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()                          # the main path starts
@@ -1224,25 +1276,25 @@ def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
     if launches != want:
         raise AssertionError(f"{label}: launches over 10 steps {launches} "
                              f"!= {want}")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{label}: non-finite losses {losses}")
+    if not all(math.isfinite(x) for x in warm + losses):
+        raise AssertionError(f"{label}: non-finite losses {warm + losses}")
     p50 = statistics.median(step_ms)
     tok_s = batch * seq / (p50 / 1e3)
-    fpt = train_flops_per_token(n_params, L, cfg.hidden_size, seq)
+    fpt = train_flops_per_token(n_params, cfg.num_layers, cfg.hidden_size,
+                                seq)
     line = {
         "phase": label, "card": card, "params": n_params, "batch": batch,
         "seq": seq, "remat": cfg.remat,
-        "remat_policy": getattr(cfg, "remat_policy", "full"), "steps": 10,
-        "step_ms": step_ms, "step_ms_p50": p50,
+        "remat_policy": getattr(cfg, "remat_policy", "full"), **extra,
+        "steps": 10, "step_ms": step_ms, "step_ms_p50": p50,
         "step_ms_p90": float(np.percentile(step_ms, 90)),
         "tokens_per_s": tok_s, "flops_per_token": fpt,
         "mfu": fpt * tok_s / PEAK_BF16_FLOPS,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "losses": losses, "launches": launches,
+        "warmup_losses": warm, "losses": losses, "launches": launches,
         "launches_per_step": {k: v // 10 for k, v in launches.items()}}
     log(json.dumps(line))
-    train_profile(torch, step, params, opt, tokens, card, label)
-    return launches, line, tokens
+    return launches, line, step
 
 
 def training(torch, dev, card):
@@ -1262,6 +1314,287 @@ def training(torch, dev, card):
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+# phase 3b: the port's counterpart of bench.py's tpu-rung variant race
+# (bench.py:299-320) with the attention impl fixed to "pallas":
+# (name, remat, remat_policy, batch)
+RACE = [("dots", True, "dots", 8), ("full", True, "full", 8),
+        ("dots_flash", True, "dots_flash", 8),
+        ("offload_dots", True, "offload_dots", 8),
+        ("all_but_mlp", True, "all_but_mlp", 8),
+        ("all_but_mlp_b12", True, "all_but_mlp", 12),
+        ("no_remat_b4", False, "full", 4), ("dots_b16", True, "dots", 16)]
+# policies whose backward reruns no attention forward
+ONE_FWD = ("dots_flash", "all_but_mlp")
+ROUTE_LAYERS = 4
+# (name, env) of the route steps, each set for its own step only
+ROUTES = [("default", {}), ("xla", {"PADDLE_TPU_ATTN_IMPL": "xla"}),
+          ("attn_kill", {"PADDLE_TPU_DISABLE_PALLAS_ATTN": "1"}),
+          ("bwd_kill", {"PADDLE_TPU_DISABLE_PALLAS_BWD": "1"}),
+          ("global_kill", {"PADDLE_TPU_DISABLE_PALLAS": "1"}),
+          ("splash", {"PADDLE_TPU_ATTN_IMPL": "splash"}),
+          ("jax_flash", {"PADDLE_TPU_ATTN_IMPL": "jax_flash"}),
+          ("default_again", {})]
+
+
+@contextlib.contextmanager
+def env_set(**env):
+    """Set environment variables for the body; restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def step_launches(L, remat, policy, attn=True, bwd=True, ce=True):
+    """Kernel launches of one GPT step on the default CE route."""
+    fwd = L if not remat or policy in ONE_FWD else 2 * L
+    return {"flash_fwd": fwd if attn else 0,
+            "flash_bwd_dq": L if attn and bwd else 0,
+            "flash_bwd_dkv": L if attn and bwd else 0,
+            "ce_fwd": 1 if ce else 0, "ce_bwd": 1 if ce else 0}
+
+
+def race(torch, dev, card):
+    """Phase 3b: the GPT step at the headline widths under each variant
+    of RACE (2 warm-up and 10 timed steps each, from one starting state
+    and seed-2 tokens, the CE and the update on their default routes),
+    each variant's flash launches asserted and its first loss at batch 8
+    held to "dots"'s within phase 3's tolerance across runs; a variant
+    that runs out of device memory is printed as OOM and the race goes
+    on. Then one step at ROUTE_LAYERS layers under each of ROUTES.
+    Returns the launches over every timed and route step."""
+    import dataclasses
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models.losses import ce_route
+    from paddle_tpu_torch.models.remat import HOST_POOL
+    base = gpt.GPTConfig(**FULL)
+    L = base.num_layers
+    params = gpt.init_gpt_params(base, seed=0)
+    opt = gpt.init_opt_state(params)
+    restore = host_state(params, opt)
+    total = {}
+    results, first = {}, {}
+    for name, remat, policy, batch in RACE:
+        cfg = dataclasses.replace(base, remat=remat, remat_policy=policy)
+        restore()
+        HOST_POOL.clear()
+        tokens = train_tokens(torch, dev, cfg, batch, TRAIN_SEQ, 2)
+        oom = None
+        try:
+            launches, line, step = timed_steps(
+                torch, card, "gpt_race", gpt, cfg, params, opt, tokens,
+                step_launches(L, remat, policy), variant=name)
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e)[:200]
+        if oom is not None:
+            # freed outside the handler, whose traceback holds the step
+            log(json.dumps({"phase": "gpt_race", "card": card,
+                            "variant": name, "batch": batch, "oom": True,
+                            "error": oom}))
+            del tokens
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        line = {"variant": name, "pinned_host_bytes":
+                HOST_POOL.pinned_bytes, **line}
+        train_profile(torch, step, params, opt, tokens, card,
+                      f"gpt_race_{name}", n_steps=1)
+        results[name] = line
+        if batch == TRAIN_BATCH:
+            first[name] = line["warmup_losses"][0]
+        log(json.dumps({"phase": "gpt_race_variant", "variant": name,
+                        "batch": batch, "step_ms_p50": line["step_ms_p50"],
+                        "step_ms_p90": line["step_ms_p90"],
+                        "tokens_per_s": line["tokens_per_s"],
+                        "mfu": line["mfu"],
+                        "peak_bytes": line["max_memory_allocated_bytes"],
+                        "pinned_host_bytes": line["pinned_host_bytes"],
+                        "flash_per_step": {
+                            k: line["launches_per_step"][k]
+                            for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")},
+                        "first_loss": line["warmup_losses"][0]}))
+        del tokens, step
+        HOST_POOL.clear()
+        torch.cuda.empty_cache()
+    ref = first.get("dots")
+    off = {n: x for n, x in first.items()
+           if ref is None or abs(x - ref) > 1e-6 * abs(ref) + 1e-6}
+    if ref is None or off:
+        raise AssertionError(f"gpt_race: first losses at batch "
+                             f"{TRAIN_BATCH} {first} differ from dots's "
+                             f"{ref}")
+    best = max(results, key=lambda n: results[n]["tokens_per_s"])
+    log(json.dumps({"phase": "gpt_race_best", "card": card,
+                    "variant": best,
+                    "tokens_per_s": results[best]["tokens_per_s"],
+                    "ran": sorted(results),
+                    "oom": [n for n, *_ in RACE if n not in results]}))
+    del params, opt, restore
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the routes, one step each at ROUTE_LAYERS layers, remat "dots"
+    cfg = dataclasses.replace(base, num_layers=ROUTE_LAYERS, remat=True,
+                              remat_policy="dots")
+    params = gpt.init_gpt_params(cfg, seed=0)
+    opt = gpt.init_opt_state(params)
+    restore = host_state(params, opt)
+    tokens = train_tokens(torch, dev, cfg, TRAIN_BATCH, TRAIN_SEQ, 2)
+    probe = torch.empty(0, device=dev)
+    kernel_loss = None
+    nl = ROUTE_LAYERS
+    for name, env in ROUTES:
+        restore()
+        with env_set(**env):
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            loss = float(gpt.train_step(params, opt, tokens, cfg,
+                                        **ADAMW)[0])
+            got = launch_counts()
+            route = ce_route(probe)
+        attn = name not in ("xla", "attn_kill", "global_kill")
+        want = {k: 0 for k in got}
+        want.update(step_launches(nl, True, "dots", attn=attn,
+                                  bwd=name != "bwd_kill",
+                                  ce=name != "global_kill"))
+        if kernel_loss is None:
+            kernel_loss = loss
+        # the same kernel forward gives the same loss; the plain
+        # attention within phase 3's kernel-vs-plain tolerance
+        tol = 1e-6 if attn else 2e-3
+        ok = (got == want and math.isfinite(loss)
+              and abs(loss - kernel_loss) <= tol * abs(kernel_loss)
+              and route == ("jax" if name == "global_kill" else "pallas"))
+        log(json.dumps({"phase": "gpt_route", "card": card, "route": name,
+                        "env": env, "layers": nl, "loss": loss,
+                        "loss_rel_diff_vs_default":
+                            abs(loss - kernel_loss) / abs(kernel_loss),
+                        "ce_route": route, "launches": got, "ok": ok}))
+        if not ok:
+            raise AssertionError(f"gpt route {name} ({env}): launches "
+                                 f"{got} != {want}, loss {loss} vs "
+                                 f"{kernel_loss} (rel {tol}), ce {route}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    del params, opt, restore, tokens
+    torch.cuda.empty_cache()
+    return total
+
+
+def autotune_tiles(torch, dev, card):
+    """Phase 3b's autotune: with PADDLE_TPU_AUTOTUNE=1 and the cache in a
+    temporary directory, the bf16 forward at the GPT and the Llama train
+    steps' shapes under each tile (time, error against the plain version
+    within flash_tol, both tiles' bits compared); the first call a miss
+    that times the candidates and caches the pick, the second a hit with
+    `tuned` unchanged; an env tile outranking the cache; a foreign cache
+    entry skipped and counted; an env tile the kernels lack raising.
+    Returns {shape name: {tile: ms, "pick": tile}}."""
+    import tempfile
+    from paddle_tpu_torch.kernels import autotune
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    ops = torch.ops.paddle_tpu_torch
+    saved = (autotune._CACHE_PATH, dict(autotune._CACHE), autotune._loaded)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            env_set(PADDLE_TPU_AUTOTUNE="1"):
+        autotune._CACHE_PATH = os.path.join(tmp, "autotune.json")
+        autotune._CACHE.clear()
+        autotune._loaded = False
+        try:
+            for label, (B, S, H, D, _) in (("gpt", ATTN_MAIN),
+                                           ("llama", ATTN_LLAMA)):
+                g = torch.Generator(device=dev).manual_seed(S + D)
+                qkv = torch.randn(B, S, 3, H, D, generator=g,
+                                  device=dev).to(torch.bfloat16)
+                q, k, v = qkv.unbind(2)
+                r_out, r_lse = fa.mha_fwd_ref(q, k, v, True)
+                cands = fa.flash_block_candidates(D, q.dtype)
+                row, outs = {}, {}
+                for bq, bk in cands:
+                    o, lse = fa.mha_fwd(q, k, v, causal=True, block_q=bq,
+                                        block_k=bk)
+                    torch.cuda.synchronize()
+                    over = float(((o.float() - r_out.float()).abs()
+                                  / flash_tol(r_out)).max())
+                    lse_err = float((lse - r_lse).abs().max())
+                    if not over <= 1.0 or not lse_err <= 1e-3:
+                        raise AssertionError(
+                            f"flash forward tile {(bq, bk)} at {label}: "
+                            f"|err| / tol {over}, lse err {lse_err}")
+                    ms = event_ms(torch, lambda: ops.flash_fwd(
+                        q, k, v, True, S, bq, bk))
+                    row[f"{bq}x{bk}"] = {"ms": ms, "err_over_tol": over,
+                                         "lse_max_abs_err": lse_err}
+                    outs[(bq, bk)] = (o, lse)
+                (o1, l1), (o2, l2) = outs.values()
+                same = torch.equal(o1.view(torch.int16),
+                                   o2.view(torch.int16)) and \
+                    torch.equal(l1, l2)
+                st0 = autotune.autotune_status()
+                fa.mha_fwd(q, k, v, causal=True)        # a miss: tunes
+                st1 = autotune.autotune_status()
+                sig = fa._flash_sig(q, k, True)
+                pick = autotune.cached("flash_fwd", sig)
+                fa.mha_fwd(q, k, v, causal=True)        # a hit
+                st2 = autotune.autotune_status()
+                if not (st1["tuned"] == st0["tuned"] + 1 and pick in cands
+                        and st2["tuned"] == st1["tuned"]
+                        and fa._fwd_blocks(q, k, True) == pick):
+                    raise AssertionError(f"autotune at {label}: {st0} -> "
+                                         f"{st1} -> {st2}, pick {pick}")
+                other = next(c for c in cands if c != pick)
+                with env_set(PADDLE_TPU_FLASH_BLOCK_Q=str(other[0])):
+                    if fa._fwd_blocks(q, k, True) != other:
+                        raise AssertionError("an env tile must outrank "
+                                             "the cache")
+                out[label] = {**row, "pick": list(pick),
+                              "tiles_same_bits": same}
+                log(json.dumps({"phase": "flash_fwd_tiles", "card": card,
+                                "shape": [B, S, H, D], "tiles": row,
+                                "same_bits_across_tiles": same,
+                                "autotune_pick": list(pick),
+                                "status": st2}))
+                del qkv, q, k, v, r_out, r_lse, outs, o1, o2, l1, l2
+            # a foreign entry (Pallas blocks) is skipped for the default
+            # and counted; an env tile the kernels lack raises
+            q = torch.randn(2, 256, 4, 64, device=dev).to(torch.bfloat16)
+            sig = fa._flash_sig(q, q, True)
+            autotune._CACHE[f"flash_fwd::{sig}"] = [512, 256]
+            n0 = autotune.autotune_status()["foreign"]
+            fa.mha_fwd(q, q, q, causal=True)
+            n1 = autotune.autotune_status()["foreign"]
+            try:
+                with env_set(PADDLE_TPU_FLASH_BLOCK_Q="256"):
+                    fa.mha_fwd(q, q, q, causal=True)
+                raised = False
+            except ValueError:
+                raised = True
+            persisted = json.load(open(autotune._CACHE_PATH))
+            log(json.dumps({"phase": "autotune_rules", "foreign_counted":
+                            n1 - n0, "env_tile_lacking_raised": raised,
+                            "persisted": persisted}))
+            if n1 != n0 + 1 or not raised or len(persisted) != 2:
+                raise AssertionError("autotune rules: foreign "
+                                     f"{n1 - n0}, raised {raised}, file "
+                                     f"{persisted}")
+        finally:
+            autotune._CACHE_PATH = saved[0]
+            autotune._CACHE.clear()
+            autotune._CACHE.update(saved[1])
+            autotune._loaded = saved[2]
+    return out
 
 
 def llama_training(torch, dev, card):
@@ -2404,13 +2737,15 @@ def host_tier_serving(torch, qm, dev, card, cfg, params):
 
 def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                  gpt_launches, llama_launches, serving_launches, f64,
-                 replay_launches):
+                 replay_launches, race_launches, tiles):
     """The kernels line: every kernel with its route, source, the TPU
     kernel it replaces, its launches on the main paths, and its times,
     bound and error from the kernel checks. `serving_launches` is the
     int8 kernel's {path: launches} through its wrapper,
     `replay_launches` its {path: launches inside CUDA graph replays};
-    `f64` the worst of its f64 bound check."""
+    `f64` the worst of its f64 bound check; `race_launches` the train
+    kernels' launches over phase 3b; `tiles` the forward's times at both
+    q tiles and the autotune's picks."""
     agg = tick_aggregate(rows, LEAF_KN, FULL["num_layers"])
     l_agg = tick_aggregate(rows, LLAMA_LEAF_KN, LLAMA["num_layers"])
     entries = [{
@@ -2454,9 +2789,11 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": where,
-            "launches": gpt_launches[name] + llama_launches[name],
+            "launches": gpt_launches[name] + llama_launches[name]
+            + race_launches[name],
             "launches_by_path": {"gpt_train": gpt_launches[name],
-                                 "llama_train": llama_launches[name]},
+                                 "llama_train": llama_launches[name],
+                                 "gpt_race": race_launches[name]},
             "max_abs_err": max(r[name]["max_abs_err"]
                                for r in attn_rows.values()),
             **{k: main_row[k] for k in keys},
@@ -2464,15 +2801,25 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
             "per": "one call at the Llama train step's [4, 2048, 32, 64] "
                    "bf16 causal (the GPT step's [8, 1024, 16, 64] is in "
                    "its kernel_check line); launches over the 10 timed "
-                   "steps of each train path"})
+                   "steps of each train path, and over phase 3b's timed "
+                   "and route steps (gpt_race)"})
+        if name == "flash_fwd":
+            entries[-1]["tiles"] = tiles
+            entries[-1]["tiles_note"] = (
+                "ms of the forward at each (block_q x block_k) tile and "
+                "the autotune's pick, at the GPT step's [8, 1024, 16, 64] "
+                "and the Llama step's [4, 2048, 32, 64]; ms above is the "
+                "default tile (128 x 64)")
     ce_main = ce_rows[CE_SHAPES[0]]
     entries.append({
         "name": "fused_ce", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
         "replaces": "paddle_tpu/kernels/pallas_ce.py:143",
-        "launches": gpt_launches["fused_ce"] + llama_launches["fused_ce"],
+        "launches": gpt_launches["fused_ce"] + llama_launches["fused_ce"]
+        + race_launches["fused_ce"],
         "launches_by_path": {"gpt_train": gpt_launches["fused_ce"],
-                             "llama_train": llama_launches["fused_ce"]},
+                             "llama_train": llama_launches["fused_ce"],
+                             "gpt_race": race_launches["fused_ce"]},
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows.values()),
         **{k: ce_main[k] for k in keys},
         "per": "one call at the GPT train step's [8192, 32768] bf16 "
@@ -2485,9 +2832,11 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
             "replaces": where,
-            "launches": gpt_launches[name] + llama_launches[name],
+            "launches": gpt_launches[name] + llama_launches[name]
+            + race_launches[name],
             "launches_by_path": {"gpt_train": gpt_launches[name],
-                                 "llama_train": llama_launches[name]},
+                                 "llama_train": llama_launches[name],
+                                 "gpt_race": race_launches[name]},
             "max_abs_err": max(r[name]["max_abs_err"]
                                for r in pair_rows.values()),
             **{k: pair_main[name][k] for k in keys},
@@ -2543,8 +2892,8 @@ def main():
     check_no_spills(_build.build_logs["flash_attention"]["ptxas"])
     check_no_spills(_build.build_logs["quant_matmul"]["ptxas"],
                     QMM_NO_SPILL)
-    log("ptxas: no spills in the D = 64 bf16 attention kernels or the "
-        "bf16 dequant-matmul")
+    log("ptxas: no spills in the D = 64 bf16 attention kernels (the "
+        "forward at both q tiles) or the bf16 dequant-matmul")
 
     dev = torch.device("cuda:0")
     # device memory still allocated after each phase: what a later
@@ -2563,6 +2912,8 @@ def main():
     pair_rows = phase("ce_pair_check", ce_pair_check, torch, dev)
     upd_rows = phase("update_check", update_check, torch, dev)
     gpt_launches = phase("gpt_train", training, torch, dev, card)
+    race_launches = phase("gpt_race", race, torch, dev, card)
+    tiles = phase("flash_fwd_tiles", autotune_tiles, torch, dev, card)
     llama_launches, _ = phase("llama_train", llama_training, torch, dev,
                               card)
     serving_launches = {
@@ -2592,7 +2943,7 @@ def main():
     log(json.dumps({"phase": "memory_allocated_after", **held}))
     kernels = kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                            gpt_launches, llama_launches, serving_launches,
-                           f64, replay_launches)
+                           f64, replay_launches, race_launches, tiles)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(card)

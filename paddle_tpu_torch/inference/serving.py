@@ -90,6 +90,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import hashlib
 import sys
 import time
@@ -576,6 +577,15 @@ class ServingEngine:
             from ..quantization.serving import quantize_serving_params
             params, self._quant_info = quantize_serving_params(
                 params, self.family.name)
+            # the global kill switch turns the int8 sites into the plain
+            # version on the card (on the CPU they run it anyway); read
+            # here, so a captured graph keeps the route it was built with
+            from ..kernels.quant_matmul import matmul_impl, quant_matmul_ref
+            if self.device.type == "cuda" and \
+                    matmul_impl(self.device) == "xla":
+                self.family = dataclasses.replace(
+                    self.family, forward_cached=functools.partial(
+                        self.family.forward_cached, qmm=quant_matmul_ref))
         self._params = _to_device(params, self.device)
         n = self.num_slots
         if self.paged:

@@ -1,0 +1,187 @@
+"""Kernel autotune: timed-candidate selection with a persistent cache.
+
+Counterpart of paddle_tpu/kernels/autotune.py, copied (the port imports
+nothing of the reference). Reference analog: paddle/phi/kernels/autotune/
+(cache.cc AlgorithmsCache + switch_autotune.cc: time each algorithm once
+per signature, cache the winner). The tunables are the hand kernels'
+tile sizes; tuning is opt-in (env PADDLE_TPU_AUTOTUNE=1) and winners
+persist to a JSON cache keyed by (op, signature), so the timing is paid
+once per machine, not per process.
+
+Differences from the reference:
+- the cache lives at env PADDLE_TPU_AUTOTUNE_CACHE, else
+  ~/.cache/paddle_tpu_torch/autotune.json: never the reference's default
+  path nor perf/autotune.json, which hold TPU block sizes;
+- an entry whose winner the port's kernels are not built for (a TPU
+  file shared through the env) is skipped by the consult site and
+  counted here as `foreign` (`note_foreign`);
+- the reference's `use_autotune` flag waits for the port's framework
+  flags (ROADMAP A8): only the env enables tuning.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Callable, Dict, Sequence
+
+_CACHE: Dict[str, Any] = {}
+_CACHE_PATH = os.environ.get(
+    "PADDLE_TPU_AUTOTUNE_CACHE",
+    os.path.join(os.path.expanduser("~"), ".cache", "paddle_tpu_torch",
+                 "autotune.json"))
+_loaded = False
+_stats = {"hits": 0, "misses": 0, "tuned": 0, "foreign": 0}
+
+
+def enabled() -> bool:
+    """Live tuning on: env PADDLE_TPU_AUTOTUNE in ("1", "true", "True").
+    (The reference also reads the `use_autotune` flag, which waits for
+    the port's framework/ flags, ROADMAP A8.)"""
+    return os.environ.get("PADDLE_TPU_AUTOTUNE", "") in ("1", "true",
+                                                         "True")
+
+
+def _load():
+    global _loaded
+    if _loaded:
+        return
+    _loaded = True
+    try:
+        with open(_CACHE_PATH) as f:
+            _CACHE.update(json.load(f))
+    except (OSError, ValueError):
+        pass
+
+
+def _persist():
+    # tmp + os.replace: concurrent processes each write a whole valid
+    # file and the last rename wins, never a torn JSON that _load would
+    # silently discard
+    try:
+        os.makedirs(os.path.dirname(_CACHE_PATH), exist_ok=True)
+        tmp = f"{_CACHE_PATH}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(_CACHE, f, indent=1)
+        os.replace(tmp, _CACHE_PATH)
+    except OSError:
+        pass
+
+
+def _read(op: str, signature: str):
+    """The raw cache-entry semantics: ('hit', winner) with lists back as
+    tuples, ('optout',) for a hand-edited empty entry (the documented "no
+    tuned winner" escape hatch), or ('miss',)."""
+    _load()
+    hit = _CACHE.get(f"{op}::{signature}")
+    if hit is None:
+        return ("miss",)
+    if isinstance(hit, list):
+        return ("hit", tuple(hit)) if hit else ("optout",)
+    return ("hit", hit)
+
+
+def cached(op: str, signature: str):
+    """Cache read (no timing): a persisted winner applies even when live
+    tuning is off. Returns the winner (lists back as tuples) or None."""
+    state = _read(op, signature)
+    return state[1] if state[0] == "hit" else None
+
+
+def cached_any_batch(op: str, signature: str):
+    """Batch-agnostic cache read: the exact signature first, then any
+    entry for the same op whose signature differs only in the leading
+    `B{n}_` batch field (tiles cut the sequence, not the batch, which is
+    a grid axis). The nearest batch wins, key order breaks ties. An
+    exact-key opt-out entry is honoured: it never falls back to another
+    batch."""
+    state = _read(op, signature)
+    if state[0] == "hit":
+        return state[1]
+    if state[0] == "optout":
+        return None
+    head, _, suffix = signature.partition("_")
+    if not suffix:
+        return None
+    try:
+        want_b = int(head[1:])
+    except ValueError:
+        return None
+    best = None
+    for key in sorted(_CACHE):
+        if not key.startswith(f"{op}::B"):
+            continue
+        sig = key.split("::", 1)[1]
+        b_field, _, sig_suffix = sig.partition("_")
+        state = _read(op, sig)
+        if sig_suffix != suffix or state[0] != "hit":
+            continue
+        try:
+            dist = abs(int(b_field[1:]) - want_b)
+        except ValueError:
+            continue
+        if best is None or dist < best[0]:
+            best = (dist, state[1])
+    return best[1] if best else None
+
+
+def note_foreign():
+    """A consult site found a cached winner its kernels lack and skipped
+    it for the default."""
+    _stats["foreign"] += 1
+
+
+def autotune_status() -> dict:
+    """Reference switch_autotune.cc status counters, and `foreign`."""
+    return dict(_stats, cached=len(_CACHE), enabled=enabled())
+
+
+def clear_cache():
+    _CACHE.clear()
+    try:
+        os.remove(_CACHE_PATH)
+    except OSError:
+        pass
+
+
+def pick(op: str, signature: str, candidates: Sequence[Any],
+         runner: Callable[[Any], None], default: Any = None,
+         warmup: int = 1, iters: int = 3):
+    """Return the fastest candidate for (op, signature).
+
+    runner(candidate) must execute the kernel end to end (blocking). The
+    winner is cached in-process and on disk; when tuning is disabled the
+    cached winner (or `default` / the first candidate) is returned
+    without any timing."""
+    state = _read(op, signature)
+    if state[0] == "hit":
+        _stats["hits"] += 1
+        return state[1]
+    # an explicit opt-out entry behaves exactly like a disabled tuner
+    if state[0] == "optout" or not enabled():
+        _stats["misses"] += 1
+        return default if default is not None else candidates[0]
+
+    best, best_t = None, float("inf")
+    for cand in candidates:
+        try:
+            for _ in range(warmup):
+                runner(cand)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                runner(cand)
+            dt = (time.perf_counter() - t0) / iters
+        except Exception:
+            continue                      # candidate invalid on this shape
+        if dt < best_t:
+            best, best_t = cand, dt
+    if best is None:
+        # nothing could be measured: the default WITHOUT caching, so a
+        # later healthy run re-tunes instead of freezing an unmeasured
+        # winner
+        return default if default is not None else candidates[0]
+    _CACHE[f"{op}::{signature}"] = (list(best) if isinstance(best, tuple)
+                                    else best)
+    _stats["tuned"] += 1
+    _persist()
+    return best

@@ -12,7 +12,8 @@
 // masked, both inside the kernel.
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/pallas_attention.py:
-// - flash_fwd_kernel     <- _mha_fwd_jit (pl.pallas_call :119, _fwd_kernel :31)
+// - flash_fwd_kernel, flash_fwd_q64_kernel (its 64-row tile up to D = 64)
+//                        <- _mha_fwd_jit (pl.pallas_call :119, _fwd_kernel :31)
 // - flash_bwd_dq_kernel  <- _mha_bwd_jit (pl.pallas_call :310, _bwd_dq_kernel :170)
 // - flash_bwd_dkv_kernel <- _mha_bwd_jit (pl.pallas_call :327, _bwd_dkv_kernel :209)
 // Reference analog: the flash-attention library the reference builds
@@ -47,8 +48,12 @@
 //   copies, at least two stages deep (the next tile is in flight while
 //   this one is computed), with rows padded by 16 bytes so that ldmatrix
 //   and cp.async are free of bank conflicts;
-// - forward: a block owns 128 q rows up to D = 64 (each warp two m16
-//   row tiles, so every k and v fragment feeds two products), 64 above;
+// - forward: a block owns 128 q rows up to D = 64 by default (each
+//   warp two m16 row tiles, so every k and v fragment feeds two
+//   products) or, at the caller's block_q = 64, 64 rows (one row tile a
+//   warp, twice the blocks); 64 above D = 64. Each q row walks the same
+//   kv tiles in the same order under either tile, so the two give the
+//   same bits;
 //   q stays in shared memory, k and v stream through a ring of three
 //   stages up to D = 64 (two above) with one barrier a tile;
 //   s = q k^T reads q and k with ldmatrix; the online softmax (m, l) is
@@ -662,9 +667,12 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* base,
   }
 }
 
-// m16 row tiles each warp of the forward owns: 2 (a 128-row q tile a
-// block, every k and v fragment feeding two products and each k/v tile
-// read from L2 half as often) up to D = 64, where the registers allow
+// m16 row tiles each warp of the forward owns, WM: 2 gives a 128-row q
+// tile a block (every k and v fragment feeds two products and each k/v
+// tile is read from L2 half as often), 1 a 64-row tile (twice the
+// blocks). Both are built up to D = 64, where the registers allow 2;
+// above, 1 alone. The default is the larger where it is built; the
+// caller may pick either (block_q 128 or 64; kernels/autotune.py).
 template <int D>
 __host__ __device__ constexpr int fwd_wm() { return D <= 64 ? 2 : 1; }
 
@@ -674,10 +682,10 @@ __host__ __device__ constexpr int fwd_wm() { return D <= 64 ? 2 : 1; }
 template <int D>
 __host__ __device__ constexpr int fwd_stages() { return D <= 64 ? 3 : 2; }
 
-template <int D>
+template <int D, int WM>
 constexpr size_t fwd_smem() {               // q; the stages of k, v
-  return sizeof(bf16) * (size_t)(fwd_wm<D>() + 2 * fwd_stages<D>()) *
-         MMA_ROWS * (D + 8);
+  return sizeof(bf16) * (size_t)(WM + 2 * fwd_stages<D>()) * MMA_ROWS *
+         (D + 8);
 }
 
 // out = softmax(q k^T * scale) v over the live kv tiles, online, with
@@ -688,9 +696,8 @@ constexpr size_t fwd_smem() {               // q; the stages of k, v
 // fwd_stages tiles with one barrier a tile. Scores live
 // in the log2 domain (s * scale * log2 e, m likewise) so each exp is one
 // exp2f; lse goes back to natural-log units at the end.
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_kernel(Args a) {
-  constexpr int WM = fwd_wm<D>();
+template <int D, int WM>
+__device__ __forceinline__ void flash_fwd_tile(const Args& a) {
   constexpr int FWD_STAGES = fwd_stages<D>();
   constexpr int BQ = WM * MMA_ROWS;         // q rows a block
   constexpr int P = D + 8;
@@ -879,6 +886,20 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_kernel(Args a) {
       if ((lane & 3) == 0)
         a.lse_out[(long long)bh * a.Sq + qp] = m2[mt][i] * LN2 + logf(lf);
     }
+}
+
+// the 128-row tile up to D = 64 (WM 2), the 64-row one above (WM 1)
+template <int D, int WM>
+__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_kernel(Args a) {
+  flash_fwd_tile<D, WM>(a);
+}
+
+// the 64-row tile up to D = 64, compiled for 3 blocks an SM (its shared
+// memory allows 3; left to itself ptxas aims at 4 and spills at D = 64)
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, 3)
+    flash_fwd_q64_kernel(Args a) {
+  flash_fwd_tile<D, 1>(a);
 }
 
 template <int D>
@@ -1220,20 +1241,40 @@ int launch_kernel(void (*kern)(Args), int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// (block_q, block_k): every kernel takes 64 x 64; the bf16 forward also
+// 128 x 64 up to D = 64. Any other pair is refused (cudaErrorInvalidValue)
 template <typename T, int D>
-int launch_d(Which w, const Args& a, cudaStream_t stream) {
+int launch_d(Which w, const Args& a, int block_q, int block_k,
+             cudaStream_t stream) {
   const int rows = w == BWD_DKV ? a.Skv : a.Sq;
+  const bool tile64 = block_q == 64 && block_k == 64;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     // every bf16 kernel runs on tensor cores
+    if (w != FWD && !tile64) return (int)cudaErrorInvalidValue;
     if (w == BWD_DQ)
       return launch_kernel(flash_bwd_dq_kernel<D>, MMA_THREADS, dq_smem<D>(),
                            a, rows, MMA_ROWS, stream);
     if (w == BWD_DKV)
       return launch_kernel(flash_bwd_dkv_kernel<D>, MMA_THREADS,
                            dkv_smem<D>(), a, rows, MMA_ROWS, stream);
-    return launch_kernel(flash_fwd_kernel<D>, MMA_THREADS, fwd_smem<D>(), a,
-                         rows, fwd_wm<D>() * MMA_ROWS, stream);
+    // the forward's q tile: 64 * WM rows, the kv tile 64
+    if (block_k != MMA_ROWS) return (int)cudaErrorInvalidValue;
+    if constexpr (fwd_wm<D>() == 2) {
+      if (block_q == 2 * MMA_ROWS)
+        return launch_kernel(flash_fwd_kernel<D, 2>, MMA_THREADS,
+                             fwd_smem<D, 2>(), a, rows, 2 * MMA_ROWS,
+                             stream);
+      if (block_q == MMA_ROWS)
+        return launch_kernel(flash_fwd_q64_kernel<D>, MMA_THREADS,
+                             fwd_smem<D, 1>(), a, rows, MMA_ROWS, stream);
+    } else {
+      if (block_q == MMA_ROWS)
+        return launch_kernel(flash_fwd_kernel<D, 1>, MMA_THREADS,
+                             fwd_smem<D, 1>(), a, rows, MMA_ROWS, stream);
+    }
+    return (int)cudaErrorInvalidValue;
   } else {
+    if (!tile64) return (int)cudaErrorInvalidValue;
     void (*kern)(Args) = w == FWD      ? flash_fwd_simt_kernel<T, D>
                          : w == BWD_DQ ? flash_bwd_dq_simt_kernel<T, D>
                                        : flash_bwd_dkv_simt_kernel<T, D>;
@@ -1246,7 +1287,8 @@ template <typename T>
 int launch(Which w, const void* q, const void* k, const void* v,
            const void* dout, const void* lse, const void* delta, void* o0,
            void* o1, void* o2, int B, int H, int Sq, int Skv, int D,
-           int kv_len, int causal, const long long* strides, void* stream) {
+           int kv_len, int causal, int block_q, int block_k,
+           const long long* strides, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || kv_len <= 0 ||
       kv_len > Skv)
     return (int)cudaErrorInvalidValue;
@@ -1275,14 +1317,14 @@ int launch(Which w, const void* q, const void* k, const void* v,
   a.scale = 1.0f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_d<T, 16>(w, a, s);
-    case 32: return launch_d<T, 32>(w, a, s);
-    case 48: return launch_d<T, 48>(w, a, s);
-    case 64: return launch_d<T, 64>(w, a, s);
-    case 80: return launch_d<T, 80>(w, a, s);
-    case 96: return launch_d<T, 96>(w, a, s);
-    case 112: return launch_d<T, 112>(w, a, s);
-    case 128: return launch_d<T, 128>(w, a, s);
+    case 16: return launch_d<T, 16>(w, a, block_q, block_k, s);
+    case 32: return launch_d<T, 32>(w, a, block_q, block_k, s);
+    case 48: return launch_d<T, 48>(w, a, block_q, block_k, s);
+    case 64: return launch_d<T, 64>(w, a, block_q, block_k, s);
+    case 80: return launch_d<T, 80>(w, a, block_q, block_k, s);
+    case 96: return launch_d<T, 96>(w, a, block_q, block_k, s);
+    case 112: return launch_d<T, 112>(w, a, block_q, block_k, s);
+    case 128: return launch_d<T, 128>(w, a, block_q, block_k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1290,17 +1332,20 @@ int launch(Which w, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Pointers and the stream are
-// void*; `strides` points to 12 host int64s, the (batch, seq, head)
-// element strides of q, k, v and do (the forward ignores do's). Each
-// returns cudaGetLastError() after the launch (0 = launched).
+// void*; (block_q, block_k) is the tile (launch_d lists the pairs each
+// kernel takes); `strides` points to 12 host int64s, the (batch, seq,
+// head) element strides of q, k, v and do (the forward ignores do's).
+// Each returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape or tile it does not take.
 #define FLASH_ENTRY(NAME, T, W)                                              \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* dout, const void* lse, const void* delta,  \
                       void* o0, void* o1, void* o2, int B, int H, int Sq,    \
-                      int Skv, int D, int kv_len, int causal,                \
-                      const long long* strides, void* stream) {              \
+                      int Skv, int D, int kv_len, int causal, int block_q,   \
+                      int block_k, const long long* strides, void* stream) { \
     return launch<T>(W, q, k, v, dout, lse, delta, o0, o1, o2, B, H, Sq,    \
-                     Skv, D, kv_len, causal, strides, stream);               \
+                     Skv, D, kv_len, causal, block_q, block_k, strides,      \
+                     stream);                                                \
   }
 
 // forward: o0 = out, o1 = lse;  dq: o0 = dq;  dkv: o1 = dk, o2 = dv

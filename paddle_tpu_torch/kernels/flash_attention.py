@@ -25,17 +25,47 @@ kv_pos) and `kv_len` masks the key suffix.
 - `delta = rowsum(do * out)` stays a torch op, as the reference computes
   it outside its kernels (pallas_attention.py:281).
 
-The port has no attention selector: on CUDA attention always launches
-the kernels, on the CPU it always runs the plain versions.
+Selection (the reference's :118-148, :306-311, :331-467), resolved once
+per `FlashMHA.apply` and kept for that apply's backward:
+- the kill-switch family, layered global > attention-only >
+  backward-only: `use_pallas` and env PADDLE_TPU_DISABLE_PALLAS
+  (`_pallas_enabled`, which the CE, AdamW and int8 routes read too),
+  PADDLE_TPU_DISABLE_PALLAS_ATTN or impl "xla" (`_pallas_attn_enabled`),
+  PADDLE_TPU_DISABLE_PALLAS_BWD (`_pallas_bwd_enabled`); each accepts
+  "1", "true" and "True";
+- the impl selector `_attn_impl(seq)`: env PADDLE_TPU_ATTN_IMPL > the
+  sweep winner (perf/torch_sweep_winner.json, "cuda" class only) > the
+  registry's "attention" winner > "pallas".
+On CUDA tensors "pallas" launches the kernels; "xla" or an attention
+kill runs the plain versions (the reference's blockwise path); a
+backward-only kill runs the kernel forward and the plain backward;
+"jax_flash" and "splash" name upstream TPU kernels, which the reference
+routes to its own flash path off TPU-class backends, and so does the
+port: they launch the kernels. No library attention is called. On CPU
+tensors every route runs the plain versions.
+
+Tiles: the bf16 forward takes (block_q, block_k) in
+`flash_block_candidates` (64 or 128 q rows a block up to D = 64, 64
+kv rows), chosen by an explicit argument > env
+PADDLE_TPU_FLASH_BLOCK_{Q,K} > the autotune cache (kernels/autotune.py,
+`_tuned_blocks`, timed on dummies when PADDLE_TPU_AUTOTUNE is on) > the
+default (128, 64). An env pair the kernels lack raises ValueError; a
+cached pair they lack (a TPU file shared through the env) is skipped
+for the default and counted as `foreign`. The backward pair has one
+tile, (64, 64), under the same rules (PADDLE_TPU_FLASH_BLOCK_BWD_{Q,K},
+op "flash_bwd").
 """
 import ctypes
+import json
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
 
 __all__ = ["mha_fwd", "mha_bwd", "mha_fwd_ref", "mha_bwd_ref",
-           "flash_attention_fn", "FlashMHA", "launches"]
+           "flash_attention_fn", "FlashMHA", "launches", "use_pallas",
+           "impl_from_winner_env", "flash_block_candidates"]
 
 _BLOCK_KV = 512
 
@@ -160,6 +190,219 @@ def mha_bwd_ref(q, k, v, out, lse, do, causal=False, kv_len=None):
     return _flash_bwd(q, k, v, out, lse, do, causal, kv_len)
 
 
+# ------------------------------------------------------------- selection
+_ON = ("1", "true", "True")
+
+# False turns every hand kernel off, as env PADDLE_TPU_DISABLE_PALLAS does
+use_pallas = True
+
+
+def _pallas_enabled() -> bool:
+    """The global gate: env PADDLE_TPU_DISABLE_PALLAS, then `use_pallas`.
+    The CE, AdamW and int8 routes read it too."""
+    if os.environ.get("PADDLE_TPU_DISABLE_PALLAS", "") in _ON:
+        return False
+    return use_pallas
+
+
+def _pallas_attn_enabled(seq: Optional[int] = None, device=None) -> bool:
+    """Attention-only gate layered on the global one: env
+    PADDLE_TPU_DISABLE_PALLAS_ATTN or impl "xla" turn the attention
+    kernels off and leave the CE kernels alone."""
+    if os.environ.get("PADDLE_TPU_DISABLE_PALLAS_ATTN", "") in _ON:
+        return False
+    if _attn_impl(seq, device) == "xla":
+        return False
+    return _pallas_enabled()
+
+
+def _pallas_bwd_enabled(seq: Optional[int] = None, device=None) -> bool:
+    """Backward-only gate layered on the attention one."""
+    if os.environ.get("PADDLE_TPU_DISABLE_PALLAS_BWD", "") in _ON:
+        return False
+    return _pallas_attn_enabled(seq, device)
+
+
+SWEEP_WINNER_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "perf", "torch_sweep_winner.json")
+_sweep_winner_impl = None     # memoized SWEEP_WINNER_PATH read
+
+
+def impl_from_winner_env(env: dict) -> str:
+    """The sweep-spec env -> impl translation: the sweep spells "xla" as
+    the PADDLE_TPU_DISABLE_PALLAS_ATTN kill switch. "" when the env names
+    no recognizable impl."""
+    impl = env.get("PADDLE_TPU_ATTN_IMPL", "")
+    if not impl and env.get("PADDLE_TPU_DISABLE_PALLAS_ATTN") == "1":
+        impl = "xla"
+    return impl if impl in ("pallas", "jax_flash", "splash", "xla") \
+        else ""
+
+
+def _winner_impl(device=None):
+    """The attention impl a measured sweep on the card adopted
+    (perf/torch_sweep_winner.json, {"env": {...}}; none is committed).
+    Consulted for the "cuda" backend class only, so the CPU suite keeps
+    the documented "pallas" route. Memoized for the process; an absent
+    or invalid file gives None."""
+    global _sweep_winner_impl
+    from . import registry
+    if registry.backend_class(device) != "cuda":
+        return None
+    if _sweep_winner_impl is None:
+        env = {}
+        try:
+            with open(SWEEP_WINNER_PATH) as f:
+                env = json.load(f).get("env", {})
+        except (OSError, ValueError):
+            pass
+        _sweep_winner_impl = impl_from_winner_env(env)
+    return _sweep_winner_impl or None
+
+
+def _registry_impl(seq: Optional[int] = None, device=None):
+    """The registry's "attention" winner for the backend class of
+    `device`: the exact shape bucket first, then the wildcard row."""
+    from . import registry
+    cls = registry.backend_class(device)
+    bucket = registry.seq_bucket(seq) if seq else "*"
+    return registry.winner("attention", backend=cls, bucket=bucket)
+
+
+def _attn_impl(seq: Optional[int] = None, device=None) -> str:
+    """The attention impl (PADDLE_TPU_ATTN_IMPL): env > sweep winner >
+    registry > "pallas". `device` names the backend class (default: the
+    card when one is present); `seq` picks the registry's bucket."""
+    return (os.environ.get("PADDLE_TPU_ATTN_IMPL")
+            or _winner_impl(device) or _registry_impl(seq, device)
+            or "pallas")
+
+
+def _route(q) -> Tuple[bool, bool]:
+    """(forward, backward) through the given wrappers for one apply: the
+    attention and backward gates at q's sequence and device. A gate that
+    is off runs the plain version instead."""
+    seq, dev = q.shape[1], q.device
+    return _pallas_attn_enabled(seq, dev), _pallas_bwd_enabled(seq, dev)
+
+
+# ----------------------------------------------------------------- tiles
+BWD_BLOCKS = ((64, 64),)
+
+
+def flash_block_candidates(head_dim: int, dtype) -> list:
+    """(block_q, block_k) pairs the forward kernels are built with, the
+    default first: the bf16 tensor-core forward takes 128 or 64 q rows a
+    block up to D = 64 and 64 above, with 64 kv rows; the f32 forward
+    64 x 64."""
+    if dtype == torch.bfloat16 and head_dim <= 64:
+        return [(128, 64), (64, 64)]
+    return [(64, 64)]
+
+
+def _flash_sig(q, k, causal) -> str:
+    """The autotune key, spelled as the reference spells it."""
+    B, Sq, H, D = q.shape
+    dtype = str(q.dtype).replace("torch.", "")
+    return f"B{B}_Sq{Sq}_Sk{k.shape[1]}_H{H}_D{D}_c{int(causal)}_{dtype}"
+
+
+def _env_blocks_set(*names) -> bool:
+    """Explicit PADDLE_TPU_FLASH_BLOCK_* env overrides outrank the
+    autotune cache."""
+    return any(os.environ.get(n) for n in names)
+
+
+def _tuned_blocks_bwd(q, k, causal):
+    """Backward tiles from the cache, batch-agnostic; None = env or
+    default."""
+    if _env_blocks_set("PADDLE_TPU_FLASH_BLOCK_BWD_Q",
+                       "PADDLE_TPU_FLASH_BLOCK_BWD_K"):
+        return None
+    from .autotune import cached_any_batch
+    return cached_any_batch("flash_bwd", _flash_sig(q, k, causal))
+
+
+def _tuned_blocks(q, k, causal):
+    """Forward tiles through the autotune cache: a hit applies always; on
+    a miss with tuning on and q on the card, each candidate is timed on
+    zero dummies of q's and k's shapes (eagerly, without grad, outside
+    any dispatch mode, so a checkpoint around the caller neither sees
+    nor saves the timing launches) and the pick is cached before the
+    signature's first launch. None = env or default."""
+    from . import autotune
+    if _env_blocks_set("PADDLE_TPU_FLASH_BLOCK_Q",
+                       "PADDLE_TPU_FLASH_BLOCK_K"):
+        return None
+    sig = _flash_sig(q, k, causal)
+    hit = autotune.cached_any_batch("flash_fwd", sig)
+    if hit is not None:
+        return hit
+    if not autotune.enabled() or not _on_card("mha_fwd", q):
+        return None
+    from torch.utils._python_dispatch import _disable_current_modes
+    cands = flash_block_candidates(q.shape[3], q.dtype)
+    with torch.no_grad(), _disable_current_modes():
+        q_c = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+        k_c = torch.zeros(k.shape, dtype=k.dtype, device=k.device)
+
+        def runner(cand):
+            _launch_fwd(q_c, k_c, k_c, causal, k.shape[1], cand,
+                        count=False)
+            torch.cuda.synchronize(q.device)
+        return autotune.pick("flash_fwd", sig, cands, runner,
+                             default=cands[0])
+
+
+def _checked_pair(what, pair, cands):
+    if pair not in cands:
+        raise ValueError(f"flash attention: {what} names tile {pair}; the "
+                         f"kernels are built for {list(cands)} here")
+    return pair
+
+
+def _env_pair(qname, kname, default):
+    bq, bk = os.environ.get(qname), os.environ.get(kname)
+    return (int(bq) if bq else default[0], int(bk) if bk else default[1])
+
+
+def _pick_blocks(q, k, causal, block_q, block_k, cands, env, tuned):
+    """argument > env > cache > default; an argument or env pair the
+    kernels lack raises, a cached one is skipped and counted."""
+    default = cands[0]
+    if block_q is not None or block_k is not None:
+        return _checked_pair("the call", (block_q or default[0],
+                                          block_k or default[1]), cands)
+    if _env_blocks_set(*env):
+        return _checked_pair(f"env {'/'.join(env)}",
+                             _env_pair(*env, default), cands)
+    hit = tuned(q, k, causal)
+    if hit is None:
+        return default
+    if hit not in cands:
+        from . import autotune
+        autotune.note_foreign()
+        return default
+    return hit
+
+
+def _fwd_blocks(q, k, causal, block_q=None, block_k=None):
+    """The forward's (block_q, block_k) for these operands."""
+    return _pick_blocks(q, k, causal, block_q, block_k,
+                        flash_block_candidates(q.shape[3], q.dtype),
+                        ("PADDLE_TPU_FLASH_BLOCK_Q",
+                         "PADDLE_TPU_FLASH_BLOCK_K"), _tuned_blocks)
+
+
+def _bwd_blocks(q, k, causal):
+    """The backward pair's one tile, under the forward's env and cache
+    rules."""
+    return _pick_blocks(q, k, causal, None, None, BWD_BLOCKS,
+                        ("PADDLE_TPU_FLASH_BLOCK_BWD_Q",
+                         "PADDLE_TPU_FLASH_BLOCK_BWD_K"), _tuned_blocks_bwd)
+
+
 # ----------------------------------------------------------- kernel half
 def _clamp_kv_len(kv_len, Skv: int) -> int:
     klen = Skv if kv_len is None else min(int(kv_len), Skv)
@@ -220,11 +463,15 @@ def _strides(*tensors):
     return (ctypes.c_longlong * 12)(*vals)
 
 
-def _call(kernel: str, dtype, ptrs, dims, strides, device):
+def _call(kernel: str, dtype, ptrs, dims, strides, device, count=True):
+    """Launch `kernel` on the current stream. `dims` ends with the tile
+    (block_q, block_k); `count` is False only for the autotune's timing
+    passes, which are no launches of the caller's path."""
+    global tuning_launches
     from . import _build
     fn = getattr(_build.load("flash_attention"),
                  f"{kernel}_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
@@ -232,15 +479,19 @@ def _call(kernel: str, dtype, ptrs, dims, strides, device):
         err = fn(*ptrs, *dims, strides, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} "
-                           f"at (B, H, Sq, Skv, D, kv_len, causal) = {dims}")
-    launches[kernel] += 1
+                           f"at (B, H, Sq, Skv, D, kv_len, causal, block_q, "
+                           f"block_k) = {dims}")
+    if count:
+        launches[kernel] += 1
+    else:
+        tuning_launches += 1
 
 
-@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
-                         device_types="cuda")
-def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, kv_len: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+# forward launches of the autotune's timing passes (not in `launches`)
+tuning_launches = 0
+
+
+def _launch_fwd(q, k, v, causal, kv_len, blocks, count=True):
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -248,25 +499,41 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _call("flash_fwd", q.dtype,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
            out.data_ptr(), lse.data_ptr(), None),
-          (B, H, Sq, Skv, D, kv_len, int(causal)), _strides(q, k, v),
-          q.device)
+          (B, H, Sq, Skv, D, kv_len, int(causal), *blocks),
+          _strides(q, k, v), q.device, count)
     return out, lse
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, kv_len: int, block_q: int, block_k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_fwd(q, k, v, causal, kv_len, (block_q, block_k))
+
+
+@_flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, causal, kv_len, block_q, block_k):
+    # the plain version: the same op on both devices, so that a
+    # checkpoint policy names it (remat "dots_flash" saves it) and the
+    # CPU tests see what it saves
+    return mha_fwd_ref(q, k, v, causal, kv_len)
 
 
 @torch.library.custom_op("paddle_tpu_torch::flash_bwd_dq", mutates_args=(),
                          device_types="cuda")
 def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      do: torch.Tensor, lse: torch.Tensor,
-                     delta: torch.Tensor, causal: bool, kv_len: int
-                     ) -> torch.Tensor:
+                     delta: torch.Tensor, causal: bool, kv_len: int,
+                     block_q: int, block_k: int) -> torch.Tensor:
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     _call("flash_bwd_dq", q.dtype,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), None, None),
-          (B, H, Sq, Skv, D, kv_len, int(causal)), _strides(q, k, v, do),
-          q.device)
+          (B, H, Sq, Skv, D, kv_len, int(causal), block_q, block_k),
+          _strides(q, k, v, do), q.device)
     return dq
 
 
@@ -274,7 +541,8 @@ def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device_types="cuda")
 def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, lse: torch.Tensor,
-                      delta: torch.Tensor, causal: bool, kv_len: int
+                      delta: torch.Tensor, causal: bool, kv_len: int,
+                      block_q: int, block_k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
@@ -284,8 +552,8 @@ def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), None, dk.data_ptr(),
            dv.data_ptr()),
-          (B, H, Sq, Skv, D, kv_len, int(causal)), _strides(q, k, v, do),
-          q.device)
+          (B, H, Sq, Skv, D, kv_len, int(causal), block_q, block_k),
+          _strides(q, k, v, do), q.device)
     return dk, dv
 
 
@@ -297,14 +565,19 @@ def _on_card(name, q) -> bool:
     return True
 
 
-def mha_fwd(q, k, v, causal=False, kv_len=None):
-    """[B,S,H,D] -> (out [B,S,H,D], lse [B,H,Sq] f32). CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+def mha_fwd(q, k, v, causal=False, kv_len=None, block_q=None, block_k=None):
+    """[B,S,H,D] -> (out [B,S,H,D], lse [B,H,Sq] f32) through the
+    `paddle_tpu_torch::flash_fwd` op. CPU tensors take its CPU kernel,
+    the plain version; CUDA tensors launch the kernel with the tile of
+    `_fwd_blocks` or raise."""
+    klen = _clamp_kv_len(kv_len, k.shape[1])
     if not _on_card("mha_fwd", q):
-        return mha_fwd_ref(q, k, v, causal, kv_len)
+        return torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, bool(causal),
+                                                    klen, 0, 0)
     _check_operands("mha_fwd", q, k, v)
-    return torch.ops.paddle_tpu_torch.flash_fwd(
-        q, k, v, bool(causal), _clamp_kv_len(kv_len, k.shape[1]))
+    bq, bk = _fwd_blocks(q, k, causal, block_q, block_k)
+    return torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, bool(causal), klen,
+                                                bq, bk)
 
 
 def mha_bwd(q, k, v, out, lse, do, causal=False, kv_len=None):
@@ -320,12 +593,13 @@ def mha_bwd(q, k, v, out, lse, do, causal=False, kv_len=None):
         raise ValueError(f"mha_bwd: lse {tuple(lse.shape)} {lse.dtype}, "
                          f"want {(B, H, Sq)} float32")
     klen = _clamp_kv_len(kv_len, k.shape[1])
+    bq, bk = _bwd_blocks(q, k, causal)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     lse = lse.contiguous()
     dq = torch.ops.paddle_tpu_torch.flash_bwd_dq(
-        q, k, v, do, lse, delta, bool(causal), klen)
+        q, k, v, do, lse, delta, bool(causal), klen, bq, bk)
     dk, dv = torch.ops.paddle_tpu_torch.flash_bwd_dkv(
-        q, k, v, do, lse, delta, bool(causal), klen)
+        q, k, v, do, lse, delta, bool(causal), klen, bq, bk)
     return dq, dk, dv
 
 
@@ -333,13 +607,18 @@ class FlashMHA(torch.autograd.Function):
     """Attention whose forward is `fwd` (mha_fwd: the kernel) and whose
     backward is `bwd` (mha_bwd: the two backward kernels), saving
     (q, k, v, out, lse) and no [S, S] tensor, as the reference's
-    `_flash_mha` custom_vjp does."""
+    `_flash_mha` custom_vjp does. The route is resolved once per apply
+    (`_route`) and kept for its backward: a gate that is off swaps in
+    mha_fwd_ref or mha_bwd_ref."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, kv_len, fwd, bwd):
-        out, lse = fwd(q, k, v, causal=causal, kv_len=kv_len)
+        use_fwd, use_bwd = _route(q)
+        out, lse = (fwd if use_fwd else mha_fwd_ref)(q, k, v, causal=causal,
+                                                     kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.kv_len, ctx.bwd = causal, kv_len, bwd
+        ctx.causal, ctx.kv_len = causal, kv_len
+        ctx.bwd = bwd if use_bwd else mha_bwd_ref
         return out
 
     @staticmethod
@@ -358,7 +637,13 @@ class FlashMHA(torch.autograd.Function):
 
 def flash_attention_fn(q, k, v, causal=False, kv_len: Optional[int] = None,
                        fwd=mha_fwd, bwd=mha_bwd):
-    """[B,S,H,D] attention with the memory-efficient backward. `fwd` and
-    `bwd` default to the kernel wrappers; a caller that wants the same
-    path without the kernels passes mha_fwd_ref and mha_bwd_ref."""
+    """[B,S,H,D] attention with the memory-efficient backward, the entry
+    the GPT and Llama train steps call (the reference's
+    `flash_attention_fn` :465 over `_dispatch_mha` :441). `fwd` and `bwd`
+    default to the kernel wrappers; a caller that wants the same path
+    without the kernels passes mha_fwd_ref and mha_bwd_ref. Every impl
+    lands here: "jax_flash" and "splash" name upstream TPU kernels, which
+    the reference takes on TPU-class backends only and otherwise routes
+    to its own flash path, as the port does on CUDA; "xla" and the kill
+    switches are read by FlashMHA's gates."""
     return FlashMHA.apply(q, k, v, bool(causal), kv_len, fwd, bwd)

@@ -32,6 +32,7 @@ device's division and square root are correctly rounded, as the card's
 are without --use_fast_math.
 """
 import ctypes
+import os
 
 import torch
 
@@ -130,7 +131,13 @@ def fused_apply_adamw(grads, params, opt_state, lr, beta1=0.9, beta2=0.95,
 
 
 def fused_update_enabled(device) -> bool:
-    """The gpt.apply_adamw consult: leaves on the card and the registry's
-    "fused_update" winner naming "pallas"."""
+    """The gpt.apply_adamw consult (reference pallas_update.py:127-140):
+    leaves on the card, no kill switch (the global one, or
+    PADDLE_TPU_DISABLE_PALLAS_UPDATE), and the registry's "fused_update"
+    winner naming "pallas"."""
+    from .flash_attention import _pallas_enabled
+    if not _pallas_enabled() or os.environ.get(
+            "PADDLE_TPU_DISABLE_PALLAS_UPDATE", "") in ("1", "true", "True"):
+        return False
     return (torch.device(device).type == "cuda"
             and registry.winner("fused_update", backend="cuda") == "pallas")

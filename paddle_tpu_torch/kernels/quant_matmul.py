@@ -29,7 +29,9 @@ the registry's winner for "quant_matmul" at the backend class of the
 engine's device (kernels/registry.py) > off. Env off-values disable
 weight-only quant even for engines built with quant="int8"; on-values
 and the impl names 'xla'/'pallas' enable it; anything else warns on
-stderr and counts as off (a typo must kill, not enable).
+stderr and counts as off (a typo must kill, not enable). Where an
+engine's int8 sites run the kernel is `matmul_impl`'s: the global kill
+switch PADDLE_TPU_DISABLE_PALLAS turns them into the plain version.
 """
 from __future__ import annotations
 
@@ -42,8 +44,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["ENV_QUANT", "quant_impl", "resolve_quant", "quant_matmul",
-           "quant_matmul_ref", "leaf_matmul", "launches", "captured"]
+__all__ = ["ENV_QUANT", "quant_impl", "resolve_quant", "matmul_impl",
+           "quant_matmul", "quant_matmul_ref", "leaf_matmul", "launches",
+           "captured"]
 
 ENV_QUANT = "PADDLE_TPU_QUANT"
 
@@ -100,6 +103,21 @@ def resolve_quant(knob: str, device=None) -> bool:
     if knob == "auto":
         return quant_impl(device) != "off"
     raise ValueError(f"quant {knob!r} (auto|off|int8)")
+
+
+def matmul_impl(device=None) -> str:
+    """Which implementation an int8 site of an engine on `device` runs
+    (reference quant_matmul.py:122-139): "pallas", the kernel, on the
+    card unless the global kill switch is set (env
+    PADDLE_TPU_DISABLE_PALLAS or flash_attention.use_pallas), else
+    "xla", the plain version `quant_matmul_ref`. It leaves quantization
+    alone: an engine that quantized its weights keeps serving them. Read
+    at engine build, like `quant_impl`."""
+    from . import registry
+    from .flash_attention import _pallas_enabled
+    if registry.backend_class(device) == "cuda" and _pallas_enabled():
+        return "pallas"
+    return "xla"
 
 
 def quant_matmul_ref(x, w_q, scale):

@@ -45,14 +45,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                   create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ..kernels.decode_attention import write_and_attend
 from ..kernels.flash_attention import flash_attention_fn
 from ..kernels.fused_update import fused_apply_adamw, fused_update_enabled
 from ..kernels.quant_matmul import leaf_matmul, quant_matmul
 from .losses import fused_softmax_ce
+from .remat import POLICIES
 
 __all__ = ["GPTConfig", "init_gpt_params", "gpt_forward", "gpt_loss",
            "value_and_grad", "loss_and_grads", "init_opt_state",
@@ -75,7 +75,11 @@ class GPTConfig:
     remat: bool = True                        # checkpoint each block
     # "full" recomputes the whole block in the backward; "dots" saves the
     # matmul outputs and recomputes the rest, the flash forward included
-    # (JAX's dots_with_no_batch_dims_saveable)
+    # (JAX's dots_with_no_batch_dims_saveable); "dots_flash" saves the
+    # flash forward's outputs too, so no attention reruns; "offload_dots"
+    # keeps what "dots" saves in pinned host memory; "all_but_mlp" puts
+    # no checkpoint around the block and one around the dense FFN alone
+    # (models/remat.py)
     remat_policy: str = "full"
 
     def __post_init__(self):
@@ -180,44 +184,32 @@ def _block(params_l, x, cfg):
                        cfg)
     m_in = _ln(x, params_l["ln2_scale"], params_l["ln2_bias"],
                cfg.layer_norm_eps)
-    return x + _dense_ffn(m_in, params_l["mlp_up_w"],
-                          params_l.get("mlp_up_b"), params_l["mlp_down_w"],
-                          params_l.get("mlp_down_b"))
-
-
-# "dots": matmul outputs are saved across the backward, everything else
-# (norms, GELU, casts, the flash forward's custom op) is recomputed
-_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
-                         torch.ops.aten.addmm.default})
-_UNPORTED_REMAT = ("dots_flash", "offload_dots", "all_but_mlp")
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-def _dots_context():
-    return create_selective_checkpoint_contexts(_dots_policy)
+    ffn_args = (m_in, params_l["mlp_up_w"], params_l.get("mlp_up_b"),
+                params_l["mlp_down_w"], params_l.get("mlp_down_b"))
+    if cfg.remat and cfg.remat_policy == "all_but_mlp":
+        # a checkpoint around the dense FFN alone, inside a block that has
+        # none (reference gpt.py:376-384): its 4D-wide hidden activations
+        # are recomputed, everything else is saved
+        return x + checkpoint(_dense_ffn, *ffn_args, use_reentrant=False)
+    return x + _dense_ffn(*ffn_args)
 
 
 def _apply_stack(stacked, x, cfg: GPTConfig):
     """The block stack as a loop over layer views of the stacked leaves,
-    each block checkpointed per cfg.remat / cfg.remat_policy."""
-    if cfg.remat and cfg.remat_policy in _UNPORTED_REMAT:
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet "
-            "(ROADMAP A2a); use 'full' or 'dots'")
+    each block checkpointed per cfg.remat / cfg.remat_policy: "dots",
+    "dots_flash" and "offload_dots" through their context_fn
+    (models/remat.py), "all_but_mlp" inside `_block`, anything else as
+    "full"."""
     layers = {k: v.unbind(0) for k, v in stacked.items()}
+    block_remat = cfg.remat and cfg.remat_policy != "all_but_mlp"
+    ctx_fn = POLICIES.get(cfg.remat_policy, noop_context_fn)
     for layer in range(cfg.num_layers):
         p = {k: v[layer] for k, v in layers.items()}
-        if not cfg.remat:
-            x = _block(p, x, cfg)
-        elif cfg.remat_policy == "dots":
+        if block_remat:
             x = checkpoint(_block, p, x, cfg, use_reentrant=False,
-                           context_fn=_dots_context)
+                           context_fn=ctx_fn)
         else:
-            x = checkpoint(_block, p, x, cfg, use_reentrant=False)
+            x = _block(p, x, cfg)
     return x
 
 

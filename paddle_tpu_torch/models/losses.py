@@ -12,13 +12,16 @@ kernel registry (kernels/registry.py, kernel "ce", class "cuda"):
 - CUDA logits, "pallas_fused": `ce_fused_train`, the one-pass kernel
   that emits d_logits with the loss, for paths that always take the
   gradient;
-- CUDA logits, "jax", and CPU logits always: the reference's jax-level
-  form in f32 (losses.py:63-67).
+- CUDA logits, "jax", or a kill switch (the global one or
+  PADDLE_TPU_DISABLE_PALLAS_CE), and CPU logits always: the reference's
+  jax-level form in f32 (losses.py:63-67).
 
 The kernels mask a ragged vocab themselves, so the reference's cut at
 V < 512 (pallas_ce.suitable) is not carried over on either kernel route.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -29,10 +32,21 @@ from ..kernels.fused_ce import (ce_bwd, ce_fused, ce_fused_train, ce_fwd,
 __all__ = ["fused_softmax_ce", "ce_route"]
 
 
+def _pallas_ce_enabled() -> bool:
+    """The CE kernels' gate (reference losses.py:17-30): the global kill
+    switch (env PADDLE_TPU_DISABLE_PALLAS or flash_attention.use_pallas),
+    then the CE's own env PADDLE_TPU_DISABLE_PALLAS_CE."""
+    from ..kernels.flash_attention import _pallas_enabled
+    if not _pallas_enabled():
+        return False
+    return os.environ.get("PADDLE_TPU_DISABLE_PALLAS_CE", "") not in (
+        "1", "true", "True")
+
+
 def ce_route(logits) -> str:
     """The route `fused_softmax_ce` takes for these logits: "pallas",
     "pallas_fused" or "jax"."""
-    if logits.device.type != "cuda":
+    if logits.device.type != "cuda" or not _pallas_ce_enabled():
         return "jax"
     return registry.winner("ce", backend="cuda") or "pallas"
 

@@ -14,8 +14,12 @@ import pytest
 from paddle_tpu_torch.kernels import _build
 
 REPORT = """\
-ptxas info    : Compiling entry function '_Z16flash_fwd_kernelILi64EEvv' for 'sm_90a'
-ptxas info    : Function properties for _Z16flash_fwd_kernelILi64EEvv
+ptxas info    : Compiling entry function '_Z20flash_fwd_q64_kernelILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z20flash_fwd_q64_kernelILi64EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers
+ptxas info    : Compiling entry function '_Z16flash_fwd_kernelILi64ELi2EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_fwd_kernelILi64ELi2EEvv
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 255 registers
 ptxas info    : Compiling entry function '_Z19flash_bwd_dq_kernelILi64EEvv' for 'sm_90a'

@@ -735,6 +735,203 @@ def test_gpt_train_step_launches_each_kernel(cuda_device, monkeypatch, remat,
         assert float(cos) >= 0.999, name
 
 
+def _small_gpt(dev, **kw):
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    cfg = GPTConfig(**{**dict(vocab_size=1000, hidden_size=128,
+                              num_layers=2, num_heads=2, max_seq_len=128),
+                       **kw})
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    T = cfg.max_seq_len
+    tokens = torch.randint(0, cfg.vocab_size, (2, T + 1), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    return cfg, params, tokens
+
+
+@pytest.mark.parametrize("policy,fwd_per_layer", [("dots_flash", 1),
+                                                  ("all_but_mlp", 1),
+                                                  ("offload_dots", 2)])
+def test_gpt_step_launches_under_the_new_remat_policies(cuda_device, policy,
+                                                        fwd_per_layer):
+    """"dots_flash" saves the flash forward's outputs and "all_but_mlp"
+    checkpoints the FFN alone, so the forward launches once a layer;
+    "offload_dots" recomputes it (twice a layer). The loss and gradients
+    are the no-remat step's bits."""
+    import dataclasses
+    from paddle_tpu_torch.models.gpt import loss_and_grads
+    cfg, params, tokens = _small_gpt(cuda_device, remat=False)
+    base_loss, base_grads = loss_and_grads(params, tokens, cfg)
+    cfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+    before = _launch_counts()
+    loss, grads = loss_and_grads(params, tokens, cfg)
+    after = _launch_counts()
+    L = cfg.num_layers
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_fwd": fwd_per_layer * L, "flash_bwd_dq": L,
+        "flash_bwd_dkv": L, "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0,
+        "leaf_update": 0}
+    assert torch.equal(loss, base_loss)
+    for name, g in grads.items():
+        assert torch.equal(g, base_grads[name]), name
+
+
+def test_offload_dots_keeps_the_dots_off_the_device(cuda_device):
+    """At the same batch, "offload_dots" peaks below "dots" on the card:
+    what "dots" keeps on the device waits in pinned host buffers, which
+    the pool keeps from one step to the next."""
+    import dataclasses
+    from paddle_tpu_torch.models.gpt import loss_and_grads
+    from paddle_tpu_torch.models.remat import HOST_POOL
+    cfg, params, tokens = _small_gpt(cuda_device, hidden_size=256,
+                                     num_layers=4, num_heads=4,
+                                     max_seq_len=512)
+    tokens = tokens.repeat(4, 1)                        # batch 8
+    peaks, losses = {}, {}
+    HOST_POOL.clear()
+    for policy in ("dots", "offload_dots", "offload_dots"):
+        c = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = loss_and_grads(params, tokens, c)
+        torch.cuda.synchronize()
+        peaks.setdefault(policy, []).append(
+            torch.cuda.max_memory_allocated() - base)
+        losses.setdefault(policy, []).append(loss)
+        del grads
+    pinned = HOST_POOL.pinned_bytes
+    # the block's four matmul outputs, bf16: qkv, out, up, down
+    B, S, D = 8, 512, 256
+    dots = cfg.num_layers * B * S * (3 * D + D + 4 * D + D) * 2
+    assert pinned == dots                 # sized by the first step alone
+    assert max(peaks["offload_dots"]) < peaks["dots"][0]
+    assert all(torch.equal(x, losses["dots"][0])
+               for x in losses["offload_dots"])
+    HOST_POOL.clear()
+
+
+@pytest.mark.parametrize("env,attn,bwd,ce", [
+    ({"PADDLE_TPU_DISABLE_PALLAS": "1"}, False, False, False),
+    ({"PADDLE_TPU_DISABLE_PALLAS_ATTN": "1"}, False, False, True),
+    ({"PADDLE_TPU_ATTN_IMPL": "xla"}, False, False, True),
+    ({"PADDLE_TPU_DISABLE_PALLAS_BWD": "1"}, True, False, True),
+    ({"PADDLE_TPU_DISABLE_PALLAS_CE": "1"}, True, True, False),
+    ({"PADDLE_TPU_ATTN_IMPL": "splash"}, True, True, True),
+    ({"PADDLE_TPU_ATTN_IMPL": "jax_flash"}, True, True, True),
+])
+def test_kill_switches_and_impls_on_the_card(cuda_device, monkeypatch, env,
+                                             attn, bwd, ce):
+    """A kill switch launches none of the kernels it covers; "splash" and
+    "jax_flash" launch the hand kernels; the loss stays within the
+    kernel-vs-plain tolerance of the default step's."""
+    from paddle_tpu_torch.models.gpt import loss_and_grads
+    cfg, params, tokens = _small_gpt(cuda_device, remat=False)
+    want_loss = float(loss_and_grads(params, tokens, cfg)[0])
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    before = _launch_counts()
+    loss = float(loss_and_grads(params, tokens, cfg)[0])
+    after = _launch_counts()
+    L = cfg.num_layers
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_fwd": L if attn else 0, "flash_bwd_dq": L if bwd else 0,
+        "flash_bwd_dkv": L if bwd else 0, "ce_fwd": int(ce),
+        "ce_bwd": int(ce), "fused_ce": 0, "leaf_update": 0}
+    assert abs(loss - want_loss) <= 2e-3 * abs(want_loss)
+
+
+@pytest.mark.parametrize("D,causal,kv_len", [(64, True, None),
+                                             (64, True, 900),
+                                             (64, False, None),
+                                             (32, True, None),
+                                             (16, False, 700)])
+def test_flash_forward_tiles_agree(cuda_device, D, causal, kv_len):
+    """The bf16 forward at block_q 128 and 64: each against the plain
+    version, and the two the same bits (each q row walks the same kv
+    tiles in the same order)."""
+    q, k, v, _ = _flash_operands(2, 1000, 1000, 3, D, torch.bfloat16,
+                                 cuda_device, seed=D)
+    cands = fa.flash_block_candidates(D, torch.bfloat16)
+    assert cands == [(128, 64), (64, 64)]
+    r_out, r_lse = fa.mha_fwd_ref(q, k, v, causal, kv_len)
+    outs = []
+    for bq, bk in cands:
+        before = fa.launches["flash_fwd"]
+        out, lse = fa.mha_fwd(q, k, v, causal=causal, kv_len=kv_len,
+                              block_q=bq, block_k=bk)
+        assert fa.launches["flash_fwd"] == before + 1
+        torch.cuda.synchronize()
+        assert _close_to_plain(out, r_out, torch.bfloat16)
+        assert (lse - r_lse).abs().max() <= 1e-3
+        outs.append((out, lse))
+    (o1, l1), (o2, l2) = outs
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(l1, l2)
+
+
+def test_kernel_refuses_a_tile_it_lacks(cuda_device):
+    q, k, v, _ = _flash_operands(1, 128, 128, 2, 128, torch.bfloat16,
+                                 cuda_device)
+    before = dict(fa.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa._launch_fwd(q, k, v, True, 128, (128, 64))
+    with pytest.raises(ValueError, match="tile"):
+        fa.mha_fwd(q, k, v, causal=True, block_q=128)
+    with pytest.raises(ValueError, match="tile"):
+        fa.mha_fwd(q.float(), k.float(), v.float(), block_q=128)
+    assert fa.launches == before
+
+
+def test_autotune_picks_a_tile_on_the_card_and_caches_it(cuda_device,
+                                                         monkeypatch,
+                                                         tmp_path):
+    from paddle_tpu_torch.kernels import autotune
+    monkeypatch.setattr(autotune, "_CACHE_PATH", str(tmp_path / "at.json"))
+    monkeypatch.setattr(autotune, "_CACHE", {})
+    monkeypatch.setattr(autotune, "_loaded", False)
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE", "1")
+    q, k, v, _ = _flash_operands(2, 512, 512, 4, 64, torch.bfloat16,
+                                 cuda_device, seed=9)
+    tuned0 = autotune.autotune_status()["tuned"]
+    timing0 = fa.tuning_launches
+    before = fa.launches["flash_fwd"]
+    out, _ = fa.mha_fwd(q, k, v, causal=True)
+    assert fa.launches["flash_fwd"] == before + 1    # timing not counted
+    assert fa.tuning_launches == timing0 + 2 * (1 + 3)
+    pick = autotune.cached("flash_fwd", fa._flash_sig(q, k, True))
+    assert pick in fa.flash_block_candidates(64, torch.bfloat16)
+    assert autotune.autotune_status()["tuned"] == tuned0 + 1
+    again, _ = fa.mha_fwd(q, k, v, causal=True)
+    assert autotune.autotune_status()["tuned"] == tuned0 + 1
+    assert fa.tuning_launches == timing0 + 8
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    import json
+    assert json.loads((tmp_path / "at.json").read_text()) == {
+        f"flash_fwd::{fa._flash_sig(q, k, True)}": list(pick)}
+
+
+def test_int8_engine_under_the_global_kill_runs_the_plain_version(
+        cuda_device, monkeypatch):
+    """PADDLE_TPU_DISABLE_PALLAS at engine build turns the int8 sites
+    into quant_matmul_ref and leaves the weights quantized."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import ServingEngine
+    cfg, params = _small_llama(cuda_device)
+    prompts = [np.arange(9) % cfg.vocab_size, np.arange(17) % 100]
+    launched = {}
+    for kill in (False, True):
+        if kill:
+            monkeypatch.setenv("PADDLE_TPU_DISABLE_PALLAS", "1")
+        eng = ServingEngine(params, cfg, family="llama", num_slots=2,
+                            max_len=64, quant="int8", device=cuda_device)
+        assert eng.quant
+        before = qm.launches
+        eng.generate(prompts, 4)
+        launched[kill] = qm.launches - before
+    assert launched[False] > 0 and launched[True] == 0
+
+
 def test_ce_routes_follow_the_registry_on_the_card(cuda_device, forced):
     """"pallas_fused" launches the one-pass kernel once; "jax" launches
     none; a primal-only call on the default route launches the forward

@@ -131,6 +131,57 @@ def test_remat_policies_give_identical_losses_and_gradients(ref):
                                        msg=f"{key} {name}")
 
 
+NEW_POLICIES = ["dots_flash", "offload_dots", "all_but_mlp"]
+
+
+@pytest.mark.parametrize("policy", NEW_POLICIES)
+def test_policy_loss_and_gradients_equal_no_remat_bit_for_bit(ref, policy):
+    """A remat policy trades memory for compute and nothing else: the
+    loss and every gradient leaf are the no-remat step's bits."""
+    tokens = torch.from_numpy(ref["tokens"])
+    base_loss, base_grads = tg.loss_and_grads(_params(ref), tokens,
+                                              _tcfg(remat=False))
+    loss, grads = tg.loss_and_grads(
+        _params(ref), tokens, _tcfg(remat=True, remat_policy=policy))
+    torch.testing.assert_close(loss, base_loss, rtol=0, atol=0)
+    assert sorted(grads) == sorted(base_grads)
+    for name, g in grads.items():
+        torch.testing.assert_close(g, base_grads[name], rtol=0, atol=0,
+                                   msg=f"{policy} {name}")
+
+
+def _one_step(train_step, params, opt, tokens, cfg):
+    """(loss, sum of wte after the step) of one step at lr 1e-4, as
+    tests/test_remat_policies.py reads the JAX step."""
+    loss, params, _ = train_step(params, opt, tokens, cfg=cfg, lr=1e-4)
+    return float(loss), float(np.sum(np.asarray(params["wte"],
+                                                dtype=np.float64)))
+
+
+@pytest.mark.parametrize("policy", NEW_POLICIES)
+def test_policy_step_matches_the_jax_step_under_the_same_policy(ref,
+                                                                policy):
+    """One train step under `policy` against the JAX package's jitted
+    train_step under the same policy, with the tolerances of
+    tests/test_remat_policies.py (loss 1e-5 absolute, the updated wte's
+    sum 1e-6 relative)."""
+    jcfg = jg.GPTConfig(**SHAPE, dtype=jnp.float32, remat=True,
+                        remat_policy=policy)
+    jparams = jax.tree_util.tree_map(jnp.asarray, ref["params"])
+
+    def jax_step(p, o, t, cfg, lr):
+        return jax.jit(functools.partial(jg.train_step, cfg=cfg,
+                                         lr=lr))(p, o, t)
+    want = _one_step(jax_step, jparams, jg.init_opt_state(jparams),
+                     jnp.asarray(ref["tokens"]), jcfg)
+    p = _params(ref)
+    got = _one_step(tg.train_step, p, tg.init_opt_state(p),
+                    torch.from_numpy(ref["tokens"]),
+                    _tcfg(remat=True, remat_policy=policy))
+    assert got[0] == pytest.approx(want[0], abs=1e-5)
+    assert got[1] == pytest.approx(want[1], rel=1e-6)
+
+
 class _CountMM(TorchDispatchMode):
     def __init__(self):
         super().__init__()
@@ -144,40 +195,50 @@ class _CountMM(TorchDispatchMode):
 
 def test_remat_recomputes_the_attention_forward_and_dots_saves_matmuls(
         ref, monkeypatch):
-    """Under "full" and "dots" every block's attention forward runs again
-    in the backward (so the kernel's launch count per step is 2L); "dots"
-    keeps the matmul outputs, so it reruns fewer matmuls than "full"."""
+    """Attention forwards and matmuls a step runs under each policy. The
+    flash forward is counted where the `paddle_tpu_torch::flash_fwd`
+    op's CPU kernel runs the plain forward, so a policy that saves the
+    op ("dots_flash") is seen to skip it. Under "full", "dots" and
+    "offload_dots" every block's attention forward runs again in the
+    backward (so the kernel's launch count a step is 2L); "dots_flash"
+    and "all_but_mlp" (no block checkpoint) run it once (L)."""
     tokens = torch.from_numpy(ref["tokens"])
     L = SHAPE["num_layers"]
-    fwd_calls, mm = {}, {}
-    for remat, policy in [(False, "full"), (True, "full"), (True, "dots")]:
-        calls = []
+    calls = []
 
-        def counting_fwd(*a, **k):
-            calls.append(1)
-            return fa.mha_fwd_ref(*a, **k)
-        monkeypatch.setattr(tg, "flash_attention_fn", functools.partial(
-            fa.flash_attention_fn, fwd=counting_fwd))
+    def counting_ref(*a, **k):
+        calls.append(1)
+        return plain_fwd(*a, **k)
+    plain_fwd = fa.mha_fwd_ref
+    monkeypatch.setattr(fa, "mha_fwd_ref", counting_ref)
+    fwd_calls, mm = {}, {}
+    for remat, policy in [(False, "full"), (True, "full"), (True, "dots"),
+                          (True, "dots_flash"), (True, "offload_dots"),
+                          (True, "all_but_mlp")]:
+        calls.clear()
         with _CountMM() as counter:
             tg.loss_and_grads(_params(ref), tokens,
                               _tcfg(remat=remat, remat_policy=policy))
         fwd_calls[(remat, policy)] = len(calls)
         mm[(remat, policy)] = counter.mm
     assert fwd_calls == {(False, "full"): L, (True, "full"): 2 * L,
-                         (True, "dots"): 2 * L}
-    # "full" reruns the block's matmuls up to the last one whose output
-    # the backward reads (qkv, out and up: the down projection's output
-    # is only added, and the recompute stops early); "dots" reruns none
-    assert mm[(True, "full")] == mm[(False, "full")] + 3 * L
-    assert mm[(True, "dots")] == mm[(False, "full")]
-
-
-@pytest.mark.parametrize("policy", ["dots_flash", "offload_dots",
-                                    "all_but_mlp"])
-def test_unported_remat_policies_raise(ref, policy):
-    with pytest.raises(NotImplementedError, match="ROADMAP A2a"):
-        tg.gpt_loss(_params(ref), torch.from_numpy(ref["tokens"]),
-                    _tcfg(remat=True, remat_policy=policy))
+                         (True, "dots"): 2 * L, (True, "dots_flash"): L,
+                         (True, "offload_dots"): 2 * L,
+                         (True, "all_but_mlp"): L}
+    # Non-reentrant checkpoint stops its recompute once the last tensor
+    # the backward saved is back: the inputs of the block's down
+    # projection, packed before that matmul runs. So "full" reruns the
+    # block's matmuls up to it (qkv, out and up: 3 a layer); "dots" and
+    # "dots_flash" answer those three from their saved outputs and
+    # "offload_dots" from its host copies, rerunning none; "all_but_mlp"
+    # recomputes only its FFN checkpoint, up to the down projection: the
+    # up matmul (1 a layer)
+    base = mm[(False, "full")]
+    assert mm[(True, "full")] == base + 3 * L
+    assert mm[(True, "dots")] == base
+    assert mm[(True, "dots_flash")] == base
+    assert mm[(True, "offload_dots")] == base
+    assert mm[(True, "all_but_mlp")] == base + L
 
 
 def test_make_train_step_has_no_sharded_step_yet():
