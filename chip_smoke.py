@@ -57,7 +57,8 @@ Phases, each failing the script (non-zero exit) when it fails:
    activations, f32 parameters, random weights from seed 0), with the
    registry's "ce" winner forced to "pallas_fused" (the one-pass CE) as
    the reference's tools/ablate_step.py forces its own.
-3b. The GPT step's selection surface at the same widths, the port's
+3b. The GPT step's selection surface at the same widths and 12 of its
+   24 layers (RACE_LAYERS), the port's
    counterpart of the rung's variant race (bench.py:270-320) with the
    attention impl fixed to "pallas" (on CUDA "jax_flash" and "splash"
    run the same kernels): from one starting state, 2 warm-up and 10
@@ -180,7 +181,34 @@ Phases, each failing the script (non-zero exit) when it fails:
    the 1025-page engine's token for token and the tier-less engine's or
    each parting passes the verdict; bytes, drops, ms a swapped-in page,
    round-2 chunks and prefill p50 of each engine.
-6. The kernels line (all eight kernels), the card line, and as the last
+6. The planner-driven dp×fsdp×tp train step (paddle_tpu_torch/parallel,
+   models/facade.py make_train_step(mesh=, plan=)) at phase 4's
+   configuration, from phase 4's starting state (seed 0, drawn again).
+   6a: a 1-rank NCCL group, plan dp1×fsdp1×tp1, the fused update forced:
+   its 5 losses equal to phase 4's kernel trajectory (within 1e-6
+   relative; whether to the bit is printed), its launches a step
+   exactly phase 4's (flash 44 / 22 / 22, ce_fwd 1, ce_bwd 1,
+   leaf_update 11), its p50 and peak beside phase 4's. 6b: two spawned
+   ranks (one card each over NCCL where there are two or more cards;
+   on one card, both on it over gloo, every collective an all-reduce
+   through parallel/collective.py's route for CUDA tensors), the plans
+   tp2 (dp1×fsdp1×tp2) and fsdp2 (dp1×fsdp2×tp1) at the same global
+   batch: step 1's loss within 2e-3 relative of 6a's and every
+   gradient leaf's cosine >= 0.999 against the unsharded step 1 from
+   the same state (phase 4's tolerances), the 5-step trajectory within
+   1e-2 of 6a's, each leaf's step-1 gradient norm within 1e-2 of the
+   unsharded one's (a wrong loss scale or a sum where a mean belongs
+   moves it by 2x; cosine and AdamW cannot see it), exactly 6a's
+   launches a step on each rank, each rank's heads (tp2: 16 query and
+   2 KV), its params and moments at most 51% of 6a's, its peak and
+   step times (marked as taken with both ranks on one card where they
+   were). The shapes each rank's flash, CE and AdamW kernels launch at
+   are recorded and must be among the shapes phases 2b, 2d and 2e held
+   against the plain versions (SHARDED_PLANS' local shapes are added
+   to those checks). The route, backend and card count are printed; a
+   failure in a rank fails the phase.
+7. The seconds each phase took, the kernels line (all eight kernels),
+   the card line, and as the last
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
    1}}.
 
@@ -223,6 +251,9 @@ LLAMA_LEAVES = {"wte": (32000, _D), "norm_f": (_D,), "attn_norm": (_L, _D),
                 "ffn_norm": (_L, _D), "gate_w": (_L, _D, _F),
                 "up_w": (_L, _D, _F), "down_w": (_L, _F, _D)}
 ADAMW = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
+# the seconds the whole script must finish in, its kernels' builds
+# included
+TIME_LIMIT_S = 1200
 LEAF_KN = {"qkv_w": (1024, 3072), "attn_out_w": (1024, 1024),
            "mlp_up_w": (1024, 4096), "mlp_down_w": (4096, 1024),
            "head": (1024, 32768)}
@@ -559,11 +590,30 @@ def bound_ms(ops, nbytes):
                                        else "bytes")
 
 
+# phase 6b's plans of the Llama step on two ranks, by plan name, and the
+# (query heads, KV heads) each rank holds under each
+SHARDED_PLANS = {"dp1_fsdp1_tp2": {"dp": 1, "fsdp": 1, "tp": 2},
+                 "dp1_fsdp2_tp1": {"dp": 1, "fsdp": 2, "tp": 1}}
+SHARDED_HEADS = {"dp1_fsdp1_tp2": (16, 2), "dp1_fsdp2_tp1": (32, 4)}
+
+
+def sharded_rows(name):
+    """Rows of the global batch a rank of plan `name` trains on."""
+    axes = SHARDED_PLANS[name]
+    return LLAMA_BATCH // (axes["dp"] * axes["fsdp"])
+
+
+# the Llama step's attention on one rank of each plan, [B, S, H, 64]
+SHARDED_ATTN = {name: (sharded_rows(name), LLAMA_SEQ, SHARDED_HEADS[name][0],
+                       LLAMA["hidden_size"] // LLAMA["num_heads"], None)
+                for name in SHARDED_PLANS}
 # (B, S, H, D, kv_len): the GPT train step's attention, a ragged S with
-# a kv_len bound, head dim 128 (the 6.7B/13B head width), and the Llama
-# train step's (32 query heads, the 4 KV heads repeated to match)
+# a kv_len bound, head dim 128 (the 6.7B/13B head width), the Llama
+# train step's (32 query heads, the 4 KV heads repeated to match), and
+# the Llama step's on one rank of each of phase 6b's plans
 ATTN_SHAPES = [(8, 1024, 16, 64, None), (8, 1000, 16, 64, 900),
-               (8, 1024, 8, 128, None), (4, 2048, 32, 64, None)]
+               (8, 1024, 8, 128, None), (4, 2048, 32, 64, None)] + [
+    sh for sh in SHARDED_ATTN.values()]
 ATTN_MAIN = ATTN_SHAPES[0]
 ATTN_LLAMA = ATTN_SHAPES[3]
 # how each attention kernel computes its products on bf16 operands
@@ -810,7 +860,13 @@ def attention_oracle(torch, dev):
 
 
 CE_SHAPES = [(8192, 32768), (8192, 50304)]
-CE_PAIR_SHAPES = [(8192, 32000), (8192, 50257)]
+# the Llama step's logits, GPT-2's vocabulary, and the Llama step's
+# logits on one rank of each of phase 6b's plans (tp2's are the whole
+# batch's)
+SHARDED_CE = {name: (sharded_rows(name) * LLAMA_SEQ, LLAMA["vocab_size"])
+              for name in SHARDED_PLANS}
+CE_PAIR_SHAPES = [(8192, 32000), (8192, 50257)] + sorted(
+    set(SHARDED_CE.values()) - {(8192, 32000)})
 
 
 def ce_check(torch, dev):
@@ -947,20 +1003,37 @@ def ce_pair_check(torch, dev):
     return out
 
 
-def update_check(torch, dev):
-    """Phase 2e, the AdamW leaf update, f32, at every leaf shape of the
-    TinyLlama-width tree. Returns {leaf: row} and a "step" row, the sums
-    over the 11 leaves (one train step's update), whose library time is
-    one torch._fused_adamw_ call over all of them."""
+def shard_shapes(name):
+    """{leaf: the shape of a rank's shard} of the TinyLlama-width tree
+    under phase 6b's plan `name`: each dim divided by the sizes of the
+    mesh axes models/llama.py's PARAM_SPECS names for it, where they
+    divide it (parallel/mesh.py's rule). 6b holds every rank's shards
+    to it."""
+    from paddle_tpu_torch.models.llama import PARAM_SPECS
+    axes = SHARDED_PLANS[name]
+    sizes = {"dp": axes["dp"], "fsdp": axes["fsdp"], "mp": axes["tp"]}
+    out = {}
+    for leaf, shape in LLAMA_LEAVES.items():
+        local = list(shape)
+        for d, entry in enumerate(PARAM_SPECS[leaf]):
+            names = entry if isinstance(entry, tuple) else (entry,)
+            n = math.prod(sizes.get(a, 1) for a in names if a)
+            if local[d] % n == 0:
+                local[d] //= n
+        out[leaf] = tuple(local)
+    return out
+
+
+def update_rows(torch, dev, shapes, hp, step, tag=""):
+    """The AdamW leaf update against its plain version at each of
+    `shapes` ({leaf: shape}, f32), each timed beside its plain version
+    and torch._fused_adamw_. Returns {leaf: row} and a "step" row, the
+    sums over the leaves (one train step's update), whose library time
+    is one torch._fused_adamw_ call over all of them."""
     from paddle_tpu_torch.kernels import fused_update as fu
     gen = torch.Generator(device=dev).manual_seed(7)
-    step = torch.full((), 3.0, device=dev)
-    hp = torch.stack([torch.full((), ADAMW[k], device=dev) for k in
-                      ("lr", "beta1", "beta2", "eps", "weight_decay")]
-                     + [1.0 - ADAMW["beta1"] ** step,
-                        1.0 - ADAMW["beta2"] ** step])
     leaves, rows = {}, {}
-    for name, shape in LLAMA_LEAVES.items():
+    for name, shape in shapes.items():
         p = torch.randn(shape, generator=gen, device=dev) * 0.02
         g = torch.randn(shape, generator=gen, device=dev) * 1e-3
         m = torch.randn(shape, generator=gen, device=dev) * 1e-4
@@ -978,8 +1051,8 @@ def update_check(torch, dev):
                  for got, want in zip((p, m, v), ref))
         if not ok:
             raise AssertionError(f"leaf_update kernel disagrees with its "
-                                 f"plain version at {name} {shape}: max "
-                                 f"|err| p/m/v {errs}")
+                                 f"plain version at {tag}{name} {shape}: "
+                                 f"max |err| p/m/v {errs}")
         del ref
         n = p.numel()
         t_k = event_ms(torch, lambda: fu.leaf_update(p, g, m, v, hp))
@@ -991,7 +1064,7 @@ def update_check(torch, dev):
             amsgrad=False, maximize=False))
         b_ms, b_by = bound_ms(10 * n, 28 * n)
         rows[name] = {"phase": "kernel_check", "kernel": "leaf_update",
-                      "leaf": name, "shape": list(shape), "n": n,
+                      "leaf": tag + name, "shape": list(shape), "n": n,
                       "dtype": "float32", "ms": t_k, "plain_ms": t_p,
                       "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
                       "roofline_share": b_ms / t_k,
@@ -1009,18 +1082,38 @@ def update_check(torch, dev):
         eps=ADAMW["eps"], amsgrad=False, maximize=False))
     b_ms, b_by = bound_ms(10 * n_all, 28 * n_all)
     rows["step"] = {
-        "phase": "kernel_check", "kernel": "leaf_update", "leaf": "all 11",
-        "n": n_all, "ms": sum(r["ms"] for r in rows.values()),
+        "phase": "kernel_check", "kernel": "leaf_update",
+        "leaf": f"{tag}all {len(leaves)}", "n": n_all,
+        "ms": sum(r["ms"] for r in rows.values()),
         "plain_ms": sum(r["plain_ms"] for r in rows.values()),
         "library_ms": t_lib,
-        "library": "one torch._fused_adamw_ call over the 11 leaves (the "
-                   "function behind torch.optim.AdamW(fused=True))",
+        "library": f"one torch._fused_adamw_ call over the {len(leaves)} "
+                   "leaves (the function behind "
+                   "torch.optim.AdamW(fused=True))",
         "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
     rows["step"]["roofline_share"] = b_ms / rows["step"]["ms"]
     log(json.dumps(rows["step"]))
     del leaves, lists
     torch.cuda.empty_cache()
+    return rows
+
+
+def update_check(torch, dev):
+    """Phase 2e, the AdamW leaf update, f32, at every leaf shape of the
+    TinyLlama-width tree, and at every shard shape of it under phase
+    6b's plans. Returns {leaf: row}, a "step" row (one train step's
+    update) and {"sharded": {plan: its step row}}."""
+    step = torch.full((), 3.0, device=dev)
+    hp = torch.stack([torch.full((), ADAMW[k], device=dev) for k in
+                      ("lr", "beta1", "beta2", "eps", "weight_decay")]
+                     + [1.0 - ADAMW["beta1"] ** step,
+                        1.0 - ADAMW["beta2"] ** step])
+    rows = update_rows(torch, dev, LLAMA_LEAVES, hp, step)
+    rows["sharded"] = {
+        name: update_rows(torch, dev, shard_shapes(name), hp, step,
+                          tag=f"{name}:")["step"]
+        for name in SHARDED_PLANS}
     return rows
 
 
@@ -1127,6 +1220,33 @@ def launch_counts():
     return dict(fa.launches, **fce.launches, **fu.launches)
 
 
+@contextlib.contextmanager
+def kernel_shapes():
+    """The shapes the flash and CE kernels launch at inside the body:
+    {kernel: sorted [shape]}, flash (B, S, H, D), CE (T, V), taken
+    where each launch is made and counted."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fce
+    seen = {}
+    call, launch = fa._call, fce._launch
+
+    def flash_call(kernel, dtype, ptrs, dims, *args, **kw):
+        B, H, Sq, _, D = dims[:5]
+        seen.setdefault(kernel, set()).add((B, Sq, H, D))
+        return call(kernel, dtype, ptrs, dims, *args, **kw)
+
+    def ce_launch(kernel, dtype, args, T, V, device):
+        seen.setdefault(kernel, set()).add((T, V))
+        return launch(kernel, dtype, args, T, V, device)
+    out = {}
+    fa._call, fce._launch = flash_call, ce_launch
+    try:
+        yield out
+    finally:
+        fa._call, fce._launch = call, launch
+        out.update({k: sorted(list(sh) for sh in v) for k, v in seen.items()})
+
+
 def zero_launch_counts():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_ce as fce
@@ -1169,7 +1289,8 @@ def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
     against the plain versions, 5-step trajectories, 10 timed steps with
     the launches per step asserted equal to `per_step`, a profile.
     `mod` is models.gpt or models.llama. Returns (launches over the 10
-    timed steps, the "train" line, the tokens)."""
+    timed steps, the "train" line, the tokens, the kernels' 5-step
+    trajectory)."""
     from paddle_tpu_torch.models.gpt import init_opt_state
     opt = init_opt_state(params)
     tokens = train_tokens(torch, dev, cfg, batch, seq, seed)
@@ -1246,7 +1367,7 @@ def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
     launches, line, step = timed_steps(torch, card, label, mod, cfg, params,
                                        opt, tokens, per_step)
     train_profile(torch, step, params, opt, tokens, card, label)
-    return launches, line, tokens
+    return launches, line, tokens, traj["kernel"]
 
 
 def timed_steps(torch, card, label, mod, cfg, params, opt, tokens, per_step,
@@ -1307,7 +1428,7 @@ def training(torch, dev, card):
     params = gpt.init_gpt_params(cfg, seed=0)
     log(f"gpt_train: params built in {time.perf_counter() - t0:.1f} s")
     with forced_registry(ce="pallas_fused"):
-        launches, _, _ = train_phase(
+        launches, _, _, _ = train_phase(
             torch, dev, card, "gpt_train", gpt, cfg, params, TRAIN_BATCH,
             TRAIN_SEQ, 2, {"flash_fwd": 2 * L, "flash_bwd_dq": L,
                            "flash_bwd_dkv": L, "fused_ce": 1})
@@ -1328,6 +1449,9 @@ RACE = [("dots", True, "dots", 8), ("full", True, "full", 8),
 # policies whose backward reruns no attention forward
 ONE_FWD = ("dots_flash", "all_but_mlp")
 ROUTE_LAYERS = 4
+# the race's depth: half the headline's 24 layers at its widths, so that
+# phase 6 fits the script's time limit (PERF.md)
+RACE_LAYERS = 12
 # (name, env) of the route steps, each set for its own step only
 ROUTES = [("default", {}), ("xla", {"PADDLE_TPU_ATTN_IMPL": "xla"}),
           ("attn_kill", {"PADDLE_TPU_DISABLE_PALLAS_ATTN": "1"}),
@@ -1363,8 +1487,9 @@ def step_launches(L, remat, policy, attn=True, bwd=True, ce=True):
 
 
 def race(torch, dev, card):
-    """Phase 3b: the GPT step at the headline widths under each variant
-    of RACE (2 warm-up and 10 timed steps each, from one starting state
+    """Phase 3b: the GPT step at the headline widths, RACE_LAYERS deep,
+    under each variant of RACE (2 warm-up and 10 timed steps each, from
+    one starting state
     and seed-2 tokens, the CE and the update on their default routes),
     each variant's flash launches asserted and its first loss at batch 8
     held to "dots"'s within phase 3's tolerance across runs; a variant
@@ -1375,7 +1500,7 @@ def race(torch, dev, card):
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.models.losses import ce_route
     from paddle_tpu_torch.models.remat import HOST_POOL
-    base = gpt.GPTConfig(**FULL)
+    base = gpt.GPTConfig(**dict(FULL, num_layers=RACE_LAYERS))
     L = base.num_layers
     params = gpt.init_gpt_params(base, seed=0)
     opt = gpt.init_opt_state(params)
@@ -1600,7 +1725,9 @@ def autotune_tiles(torch, dev, card):
 def llama_training(torch, dev, card):
     """Phase 4, Llama at TinyLlama-1.1B widths, with the fused AdamW
     selected and the CE on its default route; then the primal-only eval
-    loss. Returns (launches over the 10 timed steps, the eval line)."""
+    loss. Returns (launches over the 10 timed steps, {"train": the
+    timed line, "trajectory": the kernels' 5 losses from the starting
+    state, "eval": the eval line})."""
     from paddle_tpu_torch.models import llama
     cfg = llama.LlamaConfig(**LLAMA, remat=True)
     L = cfg.num_layers
@@ -1611,7 +1738,7 @@ def llama_training(torch, dev, card):
         raise AssertionError(f"llama leaves {shapes} != {LLAMA_LEAVES}")
     log(f"llama_train: params built in {time.perf_counter() - t0:.1f} s")
     with forced_registry(fused_update="pallas"):
-        launches, _, tokens = train_phase(
+        launches, train_line, tokens, traj = train_phase(
             torch, dev, card, "llama_train", llama, cfg, params,
             LLAMA_BATCH, LLAMA_SEQ, 3,
             {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
@@ -1635,7 +1762,7 @@ def llama_training(torch, dev, card):
                              f"{want}, loss {loss}")
     del params, tokens
     torch.cuda.empty_cache()
-    return launches, line
+    return launches, {"train": train_line, "trajectory": traj, "eval": line}
 
 
 def tick_profile(torch, eng, prompts, card, pre=""):
@@ -2735,9 +2862,333 @@ def host_tier_serving(torch, qm, dev, card, cfg, params):
     return launches, replays
 
 
+# phase 6: the planner-driven dp×fsdp×tp train step at phase 4's
+# configuration, 6a on one rank and 6b on two (SHARDED_PLANS)
+# each leaf's step-1 gradient norm on two ranks against the unsharded
+# one's: |ratio - 1| at most this (PERF.md §5)
+GRAD_NORM_TOL = 1e-2
+
+
+def lazy_opt_state(torch, params):
+    """init_opt_state's tree for full `params`, its moments zero-stride
+    views: a sharded step's shard_args materializes only the rank's
+    block of each."""
+    dev = next(iter(params.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return {"m": {k: zero.expand(p.shape) for k, p in params.items()},
+            "v": {k: zero.expand(p.shape) for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.float32, device=dev)}
+
+
+def state_bytes(params, opt):
+    """Device bytes of the params and both moment trees."""
+    return sum(t.numel() * t.element_size()
+               for tree in (params, opt["m"], opt["v"]) for t in tree.values())
+
+
+def timed_losses(torch, step, params, opt, tokens, n):
+    """n steps, each timed on the host clock up to its loss's pull."""
+    losses, ms = [], []
+    for _ in range(n):
+        t_s = time.perf_counter()
+        losses.append(float(step(params, opt, tokens)[0]))
+        ms.append((time.perf_counter() - t_s) * 1e3)
+    return losses, ms
+
+
+def sharded_one_rank(torch, dev, card, p4):
+    """Phase 6a: the sharded step on a 1-rank NCCL group, plan
+    dp1×fsdp1×tp1, at phase 4's configuration from phase 4's starting
+    state (seed 0, drawn again), the fused AdamW forced and the CE on
+    its default route. Its 5 losses must equal phase 4's kernel
+    trajectory (within 1e-6 relative; whether they agree to the bit is
+    printed), its launches per step phase 4's exactly; 5 more steps
+    give its p50 beside phase 4's. Returns what 6b is held to."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.facade import make_train_step
+    from paddle_tpu_torch.parallel import (collective_route,
+                                           init_parallel_env, plan_train)
+    cfg = llama.LlamaConfig(**LLAMA, remat=True)
+    init_parallel_env(backend="nccl", world_size=1)
+    try:
+        plan = plan_train(cfg, 1, LLAMA_BATCH, dp=1, fsdp=1, tp=1)
+        mesh = plan.build_mesh()
+        host = llama.init_llama_params(cfg, seed=0, device="cpu")
+        tokens = train_tokens(torch, dev, cfg, LLAMA_BATCH, LLAMA_SEQ, 3)
+        step = make_train_step(llama.train_step, cfg=cfg, mesh=mesh,
+                               plan=plan, **ADAMW)
+        params, opt, _ = step.shard_args(host, lazy_opt_state(torch, host),
+                                         tokens)
+        del host
+        with forced_registry(fused_update="pallas"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()                  # the main path starts
+            losses, traj_ms = timed_losses(torch, step, params, opt,
+                                           tokens, 5)
+            launches = launch_counts()            # ... and ends
+            peak = torch.cuda.max_memory_allocated()
+            _, step_ms = timed_losses(torch, step, params, opt, tokens, 5)
+        nbytes = state_bytes(params, opt)
+        backend, route = str(dist.get_backend()), collective_route(None, dev)
+        del step, params, opt, tokens
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want4 = p4["trajectory"]
+    per_step = {k: v // 5 for k, v in launches.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want4)]
+    line = {"phase": "llama_sharded_1rank", "card": card,
+            "plan": plan.name, "backend": backend, "route": route,
+            "losses": losses, "phase4_losses": want4, "rel_diff": rel,
+            "bitwise_equal": losses == want4,
+            "launches": launches, "launches_per_step": per_step,
+            "phase4_launches_per_step": p4["train"]["launches_per_step"],
+            "step_ms": step_ms, "step_ms_p50": statistics.median(step_ms),
+            "phase4_step_ms_p50": p4["train"]["step_ms_p50"],
+            "state_bytes": nbytes, "max_memory_allocated_bytes": peak,
+            "phase4_max_memory_allocated_bytes":
+                p4["train"]["max_memory_allocated_bytes"]}
+    log(json.dumps(line))
+    if max(rel) > 1e-6:
+        raise AssertionError(f"6a: losses {losses} != phase 4's {want4}")
+    if per_step != p4["train"]["launches_per_step"] or any(
+            v % 5 for v in launches.values()):
+        raise AssertionError(f"6a: launches {launches} over 5 steps, phase "
+                             f"4 {p4['train']['launches_per_step']} a step")
+    return {"losses": losses, "per_step": per_step, "state_bytes": nbytes,
+            "peak": peak, "step_ms_p50": line["step_ms_p50"],
+            "launches": launches}
+
+
+def _sharded_rank(rank, world, workdir, backend):
+    """One rank of phase 6b, in its own process: joins the 2-rank group
+    through a file store, draws phase 4's starting state on the host,
+    and for each of SHARDED_PLANS runs step 1's loss and gradients (rank
+    0 gathers them whole and takes each leaf's cosine and norm ratio
+    against the unsharded step 1 from the same state, computed here
+    first), then 5 steps with the launches counted, the kernels' shapes
+    recorded and the peak read. Writes its results, with the seconds
+    each part took, to workdir/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank % cards))
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.facade import make_train_step
+    from paddle_tpu_torch.parallel import (collective_route,
+                                           init_parallel_env, plan_train)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device(None)
+    torch.cuda.set_device(dev)
+    init_parallel_env(backend=backend, init_method=f"file://{workdir}/store",
+                      timeout_s=900)
+    try:
+        cfg = llama.LlamaConfig(**LLAMA, remat=True)
+        host = llama.init_llama_params(cfg, seed=0, device="cpu")
+        tokens = train_tokens(torch, dev, cfg, LLAMA_BATCH, LLAMA_SEQ, 3)
+        out = {"rank": rank, "device": str(dev), "backend": backend,
+               "route": collective_route(None, dev), "cards": cards,
+               "seconds": {"start_and_draw": time.perf_counter() - t0}}
+        if rank == 0:
+            t_s = time.perf_counter()
+            full = {k: v.to(dev) for k, v in host.items()}
+            ref_loss, ref_grads = llama.loss_and_grads(full, tokens, cfg)
+            out["ref_step1_loss"] = float(ref_loss)
+            # kept on the host, pinned, so that the card holds no more
+            # than the rank's own state while its peak is read
+            ref_norms = {k: float(g.double().norm())
+                         for k, g in ref_grads.items()}
+            ref_grads = {k: torch.empty(g.shape, dtype=g.dtype,
+                                        pin_memory=True).copy_(g)
+                         for k, g in ref_grads.items()}
+            del full
+            torch.cuda.empty_cache()
+            out["seconds"]["unsharded_step1"] = time.perf_counter() - t_s
+        dist.barrier()
+        for name, axes in SHARDED_PLANS.items():
+            t_s = time.perf_counter()
+            plan = plan_train(cfg, world, LLAMA_BATCH, **axes)
+            if plan.name != name:
+                raise AssertionError(f"plan {plan.name} for {name}")
+            step = make_train_step(llama.train_step, cfg=cfg,
+                                   mesh=plan.build_mesh(), plan=plan,
+                                   **ADAMW)
+            params, opt, _ = step.shard_args(
+                host, lazy_opt_state(torch, host), tokens)
+            hd = cfg.head_dim
+            row = {"plan": plan.name,
+                   "q_heads": params["q_w"].shape[-1] // hd,
+                   "kv_heads": params["k_w"].shape[-1] // hd,
+                   "shard_shapes": {k: list(v.shape)
+                                    for k, v in params.items()},
+                   "state_bytes": state_bytes(params, opt)}
+            secs = {"shard_args": time.perf_counter() - t_s}
+            t_s = time.perf_counter()
+            with forced_registry(fused_update="pallas"):
+                loss1, grads = step.loss_and_grads(params, tokens)
+                full = step.gather_full(grads)
+                del grads
+                row["step1_loss"] = float(loss1)
+                if rank == 0:
+                    row["cosine_by_leaf"] = {
+                        k: _cos(full[k], ref_grads[k].to(dev)) for k in full}
+                    row["norm_ratio_by_leaf"] = {
+                        k: float(full[k].double().norm()) / ref_norms[k]
+                        for k in full}
+                del full
+                torch.cuda.empty_cache()
+                secs["step1_and_compare"] = time.perf_counter() - t_s
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t_s = time.perf_counter()
+                with kernel_shapes() as shapes:
+                    zero_launch_counts()          # the main path starts
+                    row["losses"], row["step_ms"] = timed_losses(
+                        torch, step, params, opt, tokens, 5)
+                    row["launches"] = launch_counts()  # ... and ends
+                row["kernel_shapes"] = shapes
+                secs["five_steps"] = time.perf_counter() - t_s
+                row["max_memory_allocated_bytes"] = \
+                    torch.cuda.max_memory_allocated()
+            row["seconds"] = secs
+            out[plan.name] = row
+            del step, params, opt
+            torch.cuda.empty_cache()
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_two_ranks(results, p6a, card):
+    """Phase 6b's verdict from both ranks' results: per plan, step 1's
+    loss within 2e-3 relative of 6a's and every gradient leaf's cosine
+    >= 0.999 against the unsharded step 1 (phase 4's tolerances), its
+    norm within GRAD_NORM_TOL of the unsharded one's, the 5-step
+    trajectory within 1e-2 of 6a's, exactly 6a's launches a step on
+    each rank, each rank's heads and shard shapes, the shapes its
+    kernels launched at (those phase 2 checked), and each rank's params
+    and moments at most 51% of 6a's. Prints one line a plan. Returns
+    {plan: [each rank's launches]}."""
+    r0 = results[0]
+    shared = r0["cards"] < 2
+    ref1 = p6a["losses"][0]
+    out, failed = {}, {}
+    for name, (q_heads, kv_heads) in SHARDED_HEADS.items():
+        rows = [res[name] for res in results]
+        cos = rows[0]["cosine_by_leaf"]
+        ratio = rows[0]["norm_ratio_by_leaf"]
+        B, S, H, D, _ = SHARDED_ATTN[name]
+        want_shapes = {k: [[B, S, H, D]] for k in
+                       ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        want_shapes.update({k: [list(SHARDED_CE[name])]
+                            for k in ("ce_fwd", "ce_bwd")})
+        rel = [abs(a - b) / abs(b)
+               for a, b in zip(rows[0]["losses"], p6a["losses"])]
+        want = {k: 5 * v for k, v in p6a["per_step"].items()}
+        line = {
+            "phase": "llama_sharded_2rank", "card": card, "plan": name,
+            "backend": r0["backend"], "route": r0["route"],
+            "cards": r0["cards"], "devices": [res["device"]
+                                             for res in results],
+            "shared_card": shared,
+            "step1_loss": rows[0]["step1_loss"], "step1_loss_6a": ref1,
+            "step1_loss_rel_diff": abs(rows[0]["step1_loss"] - ref1)
+            / abs(ref1),
+            "unsharded_step1_loss_rel_diff_6a": abs(
+                r0["ref_step1_loss"] - ref1) / abs(ref1),
+            "min_cosine": min(cos.values()), "cosine_by_leaf": cos,
+            "max_norm_ratio_dev": max(abs(r - 1) for r in ratio.values()),
+            "norm_ratio_by_leaf": ratio,
+            "losses": rows[0]["losses"], "losses_6a": p6a["losses"],
+            "rel_diff": rel, "max_rel_diff": max(rel),
+            "launches_by_rank": [r["launches"] for r in rows],
+            "launches_per_step_6a": p6a["per_step"],
+            "heads_by_rank": [[r["q_heads"], r["kv_heads"]] for r in rows],
+            "kernel_shapes_by_rank": [r["kernel_shapes"] for r in rows],
+            "shard_shapes": rows[0]["shard_shapes"],
+            "state_bytes_by_rank": [r["state_bytes"] for r in rows],
+            "state_bytes_6a": p6a["state_bytes"],
+            "max_memory_allocated_bytes_by_rank":
+                [r["max_memory_allocated_bytes"] for r in rows],
+            "max_memory_allocated_bytes_6a": p6a["peak"],
+            "step_ms_by_rank": [r["step_ms"] for r in rows],
+            "step_ms_p50_by_rank": [statistics.median(r["step_ms"][1:])
+                                    for r in rows],
+            "step_ms_p50_6a": p6a["step_ms_p50"],
+            "seconds_by_rank": [dict(res["seconds"], **r["seconds"])
+                                for res, r in zip(results, rows)],
+            "timing": ("both ranks on one card over gloo: shared-card "
+                       "times, no scaling" if shared else
+                       "one card a rank")}
+        log(json.dumps(line))
+        bad = []
+        if not line["step1_loss_rel_diff"] <= 2e-3:
+            bad.append("step-1 loss")
+        if not line["min_cosine"] >= 0.999:
+            bad.append(f"cosine {sorted(cos.items(), key=lambda kv: kv[1])[:3]}")
+        if not line["max_norm_ratio_dev"] <= GRAD_NORM_TOL:
+            bad.append(f"gradient norm ratio {ratio}")
+        if not line["max_rel_diff"] <= 1e-2:
+            bad.append("trajectory")
+        if any(r["launches"] != want for r in rows):
+            bad.append(f"launches, want {want}")
+        if any((r["q_heads"], r["kv_heads"]) != (q_heads, kv_heads)
+               for r in rows):
+            bad.append("heads")
+        if any(r["state_bytes"] > 0.51 * p6a["state_bytes"] for r in rows):
+            bad.append("state bytes")
+        local = {k: list(v) for k, v in shard_shapes(name).items()}
+        if any(r["shard_shapes"] != local for r in rows):
+            bad.append(f"shard shapes, want {local}")
+        # the kernels ran at the local shapes that phase 2 checked
+        if any({k: r["kernel_shapes"].get(k) for k in want_shapes}
+               != want_shapes for r in rows) or \
+                tuple(SHARDED_ATTN[name]) not in ATTN_SHAPES or \
+                tuple(SHARDED_CE[name]) not in CE_PAIR_SHAPES:
+            bad.append(f"kernel shapes, want {want_shapes}")
+        if bad:
+            failed[name] = bad
+        out[name] = [r["launches"] for r in rows]
+    if failed:
+        raise AssertionError(f"6b: {failed}")
+    return out
+
+
+def sharded_two_ranks(torch, card, p6a):
+    """Phase 6b: the plans of SHARDED_PLANS on two spawned ranks at 6a's
+    configuration and global batch: one card a rank over NCCL with two
+    or more cards; on one card both ranks share it over gloo, through
+    parallel/collective.py's all-reduce route for CUDA tensors. A
+    failure in a rank is this phase's failure. Returns {plan: [each
+    rank's launches over its 5 steps]}."""
+    import tempfile
+    import torch.multiprocessing as mp
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_6b_")
+    try:
+        mp.spawn(_sharded_rank, args=(2, workdir, backend), nprocs=2,
+                 join=True)
+        results = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        import shutil
+        shutil.rmtree(workdir, ignore_errors=True)
+    return check_two_ranks(results, p6a, card)
+
+
 def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                  gpt_launches, llama_launches, serving_launches, f64,
-                 replay_launches, race_launches, tiles):
+                 replay_launches, race_launches, tiles, sharded):
     """The kernels line: every kernel with its route, source, the TPU
     kernel it replaces, its launches on the main paths, and its times,
     bound and error from the kernel checks. `serving_launches` is the
@@ -2745,7 +3196,23 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
     `replay_launches` its {path: launches inside CUDA graph replays};
     `f64` the worst of its f64 bound check; `race_launches` the train
     kernels' launches over phase 3b; `tiles` the forward's times at both
-    q tiles and the autotune's picks."""
+    q tiles and the autotune's picks; `sharded` the train kernels'
+    {path: launches} of phase 6 (6a's 5 steps; 6b's, both ranks and
+    both plans summed)."""
+
+    def train_paths(name):
+        paths = {"gpt_train": gpt_launches[name],
+                 "llama_train": llama_launches[name],
+                 "gpt_race": race_launches[name]}
+        paths.update({path: c[name] for path, c in sharded.items()})
+        return paths
+    nums = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+
+    def on_shards(table, shapes, kernel):
+        """{plan: the kernel's numbers at a rank's shape under it}"""
+        return {name: {k: table[sh][kernel][k] for k in nums}
+                for name, sh in shapes.items()}
     agg = tick_aggregate(rows, LEAF_KN, FULL["num_layers"])
     l_agg = tick_aggregate(rows, LLAMA_LEAF_KN, LLAMA["num_layers"])
     entries = [{
@@ -2789,20 +3256,22 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": where,
-            "launches": gpt_launches[name] + llama_launches[name]
-            + race_launches[name],
-            "launches_by_path": {"gpt_train": gpt_launches[name],
-                                 "llama_train": llama_launches[name],
-                                 "gpt_race": race_launches[name]},
+            "launches": sum(train_paths(name).values()),
+            "launches_by_path": train_paths(name),
             "max_abs_err": max(r[name]["max_abs_err"]
                                for r in attn_rows.values()),
             **{k: main_row[k] for k in keys},
+            "on_shards": on_shards(attn_rows, SHARDED_ATTN, name),
             "design": main_row["design"],
             "per": "one call at the Llama train step's [4, 2048, 32, 64] "
                    "bf16 causal (the GPT step's [8, 1024, 16, 64] is in "
                    "its kernel_check line); launches over the 10 timed "
-                   "steps of each train path, and over phase 3b's timed "
-                   "and route steps (gpt_race)"})
+                   "steps of each train path, over phase 3b's timed "
+                   "and route steps (gpt_race), and over phase 6's 5 "
+                   "steps on one rank and on two (both ranks, both "
+                   "plans); on_shards: at a rank's [B, S, H, 64] under "
+                   "each of phase 6b's plans (SHARDED_ATTN), checked as "
+                   "the main shape is"})
         if name == "flash_fwd":
             entries[-1]["tiles"] = tiles
             entries[-1]["tiles_note"] = (
@@ -2815,11 +3284,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
         "name": "fused_ce", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
         "replaces": "paddle_tpu/kernels/pallas_ce.py:143",
-        "launches": gpt_launches["fused_ce"] + llama_launches["fused_ce"]
-        + race_launches["fused_ce"],
-        "launches_by_path": {"gpt_train": gpt_launches["fused_ce"],
-                             "llama_train": llama_launches["fused_ce"],
-                             "gpt_race": race_launches["fused_ce"]},
+        "launches": sum(train_paths("fused_ce").values()),
+        "launches_by_path": train_paths("fused_ce"),
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows.values()),
         **{k: ce_main[k] for k in keys},
         "per": "one call at the GPT train step's [8192, 32768] bf16 "
@@ -2832,31 +3298,35 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
             "replaces": where,
-            "launches": gpt_launches[name] + llama_launches[name]
-            + race_launches[name],
-            "launches_by_path": {"gpt_train": gpt_launches[name],
-                                 "llama_train": llama_launches[name],
-                                 "gpt_race": race_launches[name]},
+            "launches": sum(train_paths(name).values()),
+            "launches_by_path": train_paths(name),
             "max_abs_err": max(r[name]["max_abs_err"]
                                for r in pair_rows.values()),
             **{k: pair_main[name][k] for k in keys},
+            "on_shards": on_shards(pair_rows, SHARDED_CE, name),
             "per": "one call at the Llama train step's [8192, 32000] bf16 "
                    "logits; launches over the 10 timed steps of each "
-                   "train path"})
+                   "train path and phase 6's steps; on_shards: at a "
+                   "rank's [T, 32000] under each of phase 6b's plans "
+                   "(SHARDED_CE)"})
     upd = upd_rows["step"]
     entries.append({
         "name": "leaf_update", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/fused_update.cu",
         "replaces": "paddle_tpu/kernels/pallas_update.py:87",
-        "launches": gpt_launches["leaf_update"]
-        + llama_launches["leaf_update"],
-        "launches_by_path": {"gpt_train": gpt_launches["leaf_update"],
-                             "llama_train": llama_launches["leaf_update"]},
-        "max_abs_err": upd["max_abs_err"], **{k: upd[k] for k in keys},
+        "launches": sum(train_paths("leaf_update").values()),
+        "launches_by_path": train_paths("leaf_update"),
+        "max_abs_err": max([upd["max_abs_err"]] + [
+            r["max_abs_err"] for r in upd_rows["sharded"].values()]),
+        **{k: upd[k] for k in keys},
+        "on_shards": {name: {k: r[k] for k in nums}
+                      for name, r in upd_rows["sharded"].items()},
         "per": "one Llama step's update: the 11 leaves of the "
                "TinyLlama-width tree in f32, summed (library: one "
                "torch._fused_adamw_ call over all 11); launches over the "
-               "10 timed steps of each train path"})
+               "10 timed steps of each train path and phase 6's steps "
+               "(on local shards); on_shards: one rank's update of its "
+               "11 shards under each of phase 6b's plans (shard_shapes)"})
     return {"kernels": entries}
 
 
@@ -2895,14 +3365,22 @@ def main():
     log("ptxas: no spills in the D = 64 bf16 attention kernels (the "
         "forward at both q tiles) or the bf16 dequant-matmul")
 
-    dev = torch.device("cuda:0")
+    # the rank's own card: LOCAL_RANK where a launcher sets it, else the
+    # current device
+    from paddle_tpu_torch.device import resolve_device
+    dev = resolve_device(None)
     # device memory still allocated after each phase: what a later
     # phase's peak reading starts from
     held = {}
+    # seconds each phase took, printed as it ends
+    seconds = {"build": time.perf_counter() - t_start}
 
     def phase(name, fn, *args):
+        t_s = time.perf_counter()
         out = fn(*args)
         held[name] = torch.cuda.memory_allocated()
+        seconds[name] = time.perf_counter() - t_s
+        log(f"{name}: {seconds[name]:.1f} s")
         return out
     rows = phase("kernel_check", kernel_check, torch, qm, dev)
     f64 = phase("qmm_f64_check", qmm_f64_check, torch, qm, dev)
@@ -2914,8 +3392,8 @@ def main():
     gpt_launches = phase("gpt_train", training, torch, dev, card)
     race_launches = phase("gpt_race", race, torch, dev, card)
     tiles = phase("flash_fwd_tiles", autotune_tiles, torch, dev, card)
-    llama_launches, _ = phase("llama_train", llama_training, torch, dev,
-                              card)
+    llama_launches, p4 = phase("llama_train", llama_training, torch, dev,
+                               card)
     serving_launches = {
         "gpt_serving": phase("gpt_serving", serving, torch, qm, dev,
                              card)[0]}
@@ -2940,10 +3418,22 @@ def main():
             lparams)
         replay_launches["llama_host_tier"] = {"replays": tier_replays}
     del lparams
+    p6a = phase("llama_sharded_1rank", sharded_one_rank, torch, dev, card,
+                p4)
+    two = phase("llama_sharded_2rank", sharded_two_ranks, torch, card, p6a)
+    sharded = {"llama_sharded_1rank": p6a["launches"],
+               "llama_sharded_2rank": {
+                   k: sum(c[k] for ranks in two.values() for c in ranks)
+                   for k in p6a["launches"]}}
     log(json.dumps({"phase": "memory_allocated_after", **held}))
+    total = time.perf_counter() - t_start
+    log(json.dumps({"phase": "seconds", **seconds, "total": total,
+                    "limit": TIME_LIMIT_S,
+                    "margin_s": TIME_LIMIT_S - total}))
     kernels = kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                            gpt_launches, llama_launches, serving_launches,
-                           f64, replay_launches, race_launches, tiles)
+                           f64, replay_launches, race_launches, tiles,
+                           sharded)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(card)

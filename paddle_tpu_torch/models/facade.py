@@ -4,8 +4,9 @@ family's cached serving engine, on one leaf-holding base,
 `FacadeModel` — and `make_train_step`, which makes the train-step
 callable.
 
-Counterpart of paddle_tpu/models/facade.py (`make_train_step` :95,
-`FacadeModel` :515 with its `generate`), paddle_tpu/models/gpt.py
+Counterpart of paddle_tpu/models/facade.py (`resolve_plan_step` :25,
+`make_train_step` :95, `_ShardedTrainStep` :186-475, `FacadeModel` :515
+with its `generate`), paddle_tpu/models/gpt.py
 `GPTModel` (`forward` :650, `loss` :658) and paddle_tpu/models/llama.py
 `LlamaModel` (:350-367). The leaves live on the module: floating leaves
 as frozen nn.Parameters, integer leaves (a quantized tree's int8 pairs)
@@ -20,24 +21,227 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.collective import all_gather
+from ..parallel.layout import ShardLayout, use_layout
+from ..parallel.mesh import (P, _entry_axes, axis_group, axis_size,
+                             leaf_path_name, sharding_for, use_mesh)
 from .gpt import gpt_forward, gpt_loss, init_gpt_params
 from .llama import init_llama_params, llama_forward
 
-__all__ = ["FacadeModel", "GPTModel", "LlamaModel", "make_train_step"]
+__all__ = ["FacadeModel", "GPTModel", "LlamaModel", "make_train_step",
+           "resolve_plan_step"]
 
 
-def make_train_step(step_fn, cfg=None, mesh=None, plan=None, **step_kw):
+def _plan_pp(plan) -> int:
+    """The plan's pipeline degree (1 when absent or 3D)."""
+    try:
+        return int(plan.axes.get("pp", 1))
+    except AttributeError:
+        return 1
+
+
+def resolve_plan_step(step_fn, cfg=None, plan=None, **step_kw):
+    """The callable a plan runs (reference :25): `step_fn` with `cfg`
+    and the optimizer keywords bound. A pp>1 plan needs the pipelined
+    step, which is not ported yet."""
+    if _plan_pp(plan) > 1:
+        raise NotImplementedError(
+            f"make_train_step: plan {getattr(plan, 'name', plan)} has "
+            "pp>1, and the pipelined pp>1 step is not ported yet (ROADMAP "
+            "A6, the pp>1 pipelined step)")
+    if cfg is not None:
+        step_kw = dict(step_kw, cfg=cfg)
+    return functools.partial(step_fn, **step_kw) if step_kw else step_fn
+
+
+def make_train_step(step_fn, cfg=None, mesh=None, plan=None, overlap=None,
+                    **step_kw):
     """The step callable `(params, opt_state, batch) -> (loss, params,
     opt_state)`: `step_fn` (the train_step of models/gpt.py or
     models/llama.py) with `cfg` and the optimizer keywords bound.
     PyTorch runs eagerly, so there is nothing to jit; the reference's
-    buffer donation is the step's in-place update. The planner-driven
-    sharded step (`mesh=`, `plan=`) is not ported."""
-    if mesh is not None or plan is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=, plan=): the sharded multi-GPU step is "
-            "not ported yet (ROADMAP A6)")
-    return functools.partial(step_fn, cfg=cfg, **step_kw)
+    buffer donation is the step's in-place update.
+
+    With `mesh` (parallel.mesh.build_mesh, or `plan.build_mesh()`) and
+    `plan` (parallel.planner.plan_train's TrainPlan), the step is the
+    planner-driven dp×fsdp×tp step, `_ShardedTrainStep`: each rank holds
+    the shards the plan's specs give it and runs the family step on
+    them. `overlap` (None: the plan's own field) is recorded and changes
+    nothing: the reference's overlap is a set of XLA compiler options
+    for the TPU that change nothing off the TPU either (reference
+    :234-249). A pp>1 plan raises NotImplementedError (ROADMAP A6)."""
+    if overlap is None:
+        overlap = bool(getattr(plan, "overlap", False))
+    fn = resolve_plan_step(step_fn, cfg=cfg, plan=plan, **step_kw)
+    if mesh is None:
+        return fn
+    return _ShardedTrainStep(fn, mesh, plan, cfg=cfg, overlap=overlap)
+
+
+def _map_tree(fn, tree, path=()):
+    """fn(path, leaf) over a nested dict of leaves, keeping its shape."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+class _ShardedTrainStep:
+    """The planner-driven dp×fsdp×tp train step (reference :186-475).
+
+    Pins come from the first call's shapes (`in_pins`: params, opt
+    state, batch; `out_pins`: loss, params, opt state), as the
+    reference's in/out shardings do:
+    - every params and opt leaf pins by its leaf name through
+      `plan.specs` (Adam's m and v mirror the param tree, so their
+      moments shard like their params; unknown names, as opt["step"],
+      replicate), shape-aware per parallel.mesh.sharding_for;
+    - the batch's leading dim splits over the plan's `batch_axes`
+      (dp×fsdp), degrading to replicated when it does not divide.
+
+    Leaves are plain local tensors beside that pin table. `shard_args`
+    turns full trees (numpy or tensors) into this rank's shards; the
+    first call shards the trees it is given and returns the local ones,
+    later calls take the local trees back and a full batch. A call runs
+    the family step under a `ShardLayout` (parallel/layout.py): the
+    model gathers and splits weights as the layout says, the gradients
+    are summed over the ranks that hold the same shard, and the update
+    (`apply_adamw`, through the fused_update kernel where the registry
+    says) runs on the local shards, in place. The loss it returns is
+    the global batch's mean, the same on every rank."""
+
+    def __init__(self, fn, mesh, plan, cfg=None, overlap=False):
+        self._fn = fn
+        self.mesh = mesh
+        self.plan = plan
+        self.cfg = cfg
+        self.overlap = bool(overlap)
+        self.in_pins = None
+        self.out_pins = None
+        self._derived = 0
+
+    # ----------------------------------------------------------- pins
+    def _specs(self):
+        return (self.plan.specs if self.plan is not None
+                and self.plan.specs else {})
+
+    def _state_pins(self, tree):
+        specs = self._specs()
+        return _map_tree(lambda path, leaf: sharding_for(
+            specs.get(leaf_path_name(path), P()), self.mesh,
+            shape=tuple(leaf.shape)), tree)
+
+    def _batch_pins(self, tree):
+        def pin(path, leaf):
+            shape = tuple(leaf.shape)
+            spec = (self.plan.batch_spec(len(shape))
+                    if self.plan is not None and len(shape) else P())
+            return sharding_for(spec, self.mesh, shape=shape)
+        return _map_tree(pin, tree)
+
+    def _replicated_pins(self, tree):
+        rep = sharding_for(P(), self.mesh)
+        return _map_tree(lambda path, leaf: rep, tree)
+
+    def _derive(self, params, opt_state, batch):
+        self.in_pins = (self._state_pins(params),
+                        self._state_pins(opt_state),
+                        self._batch_pins(batch))
+        self.out_pins = (self._replicated_pins(torch.zeros(())),
+                         self.in_pins[0], self.in_pins[1])
+        self._global = tuple(_map_tree(lambda path, leaf: tuple(leaf.shape),
+                                       t) for t in (params, opt_state, batch))
+        self._derived += 1
+
+    @property
+    def trace_count(self) -> int:
+        """How many times the pins were derived: 1 after the first call,
+        and no later call derives again (the reference's
+        zero-recompiles-after-warmup observable)."""
+        return self._derived
+
+    def shard_args(self, params, opt_state, batch):
+        """(params, opt_state, batch) as full trees (numpy or tensors) ->
+        this rank's shards, contiguous, on the rank's device. The first
+        call derives the pins from these shapes."""
+        if self.in_pins is None:
+            self._derive(params, opt_state, batch)
+        trees = (params, opt_state, batch)
+        for tree, shapes in zip(trees, self._global):
+            got = _map_tree(lambda path, leaf: tuple(leaf.shape), tree)
+            if got != shapes:
+                raise ValueError(f"shard_args: shapes {got} are not the "
+                                 f"pinned full shapes {shapes}")
+        return tuple(_map_tree(lambda path, leaf, pins=pins: _pin_at(
+            pins, path).shard(leaf), tree)
+            for tree, pins in zip(trees, self.in_pins))
+
+    def _local_batch(self, batch):
+        shapes = _map_tree(lambda path, leaf: tuple(leaf.shape), batch)
+        if shapes != self._global[2]:
+            raise ValueError(f"sharded step: batch shapes {shapes}, want "
+                             f"the full batch {self._global[2]}")
+        return _map_tree(lambda path, leaf: _pin_at(
+            self.in_pins[2], path).shard(leaf), batch)
+
+    def _layout(self, batch):
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        tp = axis_size(self.mesh, "tp")
+        # sequence parallelism where the config asks for it and the
+        # sequence splits evenly over tp; otherwise the same function on
+        # whole sequences
+        sp = bool(getattr(self.cfg, "sequence_parallel", False) and tp > 1
+                  and (int(tokens.shape[1]) - 1) % tp == 0)
+        return ShardLayout(
+            self.mesh, {k: s.spec for k, s in self.in_pins[0].items()},
+            sequence_parallel=sp,
+            batch_axes=(self.plan.batch_axes if self.plan is not None
+                        else ("dp", "fsdp")))
+
+    def _run(self, fn, *args, batch):
+        with use_mesh(self.mesh), use_layout(self._layout(batch)):
+            return fn(*args)
+
+    # ----------------------------------------------------------- calls
+    def __call__(self, params, opt_state, batch):
+        if self.in_pins is None:
+            params, opt_state, batch = self.shard_args(params, opt_state,
+                                                       batch)
+        else:
+            batch = self._local_batch(batch)
+        return self._run(self._fn, params, opt_state, batch, batch=batch)
+
+    def loss_and_grads(self, params, batch):
+        """(global loss, this rank's reduced gradient shards) of the
+        config family's loss at the local `params`, for a full `batch`,
+        without an update: what the step's update consumes."""
+        import sys
+        family = sys.modules[type(self.cfg).__module__]
+        batch = self._local_batch(batch)
+        return self._run(family.loss_and_grads, params, batch, self.cfg,
+                         batch=batch)
+
+    def gather_full(self, tree):
+        """The unsharded tree (params, an opt state or gradients, keyed
+        by leaf name) of local shards, on every rank: each leaf
+        all-gathered over the axes its pin splits it over, a copy where
+        it is not split (so a later in-place step leaves it as it was).
+        Every rank must call it."""
+        pins = self.in_pins[0]
+
+        def full(path, leaf):
+            pin = pins.get(leaf_path_name(path))
+            out = leaf
+            for d, entry in enumerate(() if pin is None else pin.spec):
+                for axis in reversed(_entry_axes(entry)):
+                    out = all_gather(out, axis_group(self.mesh, axis), d)
+            return out.clone() if out is leaf else out
+        return _map_tree(full, tree)
+
+
+def _pin_at(pins, path):
+    for k in path:
+        pins = pins[k]
+    return pins
 
 
 class FacadeModel(nn.Module):

@@ -30,9 +30,22 @@ kernel. `_attention` and `gpt_loss` look `flash_attention_fn` and
 same step runs on the kernels' plain versions once those two names are
 rebound to partials with `fwd=mha_fwd_ref, bwd=mha_bwd_ref` and
 `fwd=ce_fwd_ref, bwd=ce_bwd_ref, fused=ce_fused_ref` (chip_smoke.py
-does, to hold the step against them). The single-GPU path has no mesh,
-so the reference's sharding constraints have nothing to pin and are not
-carried.
+does, to hold the step against them).
+
+Sharding (the reference's PARAM_SPECS :115-139, `shard_gpt_params`
+:197, and the mesh-aware `_attention` / `_dense_ffn` / head
+:243-322, :522): under the planner-driven step (models/facade.py
+`_ShardedTrainStep`) the forward runs on each rank's stored shards and
+asks the step's ShardLayout (parallel/layout.py) for every weight in
+the form it computes with, as the reference lays the step out: the
+fused qkv weight gathered whole and projected into this rank's heads
+(its tp shards straddle the q/k/v blocks, so slicing a stored shard as
+whole heads would be wrong), attention on those heads, the output
+projection row-parallel and reduced over tp, the FFN column- then
+row-parallel, `wte` gathered whole for the embedding and the tied head;
+with `sequence_parallel` and tp > 1, the activations between blocks on
+a sequence shard of the tp group. With no layout the code path and its
+bits are the single-GPU ones.
 """
 from __future__ import annotations
 
@@ -51,12 +64,16 @@ from ..kernels.decode_attention import write_and_attend
 from ..kernels.flash_attention import flash_attention_fn
 from ..kernels.fused_update import fused_apply_adamw, fused_update_enabled
 from ..kernels.quant_matmul import leaf_matmul, quant_matmul
+from ..parallel.layout import (column_mm, current_layout, enter, row_mm,
+                               weight, whole)
+from ..parallel.mesh import P, get_mesh, shard_value, tp_specs
 from .losses import fused_softmax_ce
 from .remat import POLICIES
 
-__all__ = ["GPTConfig", "init_gpt_params", "gpt_forward", "gpt_loss",
-           "value_and_grad", "loss_and_grads", "init_opt_state",
-           "apply_adamw", "train_step", "init_kv_cache",
+__all__ = ["GPTConfig", "PARAM_SPECS", "SERVING_PARAM_SPECS",
+           "init_gpt_params", "shard_gpt_params", "gpt_forward",
+           "gpt_loss", "value_and_grad", "loss_and_grads",
+           "init_opt_state", "apply_adamw", "train_step", "init_kv_cache",
            "gpt_forward_cached", "greedy_generate"]
 
 
@@ -81,6 +98,9 @@ class GPTConfig:
     # no checkpoint around the block and one around the dense FFN alone
     # (models/remat.py)
     remat_policy: str = "full"
+    # under a tp > 1 plan, activations between blocks live on a sequence
+    # shard of the tp group (Megatron-SP), as the reference's default
+    sequence_parallel: bool = True
 
     def __post_init__(self):
         if self.ffn_hidden is None:
@@ -95,6 +115,39 @@ class GPTConfig:
 _BLOCK_KEYS_DENSE = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
                      "qkv_w", "qkv_b", "attn_out_w", "attn_out_b",
                      "mlp_up_w", "mlp_up_b", "mlp_down_w", "mlp_down_b")
+
+# Sharding rules (reference gpt.py:115-139): leaf name -> spec over
+# (dp, fsdp, pp, mp). Block weights carry the stacked layer axis first
+# ('pp'); the MoE rows are the reference's, kept as data (the port has
+# no MoE FFN yet: ROADMAP A6).
+PARAM_SPECS = {
+    "wte":        P("mp", "fsdp"),          # vocab-parallel embedding
+    "wpe":        P(None, "fsdp"),
+    "ln_f_scale": P(None),
+    "ln_f_bias":  P(None),
+    "ln1_scale":  P("pp", None),
+    "ln1_bias":   P("pp", None),
+    "ln2_scale":  P("pp", None),
+    "ln2_bias":   P("pp", None),
+    "qkv_w":      P("pp", "fsdp", "mp"),    # column-parallel
+    "qkv_b":      P("pp", "mp"),
+    "attn_out_w": P("pp", "mp", "fsdp"),    # row-parallel
+    "attn_out_b": P("pp", None),
+    "mlp_up_w":   P("pp", "fsdp", "mp"),    # column-parallel
+    "mlp_up_b":   P("pp", "mp"),
+    "mlp_down_w": P("pp", "mp", "fsdp"),    # row-parallel
+    "mlp_down_b": P("pp", None),
+    "gate_w":     P("pp", None, None),
+    "moe_up_w":   P("pp", "ep", None, "mp"),
+    "moe_up_b":   P("pp", "ep", "mp"),
+    "moe_down_w": P("pp", "ep", "mp", None),
+    "moe_down_b": P("pp", "ep", None),
+}
+
+# the serving tensor-parallel table: the same column/row split on the
+# serving mesh's single 'tp' axis (reference :149; its consumer,
+# ServingEngine(mesh=), is a later ROADMAP A6 item)
+SERVING_PARAM_SPECS = tp_specs(PARAM_SPECS)
 
 
 def init_gpt_params(cfg: GPTConfig, seed: int = 0, device=None
@@ -136,6 +189,17 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0, device=None
     }
 
 
+def shard_gpt_params(params, mesh=None):
+    """This rank's shard of every leaf of a full tree under PARAM_SPECS
+    on `mesh` (default: the ambient one); the tree itself without a
+    mesh."""
+    mesh = mesh or get_mesh()
+    if mesh is None:
+        return params
+    return {name: shard_value(v, PARAM_SPECS[name], mesh)
+            for name, v in params.items()}
+
+
 def _ln(x, scale, bias, eps):
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
@@ -145,47 +209,75 @@ def _ln(x, scale, bias, eps):
 
 
 # --------------------------------------------------------- training half
-def _attention(x, w_qkv, b_qkv, w_out, b_out, cfg):
+def _local_qkv(w_qkv, b_qkv, cfg, layout):
+    """The fused qkv weight [D, 3 * h * hd] and bias of this tp rank's h
+    heads: gathered whole first (reference gpt.py:243-276), since its tp
+    shards straddle the q/k/v blocks, then cut to the rank's heads in
+    the [D, 3, H, hd] view."""
+    D, H, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    w = whole(layout, "qkv_w", w_qkv, dtype=cfg.dtype, part=True)
+    b = None if b_qkv is None else whole(layout, "qkv_b", b_qkv,
+                                         dtype=cfg.dtype, part=True)
+    if layout is None or layout.tp == 1:
+        return w, b, H
+    h0, h1 = layout.heads(H)
+    w = w.reshape(D, 3, H, hd)[:, :, h0:h1].reshape(D, 3 * (h1 - h0) * hd)
+    if b is not None:
+        b = b.reshape(3, H, hd)[:, h0:h1].reshape(-1)
+    return w, b, h1 - h0
+
+
+def _attention(x, w_qkv, b_qkv, w_out, b_out, cfg, layout=None):
     """x [B,S,D] -> the attention block's output [B,S,D]. The fused
     projection is the reference's [D, 3, H, hd] one (gpt.py:269-276) as
     a single matmul whose [B, S, 3D] output is viewed [B, S, 3, H, hd];
-    q, k and v are strided views of it, read in place by the kernels."""
-    B, S, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    p = x @ w_qkv.to(x.dtype)
+    q, k and v are strided views of it, read in place by the kernels.
+    Under a layout: this tp rank's heads over the whole sequence, the
+    output projection row-parallel, reduced over tp (and scattered over
+    the sequence under sequence parallelism) before its bias."""
+    hd = cfg.head_dim
+    w_qkv, b_qkv, H = _local_qkv(w_qkv, b_qkv, cfg, layout)
+    w_out = weight(layout, "attn_out_w", w_out, dtype=x.dtype)
+    p = column_mm(layout, enter(layout, x), w_qkv.to(x.dtype))
     if b_qkv is not None:
         p = p + b_qkv.to(x.dtype)
+    B, S = p.shape[:2]
     p = p.view(B, S, 3, H, hd)
     ctx = flash_attention_fn(p[:, :, 0], p[:, :, 1], p[:, :, 2],
                              causal=True)
-    out = ctx.reshape(B, S, D) @ w_out.to(x.dtype)
+    out = row_mm(layout, ctx.reshape(B, S, H * hd), w_out)
     if b_out is not None:
-        out = out + b_out.to(x.dtype)
+        out = out + weight(layout, "attn_out_b", b_out, dtype=x.dtype)
     return out
 
 
-def _dense_ffn(x, up_w, up_b, down_w, down_b):
-    h = x @ up_w.to(x.dtype)
+def _dense_ffn(x, up_w, up_b, down_w, down_b, layout=None):
+    """The dense FFN; under a layout, column- then row-parallel over
+    tp."""
+    h = column_mm(layout, enter(layout, x),
+                  weight(layout, "mlp_up_w", up_w, dtype=x.dtype))
     if up_b is not None:
-        h = h + up_b.to(x.dtype)
+        h = h + weight(layout, "mlp_up_b", up_b, dtype=x.dtype)
     h = F.gelu(h, approximate="tanh")
-    out = h @ down_w.to(x.dtype)
+    out = row_mm(layout, h, weight(layout, "mlp_down_w", down_w,
+                                   dtype=x.dtype))
     if down_b is not None:
-        out = out + down_b.to(x.dtype)
+        out = out + weight(layout, "mlp_down_b", down_b, dtype=x.dtype)
     return out
 
 
-def _block(params_l, x, cfg):
-    """One transformer block on the layer slice `params_l`."""
-    a_in = _ln(x, params_l["ln1_scale"], params_l["ln1_bias"],
-               cfg.layer_norm_eps)
+def _block(params_l, x, cfg, layout=None):
+    """One transformer block on the layer slice `params_l` (under a
+    layout, this rank's shards of it)."""
+    def norm(name):
+        return weight(layout, name, params_l[name])
+    a_in = _ln(x, norm("ln1_scale"), norm("ln1_bias"), cfg.layer_norm_eps)
     x = x + _attention(a_in, params_l["qkv_w"], params_l.get("qkv_b"),
                        params_l["attn_out_w"], params_l.get("attn_out_b"),
-                       cfg)
-    m_in = _ln(x, params_l["ln2_scale"], params_l["ln2_bias"],
-               cfg.layer_norm_eps)
+                       cfg, layout)
+    m_in = _ln(x, norm("ln2_scale"), norm("ln2_bias"), cfg.layer_norm_eps)
     ffn_args = (m_in, params_l["mlp_up_w"], params_l.get("mlp_up_b"),
-                params_l["mlp_down_w"], params_l.get("mlp_down_b"))
+                params_l["mlp_down_w"], params_l.get("mlp_down_b"), layout)
     if cfg.remat and cfg.remat_policy == "all_but_mlp":
         # a checkpoint around the dense FFN alone, inside a block that has
         # none (reference gpt.py:376-384): its 4D-wide hidden activations
@@ -194,53 +286,79 @@ def _block(params_l, x, cfg):
     return x + _dense_ffn(*ffn_args)
 
 
-def _apply_stack(stacked, x, cfg: GPTConfig):
+def _apply_stack(stacked, x, cfg: GPTConfig, layout=None):
     """The block stack as a loop over layer views of the stacked leaves,
     each block checkpointed per cfg.remat / cfg.remat_policy: "dots",
     "dots_flash" and "offload_dots" through their context_fn
     (models/remat.py), "all_but_mlp" inside `_block`, anything else as
-    "full"."""
+    "full". The layout rides each checkpoint as an argument, so the
+    recompute (on autograd's thread) runs the same collectives."""
     layers = {k: v.unbind(0) for k, v in stacked.items()}
     block_remat = cfg.remat and cfg.remat_policy != "all_but_mlp"
     ctx_fn = POLICIES.get(cfg.remat_policy, noop_context_fn)
     for layer in range(cfg.num_layers):
         p = {k: v[layer] for k, v in layers.items()}
         if block_remat:
-            x = checkpoint(_block, p, x, cfg, use_reentrant=False,
+            x = checkpoint(_block, p, x, cfg, layout, use_reentrant=False,
                            context_fn=ctx_fn)
         else:
-            x = _block(p, x, cfg)
+            x = _block(p, x, cfg, layout)
     return x
 
 
 def gpt_forward(params, tokens, cfg: GPTConfig):
-    """tokens [B, S] -> logits [B, S, V] in cfg.dtype."""
+    """tokens [B, S] -> logits [B, S, V] in cfg.dtype. Under the sharded
+    step's layout: this rank's rows, and under sequence parallelism its
+    sequence shard, [B, S / tp, V]."""
+    layout = current_layout()
     B, S = tokens.shape
-    x = F.embedding(tokens.long(), params["wte"]).to(cfg.dtype)
-    x = x + params["wpe"][:S][None].to(cfg.dtype)
+    # the tied table whole (reference :522): every tp rank embeds and
+    # unembeds alike, unless sequence parallelism gives each its shard
+    wte = weight(layout, "wte", params["wte"], layer=False)
+    wpe = weight(layout, "wpe", params["wpe"], layer=False)
+    s0, s1 = (0, S) if layout is None else layout.seq_range(S)
+    x = F.embedding(tokens[:, s0:s1].long(), wte).to(cfg.dtype)
+    x = x + wpe[s0:s1][None].to(cfg.dtype)
     stacked = {k: params[k] for k in _BLOCK_KEYS_DENSE if k in params}
-    x = _apply_stack(stacked, x, cfg)
-    x = _ln(x, params["ln_f_scale"], params["ln_f_bias"], cfg.layer_norm_eps)
+    x = _apply_stack(stacked, x, cfg, layout)
+    x = _ln(x, weight(layout, "ln_f_scale", params["ln_f_scale"],
+                      layer=False),
+            weight(layout, "ln_f_bias", params["ln_f_bias"], layer=False),
+            cfg.layer_norm_eps)
     # tied head, "bsd,vd->bsv"
-    return x @ params["wte"].to(x.dtype).t()
+    return x @ wte.to(x.dtype).t()
 
 
 def gpt_loss(params, batch, cfg: GPTConfig):
     """Causal LM loss of `batch` (tokens [B, S+1], or {"tokens": ...}):
     the mean fused cross entropy of the logits of tokens[:, :-1] against
-    tokens[:, 1:]."""
+    tokens[:, 1:] (under the sharded step, over this rank's rows and
+    sequence shard)."""
     tokens = batch["tokens"] if isinstance(batch, dict) else batch
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    layout = current_layout()
+    if layout is not None:
+        tgt = layout.seq_local(tgt)
     return fused_softmax_ce(gpt_forward(params, inp, cfg), tgt)
 
 
 def value_and_grad(loss_fn, params, batch, cfg):
     """(loss, {leaf: gradient}) of loss_fn(params, batch, cfg) at
-    `params`, the port's jax.value_and_grad."""
+    `params`, the port's jax.value_and_grad. Under the sharded step's
+    layout the leaves are local shards: the backward runs on the loss
+    scaled to this rank's share of the global mean, the gradients come
+    back summed over the ranks that hold the same shard, and the loss is
+    the global batch's mean."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    layout = current_layout()
     loss = loss_fn(leaves, batch, cfg)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), dict(zip(leaves, grads))
+    if layout is None:
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+    grads = torch.autograd.grad(loss * layout.loss_scale,
+                                list(leaves.values()))
+    return (layout.global_loss(loss.detach()),
+            layout.reduce_grads(dict(zip(leaves, grads))))
 
 
 def loss_and_grads(params, batch, cfg: GPTConfig):

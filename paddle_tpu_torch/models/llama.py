@@ -29,9 +29,21 @@ take equal head counts, as the reference does (:171-174).
 `_attention` and `llama_loss` look `flash_attention_fn` and
 `fused_softmax_ce` up in this module's namespace at each call, so the
 same step runs on the kernels' plain versions once those two names are
-rebound (chip_smoke.py does). The single-GPU path has no mesh, so the
-reference's sharding constraints have nothing to pin and are not
-carried.
+rebound (chip_smoke.py does).
+
+Sharding (the reference's PARAM_SPECS :79-91, SERVING_PARAM_SPECS :100):
+under the planner-driven step the forward asks the step's ShardLayout
+(parallel/layout.py) for each weight, as models/gpt.py does: q, gate
+and up column-parallel over tp, o and down row-parallel, reduced over
+tp after each block half, `wte` gathered whole for the embedding and
+the tied head. GQA under tp: each rank holds H / tp query heads, and K
+and V reach the flash kernels repeated to those heads (as the reference
+repeats them, :173-174). Where tp divides num_kv_heads the rank's k/v
+shard holds exactly the KV heads its query heads use; where it does not
+(plan_train checks only num_heads and ffn_hidden), the rank gathers
+k_w/v_w over tp and takes the KV heads its query heads use. The
+reference's Llama has no sequence parallelism. With no layout the code
+path and its bits are the single-GPU ones.
 
 The cached forward keeps the reference's layouts: a dense cache of KV
 heads {"k","v": [L, B, max_len, KV, hd]} or the serving engine's page
@@ -63,11 +75,15 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.decode_attention import write_and_attend
 from ..kernels.flash_attention import flash_attention_fn
 from ..kernels.quant_matmul import leaf_matmul, quant_matmul
+from ..parallel.layout import (column_mm, current_layout, enter, row_mm,
+                               weight, whole)
+from ..parallel.mesh import P, tp_specs
 from .gpt import _position_embedding, apply_adamw, value_and_grad
 from .losses import fused_softmax_ce
 
-__all__ = ["LlamaConfig", "init_llama_params", "llama_forward",
-           "llama_loss", "loss_and_grads", "train_step", "init_kv_cache",
+__all__ = ["LlamaConfig", "PARAM_SPECS", "SERVING_PARAM_SPECS",
+           "init_llama_params", "llama_forward", "llama_loss",
+           "loss_and_grads", "train_step", "init_kv_cache",
            "llama_forward_cached", "greedy_generate"]
 
 
@@ -102,6 +118,27 @@ class LlamaConfig:
 
 _BLOCK_KEYS = ("attn_norm", "q_w", "k_w", "v_w", "o_w",
                "ffn_norm", "gate_w", "up_w", "down_w")
+
+# leaf name -> spec over (dp, fsdp, pp, mp), the reference's table
+# (:79-91): column-parallel q/k/v/gate/up, row-parallel o/down, the
+# stacked layer axis on 'pp'
+PARAM_SPECS = {
+    "wte":          P("mp", "fsdp"),
+    "norm_f":       P(None),
+    "attn_norm":    P("pp", None),
+    "q_w":          P("pp", "fsdp", "mp"),
+    "k_w":          P("pp", "fsdp", "mp"),
+    "v_w":          P("pp", "fsdp", "mp"),
+    "o_w":          P("pp", "mp", "fsdp"),
+    "ffn_norm":     P("pp", None),
+    "gate_w":       P("pp", "fsdp", "mp"),
+    "up_w":         P("pp", "fsdp", "mp"),
+    "down_w":       P("pp", "mp", "fsdp"),
+}
+
+# the serving tensor-parallel table (reference :100; its consumer,
+# ServingEngine(mesh=), is a later ROADMAP A6 item)
+SERVING_PARAM_SPECS = tp_specs(PARAM_SPECS)
 
 
 def init_llama_params(cfg: LlamaConfig, seed: int = 0, device=None
@@ -186,47 +223,99 @@ def _apply_rope(x, cos, sin):
     return rot.reshape(B, S, H, hd).to(x.dtype)
 
 
-def _attention(h, lp, cfg: LlamaConfig, cos, sin):
-    """h [B, S, D] (normed) -> the attention block's output [B, S, D]."""
-    B, S, _ = h.shape
+def _kv_heads(lp, cfg: LlamaConfig, layout, dtype):
+    """(k_w, v_w, n, skip): the k/v weights this tp rank projects (in
+    `dtype`), the n KV heads they hold, and how many of their repeated
+    heads precede the rank's first query head. With tp dividing
+    num_kv_heads (or no layout) the rank's column shard is exactly its
+    KV heads; otherwise both leaves are gathered over tp and cut to the
+    KV heads the rank's query heads [q0, q1) use (q // group for
+    each)."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (h @ lp["q_w"].to(h.dtype)).view(B, S, H, hd)
-    k = (h @ lp["k_w"].to(h.dtype)).view(B, S, KV, hd)
-    v = (h @ lp["v_w"].to(h.dtype)).view(B, S, KV, hd)
+    tp = 1 if layout is None else layout.tp
+    if KV % tp == 0:
+        return (weight(layout, "k_w", lp["k_w"], dtype=dtype),
+                weight(layout, "v_w", lp["v_w"], dtype=dtype), KV // tp, 0)
+    group = H // KV
+    q0, q1 = layout.heads(H)
+    kv0, kv1 = q0 // group, (q1 - 1) // group + 1
+    k_w, v_w = (whole(layout, n, lp[n], dtype=dtype,
+                      part=True)[:, kv0 * hd:kv1 * hd]
+                for n in ("k_w", "v_w"))
+    return k_w, v_w, kv1 - kv0, q0 - kv0 * group
+
+
+def _attention(h, lp, cfg: LlamaConfig, cos, sin, layout=None):
+    """h [B, S, D] (normed) -> the attention block's output [B, S, D]
+    (under a layout, this tp rank's heads, the output reduced over
+    tp)."""
+    B, S, _ = h.shape
+    hd = cfg.head_dim
+    H = cfg.num_heads // (1 if layout is None else layout.tp)
+    k_w, v_w, KV, skip = _kv_heads(lp, cfg, layout, h.dtype)
+    # one entry into the tensor-parallel region for q, k and v
+    x = enter(layout, h)
+    q = column_mm(layout, x, weight(layout, "q_w", lp["q_w"],
+                                    dtype=h.dtype)).view(B, S, H, hd)
+    k = column_mm(layout, x, k_w).view(B, S, KV, hd)
+    v = column_mm(layout, x, v_w).view(B, S, KV, hd)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     if KV != H:
-        # GQA: each KV head serves H // KV consecutive query heads
-        k = k.repeat_interleave(H // KV, dim=2)
-        v = v.repeat_interleave(H // KV, dim=2)
+        # GQA: each KV head serves num_heads // num_kv_heads consecutive
+        # query heads
+        group = cfg.num_heads // cfg.num_kv_heads
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+        if k.shape[2] != H:
+            # KV heads gathered for a rank whose query heads start or end
+            # inside a group
+            k, v = k[:, :, skip:skip + H], v[:, :, skip:skip + H]
     ctx = flash_attention_fn(q, k, v, causal=True)
-    return ctx.reshape(B, S, H * hd) @ lp["o_w"].to(h.dtype)
+    return row_mm(layout, ctx.reshape(B, S, H * hd),
+                  weight(layout, "o_w", lp["o_w"], dtype=h.dtype))
 
 
-def _block(lp, x, cfg: LlamaConfig, cos, sin):
-    """One decoder block on the layer slice `lp`."""
-    x = x + _attention(_rmsnorm(x, lp["attn_norm"], cfg.rms_eps), lp, cfg,
-                       cos, sin)
-    h = _rmsnorm(x, lp["ffn_norm"], cfg.rms_eps)
-    gated = F.silu(h @ lp["gate_w"].to(h.dtype)) * (h @ lp["up_w"].to(h.dtype))
-    return x + gated @ lp["down_w"].to(x.dtype)
+def _block(lp, x, cfg: LlamaConfig, cos, sin, layout=None):
+    """One decoder block on the layer slice `lp` (under a layout, this
+    rank's shards of it)."""
+    h = _rmsnorm(x, weight(layout, "attn_norm", lp["attn_norm"]),
+                 cfg.rms_eps)
+    x = x + _attention(h, lp, cfg, cos, sin, layout)
+    h = _rmsnorm(x, weight(layout, "ffn_norm", lp["ffn_norm"]), cfg.rms_eps)
+    # one entry into the tensor-parallel region for gate and up
+    hin = enter(layout, h)
+    gated = F.silu(column_mm(layout, hin, weight(
+        layout, "gate_w", lp["gate_w"], dtype=h.dtype))) * \
+        column_mm(layout, hin, weight(layout, "up_w", lp["up_w"],
+                                      dtype=h.dtype))
+    return x + row_mm(layout, gated, weight(layout, "down_w", lp["down_w"],
+                                            dtype=x.dtype))
 
 
 def llama_forward(params, tokens, cfg: LlamaConfig):
-    """tokens [B, S] -> logits [B, S, V] in cfg.dtype."""
+    """tokens [B, S] -> logits [B, S, V] in cfg.dtype (under the sharded
+    step's layout, for this rank's rows)."""
+    layout = current_layout()
     S = tokens.shape[1]
-    x = F.embedding(tokens.long(), params["wte"]).to(cfg.dtype)
+    # the tied table whole: every tp rank embeds and unembeds alike
+    wte = weight(layout, "wte", params["wte"], layer=False)
+    x = F.embedding(tokens.long(), wte).to(cfg.dtype)
     cos, sin = _rope_tables(S, cfg.head_dim, cfg.rope_theta, x.device)
     layers = {k: params[k].unbind(0) for k in _BLOCK_KEYS}
     for layer in range(cfg.num_layers):
         lp = {k: v[layer] for k, v in layers.items()}
         if cfg.remat:
-            x = checkpoint(_block, lp, x, cfg, cos, sin, use_reentrant=False)
+            # the layout rides the checkpoint as an argument, so the
+            # recompute (on autograd's thread) runs the same collectives
+            x = checkpoint(_block, lp, x, cfg, cos, sin, layout,
+                           use_reentrant=False)
         else:
-            x = _block(lp, x, cfg, cos, sin)
-    x = _rmsnorm(x, params["norm_f"], cfg.rms_eps)
+            x = _block(lp, x, cfg, cos, sin, layout)
+    x = _rmsnorm(x, weight(layout, "norm_f", params["norm_f"], layer=False),
+                 cfg.rms_eps)
     # tied head, "bsd,vd->bsv"
-    return x @ params["wte"].to(x.dtype).t()
+    return x @ wte.to(x.dtype).t()
 
 
 def llama_loss(params, batch, cfg: LlamaConfig):

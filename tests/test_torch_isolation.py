@@ -45,7 +45,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert "paddle_tpu_torch.kernels.fused_ce" in mods
     for new in ("kernels.registry", "kernels.fused_update", "models.llama",
                 "inference.spec_decode", "inference.multi_tick",
-                "inference.host_kv"):
+                "inference.host_kv", "parallel", "parallel.env",
+                "parallel.mesh", "parallel.collective", "parallel.planner",
+                "parallel.layout"):
         assert f"paddle_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -125,3 +127,20 @@ def test_version_and_device_validation():
     assert isinstance(paddle_tpu_torch.__version__, str)
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_default_device_is_the_ranks_own_card(monkeypatch):
+    """With no argument the rank's card: LOCAL_RANK where the launcher
+    sets it (torchrun does, one process a card), else the current
+    device; an explicit device still wins."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert resolve_device() == torch.device("cuda", 2)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("LOCAL_RANK", "")
+    assert resolve_device() == torch.device("cuda", 3)
+    monkeypatch.delenv("LOCAL_RANK")
+    assert resolve_device() == torch.device("cuda", 3)
+    assert resolve_device("cuda") == torch.device("cuda", 3)
