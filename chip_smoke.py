@@ -50,7 +50,13 @@ Phases, each failing the script (non-zero exit) when it fails:
      [8192, 50257] (rows off a 16-byte boundary), the backward at
      g = 1/T (the mean loss) and g = 1;
    - the AdamW leaf update, f32, at each of the 11 leaf shapes of the
-     TinyLlama-width tree, with torch._fused_adamw_ as the yardstick.
+     TinyLlama-width tree, with torch._fused_adamw_ as the yardstick;
+   - the threefry bits kernel (the serving sampler's draw, the slot
+     keys' fold_ins included) at [8, 32768] and [8, 32000] (8 slots,
+     the GPT and Llama vocabularies), every word equal to its plain
+     int64 version, twice; each serving main path must launch it
+     exactly once a sampled tick and a sampled prefill pass, and the
+     phases with sampled requests (5, 5b, 5c, 5d) must each launch it.
 3. GPT training at the full width of the repo's headline configuration
    (bench.py's `tpu` rung: vocab 32768, hidden 1024, 24 layers, 16
    heads, max_seq_len 1024, batch 8 x 1024 tokens, remat "dots", bf16
@@ -206,8 +212,23 @@ Phases, each failing the script (non-zero exit) when it fails:
    are recorded and must be among the shapes phases 2b, 2d and 2e held
    against the plain versions (SHARDED_PLANS' local shapes are added
    to those checks). The route, backend and card count are printed; a
-   failure in a rank fails the phase.
-7. The seconds each phase took, the kernels line (all eight kernels),
+   failure in a rank fails the phase. In the same two-rank world, the
+   pipelined step (parallel/pipeline_train.py) on the plan
+   dp1×fsdp1×tp1×pp2 with 4 microbatches of [1, 2048]: 11 layers a
+   stage, the 1F1B schedule, the stage handoffs on the pp group's route
+   (on one card "gloo_cuda_via_all_reduce"), the vocab-parallel loss in
+   stock torch; held to the same gates, with the launches and state
+   bytes its plan gives (sharded_launches: flash 88 / 44 / 44 a step a
+   rank, no CE kernel, the update on the stage's 11 leaves; its
+   params and moments exactly the bytes of shard_shapes, half of the
+   stacked leaves and the whole wte and norm_f), its schedule's bubble
+   (the 1F1B timeline's busy slots) equal to (pp-1)/(m+pp-1) and
+   within 1.5x of the planner's (pp-1)/m, and one more step with every
+   handoff timed between two synchronizes (the schedule's gaps, the
+   route's cost, and the measured share of the step spent waiting in
+   handoffs).
+7. The seconds each phase took, the kernels line (the eight ported
+   kernels and the threefry bits kernel),
    the card line, and as the last
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
    1}}.
@@ -590,11 +611,20 @@ def bound_ms(ops, nbytes):
                                        else "bytes")
 
 
-# phase 6b's plans of the Llama step on two ranks, by plan name, and the
-# (query heads, KV heads) each rank holds under each
+# phase 6b's plans of the Llama step on two ranks, by plan name (the
+# pipelined one with its microbatches: the planner's default, 4·pp = 8,
+# does not divide the batch of 4), and the (query heads, KV heads) each
+# rank holds under each
 SHARDED_PLANS = {"dp1_fsdp1_tp2": {"dp": 1, "fsdp": 1, "tp": 2},
-                 "dp1_fsdp2_tp1": {"dp": 1, "fsdp": 2, "tp": 1}}
-SHARDED_HEADS = {"dp1_fsdp1_tp2": (16, 2), "dp1_fsdp2_tp1": (32, 4)}
+                 "dp1_fsdp2_tp1": {"dp": 1, "fsdp": 2, "tp": 1},
+                 "dp1_fsdp1_tp1_pp2": {"dp": 1, "fsdp": 1, "tp": 1,
+                                       "pp": 2, "microbatches": 4}}
+SHARDED_HEADS = {"dp1_fsdp1_tp2": (16, 2), "dp1_fsdp2_tp1": (32, 4),
+                 "dp1_fsdp1_tp1_pp2": (32, 4)}
+
+
+def plan_pp(name):
+    return SHARDED_PLANS[name].get("pp", 1)
 
 
 def sharded_rows(name):
@@ -603,8 +633,14 @@ def sharded_rows(name):
     return LLAMA_BATCH // (axes["dp"] * axes["fsdp"])
 
 
+def kernel_rows(name):
+    """Rows one kernel launch of plan `name` sees: a microbatch's under
+    pp, else the rank's."""
+    return sharded_rows(name) // SHARDED_PLANS[name].get("microbatches", 1)
+
+
 # the Llama step's attention on one rank of each plan, [B, S, H, 64]
-SHARDED_ATTN = {name: (sharded_rows(name), LLAMA_SEQ, SHARDED_HEADS[name][0],
+SHARDED_ATTN = {name: (kernel_rows(name), LLAMA_SEQ, SHARDED_HEADS[name][0],
                        LLAMA["hidden_size"] // LLAMA["num_heads"], None)
                 for name in SHARDED_PLANS}
 # (B, S, H, D, kv_len): the GPT train step's attention, a ragged S with
@@ -861,10 +897,11 @@ def attention_oracle(torch, dev):
 
 CE_SHAPES = [(8192, 32768), (8192, 50304)]
 # the Llama step's logits, GPT-2's vocabulary, and the Llama step's
-# logits on one rank of each of phase 6b's plans (tp2's are the whole
-# batch's)
+# logits on one rank of each of phase 6b's 3D plans (tp2's are the whole
+# batch's; the pipelined step's vocab-parallel loss is stock torch and
+# launches no CE kernel)
 SHARDED_CE = {name: (sharded_rows(name) * LLAMA_SEQ, LLAMA["vocab_size"])
-              for name in SHARDED_PLANS}
+              for name in SHARDED_PLANS if plan_pp(name) == 1}
 CE_PAIR_SHAPES = [(8192, 32000), (8192, 50257)] + sorted(
     set(SHARDED_CE.values()) - {(8192, 32000)})
 
@@ -1011,7 +1048,8 @@ def shard_shapes(name):
     to it."""
     from paddle_tpu_torch.models.llama import PARAM_SPECS
     axes = SHARDED_PLANS[name]
-    sizes = {"dp": axes["dp"], "fsdp": axes["fsdp"], "mp": axes["tp"]}
+    sizes = {"dp": axes["dp"], "fsdp": axes["fsdp"], "mp": axes["tp"],
+             "pp": plan_pp(name)}
     out = {}
     for leaf, shape in LLAMA_LEAVES.items():
         local = list(shape)
@@ -1022,6 +1060,30 @@ def shard_shapes(name):
                 local[d] //= n
         out[leaf] = tuple(local)
     return out
+
+
+def sharded_launches(name, per_step_6a):
+    """{kernel: launches a step a rank} under phase 6b's plan `name`:
+    6a's for a 3D plan (every rank runs every layer on its rows). Under
+    pp a rank runs its stage's L/pp layers on each of its m
+    microbatches, the flash forward twice (full remat recomputes it),
+    the backward pair once; no CE kernel (the vocab-parallel loss is
+    stock torch); the update on each of its leaves (every stage holds
+    wte, norm_f and its chunk of each stacked leaf)."""
+    if plan_pp(name) == 1:
+        return dict(per_step_6a)
+    calls = LLAMA["num_layers"] // plan_pp(name) * \
+        SHARDED_PLANS[name]["microbatches"]
+    out = {k: 0 for k in per_step_6a}
+    out.update(flash_fwd=2 * calls, flash_bwd_dq=calls, flash_bwd_dkv=calls,
+               leaf_update=len(shard_shapes(name)))
+    return out
+
+
+def shard_state_bytes(name):
+    """Bytes of a rank's params and both AdamW moments under plan
+    `name`: three f32 copies of its shards (shard_shapes)."""
+    return 3 * 4 * sum(math.prod(s) for s in shard_shapes(name).values())
 
 
 def update_rows(torch, dev, shapes, hp, step, tag=""):
@@ -1115,6 +1177,79 @@ def update_check(torch, dev):
                           tag=f"{name}:")["step"]
         for name in SHARDED_PLANS}
     return rows
+
+
+# the serving phases with sampled requests, each of which must launch the
+# threefry kernel
+SAMPLING_PHASES = ("gpt_serving", "llama_serving", "llama_paged",
+                   "llama_multi_tick")
+# the serving sampler's draws: [slots, V] at the GPT and the Llama vocab
+THREEFRY_SHAPES = [(8, FULL["vocab_size"]), (8, LLAMA["vocab_size"])]
+# 32-bit integer operations a second: the data sheet's f32 rate (67
+# TFLOP/s: an FMA as 2 on 128 lanes an SM) over 2 for one operation an
+# instruction and over 2 for the 64 integer lanes an SM
+PEAK_INT32_OPS = 67e12 / 4
+# 32-bit integer operations of one Threefry-2x32 hash, counting each as
+# one sm_90 instruction: the key parity k1 ^ k2 ^ 0x1BD11BDA (one
+# three-input LOP3), the two counter adds, 20 rounds of add, rotate (one
+# funnel shift, SHF.L.W) and xor, 10 key injections (the second word's
+# a three-input IADD3 with the group's count) and the output xor
+THREEFRY_HASH_OPS = 1 + 2 + 20 * 3 + 10 + 1
+# a draw: per element a hash under the row's key, its parity taken once
+# a row; per row the two fold_ins that make the slot's key
+THREEFRY_OPS_ELEMENT = THREEFRY_HASH_OPS - 1
+THREEFRY_OPS_ROW = 2 * THREEFRY_HASH_OPS + 1
+THREEFRY_DESIGN = ("a row a block row; each thread folds its row's key in "
+                   "once, then hashes 8 columns, the 20 rounds unrolled on "
+                   "32-bit words")
+
+
+def threefry_check(torch, dev):
+    """Phase 2f, the threefry bits kernel (kernels/threefry.py) against
+    its plain int64 version at the sampler's draws (THREEFRY_SHAPES) as
+    `_sample` makes them: the engine's seed 0 and each slot's (request
+    id, token index) folded in by the draw, the same bits twice; the
+    same draw under the slot keys given whole (`_slot_keys`, the form
+    with no fold) equal too. Timed beside the plain version. No PyTorch
+    call computes these bits (torch's generators are Philox). Returns
+    {(rows, n): row}."""
+    from paddle_tpu_torch.inference import prng
+    from paddle_tpu_torch.inference import serving as srv
+    from paddle_tpu_torch.kernels import threefry as tf
+    out = {}
+    for rows, n in THREEFRY_SHAPES:
+        rid = torch.arange(rows, dtype=torch.int32, device=dev) * 3 + 1
+        gi = torch.arange(rows, dtype=torch.int32, device=dev) + 7
+        s1, s2 = prng.prng_key(0)
+        k1, k2 = srv._slot_keys(0, rid, gi)
+        got = tf.bits(s1, s2, n, (rid, gi))
+        again = tf.bits(s1, s2, n, (rid, gi))
+        whole = tf.bits(k1, k2, n)
+        want = tf.bits_ref(s1, s2, n, (rid, gi))
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)
+                and torch.equal(whole, want)):
+            bad = int((got != want).sum()) + int((whole != want).sum())
+            raise AssertionError(f"threefry bits kernel disagrees with its "
+                                 f"plain version at [{rows}, {n}]: {bad} "
+                                 "words differ")
+        t_k = event_ms(torch, lambda: tf.bits(s1, s2, n, (rid, gi)))
+        t_p = event_ms(torch, lambda: tf.bits_ref(s1, s2, n, (rid, gi)), 3)
+        ops = THREEFRY_OPS_ELEMENT * rows * n + THREEFRY_OPS_ROW * rows
+        nbytes = 8 * rows * n + 8 * rows
+        t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
+        b_ms = max(t_ops, t_bytes) * 1e3
+        row = {"phase": "kernel_check", "kernel": "threefry_bits",
+               "shape": [rows, n], "ms": t_k, "plain_ms": t_p,
+               "library_ms": None, "bound_ms": b_ms,
+               "bound_by": "operations" if t_ops > t_bytes else "bytes",
+               "roofline_share": b_ms / t_k, "max_abs_err": 0.0,
+               "same_bits_twice": True, "design": THREEFRY_DESIGN,
+               "tolerance": "every word equal"}
+        log(json.dumps(row))
+        out[(rows, n)] = row
+        del got, again, whole, want
+    return out
 
 
 def _cos(a, b):
@@ -2060,6 +2195,7 @@ def serve(torch, qm, dev, card, family, cfg, params, prompts, max_len,
     call) against the plain version; a tick profile; a 2-request fp
     engine. Returns (launches on the main path, summary dict)."""
     from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.kernels import threefry as tf
     from paddle_tpu_torch.models.decode import prompt_bucket
     fwd, init_cache, _ = family_fns(family)
     pre = "" if family == "gpt" else family + "_"
@@ -2094,7 +2230,10 @@ def serve(torch, qm, dev, card, family, cfg, params, prompts, max_len,
     torch.cuda.reset_peak_memory_stats()
     allocated0 = torch.cuda.memory_allocated()
 
+    c0 = dict(eng.counters)
     qm.launches = 0                          # the main path starts here
+    tf.launches["threefry_bits"] = 0
+    tf_cap0 = tf.captured
     t_run = time.perf_counter()
     reqs = [eng.submit(p, 64, temperature=sampled.get(i, (0.0, 0))[0],
                        top_k=sampled.get(i, (0.0, 0))[1])
@@ -2103,6 +2242,8 @@ def serve(torch, qm, dev, card, family, cfg, params, prompts, max_len,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     launches = qm.launches                   # ... and ends here
+    check_draws(eng, family, {k: v - c0[k] for k, v in eng.counters.items()},
+                tf.launches["threefry_bits"], tf.captured - tf_cap0)
 
     n_pre = eng.counters["prefills"] - n_pre0
     n_tick = eng.counters["decode_ticks"] - n_tick0
@@ -2479,6 +2620,36 @@ def check_launches(eng, label, c, launches, per_pass, per_tick, warm,
             f"{eng.counters['graph_captures']} graphs in all")
 
 
+# the threefry kernel's launches on the serving main paths, summed by
+# `sampling_phase` over each serving phase: through the wrapper, recorded
+# into CUDA graphs, and run by graph replays
+DRAWS = {"launches": 0, "captured": 0, "replayed": 0}
+
+
+def check_draws(eng, label, c, launches, captured):
+    """The threefry kernel's launches of a main-path run (counter deltas
+    `c`) against the sampler's draws: one a prefill pass that sampled
+    and one a tick of a sampled dispatch. Under multi-tick only the
+    eager dispatches launch through the wrapper, each sampled flag's
+    warm-up (K), and each sampled capture records K, which its replays
+    run. Adds the run's launches to DRAWS."""
+    k = eng.mt_k
+    eager = c["sampled_dispatches"] if k == 1 else c["sampled_captures"]
+    want = c["sampled_passes"] + k * eager
+    want_cap = 0 if k == 1 else k * c["sampled_captures"]
+    if launches != want or captured != want_cap:
+        raise AssertionError(
+            f"{label} threefry kernel launches {launches} != {want} "
+            f"({c['sampled_passes']} sampled passes + {k} x {eager} "
+            f"sampled eager dispatches), or {captured} recorded under "
+            f"capture != {want_cap}")
+    DRAWS["launches"] += launches
+    DRAWS["captured"] += captured
+    if k > 1:
+        DRAWS["replayed"] += k * (c["sampled_dispatches"]
+                                  - c["sampled_captures"])
+
+
 def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
     """Drive one 5c or 5d engine over `prompts` (64 new tokens each,
     SAMPLED with top-k), step by step, with its launches asserted at
@@ -2487,6 +2658,7 @@ def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
     pool checked after every step and empty at the end. Chunks are timed
     to a synchronize on each side (an earlier chunk makes no host pull
     of its own). Returns (streams, summary, launches)."""
+    from paddle_tpu_torch.kernels import threefry as tf
     chunk_ms = []
     warm = count_warmups(torch, qm, eng) if eng.mt_k > 1 else []
     if eng.paged:
@@ -2511,6 +2683,8 @@ def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
 
     qm.launches = 0                          # the main path starts here
     cap0 = qm.captured
+    tf.launches["threefry_bits"] = 0
+    tf_cap0 = tf.captured
     t_run = time.perf_counter()
     reqs = [eng.submit(p, 64, temperature=SAMPLED.get(i, (0.0, 0))[0],
                        top_k=SAMPLED.get(i, (0.0, 0))[1])
@@ -2529,6 +2703,8 @@ def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
         raise AssertionError(f"{label} finish reasons {reasons}")
     check_launches(eng, label, c, launches, per_pass, per_tick, warm,
                    qm.captured - cap0)
+    check_draws(eng, label, c, tf.launches["threefry_bits"],
+                tf.captured - tf_cap0)
     for r in reqs:
         toks = np.asarray(r.tokens)
         if len(toks) != 64 or toks.min() < 0 or toks.max() >= \
@@ -2773,6 +2949,7 @@ def host_tier_serving(torch, qm, dev, card, cfg, params):
     the int8 kernel's launches through the wrapper and inside graph
     replays (replays x K x the tick's calls)."""
     from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.kernels import threefry as tf
     prompts = tier_prompts(cfg.vocab_size)
     per_pass = sum(pass_calls(LLAMA_LEAF_KN, cfg.num_layers).values())
     out, launches, replays = {}, 0, 0
@@ -2788,6 +2965,8 @@ def host_tier_serving(torch, qm, dev, card, cfg, params):
             n_pf0 = len(eng.prefill_ms)
             qm.launches = 0
             cap0 = qm.captured
+            tf.launches["threefry_bits"] = 0
+            tf_cap0 = tf.captured
             t0 = time.perf_counter()
             reqs = [eng.submit(p, 32) for p in prompts]
             while eng.has_work():
@@ -2799,6 +2978,8 @@ def host_tier_serving(torch, qm, dev, card, cfg, params):
             check_launches(eng, f"tier {label} round {rnd}", c,
                            qm.launches, per_pass, per_pass, warm,
                            qm.captured - cap0)
+            check_draws(eng, f"tier {label} round {rnd}", c,
+                        tf.launches["threefry_bits"], tf.captured - tf_cap0)
             del warm[:]
             launches += qm.launches
             replays += c["graph_replays"] * eng.mt_k * per_pass
@@ -2962,6 +3143,43 @@ def sharded_one_rank(torch, dev, card, p4):
             "launches": launches}
 
 
+def handoff_profile(torch, step, params, opt, tokens):
+    """One more step of the pipelined `step` with every stage handoff
+    (parallel/collective.py `exchange`, as pipeline_train calls it)
+    timed on the host clock between two synchronizes, so that the card
+    is idle at each mark: the step's ms, each slot's handoff ms and the
+    compute ms before it (from the previous mark), their sums, and the
+    share of the step spent inside handoffs (this rank's measured idle
+    share: waiting for its peer's slot at the rendezvous, plus the
+    transfers)."""
+    from paddle_tpu_torch.parallel import pipeline_train as ptr
+    exchange, marks = ptr.exchange, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exchange(*args, **kw)
+        torch.cuda.synchronize()
+        marks.append((t0, time.perf_counter()))
+        return out
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    ptr.exchange = timed
+    try:
+        float(step(params, opt, tokens)[0])
+    finally:
+        ptr.exchange = exchange
+    step_ms = (time.perf_counter() - t_s) * 1e3
+    handoff = [(b - a) * 1e3 for a, b in marks]
+    before = [(a - p) * 1e3 for a, p in zip(
+        [m[0] for m in marks], [t_s] + [m[1] for m in marks[:-1]])]
+    return {"step_ms": step_ms, "handoffs": len(marks),
+            "handoff_ms": handoff, "compute_ms_before": before,
+            "handoff_ms_sum": sum(handoff),
+            "rest_ms": step_ms - sum(handoff),
+            "handoff_share": sum(handoff) / step_ms}
+
+
 def _sharded_rank(rank, world, workdir, backend):
     """One rank of phase 6b, in its own process: joins the 2-rank group
     through a file store, draws phase 4's starting state on the host,
@@ -3023,6 +3241,7 @@ def _sharded_rank(rank, world, workdir, backend):
             params, opt, _ = step.shard_args(
                 host, lazy_opt_state(torch, host), tokens)
             hd = cfg.head_dim
+            mesh = step.mesh
             row = {"plan": plan.name,
                    "q_heads": params["q_w"].shape[-1] // hd,
                    "kv_heads": params["k_w"].shape[-1] // hd,
@@ -3057,6 +3276,14 @@ def _sharded_rank(rank, world, workdir, backend):
                 secs["five_steps"] = time.perf_counter() - t_s
                 row["max_memory_allocated_bytes"] = \
                     torch.cuda.max_memory_allocated()
+                if plan.pp > 1:
+                    t_s = time.perf_counter()
+                    row["bubble_fraction"] = step.bubble_fraction
+                    row["handoff_route"] = collective_route(
+                        mesh.get_group("pp"), dev)
+                    row["handoff_profile"] = handoff_profile(
+                        torch, step, params, opt, tokens)
+                    secs["handoff_profile"] = time.perf_counter() - t_s
             row["seconds"] = secs
             out[plan.name] = row
             del step, params, opt
@@ -3072,11 +3299,17 @@ def check_two_ranks(results, p6a, card):
     loss within 2e-3 relative of 6a's and every gradient leaf's cosine
     >= 0.999 against the unsharded step 1 (phase 4's tolerances), its
     norm within GRAD_NORM_TOL of the unsharded one's, the 5-step
-    trajectory within 1e-2 of 6a's, exactly 6a's launches a step on
-    each rank, each rank's heads and shard shapes, the shapes its
-    kernels launched at (those phase 2 checked), and each rank's params
-    and moments at most 51% of 6a's. Prints one line a plan. Returns
-    {plan: [each rank's launches]}."""
+    trajectory within 1e-2 of 6a's, exactly the launches a step its plan
+    gives on each rank (sharded_launches: 6a's under a 3D plan), each
+    rank's heads and shard shapes, the shapes its kernels launched at
+    (those phase 2 checked; none of the CE's under pp), and each rank's
+    params and moments exactly the bytes of its shards
+    (shard_state_bytes), at most 51% of 6a's under a 3D plan. A pp plan
+    also prints its handoff route, its handoffs' times and the share of
+    a step each rank spends in them (the measured idle share), and the
+    step's bubble (its 1F1B timeline's, fixed by (pp, m)) must equal
+    (pp-1)/(m+pp-1) and lie within 1.5x of the planner's (pp-1)/m.
+    Prints one line a plan. Returns {plan: [each rank's launches]}."""
     r0 = results[0]
     shared = r0["cards"] < 2
     ref1 = p6a["losses"][0]
@@ -3088,11 +3321,13 @@ def check_two_ranks(results, p6a, card):
         B, S, H, D, _ = SHARDED_ATTN[name]
         want_shapes = {k: [[B, S, H, D]] for k in
                        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-        want_shapes.update({k: [list(SHARDED_CE[name])]
-                            for k in ("ce_fwd", "ce_bwd")})
+        want_shapes.update({k: [list(SHARDED_CE[name])] if name in
+                            SHARDED_CE else None for k in ("ce_fwd",
+                                                           "ce_bwd")})
         rel = [abs(a - b) / abs(b)
                for a, b in zip(rows[0]["losses"], p6a["losses"])]
-        want = {k: 5 * v for k, v in p6a["per_step"].items()}
+        want = {k: 5 * v for k, v in
+                sharded_launches(name, p6a["per_step"]).items()}
         line = {
             "phase": "llama_sharded_2rank", "card": card, "plan": name,
             "backend": r0["backend"], "route": r0["route"],
@@ -3128,6 +3363,22 @@ def check_two_ranks(results, p6a, card):
             "timing": ("both ranks on one card over gloo: shared-card "
                        "times, no scaling" if shared else
                        "one card a rank")}
+        pp = plan_pp(name)
+        if pp > 1:
+            m = SHARDED_PLANS[name]["microbatches"]
+            line.update({
+                "microbatches": m,
+                "handoff_route_by_rank": [r["handoff_route"] for r in rows],
+                "bubble_fraction_by_rank":
+                    [r["bubble_fraction"] for r in rows],
+                "bubble_schedule": (pp - 1) / (m + pp - 1),
+                "bubble_planner": (pp - 1) / m,
+                "handoff_profile_by_rank":
+                    [r["handoff_profile"] for r in rows],
+                "handoff_share_by_rank":
+                    [r["handoff_profile"]["handoff_share"] for r in rows],
+                "state_share_of_6a": [r["state_bytes"] / p6a["state_bytes"]
+                                      for r in rows]})
         log(json.dumps(line))
         bad = []
         if not line["step1_loss_rel_diff"] <= 2e-3:
@@ -3143,8 +3394,16 @@ def check_two_ranks(results, p6a, card):
         if any((r["q_heads"], r["kv_heads"]) != (q_heads, kv_heads)
                for r in rows):
             bad.append("heads")
-        if any(r["state_bytes"] > 0.51 * p6a["state_bytes"] for r in rows):
-            bad.append("state bytes")
+        if any(r["state_bytes"] != shard_state_bytes(name) for r in rows) \
+                or (pp == 1 and any(r["state_bytes"] > 0.51 * p6a[
+                    "state_bytes"] for r in rows)):
+            bad.append(f"state bytes, want {shard_state_bytes(name)}")
+        if pp > 1 and any(
+                r["bubble_fraction"] != line["bubble_schedule"]
+                or not max(r["bubble_fraction"], line["bubble_planner"])
+                <= 1.5 * min(r["bubble_fraction"], line["bubble_planner"])
+                for r in rows):
+            bad.append("bubble")
         local = {k: list(v) for k, v in shard_shapes(name).items()}
         if any(r["shard_shapes"] != local for r in rows):
             bad.append(f"shard shapes, want {local}")
@@ -3152,7 +3411,8 @@ def check_two_ranks(results, p6a, card):
         if any({k: r["kernel_shapes"].get(k) for k in want_shapes}
                != want_shapes for r in rows) or \
                 tuple(SHARDED_ATTN[name]) not in ATTN_SHAPES or \
-                tuple(SHARDED_CE[name]) not in CE_PAIR_SHAPES:
+                (name in SHARDED_CE
+                 and tuple(SHARDED_CE[name]) not in CE_PAIR_SHAPES):
             bad.append(f"kernel shapes, want {want_shapes}")
         if bad:
             failed[name] = bad
@@ -3188,7 +3448,8 @@ def sharded_two_ranks(torch, card, p6a):
 
 def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                  gpt_launches, llama_launches, serving_launches, f64,
-                 replay_launches, race_launches, tiles, sharded):
+                 replay_launches, race_launches, tiles, sharded, tf_rows,
+                 sampler):
     """The kernels line: every kernel with its route, source, the TPU
     kernel it replaces, its launches on the main paths, and its times,
     bound and error from the kernel checks. `serving_launches` is the
@@ -3198,7 +3459,9 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
     kernels' launches over phase 3b; `tiles` the forward's times at both
     q tiles and the autotune's picks; `sharded` the train kernels'
     {path: launches} of phase 6 (6a's 5 steps; 6b's, both ranks and
-    both plans summed)."""
+    its 3D plans summed, and its pipelined plan's); `tf_rows` the
+    threefry kernel's check rows, `sampler` its launches by serving
+    phase."""
 
     def train_paths(name):
         paths = {"gpt_train": gpt_launches[name],
@@ -3268,10 +3531,12 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                    "its kernel_check line); launches over the 10 timed "
                    "steps of each train path, over phase 3b's timed "
                    "and route steps (gpt_race), and over phase 6's 5 "
-                   "steps on one rank and on two (both ranks, both "
-                   "plans); on_shards: at a rank's [B, S, H, 64] under "
-                   "each of phase 6b's plans (SHARDED_ATTN), checked as "
-                   "the main shape is"})
+                   "steps on one rank and on two (both ranks, the 3D "
+                   "plans, and the pipelined plan); on_shards: at a "
+                   "rank's [B, S, H, 64] under each of phase 6b's plans "
+                   "(SHARDED_ATTN: a "
+                   "microbatch's [1, 2048, 32, 64] under pp2), checked "
+                   "as the main shape is"})
         if name == "flash_fwd":
             entries[-1]["tiles"] = tiles
             entries[-1]["tiles_note"] = (
@@ -3307,8 +3572,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
             "per": "one call at the Llama train step's [8192, 32000] bf16 "
                    "logits; launches over the 10 timed steps of each "
                    "train path and phase 6's steps; on_shards: at a "
-                   "rank's [T, 32000] under each of phase 6b's plans "
-                   "(SHARDED_CE)"})
+                   "rank's [T, 32000] under each of phase 6b's 3D plans "
+                   "(SHARDED_CE; the pipelined step launches none)"})
     upd = upd_rows["step"]
     entries.append({
         "name": "leaf_update", "route": "cuda",
@@ -3326,7 +3591,34 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                "torch._fused_adamw_ call over all 11); launches over the "
                "10 timed steps of each train path and phase 6's steps "
                "(on local shards); on_shards: one rank's update of its "
-               "11 shards under each of phase 6b's plans (shard_shapes)"})
+               "11 shards under each of phase 6b's plans (shard_shapes; "
+               "under pp2 a stage's half of each stacked leaf and the "
+               "whole wte and norm_f)"})
+    tf_main = tf_rows[THREEFRY_SHAPES[0]]
+    entries.append({
+        "name": "threefry_bits", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/threefry.cu",
+        "replaces": "paddle_tpu/inference/serving.py:546",
+        "replaces_note": "jax.random.categorical (:546, :554): XLA's "
+                         "threefry; the reference has no Pallas kernel "
+                         "here",
+        "launches": sum(d["launches"] for d in sampler.values()),
+        "launches_by_path": {k: d["launches"] for k, d in sampler.items()},
+        "captured_into_graphs": sum(d["captured"] for d in sampler.values()),
+        "replay_launches": sum(d["replayed"] for d in sampler.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in tf_rows.values()),
+        **{k: tf_main[k] for k in keys},
+        "llama_draw": {k: tf_rows[THREEFRY_SHAPES[1]][k] for k in nums},
+        "design": THREEFRY_DESIGN,
+        "per": "one draw of the sampled decode tick at GPT's [8, 32768] "
+               "(llama_draw: [8, 32000]), the slot keys' two fold_ins "
+               "included; launches over each serving phase's main-path "
+               "runs through the wrapper, exactly one a sampled tick or "
+               "prefill pass (check_draws; the top-k draw reuses the full "
+               "draw's first K columns); captured_into_graphs: recorded "
+               "into 5d's CUDA graphs, replay_launches: run by their "
+               "replays; no library call computes these bits (torch's "
+               "generators are Philox)"})
     return {"kernels": entries}
 
 
@@ -3389,42 +3681,64 @@ def main():
     ce_rows = phase("ce_check", ce_check, torch, dev)
     pair_rows = phase("ce_pair_check", ce_pair_check, torch, dev)
     upd_rows = phase("update_check", update_check, torch, dev)
+    tf_rows = phase("threefry_check", threefry_check, torch, dev)
+    # the threefry kernel's launches by serving phase: the sum of its
+    # main paths' runs, each counted from 0 where the run starts and
+    # held to the sampler's draws (check_draws)
+    sampler = {}
+
+    def sampling_phase(name, fn, *args):
+        DRAWS.update(launches=0, captured=0, replayed=0)
+        out = phase(name, fn, *args)
+        sampler[name] = dict(DRAWS)
+        return out
     gpt_launches = phase("gpt_train", training, torch, dev, card)
     race_launches = phase("gpt_race", race, torch, dev, card)
     tiles = phase("flash_fwd_tiles", autotune_tiles, torch, dev, card)
     llama_launches, p4 = phase("llama_train", llama_training, torch, dev,
                                card)
     serving_launches = {
-        "gpt_serving": phase("gpt_serving", serving, torch, qm, dev,
-                             card)[0]}
+        "gpt_serving": sampling_phase("gpt_serving", serving, torch, qm,
+                                      dev, card)[0]}
     # phases 5b-5d share the host-drawn TinyLlama-width weights and
     # their int8 rewrite
     lcfg, lparams = llama_host_params()
     with quantize_once():
-        serving_launches["llama_serving"], k1 = phase(
+        serving_launches["llama_serving"], k1 = sampling_phase(
             "llama_serving", llama_serving, torch, qm, dev, card, lcfg,
             lparams)
-        paged_launches, k1c = phase("llama_paged", paged_serving, torch, qm,
-                                    dev, card, lcfg, lparams)
+        paged_launches, k1c = sampling_phase(
+            "llama_paged", paged_serving, torch, qm, dev, card, lcfg,
+            lparams)
         serving_launches.update(paged_launches)
         k1c["serving"] = k1
-        mt_launches, replay_launches = phase(
+        mt_launches, replay_launches = sampling_phase(
             "llama_multi_tick", multi_tick_serving, torch, qm, dev, card,
             lcfg, lparams, k1c)
         serving_launches.update(mt_launches)
         del k1, k1c
-        serving_launches["llama_host_tier"], tier_replays = phase(
+        serving_launches["llama_host_tier"], tier_replays = sampling_phase(
             "llama_host_tier", host_tier_serving, torch, qm, dev, card, lcfg,
             lparams)
         replay_launches["llama_host_tier"] = {"replays": tier_replays}
     del lparams
+    # every serving phase with sampled requests drew through the kernel
+    # (the host tier's requests are greedy)
+    unsampled = [k for k in SAMPLING_PHASES
+                 if not sampler[k]["launches"] + sampler[k]["captured"]]
+    if unsampled:
+        raise AssertionError(f"no threefry kernel launch in {unsampled}: "
+                             f"{sampler}")
     p6a = phase("llama_sharded_1rank", sharded_one_rank, torch, dev, card,
                 p4)
     two = phase("llama_sharded_2rank", sharded_two_ranks, torch, card, p6a)
-    sharded = {"llama_sharded_1rank": p6a["launches"],
-               "llama_sharded_2rank": {
-                   k: sum(c[k] for ranks in two.values() for c in ranks)
-                   for k in p6a["launches"]}}
+    sharded = {"llama_sharded_1rank": p6a["launches"]}
+    for path, pp in (("llama_sharded_2rank", False),
+                     ("llama_pipelined_2rank", True)):
+        sharded[path] = {k: sum(c[k] for name, ranks in two.items()
+                                if (plan_pp(name) > 1) == pp
+                                for c in ranks)
+                         for k in p6a["launches"]}
     log(json.dumps({"phase": "memory_allocated_after", **held}))
     total = time.perf_counter() - t_start
     log(json.dumps({"phase": "seconds", **seconds, "total": total,
@@ -3433,7 +3747,7 @@ def main():
     kernels = kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                            gpt_launches, llama_launches, serving_launches,
                            f64, replay_launches, race_launches, tiles,
-                           sharded)
+                           sharded, tf_rows, sampler)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(card)

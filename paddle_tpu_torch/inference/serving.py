@@ -74,12 +74,13 @@ decode ticks.
   head (GPT 4 L + 1, Llama 7 L + 1); a spec tick adds gamma draft
   passes of draft_layers layers and the head.
 
-Sampled streams cannot match the reference bit for bit (it draws with
-threefry). The invariant is kept instead: a request's sampled stream
-depends only on (seed, request id, token index), never on its slot or
-on the rest of the batch. The noise is a counter-based hash of those
-three values and the vocabulary index, computed on the device, and the
-draw is Gumbel-max over the temperature-scaled, top-k-masked logits.
+Sampled streams are the reference's: each slot draws with the threefry
+key fold_in(fold_in(PRNGKey(seed), request id), token index), through
+the port's own copy of jax.random (inference/prng.py), so a request's
+sampled stream depends only on those three values, never on its slot or
+on the rest of the batch, and equals the JAX engine's wherever their
+logits rank the candidates alike. The keys and the Gumbel noise are
+tensor ops on the device, with no host sync.
 
 Every request resolves exactly once with a finish reason from
 TERMINAL_REASONS. Engine knobs of later slices (tensor-parallel meshes,
@@ -101,6 +102,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.decode import prompt_bucket
+from . import prng
 
 __all__ = ["ServingEngine", "Request", "ModelFamily", "family_for",
            "create_serving_engine", "TERMINAL_REASONS",
@@ -330,44 +332,31 @@ class Request:
 
 
 # -------------------------------------------------------- device sampling
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(h):
-    """A 32-bit integer finalizer on int64 tensors holding values in
-    [0, 2^32). Both multipliers are odd and below 2^31, so every product
-    stays below 2^63 and int64 arithmetic is exact."""
-    h = h ^ (h >> 16)
-    h = (h * 0x7FEB352D) & _M32
-    h = h ^ (h >> 15)
-    h = (h * 0x46C8A68B) & _M32
-    return h ^ (h >> 16)
-
-
-def _gumbel(seed: int, req_ids, gen_idx, vocab: int):
-    """Gumbel noise [N, V] that depends only on (seed, request id, token
-    index, vocab index) — the port's counterpart of `_slot_keys`'
-    fold_in(fold_in(key, request id), token index)."""
-    dev = req_ids.device
-    row = _mix32(torch.full(req_ids.shape, int(seed) & _M32,
-                            dtype=torch.int64, device=dev))
-    row = _mix32((row + req_ids.long() + 0x9E3779B9) & _M32)
-    row = _mix32((row + gen_idx.long() + 0x9E3779B9) & _M32)
-    v = torch.arange(vocab, device=dev, dtype=torch.int64)
-    h = _mix32((row[:, None] ^ ((v * 0x2C1B3C6D) & _M32)) & _M32)
-    h = _mix32((h + row[:, None]) & _M32)
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))       # (0, 1)
-    return -torch.log(-torch.log(u))
+def _slot_keys(seed: int, req_ids, gen_idx):
+    """Per-slot threefry keys fold_in(fold_in(PRNGKey(seed), request
+    id), token index), the reference's `_slot_keys`: a stream depends on
+    the request, never on its slot or the batch. Device tensors [N]
+    each, computed with no host sync. `_sample` draws under the same
+    keys, folded in by the draw itself (one kernel launch on the
+    card)."""
+    return prng.fold_in(prng.fold_in(prng.prng_key(seed), req_ids), gen_idx)
 
 
 def _sample(lg, temps, top_ks, seed, req_ids, gen_idx, max_top_k: int):
-    """lg [N,V] f32 -> next token [N] int32. Greedy where temp <= 0;
-    otherwise a temperature draw, truncated to the request's top_k
-    (<= the engine's max_top_k) when top_k > 0."""
+    """lg [N,V] f32 -> next token [N] int32, the reference's `_sample`:
+    greedy where temp <= 0; otherwise jax.random.categorical over the
+    [V] logits / temp with the slot's key, or, where top_k > 0, over the
+    [K] top-k values (<= the engine's max_top_k) with the same key, so
+    that the noise at top-k rank j is the key's j-th draw."""
     greedy = torch.argmax(lg, dim=-1)
     safe_t = temps.clamp_min(1e-6)[:, None]
-    g = _gumbel(seed, req_ids, gen_idx, lg.shape[-1])
-    sampled = torch.argmax(lg / safe_t + g, dim=-1)
+    # categorical(keys, lg / t) under the `_slot_keys` keys: the Gumbel
+    # noise over [V], drawn once; the top-k draw's [K] noise under the
+    # same key is its first K columns (a partitionable draw's element j
+    # depends on the key and j alone)
+    g = prng.gumbel(prng.prng_key(seed), (lg.shape[-1],),
+                    fold=(req_ids, gen_idx))
+    sampled = torch.argmax(g + lg / safe_t, dim=-1)
     if max_top_k > 0:
         vals, idx = torch.topk(lg, max_top_k, dim=-1)              # [N,K]
         k_eff = torch.where(top_ks <= 0, max_top_k, top_ks).clamp_max(
@@ -375,7 +364,7 @@ def _sample(lg, temps, top_ks, seed, req_ids, gen_idx, max_top_k: int):
         keep = torch.arange(max_top_k, device=lg.device)[None, :] \
             < k_eff[:, None]
         masked = vals.masked_fill(~keep, float("-inf"))
-        choice = torch.argmax(masked / safe_t + g.gather(1, idx), dim=-1)
+        choice = torch.argmax(g[:, :max_top_k] + masked / safe_t, dim=-1)
         trunc = idx.gather(1, choice[:, None])[:, 0]
         sampled = torch.where(top_ks > 0, trunc, sampled)
     return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
@@ -658,13 +647,17 @@ class ServingEngine:
         # prefix_hits: pages mapped from the prefix map or swapped in
         # from the host tier at admission; spec_proposed/accepted:
         # drafts of greedy slots; graph_captures/replays: CUDA graphs of
-        # the K-tick dispatch captured and replayed
+        # the K-tick dispatch captured and replayed; sampled_passes,
+        # sampled_dispatches, sampled_captures: the prefill passes,
+        # dispatches and captures that ran the sampler (one draw a pass,
+        # K a dispatch)
         self.counters = {"prefills": 0, "decode_ticks": 0,
                          "tokens_emitted": 0, "quant_matmuls": 0,
                          "prefill_chunks": 0, "cow_copies": 0,
                          "prefix_hits": 0, "spec_proposed": 0,
                          "spec_accepted": 0, "graph_captures": 0,
-                         "graph_replays": 0}
+                         "graph_replays": 0, "sampled_passes": 0,
+                         "sampled_dispatches": 0, "sampled_captures": 0}
         # fused dequant-matmuls per full forward: quantized leaves per
         # layer x depth + the head (the reference's formula); a spec
         # tick adds gamma draft passes of draft_layers layers + the head
@@ -936,6 +929,7 @@ class ServingEngine:
         tok = int(first.item())          # the admission's one host pull
         self.prefill_ms.append((time.perf_counter() - t_pf0) * 1e3)
         self.counters["prefills"] += 1
+        self.counters["sampled_passes"] += req.temperature > 0.0
         self.counters["quant_matmuls"] += self._qmm_full
         if tok < 0:
             # never activated: the slot's cache row is masked garbage
@@ -979,6 +973,7 @@ class ServingEngine:
         toks = emit.cpu().numpy().reshape(self.num_slots, -1)
         self.tick_ms.append((time.perf_counter() - t_dev0) * 1e3)
         self.counters["decode_ticks"] += 1
+        self.counters["sampled_dispatches"] += sampling
         self.counters["quant_matmuls"] += self.mt_k * (
             self._qmm_full
             + (self.spec_gamma * self._qmm_draft if self.spec else 0))
@@ -1062,6 +1057,7 @@ class ServingEngine:
         self._graph_held[sampling] = self.family.held_tensors(self.cfg,
                                                               self._cache)
         self.counters["graph_captures"] += 1
+        self.counters["sampled_captures"] += sampling
         return emit
 
     def _multi_ticks(self, sampling: bool):
@@ -1300,6 +1296,7 @@ class ServingEngine:
         tok = int(first.item()) if final else None    # the one host pull
         self.prefill_ms.append((time.perf_counter() - t_pf0) * 1e3)
         self.counters["prefill_chunks"] += 1
+        self.counters["sampled_passes"] += final and req.temperature > 0.0
         self.counters["quant_matmuls"] += self._qmm_full
         if not final:
             req._pf_next = end

@@ -26,7 +26,8 @@ from pathlib import Path
 __all__ = ["KERNELS", "build", "load", "build_logs", "NVCC_FLAGS"]
 
 # every csrc/<name>.cu of the port
-KERNELS = ("quant_matmul", "flash_attention", "fused_ce", "fused_update")
+KERNELS = ("quant_matmul", "flash_attention", "fused_ce", "fused_update",
+           "threefry")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

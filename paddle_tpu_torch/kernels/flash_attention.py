@@ -520,6 +520,23 @@ def _flash_fwd_cpu(q, k, v, causal, kv_len, block_q, block_k):
     return mha_fwd_ref(q, k, v, causal, kv_len)
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd_plain",
+                         mutates_args=())
+def _flash_fwd_plain_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, kv_len: Optional[int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    # the plain forward that the kill switches and impl "xla" run, as one
+    # named op on every device, so that remat "dots_flash" saves it as it
+    # saves the kernel's op and its backward reruns no attention
+    return mha_fwd_ref(q, k, v, causal, kv_len)
+
+
+def _plain_fwd(q, k, v, causal=False, kv_len=None):
+    """mha_fwd_ref through the `paddle_tpu_torch::flash_fwd_plain` op."""
+    return torch.ops.paddle_tpu_torch.flash_fwd_plain(q, k, v, bool(causal),
+                                                      kv_len)
+
+
 @torch.library.custom_op("paddle_tpu_torch::flash_bwd_dq", mutates_args=(),
                          device_types="cuda")
 def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -609,13 +626,14 @@ class FlashMHA(torch.autograd.Function):
     (q, k, v, out, lse) and no [S, S] tensor, as the reference's
     `_flash_mha` custom_vjp does. The route is resolved once per apply
     (`_route`) and kept for its backward: a gate that is off swaps in
-    mha_fwd_ref or mha_bwd_ref."""
+    the plain forward (mha_fwd_ref, through its named op
+    `paddle_tpu_torch::flash_fwd_plain`) or mha_bwd_ref."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, kv_len, fwd, bwd):
         use_fwd, use_bwd = _route(q)
-        out, lse = (fwd if use_fwd else mha_fwd_ref)(q, k, v, causal=causal,
-                                                     kv_len=kv_len)
+        out, lse = (fwd if use_fwd else _plain_fwd)(q, k, v, causal=causal,
+                                                    kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.kv_len = causal, kv_len
         ctx.bwd = bwd if use_bwd else mha_bwd_ref

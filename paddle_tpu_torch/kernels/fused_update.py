@@ -3,7 +3,8 @@
 Counterpart of paddle_tpu/kernels/pallas_update.py: `_leaf_update`
 (:74, the Pallas kernel over one leaf), `fused_apply_adamw` (:102, the
 drop-in for models.gpt.apply_adamw running every leaf through it) and
-`fused_update_enabled` (:126, the consult).
+`fused_update_enabled` (:126, the consult; here :135-145, kill switches
+included).
 
 - `leaf_update_ref(p, g, m, v, hp)` is the plain version: the update of
   one leaf evaluated op by op in f32, in `_update_kernel`'s order
@@ -23,8 +24,9 @@ drop-in for models.gpt.apply_adamw running every leaf through it) and
   opt_state["step"] with tensor ops, so a step never waits on the card.
 - `fused_update_enabled(device)`: the leaves are on the card and the
   port's registry names "pallas" for "fused_update" (no entry: the plain
-  per-leaf update stays the default and the parity oracle). The
-  reference's kill switches wait for the rest of ROADMAP A2b.
+  per-leaf update stays the default and the parity oracle); a kill
+  switch (the global one, PADDLE_TPU_DISABLE_PALLAS_UPDATE) turns it
+  off.
 
 The kernel rounds every operation on its own (no fused multiply-add),
 so on the same hp it reproduces `leaf_update_ref` exactly wherever the

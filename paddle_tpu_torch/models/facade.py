@@ -5,7 +5,8 @@ family's cached serving engine, on one leaf-holding base,
 callable.
 
 Counterpart of paddle_tpu/models/facade.py (`resolve_plan_step` :25,
-`make_train_step` :95, `_ShardedTrainStep` :186-475, `FacadeModel` :515
+`make_train_step` :95, `_ShardedTrainStep` :186-475,
+`_PipelineTrainStep` :478-512, `FacadeModel` :515
 with its `generate`), paddle_tpu/models/gpt.py
 `GPTModel` (`forward` :650, `loss` :658) and paddle_tpu/models/llama.py
 `LlamaModel` (:350-367). The leaves live on the module: floating leaves
@@ -40,15 +41,23 @@ def _plan_pp(plan) -> int:
         return 1
 
 
-def resolve_plan_step(step_fn, cfg=None, plan=None, **step_kw):
-    """The callable a plan runs (reference :25): `step_fn` with `cfg`
-    and the optimizer keywords bound. A pp>1 plan needs the pipelined
-    step, which is not ported yet."""
+def resolve_plan_step(step_fn, cfg=None, mesh=None, plan=None,
+                      with_stats=False, overlap=None, **step_kw):
+    """The callable a plan runs (reference :25). pp=1 (or no plan):
+    `step_fn` with `cfg` and the optimizer keywords bound. pp>1: the
+    family train step cannot run as it is (its layer loop needs every
+    layer, and the plan cuts the stacked layer axis over 'pp'), so the
+    callable is parallel/pipeline_train.py's pipelined step for (cfg,
+    plan, mesh), with the same (params, opt, batch) -> (loss, params,
+    opt) contract (plus the bubble fraction with `with_stats`), the
+    optimizer keywords forwarded to the shared apply_adamw."""
     if _plan_pp(plan) > 1:
-        raise NotImplementedError(
-            f"make_train_step: plan {getattr(plan, 'name', plan)} has "
-            "pp>1, and the pipelined pp>1 step is not ported yet (ROADMAP "
-            "A6, the pp>1 pipelined step)")
+        if mesh is None:
+            raise ValueError("a pp>1 plan needs mesh= (build it with "
+                             "plan.build_mesh())")
+        from ..parallel.pipeline_train import make_pp_step_fn
+        return make_pp_step_fn(cfg, plan, mesh, with_stats=with_stats,
+                               overlap=overlap, **step_kw)
     if cfg is not None:
         step_kw = dict(step_kw, cfg=cfg)
     return functools.partial(step_fn, **step_kw) if step_kw else step_fn
@@ -64,14 +73,24 @@ def make_train_step(step_fn, cfg=None, mesh=None, plan=None, overlap=None,
 
     With `mesh` (parallel.mesh.build_mesh, or `plan.build_mesh()`) and
     `plan` (parallel.planner.plan_train's TrainPlan), the step is the
-    planner-driven dp×fsdp×tp step, `_ShardedTrainStep`: each rank holds
-    the shards the plan's specs give it and runs the family step on
-    them. `overlap` (None: the plan's own field) is recorded and changes
+    planner-driven step: each rank holds the shards the plan's specs
+    give it and runs on them; `_ShardedTrainStep` for a dp×fsdp×tp
+    plan, `_PipelineTrainStep` (the 1F1B pipelined step,
+    parallel/pipeline_train.py) for a pp>1 plan, which needs the mesh.
+    `overlap` (None: the plan's own field) is recorded and changes
     nothing: the reference's overlap is a set of XLA compiler options
-    for the TPU that change nothing off the TPU either (reference
-    :234-249). A pp>1 plan raises NotImplementedError (ROADMAP A6)."""
+    for the TPU (reference :234-249) and, under pp, a gather prefetch
+    through its scan carry for XLA's scheduler; neither has a
+    counterpart in an eager step."""
     if overlap is None:
         overlap = bool(getattr(plan, "overlap", False))
+    if _plan_pp(plan) > 1:
+        def remake(mesh, plan):
+            return resolve_plan_step(step_fn, cfg=cfg, mesh=mesh, plan=plan,
+                                     with_stats=True, overlap=overlap,
+                                     **step_kw)
+        return _PipelineTrainStep(remake(mesh, plan), mesh, plan, cfg=cfg,
+                                  overlap=overlap, remake=remake)
     fn = resolve_plan_step(step_fn, cfg=cfg, plan=plan, **step_kw)
     if mesh is None:
         return fn
@@ -236,6 +255,59 @@ class _ShardedTrainStep:
                     out = all_gather(out, axis_group(self.mesh, axis), d)
             return out.clone() if out is leaf else out
         return _map_tree(full, tree)
+
+
+class _PipelineTrainStep(_ShardedTrainStep):
+    """make_train_step's pp>1 flavor (reference :478-512): the pins and
+    the shard and gather methods are the base class's (a stacked leaf's
+    pin cuts its layer axis over 'pp'), and the callable is the
+    pipelined step (parallel/pipeline_train.py), whose output carries a
+    trailing bubble fraction. The wrapper strips it, so callers see the
+    facade triple, and keeps the first call's as `bubble_fraction` (the
+    1F1B schedule's, which the plan's (pp, m) fix). The reference also publishes it as the
+    `train.bubble_fraction` gauge, which waits for the port of its
+    monitor (ROADMAP A7). `rebuild` retargets the step at another mesh
+    or plan and resets the measurement."""
+
+    def __init__(self, fn, mesh, plan, cfg=None, overlap=False,
+                 remake=None):
+        super().__init__(fn, mesh, plan, cfg=cfg, overlap=overlap)
+        self._remake = remake
+        self.bubble_fraction = None
+
+    def _derive(self, params, opt_state, batch):
+        super()._derive(params, opt_state, batch)
+        self._fn.leaf_specs = {k: s.spec for k, s in self.in_pins[0].items()}
+
+    def _run(self, fn, *args, batch):
+        # the pipelined step builds its own layouts
+        with use_mesh(self.mesh):
+            return fn(*args)
+
+    def __call__(self, params, opt_state, batch):
+        out = super().__call__(params, opt_state, batch)
+        if len(out) > 3 and self.bubble_fraction is None:
+            self.bubble_fraction = float(out[3])
+        return tuple(out[:3])
+
+    def loss_and_grads(self, params, batch):
+        """(global loss, this rank's reduced gradient shards) of the
+        pipelined step at the local `params`, for a full `batch`,
+        without an update."""
+        batch = self._local_batch(batch)
+        return self._run(self._fn.loss_and_grads, params, batch,
+                         batch=batch)
+
+    def rebuild(self, mesh=None, plan=None):
+        """The same object on another mesh or plan: the pipelined step
+        made again for them, the pins derived again from the next call,
+        and the bubble read again."""
+        self.mesh = mesh or self.mesh
+        self.plan = plan or self.plan
+        self._fn = self._remake(self.mesh, self.plan)
+        self.in_pins = self.out_pins = None
+        self.bubble_fraction = None
+        return self
 
 
 def _pin_at(pins, path):

@@ -7,7 +7,9 @@ as `context_fn`s of non-reentrant `torch.utils.checkpoint`:
   (aten.mm / aten.addmm) are saved, everything else is recomputed, the
   flash forward's `paddle_tpu_torch::flash_fwd` op included;
 - "dots_flash" (dots + save_only_these_names("flash_out")): the flash
-  forward's op is saved too, so the backward reruns no attention;
+  forward's op is saved too, so the backward reruns no attention; so is
+  `paddle_tpu_torch::flash_fwd_plain`, the plain forward that the kill
+  switches and PADDLE_TPU_ATTN_IMPL=xla run in its place;
 - "offload_dots" (offload_dot_with_no_batch_dims("device",
   "pinned_host")): what "dots" saves goes to pinned host memory and
   comes back for the recompute, which reruns everything else.
@@ -41,7 +43,8 @@ __all__ = ["POLICIES", "HOST_POOL"]
 
 _MATMULS = frozenset({torch.ops.aten.mm.default,
                       torch.ops.aten.addmm.default})
-_FLASH_FWD = torch.ops.paddle_tpu_torch.flash_fwd.default
+_FLASH_FWD = frozenset({torch.ops.paddle_tpu_torch.flash_fwd.default,
+                        torch.ops.paddle_tpu_torch.flash_fwd_plain.default})
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -51,7 +54,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _dots_flash_policy(ctx, op, *args, **kwargs):
     return (CheckpointPolicy.MUST_SAVE
-            if op in _MATMULS or op == _FLASH_FWD
+            if op in _MATMULS or op in _FLASH_FWD
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 

@@ -39,6 +39,21 @@ uses them:
   forward, all-gather backward, after a row-parallel matmul under
   sequence parallelism.
 
+The pipelined step's stage handoffs go point to point between pp
+neighbours through `exchange(slot, outgoing, group, shape, dtype,
+device)`: one schedule slot's transfers, each a (src, dst) pair of group
+ranks, in one order that every rank of the group passes alike. Each
+travels in the dtype it is given (the activation's):
+- "nccl": `dist.batch_isend_irecv` over the slot's sends and receives;
+- "gloo": gloo's own isend/irecv on CPU tensors, waited together;
+- "gloo_cuda_via_all_reduce": one all-reduce over the whole group per
+  transfer, the sender contributing the tensor and every other rank
+  -0.0 (the all-gather trick above: exact). Every handoff is then a
+  rendezvous of the group, so every rank must issue the same transfers
+  in the same order, those it neither sends nor receives included,
+  or the group deadlocks; the schedule (parallel/pipeline.py) gives
+  every rank the same slots.
+
 `out_dtype` casts a pair's result, so that each side of the pair
 communicates in the dtype it holds: an f32 partial product is reduced
 in f32 and rounded once to `out_dtype`, and its bf16 gradient travels
@@ -59,7 +74,7 @@ import torch.distributed as dist
 
 __all__ = ["ROUTES", "collective_route", "group_size", "all_gather",
            "reduce_scatter", "all_reduce", "psum", "pmean", "gather_from",
-           "copy_to", "reduce_from", "reduce_scatter_to"]
+           "copy_to", "reduce_from", "reduce_scatter_to", "exchange"]
 
 ROUTES = ("nccl", "gloo", "gloo_cuda_via_all_reduce")
 
@@ -84,8 +99,8 @@ def collective_route(group=None, device=None) -> str:
             else "gloo")
 
 
-def _route(group, x, route: Optional[str]) -> str:
-    route = route or collective_route(group, x.device)
+def _route(group, device, route: Optional[str]) -> str:
+    route = route or collective_route(group, device)
     if route not in ROUTES:
         raise ValueError(f"unknown collective route {route!r} {ROUTES}")
     return route
@@ -99,7 +114,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0,
     if n == 1:
         return x
     x = x.contiguous()
-    if _route(group, x, route) == "gloo_cuda_via_all_reduce":
+    if _route(group, x.device, route) == "gloo_cuda_via_all_reduce":
         buf = torch.full((n,) + tuple(x.shape), -0.0, dtype=x.dtype,
                          device=x.device)
         buf[dist.get_rank(group)] = x
@@ -121,7 +136,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0,
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
                          f"does not split over {n} ranks")
-    if _route(group, x, route) == "gloo_cuda_via_all_reduce":
+    if _route(group, x.device, route) == "gloo_cuda_via_all_reduce":
         buf = x.contiguous().clone()
         dist.all_reduce(buf, group=group)
         return buf.chunk(n, dim)[dist.get_rank(group)].contiguous()
@@ -137,10 +152,58 @@ def all_reduce(x: torch.Tensor, group, route: Optional[str] = None
     of one)."""
     if group_size(group) == 1:
         return x
-    _route(group, x, route)
+    _route(group, x.device, route)
     out = x.contiguous().clone()
     dist.all_reduce(out, group=group)
     return out
+
+
+def exchange(slot, outgoing, group, shape, dtype, device,
+             route: Optional[str] = None):
+    """One schedule slot's point-to-point handoffs within `group`.
+    `slot`: the slot's transfers as (src, dst) group ranks, the same
+    list in the same order on every rank of the group; `outgoing`:
+    {(src, dst): tensor} for the transfers this rank sends. Every
+    transfer carries a tensor of `shape` and `dtype`. Returns
+    {(src, dst): tensor} for the transfers this rank receives (new
+    tensors on `device`)."""
+    me = dist.get_rank(group)
+    route = _route(group, device, route)
+    got = {}
+    if route == "gloo_cuda_via_all_reduce":
+        for pair in slot:
+            src, dst = pair
+            if src == me:
+                buf = outgoing[pair].to(dtype).contiguous().clone()
+            else:
+                buf = torch.full(tuple(shape), -0.0, dtype=dtype,
+                                 device=device)
+            dist.all_reduce(buf, group=group)
+            if dst == me:
+                got[pair] = buf
+        return got
+    ops = []
+    for pair in slot:
+        src, dst = pair
+        if src == me:
+            t = outgoing[pair].to(dtype).contiguous()
+            peer = dist.get_global_rank(group, dst)
+            ops.append((dist.isend, t, peer))
+        elif dst == me:
+            got[pair] = torch.empty(tuple(shape), dtype=dtype,
+                                    device=device)
+            peer = dist.get_global_rank(group, src)
+            ops.append((dist.irecv, got[pair], peer))
+    if not ops:
+        return got
+    if route == "nccl":
+        waits = dist.batch_isend_irecv(
+            [dist.P2POp(fn, t, peer, group) for fn, t, peer in ops])
+    else:
+        waits = [fn(t, peer, group=group) for fn, t, peer in ops]
+    for w in waits:
+        w.wait()
+    return got
 
 
 def _axis_groups(axis_name, mesh):

@@ -17,11 +17,11 @@ relies on is the ORDERING: TP pays activation all-reduces every layer,
 DP one gradient reduction, FSDP parameter all-gathers, PP its bubble.
 
 `plan_train` prices and returns pp>1 plans exactly as the reference
-does; the port's sharded step (models/facade.py) refuses them until the
-pipelined step is ported (ROADMAP A6). Not carried: `degrade_plan`
-(elastic training) and `plan_serving_tp` (tensor-parallel serving),
-both later A6 items, and the `train.plan.*` monitor gauges, which wait
-for A7's monitor.
+does, and models/facade.py runs them through the pipelined step
+(parallel/pipeline_train.py). Not carried: `degrade_plan` (elastic
+training, ROADMAP A6c) and `plan_serving_tp` (tensor-parallel serving,
+A6d), and the `train.plan.*` monitor gauges and the pipelined step's
+`train.bubble_fraction` gauge, which wait for A7's monitor.
 """
 from __future__ import annotations
 
@@ -401,8 +401,9 @@ class TrainPlan:
     PARAM_SPECS table remapped onto those axes (parallel.mesh.remap_specs
     — the TP split lands on `tp`, ZeRO-3 on `fsdp`; 'pp' drops to the
     per-rank layer loop in the 3D formulation, and survives as the
-    stage-chunk axis of a pp>1 plan, whose pipelined step is not ported
-    yet: ROADMAP A6); `batch_axes` names the axes the global batch
+    stage-chunk axis of a pp>1 plan, cutting every stacked leaf's layer
+    axis over the pipeline stages: parallel/pipeline_train.py);
+    `batch_axes` names the axes the global batch
     shards over (dp×fsdp). `plan` keeps the priced cost-model row the
     choice came from."""
     axes: Dict[str, int]

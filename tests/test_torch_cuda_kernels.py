@@ -1139,3 +1139,80 @@ def test_split_bufs_outgrown_after_capture_stay_alive(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     del junk
+
+
+# ------------------------------------------------------------- threefry
+THREEFRY_SHAPES = [(8, 32768), (8, 32000), (3, 40), (1, 1), (5, 1000003)]
+
+
+@pytest.mark.parametrize("rows,n", THREEFRY_SHAPES)
+def test_threefry_kernel_is_the_plain_bits(cuda_device, rows, n):
+    """The kernel's bits equal the plain int64 version's, to the bit, at
+    the serving draws' shapes ([slots, V] for GPT and Llama), ragged
+    ones and one past 2^20 elements a row."""
+    from paddle_tpu_torch.kernels import threefry as tf
+    g = torch.Generator(device=cuda_device).manual_seed(rows * 7 + n)
+    k1, k2 = (torch.randint(0, 2 ** 32, (rows,), generator=g,
+                            device=cuda_device, dtype=torch.int64)
+              for _ in range(2))
+    before = tf.launches["threefry_bits"]
+    got = tf.bits(k1, k2, n)
+    assert tf.launches["threefry_bits"] == before + 1
+    assert torch.equal(got, tf.bits_ref(k1, k2, n))
+    assert torch.equal(got, tf.bits(k1, k2, n))
+
+
+@pytest.mark.parametrize("rows,n", [(8, 32768), (8, 32000), (3, 40),
+                                    (70000, 3)])
+def test_threefry_kernel_folds_the_slot_keys(cuda_device, rows, n):
+    """One launch folds each row's (request id, token index) into the
+    seed's key and draws: the plain version's bits to the bit, under a
+    Python-int or a per-row base key, int64 data too, one fold or two,
+    and more rows than a grid's y dimension holds."""
+    from paddle_tpu_torch.inference import prng
+    from paddle_tpu_torch.kernels import threefry as tf
+    g = torch.Generator(device=cuda_device).manual_seed(rows * 3 + n)
+    rid, gi = (torch.randint(-2 ** 31, 2 ** 31, (rows,), generator=g,
+                             device=cuda_device, dtype=torch.int64).to(
+        torch.int32) for _ in range(2))
+    s1, s2 = prng.prng_key(rows * 31 + n)
+    before = tf.launches["threefry_bits"]
+    got = tf.bits(s1, s2, n, (rid, gi))
+    assert tf.launches["threefry_bits"] == before + 1
+    want = tf.bits_ref(s1, s2, n, (rid, gi))
+    assert torch.equal(got, want)
+    full = [torch.full((rows,), w, dtype=torch.int64, device=cuda_device)
+            for w in (s1, s2)]
+    assert torch.equal(tf.bits(*full, n, (rid, gi)), want)
+    assert torch.equal(tf.bits(s1, s2, n, (rid.long(), gi.long())), want)
+    assert torch.equal(tf.bits(s1, s2, n, (rid,)),
+                       tf.bits_ref(s1, s2, n, (rid,)))
+
+
+def test_threefry_sampler_on_the_card_is_the_cpus(cuda_device):
+    """The sampler's whole draw (keys, kernel bits, uniforms, Gumbel,
+    the full and top-k picks) on the card equals the CPU's plain one,
+    through one kernel launch."""
+    from paddle_tpu_torch.inference import serving as srv
+    g = torch.Generator().manual_seed(3)
+    lg = torch.randn(8, 32000, generator=g) * 3
+    temps = torch.tensor([0.0, 0.5, 1.0, 2.0, 0.8, 1.0, 0.0, 1.5])
+    top_ks = torch.tensor([0, 0, 40, 20, 0, 5, 3, 40], dtype=torch.int32)
+    rid = torch.arange(8, dtype=torch.int32) * 5
+    gi = torch.tensor([0, 1, 2, 3, 60, 9, 4, 11], dtype=torch.int32)
+    from paddle_tpu_torch.kernels import threefry as tf
+    want = srv._sample(lg, temps, top_ks, 11, rid, gi, 40)
+    before = tf.launches["threefry_bits"]
+    got = srv._sample(*(t.to(cuda_device) for t in (lg, temps, top_ks)),
+                      11, rid.to(cuda_device), gi.to(cuda_device), 40)
+    assert tf.launches["threefry_bits"] == before + 1   # the one draw
+    assert torch.equal(got.cpu(), want)
+
+
+def test_threefry_wrapper_raises_on_bad_operands(cuda_device):
+    from paddle_tpu_torch.kernels import threefry as tf
+    k = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        tf.bits(k.int(), k.int(), 8)
+    with pytest.raises(ValueError):
+        tf.bits(k, k[:3], 8)

@@ -242,18 +242,23 @@ def test_remat_recomputes_the_attention_forward_and_dots_saves_matmuls(
 
 
 def test_make_train_step_has_no_sharded_step_yet():
-    """The 3D (pp = 1) sharded step exists (tests/test_torch_plan3d.py);
-    the pipelined pp > 1 step does not yet, and a pp > 1 plan, priced by
-    the planner as the reference prices it, is refused naming ROADMAP
-    A6, with or without a mesh."""
+    """Without a mesh a plan gives the plain step callable; a pp > 1
+    plan, priced by the planner as the reference prices it, needs the
+    mesh its pipelined step runs on (the reference's refusal), and with
+    one goes to the pipelined step's own checks
+    (tests/test_torch_plan4d.py runs it)."""
+    import types
     from paddle_tpu_torch.parallel.planner import plan_train
     plan = plan_train(_tcfg(), 2, 4, dp=1, fsdp=1, tp=1, pp=2)
-    assert plan.pp == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        make_train_step(tg.train_step, cfg=_tcfg(), mesh=object(),
-                        plan=plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    assert plan.pp == 2 and plan.microbatches == 4
+    with pytest.raises(ValueError, match="pp>1 plan needs mesh="):
         make_train_step(tg.train_step, cfg=_tcfg(), plan=plan)
+    mesh = types.SimpleNamespace(mesh_dim_names=("dp", "pp"), shape=(1, 2))
+    with pytest.raises(ValueError, match="lacks \\['fsdp', 'tp'\\]"):
+        make_train_step(tg.train_step, cfg=_tcfg(), mesh=mesh, plan=plan)
+    plan3 = plan_train(_tcfg(), 1, 4, dp=1, fsdp=1, tp=1)
+    assert isinstance(make_train_step(tg.train_step, cfg=_tcfg(),
+                                      plan=plan3), functools.partial)
 
 
 def test_model_forward_and_loss_over_the_functional_core(ref):

@@ -11,8 +11,9 @@ Llama step at chip_smoke.py's phase 4 configuration (TinyLlama widths,
 batch 4 x 2048, full remat, the fused update forced) for 5 steps from
 phase 4's starting state, which stands in for phase 4's trajectory,
 launches a step and p50, then runs chip_smoke.py's phase 6: 6a, the
-sharded step on one rank, and 6b, its tp2 and fsdp2 plans on two ranks
-(sharing the one card over gloo where there is one). A short call for
+sharded step on one rank, and 6b, its plans on two ranks (tp2, fsdp2
+and the pipelined pp2; sharing the one card over gloo where there is
+one). A short call for
 iterating on the sharded step; chip_smoke.py is the full check. Exits
 non-zero without a card or when a build or check fails.
 """
