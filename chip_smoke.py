@@ -126,16 +126,18 @@ Phases, each failing the script (non-zero exit) when it fails:
    else beyond such a tie. The f64 logits of the two tokens at the
    parting (at step 2 where the streams agree) are printed beside the
    kernel's and the plain version's.
-5b. Llama serving at TinyLlama-1.1B widths (the phase 4 config, random
-   weights from seed 0 drawn on the host): the int8 ServingEngine,
-   family "llama", 8 slots, max_len 2048, 16 requests (prompt lengths
-   16..1024 from a seeded rng, 64 new tokens each, two sampled with
-   top-k), exactly 155 launches per prefill and per tick (22 layers x 7
-   leaves + the head), and the checks, profile and fp engine of phase
-   5, but for the one-step rule at a parting: there the 22-layer stack
-   carries two faithful roundings apart by more than one bf16 step, and
-   the greedy verdict rests on the f64 bound of every int8 call of both
-   replays (155 a forward).
+5b. Llama serving at TinyLlama-1.1B widths and LLAMA_SERVE_LAYERS = 11
+   of its 22 layers (phases 5b, 5c and 5d (a)-(d); the first 11 layers
+   of the phase 4 config's random weights, drawn on the host from seed
+   0 at full depth; 5d's host tier runs all 22): the int8
+   ServingEngine, family "llama", 8 slots, max_len 2048, 16 requests
+   (prompt lengths 16..1024 from a seeded rng, 64 new tokens each, two
+   sampled with top-k), exactly 78 launches per prefill and per tick
+   (11 layers x 7 leaves + the head), and the checks, profile and fp
+   engine of phase 5, but for the one-step rule at a parting: there the
+   Llama stack carries two faithful roundings apart by more than one
+   bf16 step, and the greedy verdict rests on the f64 bound of every
+   int8 call of both replays (78 a forward).
 5c. Paged and speculative Llama serving at TinyLlama-1.1B widths, on
    phase 5b's host-drawn weights: the int8 engine with kv_layout
    "paged", page_size 16, prefill_chunk 256 and 513 pages (half the
@@ -145,9 +147,9 @@ Phases, each failing the script (non-zero exit) when it fails:
    requests 14 and 15 repeating request 0's prompt (every page mapped,
    the last one copied), requests 3 and 11 sampled with top-k. Then a
    dense engine on the same prompts, the paged engine with spec_decode
-   "spec", gamma 4 and draft_layers 11, and the dense one with it. Each
-   run: every request ends "length"; exactly 155 launches a prefill
-   chunk (a prefill, dense) and a tick, 155 + 4 x (11 x 7 + 1) = 467 a
+   "spec", gamma 4 and draft_layers 5, and the dense one with it. Each
+   run: every request ends "length"; exactly 78 launches a prefill
+   chunk (a prefill, dense) and a tick, 78 + 4 x (5 x 7 + 1) = 222 a
    spec tick; the page pool checked after every step (table references
    equal refcounts, every page free, cached or live, reservations
    conserved, no slot mapping a page past its position) and at the end
@@ -167,7 +169,7 @@ Phases, each failing the script (non-zero exit) when it fails:
    (paged, paged spec, dense spec, 5c's requests) at multi_tick=4, where
    a dispatch runs 4 ticks and, after each sampling flag's eager
    warm-up, is one CUDA graph replay. Each run: every request ends
-   "length"; each warm-up launches exactly 4 x 155 (4 x 467 spec)
+   "length"; each warm-up launches exactly 4 x 78 (4 x 222 spec)
    int8 kernels, each capture records exactly as many, the replays
    launch the rest (graph_replays = dispatches - warm-ups, at most 2
    graphs); the pool checked after every step;
@@ -186,7 +188,10 @@ Phases, each failing the script (non-zero exit) when it fails:
    with 1025 pages: spills and swap-ins > 0, the tier's streams equal
    the 1025-page engine's token for token and the tier-less engine's or
    each parting passes the verdict; bytes, drops, ms a swapped-in page,
-   round-2 chunks and prefill p50 of each engine.
+   round-2 chunks and prefill p50 of each engine. The host tier runs the
+   full 22 layers (155 launches a pass), 5d (a)-(d) the 11 of 5b and 5c:
+   their streams are held to the K = 1 engines of 5b and 5c, so their
+   depth is those engines'.
 6. The planner-driven dp×fsdp×tp train step (paddle_tpu_torch/parallel,
    models/facade.py make_train_step(mesh=, plan=)) at phase 4's
    configuration, from phase 4's starting state (seed 0, drawn again).
@@ -227,8 +232,32 @@ Phases, each failing the script (non-zero exit) when it fails:
    handoff timed between two synchronizes (the schedule's gaps, the
    route's cost, and the measured share of the step spent waiting in
    handoffs).
+6c. Checkpoints (paddle_tpu_torch/parallel/checkpoint.py). (a) Phase
+   4's configuration and starting state on one rank: 2 steps,
+   CheckpointManager.save_async of the 12.4 GB state, step 3 while the
+   writer runs, steps 4-5, wait() and verify_checkpoint, the snapshot
+   loaded into fresh buffers with template=, steps 3-5 again: equal to
+   the uninterrupted ones to the bit; the bytes, save_async's host ms
+   and its copies' device ms (and again into the kept pinned buffers),
+   the writer's seconds and GB/s, verify and restore seconds, the free
+   disk before and after, and the resilient guard's copy and check ms
+   on that state (the check must catch a planted inf, -inf and nan).
+   (b) Inside 6b: the fsdp2 plan saves synchronously after its step 2,
+   each rank its half, out of the timed steps; after the pp2 plan's
+   steps the snapshot is restored onto pp2: every params, m and v
+   marginal (a leaf's sum of squares at each index of each dim, added
+   over the ranks) equals the saved state's within 1e-9, and 3 steps
+   run within 1e-3 of fsdp2's steps 3-5, every rank the same losses. The resilience drill (parallel/resilience.py): one rank,
+   TinyLlama widths at 4 layers, a ResilientTrainer (keep 2 snapshots,
+   one every 2 steps, rollback after 3 skips, a 120 s watchdog) clean
+   and under nan@3:3: each skip leaves every param and moment equal to
+   the bit, the rollback to step 2 re-runs the clean run's losses and
+   final state to the bit; a 2 s stall under a 0.5 s budget with no
+   retries raises StepHungError. Each part deletes its snapshots in a
+   finally and fails when the disk has less free space than it writes.
 7. The seconds each phase took, the kernels line (the eight ported
-   kernels and the threefry bits kernel),
+   kernels and the threefry bits kernel, launches from 6c and the
+   drill included),
    the card line, and as the last
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
    1}}.
@@ -265,6 +294,11 @@ LLAMA = dict(vocab_size=32000, hidden_size=2048, num_layers=22,
              num_heads=32, num_kv_heads=4, max_seq_len=2048,
              rope_theta=10000.0, rms_eps=1e-5)
 LLAMA_BATCH, LLAMA_SEQ = 4, 2048
+# the Llama serving phases 5b, 5c and 5d (a)-(d) run the first 11 of the
+# 22 layers: the same widths and leaf shapes, half the depth, which pays
+# for phase 6c and the resilience drill within TIME_LIMIT_S (PERF.md);
+# 5d's host tier runs all 22
+LLAMA_SERVE_LAYERS = 11
 _D, _L, _F, _KV = 2048, 22, 5632, 4 * 64
 LLAMA_LEAVES = {"wte": (32000, _D), "norm_f": (_D,), "attn_norm": (_L, _D),
                 "q_w": (_L, _D, _D), "k_w": (_L, _D, _KV),
@@ -621,6 +655,15 @@ SHARDED_PLANS = {"dp1_fsdp1_tp2": {"dp": 1, "fsdp": 1, "tp": 2},
                                        "pp": 2, "microbatches": 4}}
 SHARDED_HEADS = {"dp1_fsdp1_tp2": (16, 2), "dp1_fsdp2_tp1": (32, 4),
                  "dp1_fsdp1_tp1_pp2": (32, 4)}
+# phase 6c (b): 6b's plan that saves after its step 2, and the plan that
+# restores that snapshot after its own steps and runs RESUME_STEPS more
+CKPT_SAVE_PLAN, CKPT_LOAD_PLAN = "dp1_fsdp2_tp1", "dp1_fsdp1_tp1_pp2"
+RESUME_STEPS = 3
+# 6c (b)'s gates: the resumed losses against fsdp2's own steps 3-5
+# (relative; runs on an H100 read 1.79e-5, the same bits each run), and
+# each full-leaf marginal of the restored state against the saved one's
+# (relative; f64 sums in another order differ by ~1e-15)
+RESUME_TOL, MARGINAL_RTOL = 1e-3, 1e-9
 
 
 def plan_pp(name):
@@ -2348,13 +2391,20 @@ def serving(torch, qm, dev, card):
 
 def llama_host_params():
     """The TinyLlama-width config and its weights, drawn on the host from
-    seed 0 once for phases 5b and 5c (the draw takes ~15 s)."""
+    seed 0 once for phases 5b-5d (the draw takes ~15 s): (full config,
+    full weights, the config at LLAMA_SERVE_LAYERS layers, its weights
+    as the first layers of each stacked leaf, views with no second
+    draw)."""
     from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
     cfg = LlamaConfig(**LLAMA)
     t0 = time.perf_counter()
     params = init_llama_params(cfg, seed=0, device="cpu")
     log(f"llama host params drawn in {time.perf_counter() - t0:.1f} s")
-    return cfg, params
+    cut = LlamaConfig(**dict(LLAMA, num_layers=LLAMA_SERVE_LAYERS))
+    stacked = {k for k, shape in LLAMA_LEAVES.items() if shape[0] == _L}
+    cut_params = {k: v[:LLAMA_SERVE_LAYERS] if k in stacked else v
+                  for k, v in params.items()}
+    return cfg, params, cut, cut_params
 
 
 def llama_prompts(vocab):
@@ -2377,7 +2427,7 @@ def llama_serving(torch, qm, dev, card, cfg, params):
 # phase 5c: the paged and speculative Llama engines
 PAGED = dict(kv_layout="paged", page_size=16, prefill_chunk=256,
              num_pages=513)
-SPEC = dict(spec_decode="spec", gamma=4, draft_layers=11)
+SPEC = dict(spec_decode="spec", gamma=4, draft_layers=5)
 SAMPLED = {3: (0.8, 40), 11: (1.0, 20)}
 
 
@@ -3180,6 +3230,129 @@ def handoff_profile(torch, step, params, opt, tokens):
             "handoff_share": sum(handoff) / step_ms}
 
 
+def disk_check(path, need, label):
+    """Free bytes under `path` (shutil.disk_usage, printed); fails, with
+    both numbers, when fewer than the `need` bytes the phase will
+    write."""
+    import shutil
+    free = shutil.disk_usage(path).free
+    log(json.dumps({"phase": f"{label}_disk", "dir": path,
+                    "free_bytes": free, "will_write_bytes": need}))
+    if free < need:
+        raise AssertionError(f"{label}: {free} B free under {path}, the "
+                             f"phase writes {need} B")
+    return free
+
+
+def state_marginals(torch, pins, params, opt, world):
+    """6c (b)'s fingerprint of a sharded state, independent of the
+    checkpoint code: for each params, m and v leaf and each of its dims,
+    the sum of x² over the other dims at every global index of that dim
+    (f64 sums of f32 squares), from this rank's block placed at its
+    offset in the full leaf (the pin's local_index) and divided by the
+    number of ranks holding the same block, so the ranks' vectors add up
+    to the full leaf's under any plan (a halving is exact). A stage's
+    layers swapped, a block at the wrong offset, or another step's
+    state moves it. Returns {key: [one list a dim]}."""
+    out = {}
+    for name, tree, tpins in (("params", params, pins[0]),
+                              ("m", opt["m"], pins[1]["m"]),
+                              ("v", opt["v"], pins[1]["v"])):
+        for k, t in tree.items():
+            idx = tpins[k].local_index()
+            holders = world // math.prod(n for _, n in idx)
+            sq = t.detach().float().square()
+            rows = []
+            for d in range(t.dim()):
+                i, n = idx[d] if d < len(idx) else (0, 1)
+                size = t.shape[d]
+                others = [e for e in range(t.dim()) if e != d]
+                part = (sq.sum(dim=others, dtype=torch.float64) if others
+                        else sq.double())
+                full = torch.zeros(size * n, dtype=torch.float64)
+                full[i * size:(i + 1) * size] = part.cpu() / holders
+                rows.append(full.tolist())
+            out[f"{name}/{k}"] = rows
+            del sq
+    return out
+
+
+def summed_marginals(parts):
+    """The ranks' state_marginals added up: the full leaves'."""
+    out = {}
+    for part in parts:
+        for key, rows in part.items():
+            have = out.setdefault(key, [np.zeros(len(r)) for r in rows])
+            for acc, r in zip(have, rows):
+                acc += np.asarray(r)
+    return out
+
+
+def rank_save(torch, step, params, opt, mgr, at):
+    """6c (b): this rank's part of a synchronous save of the sharded
+    state after step `at` (each rank its replica-0 blocks, one commit).
+    Returns the seconds, the bytes this rank wrote, the free disk and
+    the state's marginals (state_marginals)."""
+    import shutil
+    free = disk_check(mgr.root, 3 * 4 * sum(
+        math.prod(s) for s in LLAMA_LEAVES.values()), "llama_ckpt_6c_b")
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    path = mgr.save({"params": params, "opt_state": opt,
+                     "step": np.int64(at)}, at,
+                    shardings={"params": step.in_pins[0],
+                               "opt_state": step.in_pins[1]})
+    secs = time.perf_counter() - t_s
+    import torch.distributed as dist
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    mine = f".s{dist.get_rank()}.npy"
+    written = sum(sh["bytes"] for e in leaves.values()
+                  if e["kind"] == "array" for sh in e["shards"]
+                  if sh["file"].endswith(mine))
+    total = sum(sh["bytes"] for e in leaves.values()
+                if e["kind"] == "array" for sh in e["shards"])
+    return {"save_s": secs, "bytes_written": written,
+            "checkpoint_bytes": total, "free_before": free,
+            "free_after": shutil.disk_usage(mgr.root).free, "path": path,
+            "marginals": state_marginals(torch, step.in_pins, params, opt,
+                                         dist.get_world_size())}
+
+
+def rank_resume(torch, step, plan, mgr, tokens, host):
+    """6c (b): the snapshot restored onto this rank's plan (`plan`'s
+    specs: under pp2 a stage's half of every stacked leaf), the step
+    pinned from the full shapes, RESUME_STEPS steps on it. Rank 0 then
+    deletes the snapshot (both ranks hold it in memory once their first
+    step's collectives meet). Returns the losses, step times, restore
+    seconds, restored step, the restored optimizer step and the restored
+    state's marginals (state_marginals, taken before the steps update
+    it in place)."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel.resilience import plan_state_specs
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    state, at = mgr.restore(mesh=step.mesh, specs=plan_state_specs(plan))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t_s
+    shapes = {k: tuple(v.shape) for k, v in host.items()}
+    step.adopt_shapes(shapes, {"m": shapes, "v": shapes, "step": ()})
+    local = {k: list(v.shape) for k, v in state["params"].items()}
+    marginals = state_marginals(torch, step.in_pins, state["params"],
+                                state["opt_state"], dist.get_world_size())
+    opt_step = float(state["opt_state"]["step"])
+    losses, ms = timed_losses(torch, step, state["params"],
+                              state["opt_state"], tokens, RESUME_STEPS)
+    if dist.get_rank() == 0:
+        import shutil
+        shutil.rmtree(mgr.root, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": ms, "restore_s": restore_s,
+            "restored_step": at, "shard_shapes": local,
+            "opt_step": opt_step, "marginals": marginals}
+
+
 def _sharded_rank(rank, world, workdir, backend):
     """One rank of phase 6b, in its own process: joins the 2-rank group
     through a file store, draws phase 4's starting state on the host,
@@ -3229,6 +3402,10 @@ def _sharded_rank(rank, world, workdir, backend):
             del full
             torch.cuda.empty_cache()
             out["seconds"]["unsharded_step1"] = time.perf_counter() - t_s
+        from paddle_tpu_torch.parallel.checkpoint import CheckpointManager
+        # 6c (b)'s snapshot, in the phase's temporary directory
+        mgr = CheckpointManager(os.path.join(workdir, "ckpt_6c"),
+                                max_to_keep=1)
         dist.barrier()
         for name, axes in SHARDED_PLANS.items():
             t_s = time.perf_counter()
@@ -3269,8 +3446,20 @@ def _sharded_rank(rank, world, workdir, backend):
                 t_s = time.perf_counter()
                 with kernel_shapes() as shapes:
                     zero_launch_counts()          # the main path starts
-                    row["losses"], row["step_ms"] = timed_losses(
-                        torch, step, params, opt, tokens, 5)
+                    if name == CKPT_SAVE_PLAN:
+                        # 6c (b): a synchronous save after step 2, out of
+                        # the timed steps (it launches no kernel)
+                        row["losses"], row["step_ms"] = timed_losses(
+                            torch, step, params, opt, tokens, 2)
+                        row["checkpoint"] = rank_save(
+                            torch, step, params, opt, mgr, 2)
+                        more = timed_losses(torch, step, params, opt,
+                                            tokens, 3)
+                        row["losses"] += more[0]
+                        row["step_ms"] += more[1]
+                    else:
+                        row["losses"], row["step_ms"] = timed_losses(
+                            torch, step, params, opt, tokens, 5)
                     row["launches"] = launch_counts()  # ... and ends
                 row["kernel_shapes"] = shapes
                 secs["five_steps"] = time.perf_counter() - t_s
@@ -3284,6 +3473,14 @@ def _sharded_rank(rank, world, workdir, backend):
                     row["handoff_profile"] = handoff_profile(
                         torch, step, params, opt, tokens)
                     secs["handoff_profile"] = time.perf_counter() - t_s
+                if name == CKPT_LOAD_PLAN:
+                    del params, opt
+                    torch.cuda.empty_cache()
+                    t_s = time.perf_counter()
+                    row["resumed"] = rank_resume(torch, step, plan, mgr,
+                                                 tokens, host)
+                    secs["restore_and_resume"] = time.perf_counter() - t_s
+                    params = opt = None
             row["seconds"] = secs
             out[plan.name] = row
             del step, params, opt
@@ -3422,6 +3619,74 @@ def check_two_ranks(results, p6a, card):
     return out
 
 
+def check_resume(results, card):
+    """6c (b)'s verdict: both ranks wrote their halves of one snapshot of
+    the fsdp2 state after its step 2; restored onto pp2 (each rank a
+    stage's half of the stacked leaves, shard_shapes), the restored
+    state's marginals equal the saved state's (MARGINAL_RTOL: every
+    params, m and v value in its place), its RESUME_STEPS losses lie
+    within RESUME_TOL of fsdp2's own steps 3-5, and every rank reports
+    the same global losses. Prints one line."""
+    saves = [res[CKPT_SAVE_PLAN]["checkpoint"] for res in results]
+    resumed = [res[CKPT_LOAD_PLAN]["resumed"] for res in results]
+    want = results[0][CKPT_SAVE_PLAN]["losses"][2:2 + RESUME_STEPS]
+    got = resumed[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    total = saves[0]["checkpoint_bytes"]
+    saved = summed_marginals(c.pop("marginals") for c in saves)
+    restored = summed_marginals(r.pop("marginals") for r in resumed)
+    off, worst = [], 0.0
+    for key in sorted(set(saved) | set(restored)):
+        a, b = saved.get(key), restored.get(key)
+        if a is None or b is None or [len(x) for x in a] != \
+                [len(x) for x in b]:
+            off.append(key)
+            continue
+        for d, (x, y) in enumerate(zip(a, b)):
+            diff = np.abs(y - x)
+            worst = max(worst, float(np.max(diff / np.maximum(
+                x, np.finfo(np.float64).tiny))))
+            if not np.all(diff <= MARGINAL_RTOL * x):
+                off.append(f"{key} dim {d}")
+    line = {
+        "phase": "llama_ckpt_fsdp2_to_pp2", "card": card,
+        "saved_plan": CKPT_SAVE_PLAN, "restored_plan": CKPT_LOAD_PLAN,
+        "checkpoint_bytes": total,
+        "bytes_written_by_rank": [c["bytes_written"] for c in saves],
+        "save_s_by_rank": [c["save_s"] for c in saves],
+        "save_gb_per_s": total / max(c["save_s"] for c in saves) / 1e9,
+        "free_disk_before_after": [saves[0]["free_before"],
+                                   saves[0]["free_after"]],
+        "restore_s_by_rank": [r["restore_s"] for r in resumed],
+        "restored_step_by_rank": [r["restored_step"] for r in resumed],
+        "restored_opt_step_by_rank": [r["opt_step"] for r in resumed],
+        "marginals_checked": sum(len(x) for x in saved.values()),
+        "marginals_max_rel_diff": worst, "marginals_off": off,
+        "losses_by_rank": [r["losses"] for r in resumed],
+        "saved_plan_steps_3_5": want, "rel_diff": rel,
+        "max_rel_diff": max(rel),
+        "step_ms_by_rank": [r["step_ms"] for r in resumed]}
+    log(json.dumps(line))
+    bad = []
+    if sum(line["bytes_written_by_rank"]) != total:
+        bad.append("bytes written")
+    if line["restored_step_by_rank"] != [2] * len(resumed) or \
+            line["restored_opt_step_by_rank"] != [2.0] * len(resumed):
+        bad.append("restored step")
+    if off or not saved:
+        bad.append("restored values")
+    if any(r["losses"] != got for r in resumed):
+        bad.append("ranks' losses differ")
+    if not all(math.isfinite(x) for x in got) or max(rel) > RESUME_TOL:
+        bad.append("trajectory")
+    local = {k: list(v) for k, v in shard_shapes(CKPT_LOAD_PLAN).items()}
+    if any(r["shard_shapes"] != local for r in resumed):
+        bad.append(f"restored shard shapes, want {local}")
+    if bad:
+        raise AssertionError(f"6c (b): {bad}: {line}")
+    return line
+
+
 def sharded_two_ranks(torch, card, p6a):
     """Phase 6b: the plans of SHARDED_PLANS on two spawned ranks at 6a's
     configuration and global batch: one card a rank over NCCL with two
@@ -3443,7 +3708,327 @@ def sharded_two_ranks(torch, card, p6a):
     finally:
         import shutil
         shutil.rmtree(workdir, ignore_errors=True)
-    return check_two_ranks(results, p6a, card)
+    out = check_two_ranks(results, p6a, card)
+    check_resume(results, card)
+    return out
+
+
+# phase 6c (a): the full-depth state saved asynchronously and resumed;
+# the drill: the resilient step at DRILL_LAYERS layers
+DRILL_LAYERS = 4
+DRILL_STEPS, DRILL_FAULT = 6, "nan@3:3"
+
+
+def guard_cost(torch, params, opt):
+    """What the resilient step's guard adds to a step on this state, on
+    the card: the pre-step copy of params and moments into kept buffers
+    (parallel/resilience.py `_Backup`, warm) and the finiteness check of
+    both trees with its host read, each timed with CUDA events over 3
+    runs; bytes: the copy reads and writes the state, the check reads
+    it."""
+    from paddle_tpu_torch.parallel.resilience import _Backup, _tree_finite
+    backup = _Backup()
+    backup.save(params, opt)
+    nbytes = backup.nbytes
+
+    def copy():
+        backup.save(params, opt)
+
+    def check():
+        bool(_tree_finite(params) & _tree_finite(opt))
+    out = {"state_bytes": nbytes, "copy_ms": event_ms(torch, copy, 3),
+           "copy_bytes": 2 * nbytes, "check_ms": event_ms(torch, check, 3),
+           "check_bytes": nbytes}
+    out["copy_bound_ms"] = 2 * nbytes / PEAK_BYTES * 1e3
+    out["check_bound_ms"] = nbytes / PEAK_BYTES * 1e3
+    # the check on the card sees one planted inf, -inf or nan in the
+    # largest leaf
+    leaf = max(params.values(), key=lambda t: t.numel()).view(-1)
+    keep = leaf[leaf.numel() // 2].clone()
+    out["check_catches"] = {}
+    for name, bad in (("inf", float("inf")), ("-inf", float("-inf")),
+                      ("nan", float("nan"))):
+        leaf[leaf.numel() // 2] = bad
+        out["check_catches"][name] = not bool(_tree_finite(params))
+        leaf[leaf.numel() // 2] = keep
+    out["check_clean"] = bool(_tree_finite(params) & _tree_finite(opt))
+    if not (all(out["check_catches"].values()) and out["check_clean"]):
+        raise AssertionError(f"the guard's finiteness check: {out}")
+    del backup
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_resume(torch, dev, card, p4):
+    """Phase 6c (a): phase 4's configuration and starting state (seed 0,
+    tokens seed 3, full remat, the fused update forced, the two-pass
+    CE), one rank, full depth: 2 steps; CheckpointManager.save_async of
+    the 12.4 GB state (pinned host buffers filled by copies queued on the
+    stream), step 3 while the writer runs, steps 4 and 5; wait(),
+    verify_checkpoint; the snapshot loaded into fresh buffers on the
+    card with template=, and steps 3-5 again from it, whose losses must
+    equal the uninterrupted steps 3-5 to the bit. A second snapshot
+    into the kept buffers times the step path's cost without the first
+    allocation; the guard's copy and check are timed on this state.
+    Prints the bytes, save_async's host ms and the copies' device ms,
+    the writer's seconds and GB/s, verify and restore seconds, and the
+    free disk before and after. The snapshot is deleted in a finally.
+    Returns the train kernels' launches over its 8 steps."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.facade import make_train_step
+    from paddle_tpu_torch.models.gpt import init_opt_state
+    from paddle_tpu_torch.parallel import checkpoint as ck
+    cfg = llama.LlamaConfig(**LLAMA, remat=True)
+    params = llama.init_llama_params(cfg, seed=0)
+    opt = init_opt_state(params)
+    tokens = train_tokens(torch, dev, cfg, LLAMA_BATCH, LLAMA_SEQ, 3)
+    nbytes = state_bytes(params, opt)
+    step = make_train_step(llama.train_step, cfg=cfg, **ADAMW)
+    root = tempfile.mkdtemp(prefix="chip_smoke_6c_")
+    line = {"phase": "llama_checkpoint_resume", "card": card,
+            "state_bytes": nbytes}
+    try:
+        line["free_disk_before"] = disk_check(root, nbytes,
+                                              "llama_checkpoint_resume")
+        mgr = ck.CheckpointManager(root, max_to_keep=1)
+        with forced_registry(fused_update="pallas"):
+            zero_launch_counts()                  # the main path starts
+            losses = [float(step(params, opt, tokens)[0]) for _ in range(2)]
+            state = {"params": params, "opt_state": opt,
+                     "step": np.int64(2)}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            ev[0].record()
+            path = mgr.save_async(state, 2)
+            ev[1].record()
+            line["save_async_host_ms"] = (time.perf_counter() - t_s) * 1e3
+            line["snapshot_bytes"] = mgr.last_snapshot_bytes
+            # step 3 while the writer runs: it updates the same tensors
+            losses.append(float(step(params, opt, tokens)[0]))
+            line["writer_pending_after_step3"] = mgr.async_pending
+            line["snapshot_copies_ms"] = ev[0].elapsed_time(ev[1])
+            losses += [float(step(params, opt, tokens)[0])
+                       for _ in range(2)]
+            t_s = time.perf_counter()
+            mgr.wait()
+            line["wait_after_step5_s"] = time.perf_counter() - t_s
+            line["write_s"] = mgr.last_write_s
+            line["write_gb_per_s"] = nbytes / mgr.last_write_s / 1e9
+            line["free_disk_written"] = shutil.disk_usage(root).free
+            t_s = time.perf_counter()
+            ck.verify_checkpoint(path)
+            line["verify_s"] = time.perf_counter() - t_s
+            # the step path's cost once the pinned buffers exist
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            ev[0].record()
+            again = ck.HostSnapshot(state, pool=mgr._pool)
+            ev[1].record()
+            line["snapshot_reuse_host_ms"] = (time.perf_counter() - t_s) * 1e3
+            again.wait()
+            line["snapshot_reuse_copies_ms"] = ev[0].elapsed_time(ev[1])
+            line["snapshot_reuse_alloc_bytes"] = again.alloc_bytes
+            del again
+            line["guard"] = guard_cost(torch, params, opt)
+            template = {"params": params, "opt_state": opt, "step": None}
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            got = ck.load_sharded(path, mesh=None, template=template,
+                                  verify=False, device=dev)
+            torch.cuda.synchronize()
+            line["restore_s"] = time.perf_counter() - t_s
+            line["restored_step"] = int(got["step"])
+            line["fresh_buffers"] = all(
+                got["params"][k].data_ptr() != params[k].data_ptr()
+                for k in params)
+            resumed = [float(step(got["params"], got["opt_state"],
+                                  tokens)[0]) for _ in range(3)]
+            launches = launch_counts()            # ... and ends
+        del got, mgr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        line["free_disk_after"] = shutil.disk_usage(
+            os.path.dirname(root)).free
+    del params, opt, state, tokens, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = p4["train"]["launches_per_step"]
+    line.update({"losses": losses, "resumed_steps_3_5": resumed,
+                 "phase4_losses": p4["trajectory"],
+                 "equal_to_phase4": losses == p4["trajectory"],
+                 "resumed_bitwise_equal": resumed == losses[2:],
+                 "launches": launches})
+    log(json.dumps(line))
+    if resumed != losses[2:] or line["restored_step"] != 2 or \
+            not line["fresh_buffers"]:
+        raise AssertionError(f"6c (a): resumed {resumed} != uninterrupted "
+                             f"{losses[2:]} (or step/buffers): {line}")
+    if launches != {k: 8 * v for k, v in per_step.items()}:
+        raise AssertionError(f"6c (a): launches {launches} over 8 steps, "
+                             f"phase 4 {per_step} a step")
+    return launches
+
+
+def drill_tokens(torch, dev, cfg, s):
+    return train_tokens(torch, dev, cfg, LLAMA_BATCH, LLAMA_SEQ, 100 + s)
+
+
+def resilience_drill(torch, dev, card):
+    """The resilient step drill (parallel/resilience.py): one rank,
+    TinyLlama widths at DRILL_LAYERS layers, batch 4 x 2048, full remat,
+    the fused update forced, a batch a step (seed 100 + step). A clean
+    ResilientTrainer (CheckpointManager(max_to_keep=2), checkpoint_every
+    2, rollback_after 3, a 120 s watchdog, so every step runs on the
+    watchdog's thread) runs DRILL_STEPS steps; another from the same
+    state under DRILL_FAULT: three skips, each leaving every param and
+    moment equal to its pre-step value to the bit, then a rollback to
+    the step-2 snapshot and on to step 6, its re-run losses and final
+    state equal to the clean run's to the bit. Then a 2 s stall inside
+    the step under a 0.5 s budget with 0 retries must raise
+    StepHungError (the stalled step is waited out before the phase
+    ends). The guard's copy and check are timed on this state. Returns
+    the train kernels' launches over the two runs' steps."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.gpt import init_opt_state
+    from paddle_tpu_torch.parallel import resilience
+    from paddle_tpu_torch.parallel.checkpoint import CheckpointManager
+    from paddle_tpu_torch.testing import faults
+    cfg = llama.LlamaConfig(**dict(LLAMA, num_layers=DRILL_LAYERS),
+                            remat=True)
+    L = cfg.num_layers
+    init = llama.init_llama_params(cfg, seed=0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+
+    def trainer(name, **cfg_kw):
+        params = {k: v.clone() for k, v in init.items()}
+        return resilience.ResilientTrainer(
+            llama.train_step, params, init_opt_state(params), cfg=cfg,
+            manager=CheckpointManager(os.path.join(root, name),
+                                      max_to_keep=2),
+            config=resilience.ResilienceConfig(
+                checkpoint_every=2, rollback_after=3, watchdog_timeout=120.0,
+                retries=0, **cfg_kw), **ADAMW)
+
+    def state(tr):
+        return {"p": tr.params, "m": tr.opt_state["m"],
+                "v": tr.opt_state["v"], "step": tr.opt_state["step"]}
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                   else same(a[k], b[k]) for k in a)
+
+    def clone(tree):
+        return {k: v.clone() if isinstance(v, torch.Tensor) else clone(v)
+                for k, v in tree.items()}
+    line = {"phase": "llama_resilience_drill", "card": card, "layers": L,
+            "fault": DRILL_FAULT}
+    try:
+        # at most 2 kept snapshots and 1 being staged at a time
+        nbytes = 3 * 4 * sum(p.numel() for p in init.values())
+        line["free_disk_before"] = disk_check(root, 3 * nbytes,
+                                              "llama_resilience_drill")
+        with forced_registry(fused_update="pallas"):
+            zero_launch_counts()                  # the main path starts
+            t_s = time.perf_counter()
+            clean = trainer("clean")
+            traj = {}
+            resilience.run_resilient(
+                clean, lambda s: drill_tokens(torch, dev, cfg, s),
+                DRILL_STEPS, on_step=lambda s, loss, ok: traj.setdefault(
+                    s, []).append((loss, ok)))
+            line["clean_s"] = time.perf_counter() - t_s
+            clean_state = clone(state(clean))
+            shutil.rmtree(clean.manager.root, ignore_errors=True)
+            del clean
+            t_s = time.perf_counter()
+            tr = trainer("fault")
+            fault_traj, skip_equal, box = {}, [], {}
+            rollback = tr._rollback
+
+            def checked_rollback():
+                # the skip that ends the streak, before the state rewinds
+                skip_equal.append(same(box["before"], state(tr)))
+                rollback()
+            tr._rollback = checked_rollback
+            faults.install(DRILL_FAULT, once_dir=None)
+            try:
+                while tr.step < DRILL_STEPS:
+                    s, rolled = tr.step, tr.rollbacks
+                    box["before"] = clone(state(tr))
+                    loss, ok = tr.train_step(drill_tokens(torch, dev, cfg,
+                                                          s))
+                    fault_traj.setdefault(s, []).append((loss, ok))
+                    if not ok and tr.rollbacks == rolled:
+                        skip_equal.append(same(box["before"], state(tr)))
+                    box.clear()
+            finally:
+                faults.uninstall()
+                tr._rollback = rollback
+            line["fault_s"] = time.perf_counter() - t_s
+            launches = launch_counts()            # ... and ends
+            executed = sum(len(v) for v in traj.values()) + sum(
+                len(v) for v in fault_traj.values())
+            line.update({
+                "clean": traj, "faulted": fault_traj,
+                "skipped": tr.skipped, "rollbacks": tr.rollbacks,
+                "step": tr.step, "skips_bit_equal": skip_equal,
+                "rerun_equal_clean": all(fault_traj[s][-1] == traj[s][-1]
+                                         for s in traj),
+                "final_equal_clean": same(clean_state, state(tr)),
+                "snapshots": tr.manager.steps(),
+                "steps_executed": executed, "launches": launches,
+                "guard": guard_cost(torch, tr.params, tr.opt_state)})
+            del clean_state
+            # a 2 s stall inside the step under a 0.5 s budget
+            tr.config.watchdog_timeout, tr.config.retries = 0.5, 0
+            tr.manager = None
+            stalled = tr._puller._res
+            resilience._STEP_HOOK = lambda step: (time.sleep(2.0), 1.0)[1]
+            t_s = time.perf_counter()
+            try:
+                tr.train_step(drill_tokens(torch, dev, cfg, tr.step))
+                line["stall"] = "no StepHungError"
+            except resilience.StepHungError as e:
+                line["stall"] = f"StepHungError after " \
+                    f"{time.perf_counter() - t_s:.3f} s: {e}"
+            finally:
+                resilience._STEP_HOOK = None
+            # the stalled step runs on after its budget: wait it out
+            stalled.get(timeout=120)
+            torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del tr, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps(line))
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "ce_fwd": 1, "ce_bwd": 1, "leaf_update": 11}
+    bad = []
+    if (line["skipped"], line["rollbacks"], line["step"]) != (3, 1,
+                                                              DRILL_STEPS):
+        bad.append("skips/rollbacks/step")
+    if skip_equal != [True] * 3:
+        bad.append("a skipped step changed the state")
+    if [s for s in sorted(fault_traj) if len(fault_traj[s]) > 1] != \
+            [2, 3, 4, 5] or not line["rerun_equal_clean"] or \
+            not line["final_equal_clean"]:
+        bad.append("the re-run after the rollback is not the clean run's")
+    if not all(ok and math.isfinite(loss) for v in traj.values()
+               for loss, ok in v):
+        bad.append("the clean run skipped")
+    if not line["stall"].startswith("StepHungError"):
+        bad.append("stall")
+    if launches != {k: executed * per_step.get(k, 0) for k in launches}:
+        bad.append(f"launches, want {executed} x {per_step}")
+    if bad:
+        raise AssertionError(f"drill: {bad}")
+    return launches
 
 
 def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
@@ -3459,7 +4044,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
     kernels' launches over phase 3b; `tiles` the forward's times at both
     q tiles and the autotune's picks; `sharded` the train kernels'
     {path: launches} of phase 6 (6a's 5 steps; 6b's, both ranks and
-    its 3D plans summed, and its pipelined plan's); `tf_rows` the
+    its 3D plans summed, and its pipelined plan's; 6c (a)'s 8 steps and
+    the drill's steps, skipped ones included); `tf_rows` the
     threefry kernel's check rows, `sampler` its launches by serving
     phase."""
 
@@ -3494,13 +4080,16 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                                              "bound_by", "library_ms")},
         "f64_bound": f64,
         "per": "one GPT decode tick at M=8: 24 layers x 4 leaves + the head "
-               "(97 launches); llama_tick: 22 x 7 + 1 = 155; from the "
+               "(97 launches); llama_tick: a full-depth tick, 22 x 7 + 1 "
+               "= 155; from the "
                "kernel_check lines; launches over the 16-request serving "
-               "run of each family, of phase 5c's paged and paged spec "
-               "engines (467 a spec tick), and of phase 5d's multi-tick "
-               "engines and host tier runs, where the wrapper counts the "
-               "prefills and each sampling flag's eager warm-up dispatch "
-               "(4 x 155 or 4 x 467) and the CUDA graph replays launch "
+               "run of each family (Llama's at LLAMA_SERVE_LAYERS = 11 "
+               "layers: 78 a pass), of phase 5c's paged and paged spec "
+               "engines (222 a spec tick), and of phase 5d's multi-tick "
+               "engines (11 layers) and host tier runs (22 layers, 155 a "
+               "pass), where the wrapper counts the prefills and each "
+               "sampling flag's eager warm-up dispatch (4 x 78, 4 x 222 "
+               "or 4 x 155) and the CUDA graph replays launch "
                "the rest: replay_launches_by_path, replays x 4 x the "
                "tick's calls (each capture checked to record exactly "
                "4 x the tick's calls), and for the four 5d engines the "
@@ -3530,9 +4119,11 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                    "bf16 causal (the GPT step's [8, 1024, 16, 64] is in "
                    "its kernel_check line); launches over the 10 timed "
                    "steps of each train path, over phase 3b's timed "
-                   "and route steps (gpt_race), and over phase 6's 5 "
+                   "and route steps (gpt_race), over phase 6's 5 "
                    "steps on one rank and on two (both ranks, the 3D "
-                   "plans, and the pipelined plan); on_shards: at a "
+                   "plans, and the pipelined plan), and over 6c (a)'s 8 "
+                   "steps and the resilience drill's 16 (4 layers, "
+                   "skipped steps included); on_shards: at a "
                    "rank's [B, S, H, 64] under each of phase 6b's plans "
                    "(SHARDED_ATTN: a "
                    "microbatch's [1, 2048, 32, 64] under pp2), checked "
@@ -3571,7 +4162,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
             "on_shards": on_shards(pair_rows, SHARDED_CE, name),
             "per": "one call at the Llama train step's [8192, 32000] bf16 "
                    "logits; launches over the 10 timed steps of each "
-                   "train path and phase 6's steps; on_shards: at a "
+                   "train path and phase 6's steps (6c and the drill "
+                   "included); on_shards: at a "
                    "rank's [T, 32000] under each of phase 6b's 3D plans "
                    "(SHARDED_CE; the pipelined step launches none)"})
     upd = upd_rows["step"]
@@ -3590,7 +4182,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                "TinyLlama-width tree in f32, summed (library: one "
                "torch._fused_adamw_ call over all 11); launches over the "
                "10 timed steps of each train path and phase 6's steps "
-               "(on local shards); on_shards: one rank's update of its "
+               "(on local shards; 6c and the drill included); "
+               "on_shards: one rank's update of its "
                "11 shards under each of phase 6b's plans (shard_shapes; "
                "under pp2 a stage's half of each stacked leaf and the "
                "whole wte and norm_f)"})
@@ -3701,8 +4294,9 @@ def main():
         "gpt_serving": sampling_phase("gpt_serving", serving, torch, qm,
                                       dev, card)[0]}
     # phases 5b-5d share the host-drawn TinyLlama-width weights and
-    # their int8 rewrite
-    lcfg, lparams = llama_host_params()
+    # their int8 rewrite: 5b, 5c and 5d (a)-(d) the first
+    # LLAMA_SERVE_LAYERS layers, the host tier all of them
+    full_cfg, full_params, lcfg, lparams = llama_host_params()
     with quantize_once():
         serving_launches["llama_serving"], k1 = sampling_phase(
             "llama_serving", llama_serving, torch, qm, dev, card, lcfg,
@@ -3718,10 +4312,10 @@ def main():
         serving_launches.update(mt_launches)
         del k1, k1c
         serving_launches["llama_host_tier"], tier_replays = sampling_phase(
-            "llama_host_tier", host_tier_serving, torch, qm, dev, card, lcfg,
-            lparams)
+            "llama_host_tier", host_tier_serving, torch, qm, dev, card,
+            full_cfg, full_params)
         replay_launches["llama_host_tier"] = {"replays": tier_replays}
-    del lparams
+    del lparams, full_params
     # every serving phase with sampled requests drew through the kernel
     # (the host tier's requests are greedy)
     unsampled = [k for k in SAMPLING_PHASES
@@ -3739,6 +4333,10 @@ def main():
                                 if (plan_pp(name) > 1) == pp
                                 for c in ranks)
                          for k in p6a["launches"]}
+    sharded["llama_checkpoint_resume"] = phase(
+        "llama_checkpoint_resume", checkpoint_resume, torch, dev, card, p4)
+    sharded["llama_resilience_drill"] = phase(
+        "llama_resilience_drill", resilience_drill, torch, dev, card)
     log(json.dumps({"phase": "memory_allocated_after", **held}))
     total = time.perf_counter() - t_start
     log(json.dumps({"phase": "seconds", **seconds, "total": total,

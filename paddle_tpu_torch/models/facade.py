@@ -5,13 +5,18 @@ family's cached serving engine, on one leaf-holding base,
 callable.
 
 Counterpart of paddle_tpu/models/facade.py (`resolve_plan_step` :25,
-`make_train_step` :95, `_ShardedTrainStep` :186-475,
-`_PipelineTrainStep` :478-512, `FacadeModel` :515
+`plan_step_cell` :62, `make_train_step` :95, `_ShardedTrainStep`
+:186-475 with its `rebuild` :430 and
+`_PipelineTrainStep` :478-512 folded in, `FacadeModel` :515
 with its `generate`), paddle_tpu/models/gpt.py
 `GPTModel` (`forward` :650, `loss` :658) and paddle_tpu/models/llama.py
 `LlamaModel` (:350-367). The leaves live on the module: floating leaves
 as frozen nn.Parameters, integer leaves (a quantized tree's int8 pairs)
 as buffers, under the reference's leaf names.
+
+Not carried: the sharded step's `oom_forensics` flight dump (reference
+:400) and the `facade_train_step_builds` / `_rebuilds` counters, which
+wait for ROADMAP A7's monitor and flight recorder.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from .gpt import gpt_forward, gpt_loss, init_gpt_params
 from .llama import init_llama_params, llama_forward
 
 __all__ = ["FacadeModel", "GPTModel", "LlamaModel", "make_train_step",
-           "resolve_plan_step"]
+           "resolve_plan_step", "plan_step_cell"]
 
 
 def _plan_pp(plan) -> int:
@@ -63,6 +68,35 @@ def resolve_plan_step(step_fn, cfg=None, mesh=None, plan=None,
     return functools.partial(step_fn, **step_kw) if step_kw else step_fn
 
 
+class _PlanStepCell:
+    """The resolution cell of a plan's step (reference `plan_step_cell`
+    :62): `fn` is the CURRENT resolved step (resolve_plan_step: the
+    pipelined step under a pp>1 plan, whose leaf specs the facade's
+    step sets); `rebuild(mesh, plan)` resolves it again for another
+    mesh and plan (a pp step holds its stage grid; a 3D one nothing of
+    the mesh). The reference hands a wrapper a fresh forwarding callable
+    at each rebuild because jax's tracing cache keys on function
+    identity; an eager step has no such cache, so the cell is re-resolved
+    in place and every caller keeps its callable. A wrapper of the step
+    (the resilient guard) calls `cell.fn` and marks itself with
+    `wrapper._plan_cell = cell`, which make_train_step reads."""
+
+    def __init__(self, step_fn, cfg, mesh, plan, step_kw):
+        self._step_fn, self._cfg, self._step_kw = step_fn, cfg, step_kw
+        self.fn = None
+        self.rebuild(mesh, plan)
+
+    def rebuild(self, mesh, plan) -> None:
+        self.fn = resolve_plan_step(self._step_fn, cfg=self._cfg,
+                                    mesh=mesh, plan=plan, **self._step_kw)
+
+
+def plan_step_cell(step_fn, cfg=None, mesh=None, plan=None, **step_kw):
+    """A _PlanStepCell over resolve_plan_step(step_fn, cfg, mesh, plan,
+    **step_kw)."""
+    return _PlanStepCell(step_fn, cfg, mesh, plan, step_kw)
+
+
 def make_train_step(step_fn, cfg=None, mesh=None, plan=None, overlap=None,
                     **step_kw):
     """The step callable `(params, opt_state, batch) -> (loss, params,
@@ -73,28 +107,29 @@ def make_train_step(step_fn, cfg=None, mesh=None, plan=None, overlap=None,
 
     With `mesh` (parallel.mesh.build_mesh, or `plan.build_mesh()`) and
     `plan` (parallel.planner.plan_train's TrainPlan), the step is the
-    planner-driven step: each rank holds the shards the plan's specs
-    give it and runs on them; `_ShardedTrainStep` for a dp×fsdp×tp
-    plan, `_PipelineTrainStep` (the 1F1B pipelined step,
-    parallel/pipeline_train.py) for a pp>1 plan, which needs the mesh.
-    `overlap` (None: the plan's own field) is recorded and changes
-    nothing: the reference's overlap is a set of XLA compiler options
-    for the TPU (reference :234-249) and, under pp, a gather prefetch
-    through its scan carry for XLA's scheduler; neither has a
-    counterpart in an eager step."""
+    planner-driven `_ShardedTrainStep`: each rank holds the shards the
+    plan's specs give it and runs on them, dp×fsdp×tp, or the 1F1B
+    pipelined step (parallel/pipeline_train.py) for a pp>1 plan, which
+    needs the mesh. A `step_fn` marked `_plan_cell` (the resilient
+    guard over plan_step_cell) is run as it is over its cell, extra
+    arguments and outputs passing through. `overlap` (None: the plan's
+    own field) is recorded and changes nothing: the reference's overlap
+    is a set of XLA compiler options for the TPU (reference :234-249)
+    and, under pp, a gather prefetch through its scan carry for XLA's
+    scheduler; neither has a counterpart in an eager step."""
     if overlap is None:
         overlap = bool(getattr(plan, "overlap", False))
-    if _plan_pp(plan) > 1:
-        def remake(mesh, plan):
-            return resolve_plan_step(step_fn, cfg=cfg, mesh=mesh, plan=plan,
-                                     with_stats=True, overlap=overlap,
-                                     **step_kw)
-        return _PipelineTrainStep(remake(mesh, plan), mesh, plan, cfg=cfg,
-                                  overlap=overlap, remake=remake)
-    fn = resolve_plan_step(step_fn, cfg=cfg, plan=plan, **step_kw)
+    cell = getattr(step_fn, "_plan_cell", None)
+    if cell is not None:
+        if mesh is None:
+            return step_fn
+        return _ShardedTrainStep(cell, mesh, plan, cfg=cfg, overlap=overlap,
+                                 wrapper=step_fn)
+    cell = plan_step_cell(step_fn, cfg=cfg, mesh=mesh, plan=plan,
+                          overlap=overlap, **step_kw)
     if mesh is None:
-        return fn
-    return _ShardedTrainStep(fn, mesh, plan, cfg=cfg, overlap=overlap)
+        return cell.fn
+    return _ShardedTrainStep(cell, mesh, plan, cfg=cfg, overlap=overlap)
 
 
 def _map_tree(fn, tree, path=()):
@@ -104,39 +139,76 @@ def _map_tree(fn, tree, path=()):
     return fn(path, tree)
 
 
-class _ShardedTrainStep:
-    """The planner-driven dp×fsdp×tp train step (reference :186-475).
+def _shape_of(path, leaf):
+    """A leaf's full shape: the leaf's own, or the leaf is the shape."""
+    return tuple(leaf) if isinstance(leaf, (tuple, list)) \
+        else tuple(leaf.shape)
 
-    Pins come from the first call's shapes (`in_pins`: params, opt
-    state, batch; `out_pins`: loss, params, opt state), as the
-    reference's in/out shardings do:
+
+class _ShardedTrainStep:
+    """The planner-driven train step (reference :186-475), dp×fsdp×tp or,
+    under a pp>1 plan, pipelined.
+
+    Pins come from the full shapes (`in_pins`: params, opt state,
+    batch; `out_pins`: loss, params, opt state), as the reference's
+    in/out shardings do:
     - every params and opt leaf pins by its leaf name through
       `plan.specs` (Adam's m and v mirror the param tree, so their
       moments shard like their params; unknown names, as opt["step"],
-      replicate), shape-aware per parallel.mesh.sharding_for;
+      replicate), shape-aware per parallel.mesh.sharding_for; under pp
+      a stacked leaf's pin cuts its layer axis over 'pp';
     - the batch's leading dim splits over the plan's `batch_axes`
       (dp×fsdp), degrading to replicated when it does not divide.
+
+    The reference's pp>1 flavor, `_PipelineTrainStep` (:478-512), is
+    this class under a pp>1 plan: whether a call pipelines is read from
+    the current plan, so `rebuild` can cross between 3D and pp. Its
+    `bubble_fraction` is the first call's (the 1F1B schedule's, which
+    the plan's (pp, m) fix); the reference also publishes it as the
+    `train.bubble_fraction` gauge, which waits for the port of its
+    monitor (ROADMAP A7).
 
     Leaves are plain local tensors beside that pin table. `shard_args`
     turns full trees (numpy or tensors) into this rank's shards; the
     first call shards the trees it is given and returns the local ones,
-    later calls take the local trees back and a full batch. A call runs
-    the family step under a `ShardLayout` (parallel/layout.py): the
-    model gathers and splits weights as the layout says, the gradients
-    are summed over the ranks that hold the same shard, and the update
-    (`apply_adamw`, through the fused_update kernel where the registry
-    says) runs on the local shards, in place. The loss it returns is
-    the global batch's mean, the same on every rank."""
+    later calls take the local trees back and a full batch.
+    `adopt_shapes` pins the state from its full shapes without a call
+    (for local trees that came from elsewhere, as a checkpoint restored
+    onto this plan); the next call then takes local trees. A 3D call
+    runs the family step under a `ShardLayout` (parallel/layout.py):
+    the model gathers and splits weights as the layout says, the
+    gradients are summed over the ranks that hold the same shard, and
+    the update (`apply_adamw`, through the fused_update kernel where
+    the registry says) runs on the local shards, in place. A pp call
+    runs the pipelined step, which builds its own layouts. The loss is
+    the global batch's mean, the same on every rank. Arguments past
+    the batch (the resilient guard's poison) pass through to the
+    `wrapper`, as its outputs past the triple do. `rebuild` retargets
+    the same object at another mesh or plan (the elastic replan seam,
+    reference :430)."""
 
-    def __init__(self, fn, mesh, plan, cfg=None, overlap=False):
-        self._fn = fn
+    def __init__(self, cell, mesh, plan, cfg=None, overlap=False,
+                 wrapper=None):
+        self._cell = cell
+        self._wrapper = wrapper
         self.mesh = mesh
         self.plan = plan
         self.cfg = cfg
         self.overlap = bool(overlap)
         self.in_pins = None
         self.out_pins = None
+        self._global = None
         self._derived = 0
+        self.bubble_fraction = None
+
+    @property
+    def _pp(self) -> bool:
+        return _plan_pp(self.plan) > 1
+
+    @property
+    def _fn(self):
+        """The resolved step (the PipelinedStep under pp)."""
+        return self._cell.fn
 
     # ----------------------------------------------------------- pins
     def _specs(self):
@@ -147,7 +219,7 @@ class _ShardedTrainStep:
         specs = self._specs()
         return _map_tree(lambda path, leaf: sharding_for(
             specs.get(leaf_path_name(path), P()), self.mesh,
-            shape=tuple(leaf.shape)), tree)
+            shape=_shape_of(path, leaf)), tree)
 
     def _batch_pins(self, tree):
         def pin(path, leaf):
@@ -161,14 +233,29 @@ class _ShardedTrainStep:
         rep = sharding_for(P(), self.mesh)
         return _map_tree(lambda path, leaf: rep, tree)
 
-    def _derive(self, params, opt_state, batch):
+    def adopt_shapes(self, params, opt_state):
+        """Pin the params and opt state from their FULL shapes (trees of
+        tensors, arrays or shape tuples) without a call; the batch pins
+        at the next call, which takes local trees."""
         self.in_pins = (self._state_pins(params),
-                        self._state_pins(opt_state),
-                        self._batch_pins(batch))
+                        self._state_pins(opt_state), None)
         self.out_pins = (self._replicated_pins(torch.zeros(())),
                          self.in_pins[0], self.in_pins[1])
-        self._global = tuple(_map_tree(lambda path, leaf: tuple(leaf.shape),
-                                       t) for t in (params, opt_state, batch))
+        self._global = (_map_tree(_shape_of, params),
+                        _map_tree(_shape_of, opt_state), None)
+        if self._pp:
+            self._fn.leaf_specs = {k: s.spec
+                                        for k, s in self.in_pins[0].items()}
+
+    def _derive(self, params, opt_state, batch):
+        self.adopt_shapes(params, opt_state)
+        self._pin_batch(batch)
+
+    def _pin_batch(self, batch):
+        """The batch pins, which complete a derivation."""
+        self.in_pins = self.in_pins[:2] + (self._batch_pins(batch),)
+        self._global = self._global[:2] + (
+            _map_tree(lambda path, leaf: tuple(leaf.shape), batch),)
         self._derived += 1
 
     @property
@@ -184,6 +271,8 @@ class _ShardedTrainStep:
         call derives the pins from these shapes."""
         if self.in_pins is None:
             self._derive(params, opt_state, batch)
+        elif self.in_pins[2] is None:
+            self._pin_batch(batch)
         trees = (params, opt_state, batch)
         for tree, shapes in zip(trees, self._global):
             got = _map_tree(lambda path, leaf: tuple(leaf.shape), tree)
@@ -195,6 +284,8 @@ class _ShardedTrainStep:
             for tree, pins in zip(trees, self.in_pins))
 
     def _local_batch(self, batch):
+        if self.in_pins[2] is None:
+            self._pin_batch(batch)
         shapes = _map_tree(lambda path, leaf: tuple(leaf.shape), batch)
         if shapes != self._global[2]:
             raise ValueError(f"sharded step: batch shapes {shapes}, want "
@@ -217,25 +308,36 @@ class _ShardedTrainStep:
                         else ("dp", "fsdp")))
 
     def _run(self, fn, *args, batch):
+        if self._pp:
+            # the pipelined step builds its own layouts
+            with use_mesh(self.mesh):
+                return fn(*args)
         with use_mesh(self.mesh), use_layout(self._layout(batch)):
             return fn(*args)
 
     # ----------------------------------------------------------- calls
-    def __call__(self, params, opt_state, batch):
+    def __call__(self, params, opt_state, batch, *rest):
         if self.in_pins is None:
             params, opt_state, batch = self.shard_args(params, opt_state,
                                                        batch)
         else:
             batch = self._local_batch(batch)
-        return self._run(self._fn, params, opt_state, batch, batch=batch)
+        out = self._run(self._wrapper or self._fn, params, opt_state,
+                        batch, *rest, batch=batch)
+        if self._pp and self.bubble_fraction is None:
+            self.bubble_fraction = float(self._fn.bubble)
+        return out
 
     def loss_and_grads(self, params, batch):
-        """(global loss, this rank's reduced gradient shards) of the
-        config family's loss at the local `params`, for a full `batch`,
-        without an update: what the step's update consumes."""
+        """(global loss, this rank's reduced gradient shards) at the
+        local `params`, for a full `batch`, without an update: what the
+        step's update consumes."""
+        batch = self._local_batch(batch)
+        if self._pp:
+            return self._run(self._fn.loss_and_grads, params, batch,
+                             batch=batch)
         import sys
         family = sys.modules[type(self.cfg).__module__]
-        batch = self._local_batch(batch)
         return self._run(family.loss_and_grads, params, batch, self.cfg,
                          batch=batch)
 
@@ -256,57 +358,20 @@ class _ShardedTrainStep:
             return out.clone() if out is leaf else out
         return _map_tree(full, tree)
 
-
-class _PipelineTrainStep(_ShardedTrainStep):
-    """make_train_step's pp>1 flavor (reference :478-512): the pins and
-    the shard and gather methods are the base class's (a stacked leaf's
-    pin cuts its layer axis over 'pp'), and the callable is the
-    pipelined step (parallel/pipeline_train.py), whose output carries a
-    trailing bubble fraction. The wrapper strips it, so callers see the
-    facade triple, and keeps the first call's as `bubble_fraction` (the
-    1F1B schedule's, which the plan's (pp, m) fix). The reference also publishes it as the
-    `train.bubble_fraction` gauge, which waits for the port of its
-    monitor (ROADMAP A7). `rebuild` retargets the step at another mesh
-    or plan and resets the measurement."""
-
-    def __init__(self, fn, mesh, plan, cfg=None, overlap=False,
-                 remake=None):
-        super().__init__(fn, mesh, plan, cfg=cfg, overlap=overlap)
-        self._remake = remake
-        self.bubble_fraction = None
-
-    def _derive(self, params, opt_state, batch):
-        super()._derive(params, opt_state, batch)
-        self._fn.leaf_specs = {k: s.spec for k, s in self.in_pins[0].items()}
-
-    def _run(self, fn, *args, batch):
-        # the pipelined step builds its own layouts
-        with use_mesh(self.mesh):
-            return fn(*args)
-
-    def __call__(self, params, opt_state, batch):
-        out = super().__call__(params, opt_state, batch)
-        if len(out) > 3 and self.bubble_fraction is None:
-            self.bubble_fraction = float(out[3])
-        return tuple(out[:3])
-
-    def loss_and_grads(self, params, batch):
-        """(global loss, this rank's reduced gradient shards) of the
-        pipelined step at the local `params`, for a full `batch`,
-        without an update."""
-        batch = self._local_batch(batch)
-        return self._run(self._fn.loss_and_grads, params, batch,
-                         batch=batch)
-
     def rebuild(self, mesh=None, plan=None):
-        """The same object on another mesh or plan: the pipelined step
-        made again for them, the pins derived again from the next call,
-        and the bubble read again."""
-        self.mesh = mesh or self.mesh
-        self.plan = plan or self.plan
-        self._fn = self._remake(self.mesh, self.plan)
-        self.in_pins = self.out_pins = None
+        """The same object on another mesh or plan (reference :430):
+        the cell's step resolved again for them (a wrapper keeps calling
+        the cell), the pins derived again from the next call (or
+        `adopt_shapes`), and the bubble read again."""
+        if mesh is not None:
+            self.mesh = mesh
+        if plan is not None:
+            self.plan = plan
+        self.in_pins = self.out_pins = self._global = None
         self.bubble_fraction = None
+        self._derived = 0
+        self._cell.rebuild(self.mesh, self.plan)
+        # waits for A7: the facade_train_step_rebuilds counter
         return self
 
 

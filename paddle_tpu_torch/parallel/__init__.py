@@ -3,11 +3,13 @@ counterpart of paddle_tpu/parallel/ for the planner-driven train step:
 the process-group bootstrap (env), the DeviceMesh and its partition
 specs (mesh), the step's collectives and stage handoffs (collective),
 the cost model's plan search (planner), the layout the sharded step
-hands its model (layout, the port's own), and for pp>1 plans the 1F1B
-schedule (pipeline) and the pipelined step (pipeline_train).
+hands its model (layout, the port's own), for pp>1 plans the 1F1B
+schedule (pipeline) and the pipelined step (pipeline_train), sharded
+checkpoints that load under another plan (checkpoint), and the
+resilient step with skip, rollback and watchdog (resilience).
 
 One process drives one rank and one device; launch N ranks with
-`torchrun --nproc_per_node=N`. Sharded checkpoints, elastic training,
+`torchrun --nproc_per_node=N`. Elastic training (A6c part 2),
 tensor-parallel serving, MoE and context parallelism are later ROADMAP
 A6 items.
 """
@@ -30,3 +32,10 @@ from .pipeline import (  # noqa: F401
     bubble_fraction, naive_bubble_fraction, one_f_one_b, timeline,
     schedule_stats)
 from .pipeline_train import make_pp_step_fn  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    save_sharded, load_sharded, save_train_state, load_train_state,
+    verify_checkpoint, CheckpointManager, CheckpointCorruptError,
+    AsyncSaveError, HostSnapshot, Converter)
+from .resilience import (  # noqa: F401
+    ResilienceConfig, ResilientTrainer, StepHungError, make_resilient_step,
+    plan_state_specs, pull_with_watchdog, run_resilient, WatchdogPuller)

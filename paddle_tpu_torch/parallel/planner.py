@@ -18,10 +18,13 @@ DP one gradient reduction, FSDP parameter all-gathers, PP its bubble.
 
 `plan_train` prices and returns pp>1 plans exactly as the reference
 does, and models/facade.py runs them through the pipelined step
-(parallel/pipeline_train.py). Not carried: `degrade_plan` (elastic
-training, ROADMAP A6c) and `plan_serving_tp` (tensor-parallel serving,
-A6d), and the `train.plan.*` monitor gauges and the pipelined step's
-`train.bubble_fraction` gauge, which wait for A7's monitor.
+(parallel/pipeline_train.py); a trainer moves between plans through
+`_ShardedTrainStep.rebuild` and a checkpoint restored onto the new
+plan (parallel/resilience.py `ResilientTrainer.rebuild_plan`). Not
+carried: `degrade_plan` (the elastic controller's replan onto fewer
+devices, ROADMAP A6c part 2) and `plan_serving_tp` (tensor-parallel
+serving, A6d), and the `train.plan.*` monitor gauges and the pipelined
+step's `train.bubble_fraction` gauge, which wait for A7's monitor.
 """
 from __future__ import annotations
 

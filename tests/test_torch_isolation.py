@@ -47,7 +47,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "inference.spec_decode", "inference.multi_tick",
                 "inference.host_kv", "parallel", "parallel.env",
                 "parallel.mesh", "parallel.collective", "parallel.planner",
-                "parallel.layout"):
+                "parallel.layout", "parallel.checkpoint",
+                "parallel.resilience", "distributed.launch.heartbeat",
+                "testing.faults"):
         assert f"paddle_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

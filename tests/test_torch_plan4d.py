@@ -1,5 +1,5 @@
 """The port's pipelined pp>1 train step (parallel/pipeline_train.py,
-models/facade.py `_PipelineTrainStep`, the 1F1B schedule of
+models/facade.py `_ShardedTrainStep` under pp, the 1F1B schedule of
 parallel/pipeline.py and the stage handoffs of parallel/collective.py)
 against the JAX package's unsharded step, on the CPU over gloo.
 

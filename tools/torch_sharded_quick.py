@@ -13,13 +13,19 @@ phase 4's starting state, which stands in for phase 4's trajectory,
 launches a step and p50, then runs chip_smoke.py's phase 6: 6a, the
 sharded step on one rank, and 6b, its plans on two ranks (tp2, fsdp2
 and the pipelined pp2; sharing the one card over gloo where there is
-one). A short call for
+one) with 6c (b), fsdp2's snapshot restored onto pp2; then 6c (a), the
+full-depth state saved asynchronously and resumed, and the resilience
+drill. Prints the free disk of the temporary directory and each part's
+seconds. A short call for
 iterating on the sharded step; chip_smoke.py is the full check. Exits
 non-zero without a card or when a build or check fails.
 """
 import os
+import shutil
 import statistics
 import sys
+import tempfile
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,8 +71,23 @@ def main():
     print({"unsharded": p4}, flush=True)
     del step, params, opt, tokens
     torch.cuda.empty_cache()
+    tmp = tempfile.gettempdir()
+    print({"tmp": tmp, "free_bytes": shutil.disk_usage(tmp).free,
+           "cwd_free_bytes": shutil.disk_usage(HERE).free}, flush=True)
+    seconds = {}
+    t0 = time.perf_counter()
     p6a = cs.sharded_one_rank(torch, dev, card, p4)
+    seconds["6a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cs.sharded_two_ranks(torch, card, p6a)
+    seconds["6b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs.checkpoint_resume(torch, dev, card, p4)
+    seconds["6c_a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs.resilience_drill(torch, dev, card)
+    seconds["drill"] = time.perf_counter() - t0
+    print({"seconds": seconds}, flush=True)
     print("torch_sharded_quick: ok")
     return 0
 
