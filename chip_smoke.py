@@ -192,6 +192,29 @@ Phases, each failing the script (non-zero exit) when it fails:
    full 22 layers (155 launches a pass), 5d (a)-(d) the 11 of 5b and 5c:
    their streams are held to the K = 1 engines of 5b and 5c, so their
    depth is those engines'.
+5e. Tensor-parallel Llama serving (ServingEngine(mesh=), parallel/
+   layout.py ServingLayout): first the int8 kernel at M 8 on every
+   leaf shape a tp2 rank holds (TP_LEAF_KN: q [2048, 1024], o [1024,
+   2048], k/v [2048, 128], gate/up [2048, 2816], down [2816, 2048],
+   the head [2048, 16000]), against its plain version (timed beside
+   the library and the bound) and against the f64 bound, each call on
+   its own input. Then 5b's int8 engine (TinyLlama widths, 11 layers,
+   8 slots, max_len 2048) on a tp2 mesh over two spawned ranks (one
+   card each over NCCL where there are two; on one card both share it
+   over gloo, every tp collective an all-reduce through the host: the
+   tick times measure the host link, not scaling), each rank cutting
+   5b's int8 tree to its shards: 10 of 5b's 16 requests on the dense
+   engine, K = 1, then 10 of 5c's (request 3 sampled; 14 and 15,
+   repeating request 0's prompt, queued behind the 8 slots) on the paged
+   engine with spec decode, 16 new tokens each. Each run:
+   every request ends "length", each rank launches exactly 78 int8
+   kernels a pass and 222 a spec tick and the threefry kernel once a
+   sampled pass and tick, the pool checked after every step; both
+   ranks' streams identical, and each equal to 5b's (dense) or 5c's
+   paged spec engine's, or its parting passes 5b's verdict along the
+   single-card path; tick ms p50/p90 a rank, the tp collectives a
+   dispatch, peak memory a rank, and plan_serving_tp's pick for this
+   model on 1 and on 2 devices.
 6. The planner-driven dp×fsdp×tp train step (paddle_tpu_torch/parallel,
    models/facade.py make_train_step(mesh=, plan=)) at phase 4's
    configuration, from phase 4's starting state (seed 0, drawn again).
@@ -204,14 +227,18 @@ Phases, each failing the script (non-zero exit) when it fails:
    on one card, both on it over gloo, every collective an all-reduce
    through parallel/collective.py's route for CUDA tensors), the plans
    tp2 (dp1×fsdp1×tp2) and fsdp2 (dp1×fsdp2×tp1) at the same global
-   batch: step 1's loss within 2e-3 relative of 6a's and every
-   gradient leaf's cosine >= 0.999 against the unsharded step 1 from
-   the same state (phase 4's tolerances), the 5-step trajectory within
-   1e-2 of 6a's, each leaf's step-1 gradient norm within 1e-2 of the
-   unsharded one's (a wrong loss scale or a sum where a mean belongs
-   moves it by 2x; cosine and AdamW cannot see it), exactly 6a's
-   launches a step on each rank, each rank's heads (tp2: 16 query and
-   2 KV), its params and moments at most 51% of 6a's, its peak and
+   batch and widths, SHARDED_LAYERS = 4 layers deep (every collective
+   crosses the host on one card, in bytes that grow with the depth),
+   held to the unsharded step at that depth from the same state (seed
+   0), which rank 0 runs first: step 1's loss within 2e-3 relative of
+   the unsharded one's and every gradient leaf's cosine >= 0.999
+   against the unsharded step 1 (phase 4's tolerances), the 5-step
+   trajectory within 1e-2 of the unsharded one's, each leaf's step-1
+   gradient norm within 1e-2 of the unsharded one's (a wrong loss
+   scale or a sum where a mean belongs moves it by 2x; cosine and
+   AdamW cannot see it), exactly the unsharded step's launches a step
+   on each rank, each rank's heads (tp2: 16 query and 2 KV), its
+   params and moments at most 51% of the unsharded state's, its peak and
    step times (marked as taken with both ranks on one card where they
    were). The shapes each rank's flash, CE and AdamW kernels launch at
    are recorded and must be among the shapes phases 2b, 2d and 2e held
@@ -219,11 +246,11 @@ Phases, each failing the script (non-zero exit) when it fails:
    to those checks). The route, backend and card count are printed; a
    failure in a rank fails the phase. In the same two-rank world, the
    pipelined step (parallel/pipeline_train.py) on the plan
-   dp1×fsdp1×tp1×pp2 with 4 microbatches of [1, 2048]: 11 layers a
+   dp1×fsdp1×tp1×pp2 with 4 microbatches of [1, 2048]: 2 layers a
    stage, the 1F1B schedule, the stage handoffs on the pp group's route
    (on one card "gloo_cuda_via_all_reduce"), the vocab-parallel loss in
    stock torch; held to the same gates, with the launches and state
-   bytes its plan gives (sharded_launches: flash 88 / 44 / 44 a step a
+   bytes its plan gives (sharded_launches: flash 16 / 8 / 8 a step a
    rank, no CE kernel, the update on the stage's 11 leaves; its
    params and moments exactly the bytes of shard_shapes, half of the
    stacked leaves and the whole wte and norm_f), its schedule's bubble
@@ -255,6 +282,26 @@ Phases, each failing the script (non-zero exit) when it fails:
    final state to the bit; a 2 s stall under a 0.5 s budget with no
    retries raises StepHungError. Each part deletes its snapshots in a
    finally and fails when the disk has less free space than it writes.
+6d. The elastic drill (parallel/elastic.py, the port's launcher
+   python -m paddle_tpu_torch.distributed.launch, with this script as
+   its worker, `--elastic-worker MODE DIR`): TinyLlama widths at 4
+   layers, fsdp2 over two ranks (on one card both share it over gloo).
+   First an ElasticTrainer with restart_on_loss under device_loss@3:1
+   (a snapshot every 3 steps) runs steps 0-2; at step 3's boundary the
+   workers write the world spec {n_devices: 1} and exit 101; the
+   launcher relaunches one rank, which plans onto fsdp1, restores ckpt-3
+   and runs steps 3-5. Those equal, to the bit, a clean one-rank restore
+   of ckpt-3 run in this process. The seconds from the loss to the first
+   resumed step (detection and exit, the respawn, the boot, the
+   restore, the step) and the bytes restored are printed. Then two
+   ranks again: the uninterrupted run, 6 steps under an 8 s step budget
+   with a 1 s straggler at step 2 (which must not replan), whose steps
+   3-5 the resumed ones lie within 1e-3 of; after a snapshot at step 6,
+   a 10 s collective hang past the budget must replan, in-process: rank
+   1 declared lost leaves with exit 103, rank 0 re-forms a world of one
+   on a fresh store, restores that snapshot onto fsdp1 and runs step 6.
+   Each worker's kernel launches must be its steps' (8 flash forwards,
+   4 of each backward, one CE pair and 11 leaf updates a step).
 7. The seconds each phase took, the kernels line (the eight ported
    kernels and the threefry bits kernel, launches from 6c and the
    drill included),
@@ -280,6 +327,9 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# when this process imported the script: phase 6d's relaunched worker
+# times its relaunch from here
+T_IMPORT = time.time()
 
 # H100 SXM published peaks (dense bf16, HBM3), used for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -300,11 +350,22 @@ LLAMA_BATCH, LLAMA_SEQ = 4, 2048
 # 5d's host tier runs all 22
 LLAMA_SERVE_LAYERS = 11
 _D, _L, _F, _KV = 2048, 22, 5632, 4 * 64
-LLAMA_LEAVES = {"wte": (32000, _D), "norm_f": (_D,), "attn_norm": (_L, _D),
-                "q_w": (_L, _D, _D), "k_w": (_L, _D, _KV),
-                "v_w": (_L, _D, _KV), "o_w": (_L, _D, _D),
-                "ffn_norm": (_L, _D), "gate_w": (_L, _D, _F),
-                "up_w": (_L, _D, _F), "down_w": (_L, _F, _D)}
+
+
+def llama_leaves(L):
+    """{leaf: shape} of the TinyLlama-width tree at L layers."""
+    return {"wte": (32000, _D), "norm_f": (_D,), "attn_norm": (L, _D),
+            "q_w": (L, _D, _D), "k_w": (L, _D, _KV), "v_w": (L, _D, _KV),
+            "o_w": (L, _D, _D), "ffn_norm": (L, _D), "gate_w": (L, _D, _F),
+            "up_w": (L, _D, _F), "down_w": (L, _F, _D)}
+
+
+LLAMA_LEAVES = llama_leaves(_L)
+# phase 6b's depth: the TinyLlama widths at 4 layers (2 a stage under
+# pp2). Every collective of its plans crosses the host
+# on one card (gloo), in bytes that grow with the depth; at full depth
+# 6b took 233.0-280.3 s of TIME_LIMIT_S (PERF.md)
+SHARDED_LAYERS = 4
 ADAMW = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
 # the seconds the whole script must finish in, its kernels' builds
 # included
@@ -386,32 +447,7 @@ def qmm_f64_check(torch, qm, dev):
     llama_shapes = sorted(set(LLAMA_LEAF_KN.values()))
     for M in F64_M_VALUES + LLAMA_EXTRA_M:
         for K, N in shapes if M in F64_M_VALUES else llama_shapes:
-            x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
-            w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
-                              dtype=torch.int8)
-            s = torch.rand(N, generator=g, device=dev) * 1e-2 + 1e-4
-            oracle = f64_oracle(torch, x, w, s)
-            plain = f64_verdict(torch, qm.quant_matmul_ref(x, w, s), oracle)
-            plans = {"plan": qm._plan(M, K, N, sm)}
-            if plans["plan"].splits > 1:
-                plans["unsplit"] = qm._plan(M, K, N, sm, max_splits=1)
-            line = {"phase": "qmm_f64_bound", "M": M, "K": K, "N": N,
-                    "plain": plain}
-            for name, plan in plans.items():
-                line[name] = dict(f64_verdict(torch, qm._launch(
-                    x, w, s, plan=plan), oracle), splits=plan.splits)
-                for k in ("max_ulps", "max_bound_share"):
-                    worst["kernel_" + k] = max(worst["kernel_" + k],
-                                               line[name][k])
-            for k in ("max_ulps", "max_bound_share"):
-                worst["plain_" + k] = max(worst["plain_" + k], plain[k])
-            log(json.dumps(line))
-            bad = [n for n in plans if not line[n]["ok"]]
-            if bad:
-                raise AssertionError(
-                    f"quant_matmul outside the f64 bound at M={M} K={K} "
-                    f"N={N} on the {bad} plan(s): {json.dumps(line)}")
-            del x, w, s, oracle
+            qmm_f64_row(torch, qm, dev, g, sm, M, K, N, worst)
     log(json.dumps({"phase": "qmm_f64_bound", "shapes": len(shapes),
                     "M": F64_M_VALUES, "llama_M": LLAMA_EXTRA_M, **worst,
                     "bound": "ulp_bf16(y64) + K*2^-24*((|x|@|w|)*scale)_64"}))
@@ -472,6 +508,109 @@ def graph_ms(torch, fn, n_iters):
     return start.elapsed_time(end) / (reps * n_iters)
 
 
+def qmm_f64_row(torch, qm, dev, g, sm, M, K, N, worst, tag=None):
+    """One shape of the f64 bound check: the kernel on `_plan`'s plan
+    (and unsplit where that splits K) and the plain version, each held
+    to the f64 value of its own input; `worst` takes the largest shares
+    and ulps. Raises unless every kernel element is within the bound."""
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=g, device=dev) * 1e-2 + 1e-4
+    oracle = f64_oracle(torch, x, w, s)
+    plain = f64_verdict(torch, qm.quant_matmul_ref(x, w, s), oracle)
+    plans = {"plan": qm._plan(M, K, N, sm)}
+    if plans["plan"].splits > 1:
+        plans["unsplit"] = qm._plan(M, K, N, sm, max_splits=1)
+    line = {"phase": "qmm_f64_bound", "M": M, "K": K, "N": N,
+            "plain": plain}
+    if tag:
+        line["path"] = tag
+    for name, plan in plans.items():
+        line[name] = dict(f64_verdict(torch, qm._launch(
+            x, w, s, plan=plan), oracle), splits=plan.splits)
+        for k in ("max_ulps", "max_bound_share"):
+            worst["kernel_" + k] = max(worst["kernel_" + k], line[name][k])
+    for k in ("max_ulps", "max_bound_share"):
+        worst["plain_" + k] = max(worst["plain_" + k], plain[k])
+    log(json.dumps(line))
+    bad = [n for n in plans if not line[n]["ok"]]
+    if bad:
+        raise AssertionError(
+            f"quant_matmul outside the f64 bound at M={M} K={K} N={N} on "
+            f"the {bad} plan(s): {json.dumps(line)}")
+    return line
+
+
+def qmm_row(torch, qm, dev, g, M, K, N, tag=None):
+    """One shape of the int8 kernel's check: the kernel against its
+    plain version (the same bits twice, within the rounding tolerance),
+    and its time beside the plain version's, the library's and the
+    bound. Returns the row."""
+    # cycle enough weight copies (>= 150 MB) that every call
+    # finds its weight cold in the 50 MB L2, as the serving tick
+    # does with its 97 different weights
+    n_copies = max(2, math.ceil(150e6 / (K * N)))
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    ws = [torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                        dtype=torch.int8) for _ in range(n_copies)]
+    ss = [torch.rand(N, generator=g, device=dev) * 1e-2 + 1e-4
+          for _ in range(n_copies)]
+    y = qm.quant_matmul(x, ws[0], ss[0])
+    # a fixed reduction order (split-K included): the same bits
+    # from a second call
+    again = qm.quant_matmul(x, ws[0], ss[0])
+    ref = qm.quant_matmul_ref(x, ws[0], ss[0])
+    torch.cuda.synchronize()
+    same_bits = torch.equal(y.view(torch.int16),
+                            again.view(torch.int16))
+    if not same_bits:
+        raise AssertionError(
+            f"quant_matmul gives other bits on a second call at "
+            f"M={M} K={K} N={N}")
+    # tolerance: both round an f32 value to bf16 once (at most
+    # one bf16 step apart, 2^-7 relative), and the two f32 sums
+    # differ only by summation order over K (K * 2^-24 of the
+    # sum of |products|)
+    absprod = (x.float().abs() @ ws[0].float().abs()) * ss[0]
+    tol = 2.0 ** -7 * ref.float().abs() + K * 2.0 ** -24 * absprod
+    err = (y.float() - ref.float()).abs()
+    max_err = float(err.max())
+    if not bool((err <= tol).all()) or not bool(
+            torch.isfinite(y).all()):
+        raise AssertionError(
+            f"quant_matmul kernel disagrees with its plain version "
+            f"at M={M} K={K} N={N}: max |err| {max_err}, worst "
+            f"err/tol {float((err / tol).max())}")
+    wb = [(w.float() * s).to(torch.bfloat16) for w, s in zip(ws, ss)]
+    n_it = 4 * n_copies
+    kernel_ms = graph_ms(torch, lambda i: qm.quant_matmul(
+        x, ws[i % n_copies], ss[i % n_copies]), n_it)
+    plain_ms = graph_ms(torch, lambda i: qm.quant_matmul_ref(
+        x, ws[i % n_copies], ss[i % n_copies]), n_it)
+    library_ms = graph_ms(torch, lambda i: torch.matmul(
+        x, wb[i % n_copies]), n_it)
+    b_ms, b_by = bound(M, K, N)
+    row = {"phase": "kernel_check", "kernel": "quant_matmul",
+           "M": M, "K": K, "N": N, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch.matmul(x, w_bf16), weight dequantized "
+                      "to bf16 beforehand (reads 2x the weight "
+                      "bytes; a yardstick the port never calls)",
+           "bound_ms": b_ms, "bound_by": b_by,
+           "roofline_share": b_ms / kernel_ms,
+           "vs_library": kernel_ms / library_ms,
+           "max_abs_err": max_err, "same_bits_twice": same_bits,
+           "plan": qm._plan(M, K, N, qm._sm_count(dev))._asdict(),
+           "design": QMM_DESIGN,
+           "tolerance": "2^-7*|ref| + K*2^-24*(|x|@|w|)*scale"}
+    if tag:
+        row["path"] = tag
+    log(json.dumps(row))
+    del ws, ss, wb
+    return row
+
+
 def kernel_check(torch, qm, dev):
     """Phase 2, at the leaf shapes of both serving paths. Returns
     {(M, K, N): row}."""
@@ -482,66 +621,7 @@ def kernel_check(torch, qm, dev):
     llama_shapes = list(dict.fromkeys(LLAMA_LEAF_KN.values()))
     for M in M_VALUES + LLAMA_EXTRA_M:
         for K, N in shapes if M in M_VALUES else llama_shapes:
-            # cycle enough weight copies (>= 150 MB) that every call
-            # finds its weight cold in the 50 MB L2, as the serving tick
-            # does with its 97 different weights
-            n_copies = max(2, math.ceil(150e6 / (K * N)))
-            x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
-            ws = [torch.randint(-127, 128, (K, N), generator=g, device=dev,
-                                dtype=torch.int8) for _ in range(n_copies)]
-            ss = [torch.rand(N, generator=g, device=dev) * 1e-2 + 1e-4
-                  for _ in range(n_copies)]
-            y = qm.quant_matmul(x, ws[0], ss[0])
-            # a fixed reduction order (split-K included): the same bits
-            # from a second call
-            again = qm.quant_matmul(x, ws[0], ss[0])
-            ref = qm.quant_matmul_ref(x, ws[0], ss[0])
-            torch.cuda.synchronize()
-            same_bits = torch.equal(y.view(torch.int16),
-                                    again.view(torch.int16))
-            if not same_bits:
-                raise AssertionError(
-                    f"quant_matmul gives other bits on a second call at "
-                    f"M={M} K={K} N={N}")
-            # tolerance: both round an f32 value to bf16 once (at most
-            # one bf16 step apart, 2^-7 relative), and the two f32 sums
-            # differ only by summation order over K (K * 2^-24 of the
-            # sum of |products|)
-            absprod = (x.float().abs() @ ws[0].float().abs()) * ss[0]
-            tol = 2.0 ** -7 * ref.float().abs() + K * 2.0 ** -24 * absprod
-            err = (y.float() - ref.float()).abs()
-            max_err = float(err.max())
-            if not bool((err <= tol).all()) or not bool(
-                    torch.isfinite(y).all()):
-                raise AssertionError(
-                    f"quant_matmul kernel disagrees with its plain version "
-                    f"at M={M} K={K} N={N}: max |err| {max_err}, worst "
-                    f"err/tol {float((err / tol).max())}")
-            wb = [(w.float() * s).to(torch.bfloat16) for w, s in zip(ws, ss)]
-            n_it = 4 * n_copies
-            kernel_ms = graph_ms(torch, lambda i: qm.quant_matmul(
-                x, ws[i % n_copies], ss[i % n_copies]), n_it)
-            plain_ms = graph_ms(torch, lambda i: qm.quant_matmul_ref(
-                x, ws[i % n_copies], ss[i % n_copies]), n_it)
-            library_ms = graph_ms(torch, lambda i: torch.matmul(
-                x, wb[i % n_copies]), n_it)
-            b_ms, b_by = bound(M, K, N)
-            row = {"phase": "kernel_check", "kernel": "quant_matmul",
-                   "M": M, "K": K, "N": N, "kernel_ms": kernel_ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
-                   "library": "torch.matmul(x, w_bf16), weight dequantized "
-                              "to bf16 beforehand (reads 2x the weight "
-                              "bytes; a yardstick the port never calls)",
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "roofline_share": b_ms / kernel_ms,
-                   "vs_library": kernel_ms / library_ms,
-                   "max_abs_err": max_err, "same_bits_twice": same_bits,
-                   "plan": qm._plan(M, K, N, qm._sm_count(dev))._asdict(),
-                   "design": QMM_DESIGN,
-                   "tolerance": "2^-7*|ref| + K*2^-24*(|x|@|w|)*scale"}
-            log(json.dumps(row))
-            rows[(M, K, N)] = row
-            del ws, ss, wb
+            rows[(M, K, N)] = qmm_row(torch, qm, dev, g, M, K, N)
     for fam, leaf_kn, L in (("gpt", LEAF_KN, FULL["num_layers"]),
                             ("llama", LLAMA_LEAF_KN, LLAMA["num_layers"])):
         agg = tick_aggregate(rows, leaf_kn, L)
@@ -1084,17 +1164,17 @@ def ce_pair_check(torch, dev):
 
 
 def shard_shapes(name):
-    """{leaf: the shape of a rank's shard} of the TinyLlama-width tree
-    under phase 6b's plan `name`: each dim divided by the sizes of the
-    mesh axes models/llama.py's PARAM_SPECS names for it, where they
-    divide it (parallel/mesh.py's rule). 6b holds every rank's shards
-    to it."""
+    """{leaf: the shape of a rank's shard} of the TinyLlama-width tree at
+    SHARDED_LAYERS under phase 6b's plan `name`: each dim divided by the
+    sizes of the mesh axes models/llama.py's PARAM_SPECS names for it,
+    where they divide it (parallel/mesh.py's rule). 6b holds every
+    rank's shards to it."""
     from paddle_tpu_torch.models.llama import PARAM_SPECS
     axes = SHARDED_PLANS[name]
     sizes = {"dp": axes["dp"], "fsdp": axes["fsdp"], "mp": axes["tp"],
              "pp": plan_pp(name)}
     out = {}
-    for leaf, shape in LLAMA_LEAVES.items():
+    for leaf, shape in llama_leaves(SHARDED_LAYERS).items():
         local = list(shape)
         for d, entry in enumerate(PARAM_SPECS[leaf]):
             names = entry if isinstance(entry, tuple) else (entry,)
@@ -1105,19 +1185,20 @@ def shard_shapes(name):
     return out
 
 
-def sharded_launches(name, per_step_6a):
+def sharded_launches(name, per_step):
     """{kernel: launches a step a rank} under phase 6b's plan `name`:
-    6a's for a 3D plan (every rank runs every layer on its rows). Under
+    `per_step`, the unsharded step's at SHARDED_LAYERS, for a 3D plan
+    (every rank runs every layer on its rows). Under
     pp a rank runs its stage's L/pp layers on each of its m
     microbatches, the flash forward twice (full remat recomputes it),
     the backward pair once; no CE kernel (the vocab-parallel loss is
     stock torch); the update on each of its leaves (every stage holds
     wte, norm_f and its chunk of each stacked leaf)."""
     if plan_pp(name) == 1:
-        return dict(per_step_6a)
-    calls = LLAMA["num_layers"] // plan_pp(name) * \
+        return dict(per_step)
+    calls = SHARDED_LAYERS // plan_pp(name) * \
         SHARDED_PLANS[name]["microbatches"]
-    out = {k: 0 for k in per_step_6a}
+    out = {k: 0 for k in per_step}
     out.update(flash_fwd=2 * calls, flash_bwd_dq=calls, flash_bwd_dkv=calls,
                leaf_update=len(shard_shapes(name)))
     return out
@@ -1225,7 +1306,7 @@ def update_check(torch, dev):
 # the serving phases with sampled requests, each of which must launch the
 # threefry kernel
 SAMPLING_PHASES = ("gpt_serving", "llama_serving", "llama_paged",
-                   "llama_multi_tick")
+                   "llama_multi_tick", "llama_tp2", "llama_tp2_spec")
 # the serving sampler's draws: [slots, V] at the GPT and the Llama vocab
 THREEFRY_SHAPES = [(8, FULL["vocab_size"]), (8, LLAMA["vocab_size"])]
 # 32-bit integer operations a second: the data sheet's f32 rate (67
@@ -2521,18 +2602,24 @@ def parting_verdict(torch, qm, qp, cfg, dev, prompt, stream_a, stream_b,
     A prompt whose prefix pages the engine shared is replayed from its
     first token, as the donor computed those pages. `weights64` is
     f64_oracle's cache. A sampled stream (`own_check` False) is not
-    held to its replay's top logit. Returns the report; report["ok"]
-    says whether it passed."""
+    held to its replay's top logit. Two streams judged along the same
+    path share one replay (the tokens before j0 are theirs alike).
+    Returns the report; report["ok"] says whether it passed."""
     j0 = next(j for j in range(len(stream_a)) if stream_a[j] != stream_b[j])
     per_pass = sum(pass_calls(LLAMA_LEAF_KN, cfg.num_layers).values())
     out = {"step": j0, "tokens": [stream_a[j0], stream_b[j0]]}
     logits = []
     ok = True
     for (name, kw), stream in zip(paths, (stream_a, stream_b)):
-        checked, f64 = f64_checked(torch, qm.quant_matmul, None, per_pass,
-                                   weights64=weights64)
-        lg = engine_forced_logits(torch, checked, qp, prompt,
-                                  stream[:j0 + 1], cfg, dev, 2048, **kw)
+        if logits and kw == paths[0][1]:
+            # the same path over the same tokens before j0: the same
+            # replay (row j0 predicts token j0 from the tokens before it)
+            lg = logits[0]
+        else:
+            checked, f64 = f64_checked(torch, qm.quant_matmul, None,
+                                       per_pass, weights64=weights64)
+            lg = engine_forced_logits(torch, checked, qp, prompt,
+                                      stream[:j0 + 1], cfg, dev, 2048, **kw)
         logits.append(lg)
         own = lg.gather(1, torch.as_tensor(stream[:j0 + 1],
                                            device=lg.device)[:, None])[:, 0]
@@ -2700,8 +2787,9 @@ def check_draws(eng, label, c, launches, captured):
                                   - c["sampled_captures"])
 
 
-def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
-    """Drive one 5c or 5d engine over `prompts` (64 new tokens each,
+def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick,
+               profile=True, new_tokens=64):
+    """Drive one 5c or 5d engine over `prompts` (`new_tokens` each,
     SAMPLED with top-k), step by step, with its launches asserted at
     `per_pass` a prefill (a chunk under the paged layout) and `per_tick`
     a decode tick (`check_launches`), and under the paged layout the
@@ -2736,7 +2824,8 @@ def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
     tf.launches["threefry_bits"] = 0
     tf_cap0 = tf.captured
     t_run = time.perf_counter()
-    reqs = [eng.submit(p, 64, temperature=SAMPLED.get(i, (0.0, 0))[0],
+    reqs = [eng.submit(p, new_tokens,
+                       temperature=SAMPLED.get(i, (0.0, 0))[0],
                        top_k=SAMPLED.get(i, (0.0, 0))[1])
             for i, p in enumerate(prompts)]
     while eng.has_work():
@@ -2757,18 +2846,18 @@ def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
                 tf.captured - tf_cap0)
     for r in reqs:
         toks = np.asarray(r.tokens)
-        if len(toks) != 64 or toks.min() < 0 or toks.max() >= \
+        if len(toks) != new_tokens or toks.min() < 0 or toks.max() >= \
                 eng.cfg.vocab_size:
             raise AssertionError(f"{label} request {r.id}: bad tokens")
     tick_ms = list(eng.tick_ms)[n_tick_ms0:]
     pf_ms = chunk_ms if eng.paged else list(eng.prefill_ms)[n_pf_ms0:]
     summary = {
         "phase": f"llama_{label}", "card": card, "requests": len(reqs),
-        "new_tokens": 64 * len(reqs), "prefills": c["prefills"],
+        "new_tokens": new_tokens * len(reqs), "prefills": c["prefills"],
         "prefill_chunks": c["prefill_chunks"],
         "decode_ticks": c["decode_ticks"], "launches": launches,
         "launches_per_pass": per_pass, "launches_per_tick": per_tick,
-        "wall_s": wall, "tokens_per_s": 64 * len(reqs) / wall,
+        "wall_s": wall, "tokens_per_s": new_tokens * len(reqs) / wall,
         "tick_ms_p50": statistics.median(tick_ms),
         "tick_ms_p90": float(np.percentile(tick_ms, 90)),
         "prefill_ms_p50": statistics.median(pf_ms),
@@ -2816,7 +2905,7 @@ def run_engine(torch, qm, eng, prompts, label, card, per_pass, per_tick):
             raise AssertionError(f"{label}: no prefix hit, COW copy or "
                                  f"chunk: {st}")
     log(json.dumps(summary))
-    if eng.paged or eng.mt_k > 1:
+    if profile and (eng.paged or eng.mt_k > 1):
         summary["profile"] = tick_profile(torch, eng, prompts, card,
                                           f"llama_{label}_")
     return [list(r.tokens) for r in reqs], summary, launches
@@ -2871,6 +2960,233 @@ def paged_serving(torch, qm, dev, card, cfg, params):
     torch.cuda.empty_cache()
     return ({"llama_paged": launches["paged"], "llama_spec": launches["spec"]},
             summaries)
+
+
+# phase 5e: the int8 Llama engine tensor-parallel over two ranks
+TP = 2
+# a tp2 rank's int8 leaves at TinyLlama widths (q, gate and up split by
+# column, o and down by row, k and v by their KV heads, the head by the
+# vocabulary)
+TP_LEAF_KN = {"q_w": (_D, _D // TP), "o_w": (_D // TP, _D),
+              "k_w/v_w": (_D, _KV // TP), "gate_w/up_w": (_D, _F // TP),
+              "down_w": (_F // TP, _D), "head": (_D, 32000 // TP)}
+TP_ENGINES = (("tp2", {"kv_layout": "dense"}, "llama_prompts"),
+              ("tp2_spec", dict(PAGED, **SPEC), "paged_prompts"))
+# the requests of 5b's and 5c's lists that 5e serves (a request's stream
+# depends only on its prompt and, sampled, on its id, which keeps its
+# order): request 3 sampled, and 14 and 15, which repeat request 0's
+# prompt and queue behind the 8 slots, so the paged engine maps request
+# 0's registered pages and copies the last one
+TP_REQUESTS = (0, 1, 2, 3, 4, 5, 6, 7, 14, 15)
+# new tokens a 5e request: the first quarter of 5b's and 5c's 64 (a
+# stream's first tokens do not depend on how many follow)
+TP_NEW_TOKENS = 16
+
+
+def tp_prompts(name, vocab):
+    """The TP_REQUESTS of a prompt list (`llama_prompts` or
+    `paged_prompts`)."""
+    prompts = globals()[name](vocab)
+    return [prompts[i] for i in TP_REQUESTS]
+
+
+def _tp_serving_rank(rank, world, workdir):
+    """One rank of phase 5e, in its own process: joins the tp group
+    through a file store (NCCL with a card a rank, gloo when the ranks
+    share one), loads the int8 tree phase 5b quantized (handed to the
+    engine in place of a second rewrite) and runs each of TP_ENGINES
+    over its prompts through `run_engine` (launches and draws checked
+    there, the pool after every step), the tp collectives of every
+    dispatch counted. Writes its results to workdir/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank % cards))
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.parallel import collective_route, init_parallel_env
+    from paddle_tpu_torch.parallel.mesh import build_mesh
+    from paddle_tpu_torch.quantization import serving as qs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device(None)
+    torch.cuda.set_device(dev)
+    init_parallel_env(backend="nccl" if cards >= world else "gloo",
+                      init_method=f"file://{workdir}/store", timeout_s=900)
+    out = {"rank": rank, "device": str(dev)}
+    try:
+        tree = torch.load(os.path.join(workdir, "int8.pt"), mmap=True,
+                          weights_only=False)
+        qs.quantize_serving_params = lambda params, family: tree
+        cfg = LlamaConfig(**dict(LLAMA, num_layers=LLAMA_SERVE_LAYERS))
+        mesh = build_mesh({"tp": world})
+        out["route"] = collective_route(mesh.get_group("tp"), dev)
+        out["start_s"] = time.perf_counter() - t0
+        per_pass = sum(pass_calls(TP_LEAF_KN, cfg.num_layers).values())
+        draft = sum(pass_calls(TP_LEAF_KN, SPEC["draft_layers"]).values())
+        for label, kw, prompts_fn in TP_ENGINES:
+            t_b = time.perf_counter()
+            eng = ServingEngine({}, cfg, family="llama", num_slots=8,
+                                max_len=2048, max_top_k=50, seed=0,
+                                quant="int8", mesh=mesh, **kw)
+            build_s = time.perf_counter() - t_b
+            shapes = sorted({tuple(v.shape) for k, v in eng._params.items()
+                             if k.endswith("_q")})
+            dispatch = eng._dispatch
+            per_dispatch = []
+
+            def counted(sampling, dispatch=dispatch, eng=eng,
+                        per_dispatch=per_dispatch):
+                n0 = eng._layout.collectives
+                emit = dispatch(sampling)
+                per_dispatch.append(eng._layout.collectives - n0)
+                return emit
+            eng._dispatch = counted
+            DRAWS.update(launches=0, captured=0, replayed=0)
+            streams, summary, launches = run_engine(
+                torch, qm, eng, tp_prompts(prompts_fn, cfg.vocab_size),
+                label, out["device"], per_pass,
+                per_pass + SPEC["gamma"] * draft if eng.spec else per_pass,
+                profile=False, new_tokens=TP_NEW_TOKENS)
+            out[label] = {
+                "streams": streams, "launches": launches,
+                "draws": dict(DRAWS), "build_s": build_s,
+                "int8_shapes": shapes,
+                "kv_cache_shape": list(eng._cache["k"].shape),
+                "collectives_per_dispatch": sorted(set(per_dispatch[1:])),
+                **{k: summary[k] for k in (
+                    "tick_ms_p50", "tick_ms_p90", "prefill_ms_p50",
+                    "prefill_ms_max", "decode_ticks", "prefills",
+                    "prefill_chunks", "wall_s", "tokens_per_s",
+                    "max_memory_allocated_bytes", "kv_cache_bytes")}}
+            del eng, counted
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def tp_kernel_check(torch, qm, dev):
+    """Phase 5e's kernel checks: the int8 kernel at M 8 on every leaf
+    shape of a tp2 rank (TP_LEAF_KN), against its plain version (timed
+    beside the library and the bound) and against the f64 bound, each
+    call on its own input. Returns ({(K, N): row}, the f64 worst)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    sm = qm._sm_count(dev)
+    worst = {"kernel_max_ulps": 0.0, "kernel_max_bound_share": 0.0,
+             "plain_max_ulps": 0.0, "plain_max_bound_share": 0.0}
+    rows = {}
+    for K, N in dict.fromkeys(TP_LEAF_KN.values()):
+        rows[(K, N)] = qmm_row(torch, qm, dev, g, 8, K, N, tag="tp2")
+        qmm_f64_row(torch, qm, dev, g, sm, 8, K, N, worst, tag="tp2")
+    return rows, worst
+
+
+def tp_serving(torch, qm, dev, card, cfg, params, k1c):
+    """Phase 5e: the int8 Llama engine at TinyLlama widths and
+    LLAMA_SERVE_LAYERS layers, tensor-parallel over two spawned ranks
+    (a card a rank over NCCL; on one card both share it over gloo, every
+    tp collective an all-reduce through the host, so the tick times
+    show the host link, not scaling), on 10 of 5b's 16 requests (dense,
+    K = 1) and of 5c's (paged with spec decode; TP_REQUESTS), the first
+    TP_NEW_TOKENS of each stream. Every request ends "length";
+    each rank launches 78 int8 kernels a pass and 222 a spec tick; both
+    ranks' streams are identical; each stream equals 5b's (dense) or
+    5c's paged spec engine's, or its parting passes 5b's f64 verdict
+    along the single-card path. Returns (the int8 kernel's launches
+    {path: both ranks'}, the threefry draws {path: ...}, the kernel rows
+    at the tp shapes, the summary)."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from paddle_tpu_torch.inference.serving import _to_device
+    from paddle_tpu_torch.parallel.planner import plan_serving_tp
+    from paddle_tpu_torch.quantization import serving as qs
+    t0 = time.perf_counter()
+    rows, f64 = tp_kernel_check(torch, qm, dev)
+    check_s = time.perf_counter() - t0
+    tree = qs.quantize_serving_params(params, "llama")   # quantize_once's
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_5e_")
+    try:
+        t_s = time.perf_counter()
+        torch.save(tree, os.path.join(workdir, "int8.pt"))
+        save_s = time.perf_counter() - t_s
+        t_s = time.perf_counter()
+        mp.spawn(_tp_serving_rank, args=(TP, workdir), nprocs=TP, join=True)
+        ranks_s = time.perf_counter() - t_s
+        ranks = []
+        for r in range(TP):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    per_pass = sum(pass_calls(TP_LEAF_KN, cfg.num_layers).values())
+    want_shapes = sorted({(k, n) for k, n in TP_LEAF_KN.values()})
+    line = {"phase": "llama_tp2_serving", "card": card, "ranks": TP,
+            "route": ranks[0]["route"], "layers": cfg.num_layers,
+            "launches_per_pass": per_pass,
+            "kernel_check_s": check_s, "int8_tree_save_s": save_s,
+            "ranks_s": ranks_s, "rank_start_s": [r["start_s"] for r in ranks],
+            "f64_tp_shapes": f64,
+            "plan_serving_tp": {
+                f"{n}_devices": plan_serving_tp(cfg, n, 8, 2048)["tp"]
+                for n in (1, 2)},
+            "tick_note": "ranks share one card over gloo: every tp "
+                         "collective goes through the host, so the tick "
+                         "measures the host link, not scaling"}
+    launches, draws = {}, {}
+    single = {label: [k1c[key]["streams"][i][:TP_NEW_TOKENS]
+                      for i in TP_REQUESTS]
+              for label, key in (("tp2", "serving"), ("tp2_spec", "spec"))}
+    qp = None
+    for label, kw, prompts_fn in TP_ENGINES:
+        a, b = (r[label] for r in ranks)
+        if a["streams"] != b["streams"]:
+            raise AssertionError(f"5e {label}: the ranks' streams part")
+        got_shapes = sorted({tuple(s[-2:]) for s in a["int8_shapes"]})
+        if got_shapes != want_shapes:
+            raise AssertionError(f"5e {label}: int8 shards {got_shapes} "
+                                 f"are not the tp2 shapes {want_shapes}")
+        launches[f"llama_{label}"] = a["launches"] + b["launches"]
+        draws[f"llama_{label}"] = {k: a["draws"][k] + b["draws"][k]
+                                   for k in a["draws"]}
+        prompts = tp_prompts(prompts_fn, cfg.vocab_size)
+        if qp is None and a["streams"] != single[label]:
+            qp = _to_device(tree[0], dev)
+        dense_path = {"layout": "dense"}
+        path = (dense_path if label == "tp2" else
+                {"layout": "paged", "page_size": 16, "chunk": 256,
+                 "window": SPEC["gamma"] + 1})
+        verdict = compare_streams(
+            torch, qm, qp, cfg, dev, prompts, a["streams"], single[label],
+            f"{label}_vs_single_card", ((label, path), ("single", path)),
+            sampled={TP_REQUESTS.index(i): v for i, v in SAMPLED.items()
+                     if i in TP_REQUESTS})
+        line[label] = {k: [r[label][k] for r in ranks] for k in (
+            "tick_ms_p50", "tick_ms_p90", "prefill_ms_p50",
+            "prefill_ms_max", "max_memory_allocated_bytes",
+            "kv_cache_bytes", "build_s", "wall_s", "tokens_per_s")}
+        line[label].update({
+            "decode_ticks": a["decode_ticks"], "prefills": a["prefills"],
+            "prefill_chunks": a["prefill_chunks"],
+            "launches_a_rank": [a["launches"], b["launches"]],
+            "collectives_per_dispatch": a["collectives_per_dispatch"],
+            "kv_cache_shape": a["kv_cache_shape"],
+            "greedy_equal": verdict["greedy_equal"],
+            "sampled_equal": verdict["sampled_equal"],
+            "partings": len(verdict["partings"])})
+    del qp, tree
+    torch.cuda.empty_cache()
+    log(json.dumps(line))
+    return launches, draws, rows, line
 
 
 # phase 5d: K ticks a dispatch, each dispatch a CUDA graph replay, and the
@@ -3134,7 +3450,8 @@ def sharded_one_rank(torch, dev, card, p4):
     its default route. Its 5 losses must equal phase 4's kernel
     trajectory (within 1e-6 relative; whether they agree to the bit is
     printed), its launches per step phase 4's exactly; 5 more steps
-    give its p50 beside phase 4's. Returns what 6b is held to."""
+    give its p50 beside phase 4's. Returns its losses, launches, state
+    bytes, peak and p50."""
     import torch.distributed as dist
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.models.facade import make_train_step
@@ -3295,7 +3612,8 @@ def rank_save(torch, step, params, opt, mgr, at):
     the state's marginals (state_marginals)."""
     import shutil
     free = disk_check(mgr.root, 3 * 4 * sum(
-        math.prod(s) for s in LLAMA_LEAVES.values()), "llama_ckpt_6c_b")
+        math.prod(s) for s in llama_leaves(SHARDED_LAYERS).values()),
+        "llama_ckpt_6c_b")
     torch.cuda.synchronize()
     t_s = time.perf_counter()
     path = mgr.save({"params": params, "opt_state": opt,
@@ -3353,15 +3671,45 @@ def rank_resume(torch, step, plan, mgr, tokens, host):
             "opt_step": opt_step, "marginals": marginals}
 
 
+def unsharded_reference(torch, llama, cfg, params, tokens):
+    """Phase 6b's reference, on rank 0: the unsharded Llama step at 6b's
+    configuration from `params` (full, on the card; trained in place), 5
+    steps on `tokens` with the fused AdamW forced, as phase 4's
+    trajectory runs them. Returns the losses, the launches a step, the
+    state bytes, the peak and the steps' host ms p50."""
+    from paddle_tpu_torch.models.gpt import init_opt_state
+    opt = init_opt_state(params)
+    with forced_registry(fused_update="pallas"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        losses, ms = [], []
+        for _ in range(5):
+            t_s = time.perf_counter()
+            losses.append(float(llama.train_step(params, opt, tokens, cfg,
+                                                 **ADAMW)[0]))
+            ms.append((time.perf_counter() - t_s) * 1e3)
+        launches = launch_counts()
+    ref = {"losses": losses,
+           "per_step": {k: v // 5 for k, v in launches.items()},
+           "launches": launches, "state_bytes": state_bytes(params, opt),
+           "peak": torch.cuda.max_memory_allocated(),
+           "step_ms_p50": statistics.median(ms)}
+    del opt
+    return ref
+
+
 def _sharded_rank(rank, world, workdir, backend):
     """One rank of phase 6b, in its own process: joins the 2-rank group
-    through a file store, draws phase 4's starting state on the host,
-    and for each of SHARDED_PLANS runs step 1's loss and gradients (rank
-    0 gathers them whole and takes each leaf's cosine and norm ratio
-    against the unsharded step 1 from the same state, computed here
-    first), then 5 steps with the launches counted, the kernels' shapes
-    recorded and the peak read. Writes its results, with the seconds
-    each part took, to workdir/rank<rank>.json."""
+    through a file store, draws the Llama state at SHARDED_LAYERS (seed
+    0) on the host, rank 0 runs the unsharded step from it
+    (unsharded_reference: step 1's gradients, then 5 steps), and for
+    each of SHARDED_PLANS runs step 1's loss and gradients (rank 0
+    gathers them whole and takes each leaf's cosine and norm ratio
+    against the unsharded step 1), then 5 steps with the launches
+    counted, the kernels' shapes recorded and the peak read. Writes its
+    results, with the seconds each part took, to
+    workdir/rank<rank>.json."""
     import torch
     import torch.distributed as dist
     t0 = time.perf_counter()
@@ -3381,7 +3729,8 @@ def _sharded_rank(rank, world, workdir, backend):
     init_parallel_env(backend=backend, init_method=f"file://{workdir}/store",
                       timeout_s=900)
     try:
-        cfg = llama.LlamaConfig(**LLAMA, remat=True)
+        cfg = llama.LlamaConfig(**dict(LLAMA, num_layers=SHARDED_LAYERS),
+                                remat=True)
         host = llama.init_llama_params(cfg, seed=0, device="cpu")
         tokens = train_tokens(torch, dev, cfg, LLAMA_BATCH, LLAMA_SEQ, 3)
         out = {"rank": rank, "device": str(dev), "backend": backend,
@@ -3399,6 +3748,7 @@ def _sharded_rank(rank, world, workdir, backend):
             ref_grads = {k: torch.empty(g.shape, dtype=g.dtype,
                                         pin_memory=True).copy_(g)
                          for k, g in ref_grads.items()}
+            out["ref"] = unsharded_reference(torch, llama, cfg, full, tokens)
             del full
             torch.cuda.empty_cache()
             out["seconds"]["unsharded_step1"] = time.perf_counter() - t_s
@@ -3491,25 +3841,29 @@ def _sharded_rank(rank, world, workdir, backend):
         dist.destroy_process_group()
 
 
-def check_two_ranks(results, p6a, card):
-    """Phase 6b's verdict from both ranks' results: per plan, step 1's
-    loss within 2e-3 relative of 6a's and every gradient leaf's cosine
-    >= 0.999 against the unsharded step 1 (phase 4's tolerances), its
-    norm within GRAD_NORM_TOL of the unsharded one's, the 5-step
-    trajectory within 1e-2 of 6a's, exactly the launches a step its plan
-    gives on each rank (sharded_launches: 6a's under a 3D plan), each
+def check_two_ranks(results, card):
+    """Phase 6b's verdict from both ranks' results, against the unsharded
+    step at the same depth from the same state on rank 0 (`ref`,
+    unsharded_reference): per plan, step 1's loss within 2e-3 relative
+    of the unsharded step 1's and every gradient leaf's cosine >= 0.999
+    against it (phase 4's tolerances), its norm within GRAD_NORM_TOL of
+    the unsharded one's, the 5-step trajectory within 1e-2 of the
+    unsharded one's, exactly the launches a step its plan gives on each
+    rank (sharded_launches: the unsharded step's under a 3D plan), each
     rank's heads and shard shapes, the shapes its kernels launched at
     (those phase 2 checked; none of the CE's under pp), and each rank's
     params and moments exactly the bytes of its shards
-    (shard_state_bytes), at most 51% of 6a's under a 3D plan. A pp plan
-    also prints its handoff route, its handoffs' times and the share of
-    a step each rank spends in them (the measured idle share), and the
-    step's bubble (its 1F1B timeline's, fixed by (pp, m)) must equal
-    (pp-1)/(m+pp-1) and lie within 1.5x of the planner's (pp-1)/m.
-    Prints one line a plan. Returns {plan: [each rank's launches]}."""
+    (shard_state_bytes), at most 51% of the unsharded state's under a
+    3D plan. A pp plan also prints its handoff route, its handoffs'
+    times and the share of a step each rank spends in them (the
+    measured idle share), and the step's bubble (its 1F1B timeline's,
+    fixed by (pp, m)) must equal (pp-1)/(m+pp-1) and lie within 1.5x
+    of the planner's (pp-1)/m. Prints one line a plan. Returns {plan:
+    [each rank's launches]}."""
     r0 = results[0]
+    ref = r0["ref"]
     shared = r0["cards"] < 2
-    ref1 = p6a["losses"][0]
+    ref1 = ref["losses"][0]
     out, failed = {}, {}
     for name, (q_heads, kv_heads) in SHARDED_HEADS.items():
         rows = [res[name] for res in results]
@@ -3522,39 +3876,40 @@ def check_two_ranks(results, p6a, card):
                             SHARDED_CE else None for k in ("ce_fwd",
                                                            "ce_bwd")})
         rel = [abs(a - b) / abs(b)
-               for a, b in zip(rows[0]["losses"], p6a["losses"])]
+               for a, b in zip(rows[0]["losses"], ref["losses"])]
         want = {k: 5 * v for k, v in
-                sharded_launches(name, p6a["per_step"]).items()}
+                sharded_launches(name, ref["per_step"]).items()}
         line = {
             "phase": "llama_sharded_2rank", "card": card, "plan": name,
+            "layers": SHARDED_LAYERS,
             "backend": r0["backend"], "route": r0["route"],
             "cards": r0["cards"], "devices": [res["device"]
                                              for res in results],
             "shared_card": shared,
-            "step1_loss": rows[0]["step1_loss"], "step1_loss_6a": ref1,
+            "step1_loss": rows[0]["step1_loss"],
+            "step1_loss_unsharded": ref1,
             "step1_loss_rel_diff": abs(rows[0]["step1_loss"] - ref1)
             / abs(ref1),
-            "unsharded_step1_loss_rel_diff_6a": abs(
-                r0["ref_step1_loss"] - ref1) / abs(ref1),
+            "unsharded_grads_step1_loss": r0["ref_step1_loss"],
             "min_cosine": min(cos.values()), "cosine_by_leaf": cos,
             "max_norm_ratio_dev": max(abs(r - 1) for r in ratio.values()),
             "norm_ratio_by_leaf": ratio,
-            "losses": rows[0]["losses"], "losses_6a": p6a["losses"],
+            "losses": rows[0]["losses"], "losses_unsharded": ref["losses"],
             "rel_diff": rel, "max_rel_diff": max(rel),
             "launches_by_rank": [r["launches"] for r in rows],
-            "launches_per_step_6a": p6a["per_step"],
+            "launches_per_step_unsharded": ref["per_step"],
             "heads_by_rank": [[r["q_heads"], r["kv_heads"]] for r in rows],
             "kernel_shapes_by_rank": [r["kernel_shapes"] for r in rows],
             "shard_shapes": rows[0]["shard_shapes"],
             "state_bytes_by_rank": [r["state_bytes"] for r in rows],
-            "state_bytes_6a": p6a["state_bytes"],
+            "state_bytes_unsharded": ref["state_bytes"],
             "max_memory_allocated_bytes_by_rank":
                 [r["max_memory_allocated_bytes"] for r in rows],
-            "max_memory_allocated_bytes_6a": p6a["peak"],
+            "max_memory_allocated_bytes_unsharded": ref["peak"],
             "step_ms_by_rank": [r["step_ms"] for r in rows],
             "step_ms_p50_by_rank": [statistics.median(r["step_ms"][1:])
                                     for r in rows],
-            "step_ms_p50_6a": p6a["step_ms_p50"],
+            "step_ms_p50_unsharded": ref["step_ms_p50"],
             "seconds_by_rank": [dict(res["seconds"], **r["seconds"])
                                 for res, r in zip(results, rows)],
             "timing": ("both ranks on one card over gloo: shared-card "
@@ -3574,8 +3929,8 @@ def check_two_ranks(results, p6a, card):
                     [r["handoff_profile"] for r in rows],
                 "handoff_share_by_rank":
                     [r["handoff_profile"]["handoff_share"] for r in rows],
-                "state_share_of_6a": [r["state_bytes"] / p6a["state_bytes"]
-                                      for r in rows]})
+                "state_share_of_unsharded": [
+                    r["state_bytes"] / ref["state_bytes"] for r in rows]})
         log(json.dumps(line))
         bad = []
         if not line["step1_loss_rel_diff"] <= 2e-3:
@@ -3592,7 +3947,7 @@ def check_two_ranks(results, p6a, card):
                for r in rows):
             bad.append("heads")
         if any(r["state_bytes"] != shard_state_bytes(name) for r in rows) \
-                or (pp == 1 and any(r["state_bytes"] > 0.51 * p6a[
+                or (pp == 1 and any(r["state_bytes"] > 0.51 * ref[
                     "state_bytes"] for r in rows)):
             bad.append(f"state bytes, want {shard_state_bytes(name)}")
         if pp > 1 and any(
@@ -3687,13 +4042,13 @@ def check_resume(results, card):
     return line
 
 
-def sharded_two_ranks(torch, card, p6a):
+def sharded_two_ranks(torch, card):
     """Phase 6b: the plans of SHARDED_PLANS on two spawned ranks at 6a's
-    configuration and global batch: one card a rank over NCCL with two
-    or more cards; on one card both ranks share it over gloo, through
-    parallel/collective.py's all-reduce route for CUDA tensors. A
-    failure in a rank is this phase's failure. Returns {plan: [each
-    rank's launches over its 5 steps]}."""
+    widths and global batch, SHARDED_LAYERS deep: one card a rank over
+    NCCL with two or more cards; on one card both ranks share it over
+    gloo, through parallel/collective.py's all-reduce route for CUDA
+    tensors. A failure in a rank is this phase's failure. Returns
+    {plan: [each rank's launches over its 5 steps]}."""
     import tempfile
     import torch.multiprocessing as mp
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
@@ -3708,7 +4063,7 @@ def sharded_two_ranks(torch, card, p6a):
     finally:
         import shutil
         shutil.rmtree(workdir, ignore_errors=True)
-    out = check_two_ranks(results, p6a, card)
+    out = check_two_ranks(results, card)
     check_resume(results, card)
     return out
 
@@ -4031,10 +4386,391 @@ def resilience_drill(torch, dev, card):
     return launches
 
 
+# phase 6d: the elastic drill at DRILL_LAYERS layers, fsdp2 on two ranks
+# through the port's launcher (python -m paddle_tpu_torch.distributed.
+# launch), each rank this script run as `--elastic-worker MODE DIR`
+ELASTIC_STEPS = 6
+ELASTIC_LOSS = "device_loss@3:1"
+ELASTIC_BUDGET_S = 8.0
+ELASTIC_STRAGGLER = "straggler@2:1000"
+# the hang comes after the uninterrupted run's ELASTIC_STEPS steps
+ELASTIC_HANG = (f"collective_hang@{ELASTIC_STEPS}:"
+                f"{int((ELASTIC_BUDGET_S + 2) * 1000)}")
+ELASTIC_HANG_STEPS = ELASTIC_STEPS + 1
+
+
+def proc_start_time():
+    """The wall time this process started (its start in clock ticks
+    after boot, /proc/self/stat, plus the boot time, /proc/stat), to
+    0.01 s."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def elastic_worker(mode, workdir):
+    """A rank of phase 6d under the port's launcher. The Llama step at
+    TinyLlama widths and DRILL_LAYERS layers, batch 4 x 2048, full
+    remat, the fused update forced, the drill's batches (seed 100 +
+    step), on the plan fsdp2 (ranks sharing a card over gloo):
+
+    - mode "loss", first launch: an ElasticTrainer with restart_on_loss
+      under ELASTIC_LOSS (snapshots every 3 steps) runs steps 0-2; the
+      loss at step 3's boundary writes the world spec {n_devices: 1}
+      and exits 101;
+    - mode "loss", relaunched (one rank, the spec granted): the trainer
+      plans onto fsdp1, resumes from ckpt-3 and runs steps 3-5 (no more
+      snapshots);
+    - mode "hang": the uninterrupted run, ELASTIC_STEPS steps under the
+      ELASTIC_BUDGET_S step watchdog with a straggler within it (no
+      replan; a snapshot every ELASTIC_STEPS steps), then a collective
+      hang past the budget at step ELASTIC_STEPS: rank 1 declared lost
+      leaves (exit 103), rank 0 re-forms a world of one, restores the
+      step-ELASTIC_STEPS snapshot onto fsdp1 and runs that step.
+
+    Each rank writes its results, with the steps it ran and its kernel
+    launches, to DIR/<mode>.<launch>.rank<N>.json."""
+    import torch
+    import torch.distributed as dist
+    t_entry = time.time()
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.distributed.launch import heartbeat
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.gpt import init_opt_state
+    from paddle_tpu_torch.parallel import (CheckpointManager,
+                                           ResilienceConfig, collective_route,
+                                           init_parallel_env, plan_train)
+    from paddle_tpu_torch.parallel.elastic import (ElasticConfig,
+                                                   ElasticDeparture,
+                                                   ElasticTrainer,
+                                                   run_elastic)
+    from paddle_tpu_torch.testing import faults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device(None)
+    torch.cuda.set_device(dev)
+    init_parallel_env(timeout_s=900)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    granted = heartbeat.degraded_world()
+    launch = "relaunch" if granted else "first"
+    cfg = llama.LlamaConfig(**dict(LLAMA, num_layers=DRILL_LAYERS),
+                            remat=True)
+    out = {"mode": mode, "launch": launch, "rank": rank, "world": world,
+           "granted": granted, "t_spawn": proc_start_time(),
+           "t_import": T_IMPORT, "t_entry": t_entry,
+           "route": collective_route(None, dev),
+           "backend": str(dist.get_backend()), "steps_run": 0}
+
+    def batch(s):
+        return drill_tokens(torch, dev, cfg, s)
+
+    def trainer(root, ecfg, every):
+        params = llama.init_llama_params(cfg, seed=0, device=dev)
+        return ElasticTrainer(
+            llama.train_step, params, init_opt_state(params), cfg=cfg,
+            global_batch=LLAMA_BATCH,
+            manager=CheckpointManager(os.path.join(workdir, root),
+                                      max_to_keep=0),
+            plan=plan_train(cfg, 2, LLAMA_BATCH, dp=1, fsdp=2, tp=1),
+            config=ecfg, resilience=ResilienceConfig(checkpoint_every=every),
+            **ADAMW)
+
+    def run(et, steps, losses, times, replans=None):
+        def on_step(s, loss, ok):
+            torch.cuda.synchronize()
+            losses[s] = loss
+            times[s] = time.time()
+            out["steps_run"] += 1
+            if replans is not None:
+                replans[s] = et.replans
+        run_elastic(et, batch, steps, on_step=on_step)
+
+    def save():
+        out["launches"] = launch_counts()
+        with open(os.path.join(workdir, f"{mode}.{launch}.rank{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+    zero_launch_counts()
+    try:
+        with forced_registry(fused_update="pallas"):
+            if mode == "loss" and launch == "first":
+                faults.install(ELASTIC_LOSS, once_dir=os.path.join(
+                    workdir, f"once{rank}"))
+                et = trainer("ckpt", ElasticConfig(restart_on_loss=True), 3)
+                out["losses"], out["times"] = {}, {}
+                try:
+                    run(et, ELASTIC_STEPS, out["losses"], out["times"])
+                except SystemExit as e:
+                    out["exit_code"] = e.code
+                    raise
+                raise AssertionError("6d: no elastic exit at the loss")
+            if mode == "loss":
+                faults.install(ELASTIC_LOSS, once_dir=os.path.join(
+                    workdir, f"once{rank}"))
+                t_s = time.perf_counter()
+                et = trainer("ckpt", ElasticConfig(restart_on_loss=True), 0)
+                out["build_s"] = time.perf_counter() - t_s
+                out["t_ready"] = time.time()
+                t_s = time.perf_counter()
+                out["resumed"] = et.maybe_resume()
+                torch.cuda.synchronize()
+                out["restore_s"] = time.perf_counter() - t_s
+                out["t_restored"] = time.time()
+                out["restored_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for tree in (et.params, et.opt_state["m"],
+                                 et.opt_state["v"]) for t in tree.values())
+                out["start"] = et.step
+                out["axes"] = et.plan.axes
+                out["losses"], out["times"] = {}, {}
+                run(et, ELASTIC_STEPS, out["losses"], out["times"])
+                return 0
+            faults.install(f"{ELASTIC_STRAGGLER},{ELASTIC_HANG}",
+                           once_dir=None)
+            h = out["hang"] = {"losses": {}, "times": {}, "replans": {}}
+            t_s = time.perf_counter()
+            et = trainer("hang", ElasticConfig(step_timeout=ELASTIC_BUDGET_S,
+                                               hang_retries=0),
+                         ELASTIC_STEPS)
+            h["t_built"] = time.time()
+            h["build_s"] = time.perf_counter() - t_s
+            run(et, ELASTIC_HANG_STEPS, h["losses"], h["times"],
+                h["replans"])
+            h.update(total_replans=et.replans, world=et.world,
+                     axes=et.plan.axes, restored=et.last_restore_step,
+                     last_replan=et.last_replan,
+                     world_size=dist.get_world_size())
+            return 0
+    except ElasticDeparture as e:
+        out["departed"] = e.code
+        raise
+    finally:
+        faults.uninstall()
+        save()
+
+
+def _launch(mode, workdir, timeout):
+    """The port's launcher over two ranks of `elastic_worker(mode)`;
+    raises with the workers' log tails unless it exits 0 within
+    `timeout` seconds. The launcher and its workers share a process
+    group of their own, which is killed when the time runs out."""
+    import signal
+    logs = os.path.join(workdir, f"logs_{mode}")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--devices", "gpu",
+           "--max_elastic_restart", "1", "--log_dir", logs,
+           os.path.join(HERE, "chip_smoke.py"), "--elastic-worker", mode,
+           workdir]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        _, err = proc.communicate()
+        rc = f"nothing: killed after {timeout} s"
+    took = time.perf_counter() - t0
+    if rc != 0:
+        tails = {}
+        for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
+            if name.endswith(".log"):
+                with open(os.path.join(logs, name), errors="replace") as f:
+                    tails[name] = f.read()[-3000:]
+        raise AssertionError(f"6d {mode}: the launcher exited "
+                             f"{rc}: {err[-3000:]} "
+                             f"{json.dumps(tails)}")
+    print(f"[chip_smoke] 6d {mode} launch: {took:.1f} s", file=sys.stderr,
+          flush=True)
+    return took, err
+
+
+def _worker_json(workdir, mode, launch, rank):
+    with open(os.path.join(workdir, f"{mode}.{launch}.rank{rank}.json")) as f:
+        return json.load(f)
+
+
+def elastic_drill(torch, dev, card):
+    """Phase 6d (parallel/elastic.py and the launcher's degraded
+    restart): fsdp2 on two ranks through the port's launcher loses a
+    device at step 3's boundary; the workers exit 101 with the world
+    spec {n_devices: 1} and the launcher relaunches one rank, which
+    restores ckpt-3 onto fsdp1 and runs steps 3-5. Those must equal a
+    clean one-rank restore of ckpt-3 in this process to the bit. Then,
+    on two ranks again, the uninterrupted fsdp2 run (a straggler within
+    the step budget must not replan), whose steps 3-5 the resumed ones
+    must lie within 1e-3 of, and after it a collective hang past the
+    budget, which must replan in-process onto the surviving rank.
+    Every worker's launches must be its steps' (DRILL_LAYERS layers,
+    the drill's per step). Records the seconds from the loss to the
+    first resumed step (detection and exit, the respawn, the boot, the
+    restore, the step) and the bytes restored. Returns the train
+    kernels' launches over every worker's steps."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.facade import make_train_step
+    from paddle_tpu_torch.parallel import plan_train
+    from paddle_tpu_torch.parallel.checkpoint import load_sharded
+    from paddle_tpu_torch.parallel.resilience import plan_state_specs
+    cfg = llama.LlamaConfig(**dict(LLAMA, num_layers=DRILL_LAYERS),
+                            remat=True)
+    L = cfg.num_layers
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_6d_")
+    line = {"phase": "llama_elastic_drill", "card": card,
+            "layers": DRILL_LAYERS, "fault": ELASTIC_LOSS}
+    try:
+        # ckpt-3 of the loss run, then the hang run's step-ELASTIC_STEPS
+        # snapshot, 12 bytes a parameter each
+        n_params = sum(math.prod(v)
+                       for v in llama_leaves(cfg.num_layers).values())
+        line["free_disk_before"] = disk_check(workdir, 2 * 12 * n_params,
+                                              "llama_elastic_drill")
+        line["loss_launcher_s"], err = _launch("loss", workdir, 300)
+        first = [_worker_json(workdir, "loss", "first", r) for r in (0, 1)]
+        again = _worker_json(workdir, "loss", "relaunch", 0)
+        if "DEGRADED world spec" not in err or again["world"] != 1:
+            raise AssertionError(f"6d: no degraded relaunch: {err[-2000:]}")
+        for r in first:
+            if r.get("exit_code") != 101 or sorted(r["losses"]) != [
+                    "0", "1", "2"]:
+                raise AssertionError(
+                    f"6d: rank {r['rank']} exited {r.get('exit_code')}, "
+                    f"not 101 after steps 0-2: {sorted(r['losses'])}")
+        spec = again["granted"]
+        if spec.get("n_devices") != 1 or not again["resumed"] or \
+                again["start"] != 3 or again["axes"] != {
+                    "dp": 1, "fsdp": 1, "tp": 1}:
+            raise AssertionError(f"6d: relaunch {json.dumps(again)[:2000]}")
+        # the clean one-rank restore of ckpt-3, in this process
+        plan = plan_train(cfg, 1, LLAMA_BATCH, dp=1, fsdp=1, tp=1)
+        mesh = plan.build_mesh()
+        t_s = time.perf_counter()
+        state = load_sharded(os.path.join(workdir, "ckpt", "ckpt-3"),
+                             mesh=mesh, specs=plan_state_specs(plan),
+                             device=dev)
+        restore_here_s = time.perf_counter() - t_s
+        with forced_registry(fused_update="pallas"):
+            step = make_train_step(llama.train_step, cfg=cfg, mesh=mesh,
+                                   plan=plan, **ADAMW)
+            p, o = state["params"], state["opt_state"]
+            step.adopt_shapes(p, o)
+            clean_restore = {}
+            for s in range(3, ELASTIC_STEPS):
+                loss, p, o = step(p, o, drill_tokens(torch, dev, cfg, s))
+                clean_restore[s] = float(loss)
+        del state, p, o, step
+        torch.cuda.empty_cache()
+        resumed = {int(k): v for k, v in again["losses"].items()}
+        if resumed != clean_restore:
+            raise AssertionError(f"6d: resumed steps {resumed} != the clean "
+                                 f"restore's {clean_restore}")
+        shutil.rmtree(os.path.join(workdir, "ckpt"), ignore_errors=True)
+        line["hang_launcher_s"], _ = _launch("hang", workdir, 300)
+        hang = [_worker_json(workdir, "hang", "first", r) for r in (0, 1)]
+        h = hang[0]["hang"]
+        clean_steps = [str(s) for s in range(ELASTIC_STEPS)]
+        if hang[1].get("departed") != 103 or h["total_replans"] != 1 \
+                or h["world"] != ["rank0"] or \
+                sorted(h["losses"], key=int) != [
+                    str(s) for s in range(ELASTIC_HANG_STEPS)] or \
+                sorted(hang[1]["hang"]["losses"], key=int) != clean_steps \
+                or any(h["replans"][s] for s in clean_steps) or \
+                h["restored"] != ELASTIC_STEPS:
+            raise AssertionError(f"6d: hang {json.dumps(hang)[:3000]}")
+        uninterrupted = {s: h["losses"][str(s)] for s in range(ELASTIC_STEPS)}
+        if any(hang[1]["hang"]["losses"][str(s)] != uninterrupted[s]
+               for s in range(ELASTIC_STEPS)):
+            raise AssertionError(f"6d: the fsdp2 ranks' losses differ: "
+                                 f"{json.dumps(hang)[:3000]}")
+        rel = max(abs(resumed[s] - uninterrupted[s]) / abs(uninterrupted[s])
+                  for s in resumed)
+        if rel > 1e-3:
+            raise AssertionError(f"6d: resumed steps {resumed} part from the "
+                                 f"uninterrupted fsdp2 run's "
+                                 f"{uninterrupted} by {rel}")
+        # every worker's launches: its steps' (each rank of fsdp2 and the
+        # one of fsdp1 runs every layer on its rows and updates its
+        # shard of each of the 11 leaves; a hung step, superseded by the
+        # replan, launches nothing)
+        per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L, "ce_fwd": 1, "ce_bwd": 1,
+                    "leaf_update": 11}
+        workers = first + [again] + hang
+        off = [(w["mode"], w["launch"], w["rank"], w["steps_run"],
+                w["launches"]) for w in workers
+               if w["launches"] != {k: w["steps_run"] * per_step.get(k, 0)
+                                    for k in w["launches"]}]
+        if off or [w["steps_run"] for w in workers] != [
+                3, 3, 3, ELASTIC_HANG_STEPS, ELASTIC_STEPS]:
+            raise AssertionError(f"6d: launches, want steps x {per_step}: "
+                                 f"{off or [w['steps_run'] for w in workers]}")
+        t_loss = first[0]["times"]["2"]          # step 2 done: the boundary
+        t_first = again["times"]["3"]
+        line.update({
+            "first_launch_route": first[0]["route"],
+            "first_launch_boot_s": [r["t_entry"] - r["t_spawn"]
+                                    for r in first],
+            "losses_before_loss": first[0]["losses"],
+            "loss_run_steps_0_2_equal_uninterrupted": all(
+                first[0]["losses"][str(s)] == uninterrupted[s]
+                for s in range(3)),
+            "resumed_fsdp1": resumed, "clean_restore_fsdp1": clean_restore,
+            "resumed_equal_clean_restore": True,
+            "uninterrupted_fsdp2": uninterrupted,
+            "uninterrupted_step_s": [
+                h["times"][str(s + 1)] - h["times"][str(s)]
+                for s in range(ELASTIC_STEPS - 1)],
+            "uninterrupted_note": "the hang launch's first ELASTIC_STEPS "
+                                  "steps, under the step watchdog (the "
+                                  "steps run on its thread), the "
+                                  "straggler's 1 s stall in step 2",
+            "max_rel_vs_uninterrupted": rel,
+            "restored_bytes": again["restored_bytes"],
+            "world_spec": spec, "clean_restore_s": restore_here_s,
+            "loss_to_first_resumed_step_s": t_first - t_loss,
+            "split_s": {
+                "detect_and_exit": spec["t_exit"] - t_loss,
+                "exit_to_respawn": again["t_spawn"] - spec["t_exit"],
+                "respawn_to_import": again["t_import"] - again["t_spawn"],
+                "boot_to_ready": again["t_ready"] - again["t_import"],
+                "restore": again["t_restored"] - again["t_ready"],
+                "first_step": t_first - again["t_restored"]},
+            "relaunch_step_s": [again["times"][str(s + 1)]
+                                - again["times"][str(s)]
+                                for s in range(3, ELASTIC_STEPS - 1)],
+            "hang_launch_boot_s": [r["t_entry"] - r["t_spawn"]
+                                   for r in hang],
+            "hang_build_s": h["build_s"],
+            "hang_first_step_s": h["times"]["0"] - h["t_built"],
+            "straggler": ELASTIC_STRAGGLER, "straggler_replans": 0,
+            "hang_replans": 1,
+            "hang_budget_s": ELASTIC_BUDGET_S, "hang_fault": ELASTIC_HANG,
+            "hang_plan": h["axes"], "hang_restored_step": h["restored"],
+            "hang_replan_s": h["last_replan"],
+            "hang_rank1_exit": hang[1]["departed"],
+            "steps_run": [w["steps_run"] for w in workers]})
+        launches = {k: sum(w["launches"][k] for w in workers)
+                    for k in first[0]["launches"]}
+        line["launches"] = launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(json.dumps(line))
+    return launches
+
+
 def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                  gpt_launches, llama_launches, serving_launches, f64,
                  replay_launches, race_launches, tiles, sharded, tf_rows,
-                 sampler):
+                 sampler, tp_rows):
     """The kernels line: every kernel with its route, source, the TPU
     kernel it replaces, its launches on the main paths, and its times,
     bound and error from the kernel checks. `serving_launches` is the
@@ -4045,9 +4781,10 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
     q tiles and the autotune's picks; `sharded` the train kernels'
     {path: launches} of phase 6 (6a's 5 steps; 6b's, both ranks and
     its 3D plans summed, and its pipelined plan's; 6c (a)'s 8 steps and
-    the drill's steps, skipped ones included); `tf_rows` the
-    threefry kernel's check rows, `sampler` its launches by serving
-    phase."""
+    the drill's steps, skipped ones included, and 6d's workers' steps);
+    `tf_rows` the threefry kernel's check rows, `sampler` its launches
+    by serving phase; `tp_rows` the int8 kernel's rows at a tp2 rank's
+    leaf shapes (phase 5e)."""
 
     def train_paths(name):
         paths = {"gpt_train": gpt_launches[name],
@@ -4079,6 +4816,11 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                                              "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
         "f64_bound": f64,
+        "tp2_shapes": {f"{K}x{N}": {
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "max_abs_err": r["max_abs_err"]}
+            for (K, N), r in tp_rows.items()},
         "per": "one GPT decode tick at M=8: 24 layers x 4 leaves + the head "
                "(97 launches); llama_tick: a full-depth tick, 22 x 7 + 1 "
                "= 155; from the "
@@ -4095,7 +4837,10 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                "4 x the tick's calls), and for the four 5d engines the "
                "launches the profiler listed over their profiled replays, "
                "checked at 99-100% of the engine's count (the profiler "
-               "drops a few records late in the process)",
+               "drops a few records late in the process); llama_tp2 and "
+               "llama_tp2_spec: phase 5e's tp2 engines, both ranks' "
+               "launches summed (78 a pass and 222 a spec tick a rank), "
+               "at the tp2_shapes (M 8, each also held to the f64 bound)",
     }]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     replaces = {"flash_fwd": "paddle_tpu/kernels/pallas_attention.py:119",
@@ -4121,9 +4866,11 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                    "steps of each train path, over phase 3b's timed "
                    "and route steps (gpt_race), over phase 6's 5 "
                    "steps on one rank and on two (both ranks, the 3D "
-                   "plans, and the pipelined plan), and over 6c (a)'s 8 "
+                   "plans, and the pipelined plan; SHARDED_LAYERS = 4 "
+                   "layers), over 6c (a)'s 8 "
                    "steps and the resilience drill's 16 (4 layers, "
-                   "skipped steps included); on_shards: at a "
+                   "skipped steps included), and over every step of 6d's "
+                   "launcher workers (4 layers); on_shards: at a "
                    "rank's [B, S, H, 64] under each of phase 6b's plans "
                    "(SHARDED_ATTN: a "
                    "microbatch's [1, 2048, 32, 64] under pp2), checked "
@@ -4184,7 +4931,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                "10 timed steps of each train path and phase 6's steps "
                "(on local shards; 6c and the drill included); "
                "on_shards: one rank's update of its "
-               "11 shards under each of phase 6b's plans (shard_shapes; "
+               "11 shards under each of phase 6b's plans (shard_shapes, "
+               "SHARDED_LAYERS = 4 layers; "
                "under pp2 a stage's half of each stacked leaf and the "
                "whole wte and norm_f)"})
     tf_main = tf_rows[THREEFRY_SHAPES[0]]
@@ -4216,6 +4964,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
 
 
 def main():
+    if len(sys.argv) > 3 and sys.argv[1] == "--elastic-worker":
+        return elastic_worker(sys.argv[2], sys.argv[3])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
@@ -4266,6 +5016,11 @@ def main():
         held[name] = torch.cuda.memory_allocated()
         seconds[name] = time.perf_counter() - t_s
         log(f"{name}: {seconds[name]:.1f} s")
+        # on the standard error too, where a run cut at its time limit
+        # shows how far it got
+        print(f"[chip_smoke] {name}: {seconds[name]:.1f} s (at "
+              f"{time.perf_counter() - t_start:.1f} s of {TIME_LIMIT_S})",
+              file=sys.stderr, flush=True)
         return out
     rows = phase("kernel_check", kernel_check, torch, qm, dev)
     f64 = phase("qmm_f64_check", qmm_f64_check, torch, qm, dev)
@@ -4310,6 +5065,11 @@ def main():
             "llama_multi_tick", multi_tick_serving, torch, qm, dev, card,
             lcfg, lparams, k1c)
         serving_launches.update(mt_launches)
+        tp_launches, tp_draws, tp_rows, _ = phase(
+            "llama_tp2_serving", tp_serving, torch, qm, dev, card, lcfg,
+            lparams, k1c)
+        serving_launches.update(tp_launches)
+        sampler.update(tp_draws)
         del k1, k1c
         serving_launches["llama_host_tier"], tier_replays = sampling_phase(
             "llama_host_tier", host_tier_serving, torch, qm, dev, card,
@@ -4325,7 +5085,7 @@ def main():
                              f"{sampler}")
     p6a = phase("llama_sharded_1rank", sharded_one_rank, torch, dev, card,
                 p4)
-    two = phase("llama_sharded_2rank", sharded_two_ranks, torch, card, p6a)
+    two = phase("llama_sharded_2rank", sharded_two_ranks, torch, card)
     sharded = {"llama_sharded_1rank": p6a["launches"]}
     for path, pp in (("llama_sharded_2rank", False),
                      ("llama_pipelined_2rank", True)):
@@ -4337,6 +5097,8 @@ def main():
         "llama_checkpoint_resume", checkpoint_resume, torch, dev, card, p4)
     sharded["llama_resilience_drill"] = phase(
         "llama_resilience_drill", resilience_drill, torch, dev, card)
+    sharded["llama_elastic_drill"] = phase(
+        "llama_elastic_drill", elastic_drill, torch, dev, card)
     log(json.dumps({"phase": "memory_allocated_after", **held}))
     total = time.perf_counter() - t_start
     log(json.dumps({"phase": "seconds", **seconds, "total": total,
@@ -4345,7 +5107,7 @@ def main():
     kernels = kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                            gpt_launches, llama_launches, serving_launches,
                            f64, replay_launches, race_launches, tiles,
-                           sharded, tf_rows, sampler)
+                           sharded, tf_rows, sampler, tp_rows)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(card)

@@ -6,15 +6,13 @@ Pallas kernel on a ported path rewritten by hand for NVIDIA Hopper
 (sm_90a). It imports torch and numpy only: never jax, and nothing of
 paddle_tpu.
 
-Ported so far:
-- GPT serving (dense KV slot pool, bucketed prefill, one decode tick for
-  all slots) with weight-only int8 through the hand-written
-  dequant-matmul kernel (kernels/csrc/quant_matmul.cu);
-- the GPT train step on one GPU (models/gpt.py train_step through
-  models/facade.py make_train_step, remat "full" or "dots", AdamW),
-  with attention through the hand-written flash-attention forward and
-  two-pass backward (kernels/csrc/flash_attention.cu) and the loss
-  through the one-pass cross entropy (kernels/csrc/fused_ce.cu).
+Ported so far (ROADMAP.md A1-A6d): GPT and Llama serving with weight-only
+int8 through the hand-written dequant-matmul kernel, the paged KV pool,
+speculative and multi-tick decode, the host KV tier, threefry sampling and
+tensor-parallel engines; the GPT and Llama train steps through the
+hand-written flash-attention, cross-entropy and AdamW kernels; the
+planner-driven dp×fsdp×tp(×pp) step, sharded checkpoints, the resilient
+step and the elastic controller with its launcher.
 Entry points run on the card unless the caller passes device="cpu".
 """
 from .device import resolve_device

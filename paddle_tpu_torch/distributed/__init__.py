@@ -1,7 +1,6 @@
 """paddle_tpu_torch.distributed — the reference's launch-side modules
-(paddle_tpu/distributed/). Ported so far: `launch.heartbeat`, the
-worker's liveness lease and the elastic exit code. The launcher itself
-(`launch/main.py`, the controller that watches the lease and restarts
-a worker that exits with ELASTIC_EXIT_CODE) is not ported; under
-torchrun a worker's exit code and the lease file are the contract.
+(paddle_tpu/distributed/): `launch`, the rank launcher with its elastic
+restart (`python -m paddle_tpu_torch.distributed.launch`), and
+`launch.heartbeat`, the worker's liveness lease, the elastic exit code
+and the degraded-world handshake.
 """

@@ -37,6 +37,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..kernels.threefry import bits, threefry2x32
@@ -101,12 +102,11 @@ def uniform(key, shape: Sequence[int], minval: float = 0.0, device=None,
     bits = random_bits(key, shape, device, fold)
     # the mantissa's 23 bits under the exponent of 1.0
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    # minval and the span (1 - minval, rounded to f32) as f32 values;
-    # a float tensor's op with a Python scalar computes in the tensor's
-    # dtype
-    lo = float(torch.tensor(minval, dtype=torch.float32))
-    span = float(torch.tensor(1.0, dtype=torch.float32)
-                 - torch.tensor(lo, dtype=torch.float32))
+    # minval and the span (1 - minval, rounded to f32) as f32 values,
+    # on the host (no tensor, so no device sync); a float tensor's op
+    # with a Python scalar computes in the tensor's dtype
+    lo = float(np.float32(minval))
+    span = float(np.float32(1.0) - np.float32(lo))
     return torch.clamp_min((f - 1.0) * span + lo, lo)
 
 

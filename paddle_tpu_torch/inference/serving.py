@@ -82,10 +82,32 @@ on the rest of the batch, and equals the JAX engine's wherever their
 logits rank the candidates alike. The keys and the Gumbel noise are
 tensor ops on the device, with no host sync.
 
+- **Tensor-parallel serving** (mesh=, tp_axis=; the reference's
+  SERVING_PARAM_SPECS and decode_attention.cache_pspecs under GSPMD).
+  One engine a rank, every rank of the mesh's tp axis running the same
+  host scheduler on the same requests. Each rank stores only its shard
+  of every leaf (`_shard_params`: q/k/v/gate/up and GPT's qkv/mlp_up
+  split by column, o/down by row, the embedding and the int8 head
+  vocab-parallel, a column-parallel int8 scale with its weight, a
+  row-parallel one whole; GPT's fused qkv stored head-grouped,
+  models/gpt.py qkv_head_order) and of the KV cache (its KV heads;
+  the page table whole); a leaf tp does not divide stays whole, as a
+  Llama k/v with fewer KV heads than ranks does, its cache with it. The
+  cached forwards run under a parallel/layout.py ServingLayout: two
+  all-reduces a layer, one for the embedding, and the head's logits
+  gathered whole before the sampler, so every rank draws the same
+  tokens and pulls one array a tick. Every int8 matmul runs the kernel
+  on the rank's own shard. tp composes with the paged pool, chunked
+  prefill, COW, spec decode and multi-tick; a K >= 2 dispatch on the
+  card is a CUDA graph, which can hold NCCL's collectives but not the
+  host route two ranks sharing a card take
+  ("gloo_cuda_via_all_reduce"): that combination raises at build.
+
 Every request resolves exactly once with a finish reason from
-TERMINAL_REASONS. Engine knobs of later slices (tensor-parallel meshes,
-telemetry, tracing, watchdog and retries, queue bounds) raise
-NotImplementedError naming the ROADMAP item that ports them. The reference's fault-injection hooks are not carried (A7).
+TERMINAL_REASONS. Engine knobs of later slices (telemetry, tracing,
+watchdog and retries, queue bounds) raise NotImplementedError naming
+the ROADMAP item that ports them. The reference's fault-injection hooks
+are not carried (A7).
 """
 from __future__ import annotations
 
@@ -118,8 +140,6 @@ _CAPTURE_STREAMS: dict = {}
 
 # knob -> (values that leave the knob inert, the ROADMAP item porting it)
 _UNPORTED = {
-    "mesh": ((None,), "A6 (tensor-parallel serving)"),
-    "tp_axis": (("tp",), "A6 (tensor-parallel serving)"),
     "telemetry": (("auto", "off"), "A7 (serving telemetry)"),
     "telemetry_jsonl": ((None,), "A7 (serving telemetry)"),
     "telemetry_every": ((32,), "A7 (serving telemetry)"),
@@ -169,16 +189,35 @@ class ModelFamily:
     forward_cached: Callable    # (params, tokens[B,T], cache, pos, cfg)
     init_cache: Callable        # (cfg, batch, max_len, device) -> {"k","v"}
     held_tensors: Callable = lambda cfg, cache: ()   # (cfg, cache) -> tuple
+    # tensor-parallel serving: {leaf: spec over 'tp'} (the module's
+    # SERVING_PARAM_SPECS), and the column order a leaf is stored in
+    # before it is cut (name, full tensor, tp) -> tensor
+    serving_specs: Optional[dict] = None
+    serving_order: Callable = lambda name, value, tp: value
+
+
+def _gpt_serving_order(name, value, tp):
+    """GPT's fused qkv leaves in head-grouped column order
+    (models/gpt.py qkv_head_order), so each rank's shard holds its
+    heads' q, k and v."""
+    if tp == 1 or name not in ("qkv_w", "qkv_w_q", "qkv_w_scale", "qkv_b"):
+        return value
+    from ..models.gpt import qkv_head_order
+    idx = qkv_head_order(value.shape[-1] // 3, tp).to(value.device)
+    return value.index_select(value.dim() - 1, idx)
 
 
 def family_for(name: str) -> ModelFamily:
     if name == "gpt":
         from ..models import gpt
-        return ModelFamily("gpt", gpt.gpt_forward_cached, gpt.init_kv_cache)
+        return ModelFamily("gpt", gpt.gpt_forward_cached, gpt.init_kv_cache,
+                           serving_specs=gpt.SERVING_PARAM_SPECS,
+                           serving_order=_gpt_serving_order)
     if name == "llama":
         from ..models import llama
         return ModelFamily("llama", llama.llama_forward_cached,
-                           llama.init_kv_cache, llama.cached_rope_tables)
+                           llama.init_kv_cache, llama.cached_rope_tables,
+                           serving_specs=llama.SERVING_PARAM_SPECS)
     raise ValueError(f"unknown model family {name!r} (gpt|llama)")
 
 
@@ -496,7 +535,11 @@ class ServingEngine:
     drafts a tick, `draft_layers` draft depth (0: half the layers).
     `multi_tick` ticks a dispatch (0: env > registry > 1). The host KV
     tier: `host_kv_bytes` of host RAM behind the page pool (0: off;
-    paged layout with prefix sharing only).
+    paged layout with prefix sharing only). Tensor parallelism: `mesh`
+    (parallel.mesh.build_mesh({'tp': N}), or any mesh with a `tp_axis`
+    axis; see parallel/planner.py plan_serving_tp for the degree), one
+    engine a rank, built and driven alike on every rank; `params` are
+    the FULL tree, which each rank cuts to its shards.
     """
 
     def __init__(self, params, cfg, family="gpt", num_slots: int = 8,
@@ -507,11 +550,31 @@ class ServingEngine:
                  prefill_chunk: int = 0, prefix_sharing: bool = True,
                  spec_decode: str = "auto", gamma: int = 4,
                  draft_layers: int = 0, multi_tick: int = 0,
-                 host_kv_bytes: int = 0, **later_knobs):
+                 host_kv_bytes: int = 0, mesh=None, tp_axis: str = "tp",
+                 **later_knobs):
         _check_unported(later_knobs)
-        self.device = resolve_device(device)
         self.family = (family_for(family) if isinstance(family, str)
                        else family)
+        self.mesh = mesh
+        self.tp_axis = str(tp_axis)
+        self.tp = 1
+        self._layout = None
+        if mesh is not None:
+            from ..parallel.mesh import axis_names, axis_size, mesh_device
+            names = axis_names(mesh)
+            if self.tp_axis not in names:
+                raise ValueError(
+                    f"mesh {dict(zip(names, tuple(mesh.shape)))} has no "
+                    f"{self.tp_axis!r} axis (build it via parallel.mesh."
+                    "build_mesh({'tp': N}) or pass tp_axis=)")
+            if self.family.serving_specs is None:
+                raise ValueError(
+                    f"family {self.family.name!r} has no "
+                    "SERVING_PARAM_SPECS — it cannot run tensor-parallel")
+            self.tp = axis_size(mesh, self.tp_axis)
+            if device is None:
+                device = mesh_device(mesh)
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.num_slots = int(num_slots)
         self.max_len = int(max_len or cfg.max_seq_len)
@@ -543,6 +606,18 @@ class ServingEngine:
         # explicit K (inference/multi_tick.resolve_multi_tick)
         from .multi_tick import resolve_multi_tick
         self.mt_k = resolve_multi_tick(multi_tick, self.device)
+        if self.tp > 1 and self.mt_k > 1:
+            from ..parallel.collective import collective_route
+            from ..parallel.mesh import axis_group
+            route = collective_route(axis_group(mesh, self.tp_axis),
+                                     self.device)
+            if route == "gloo_cuda_via_all_reduce":
+                raise NotImplementedError(
+                    f"multi_tick={self.mt_k} under mesh=: a K >= 2 dispatch "
+                    "on the card is a CUDA graph, which cannot capture the "
+                    f"tp collectives' {route!r} route (ranks sharing a card "
+                    "over gloo); use multi_tick=1 there, or one rank a card "
+                    "over NCCL")
         # positions one dispatch writes per slot
         self._tick_span = self.mt_k * (self.spec_gamma + 1 if self.spec
                                        else 1)
@@ -575,7 +650,10 @@ class ServingEngine:
                 self.family = dataclasses.replace(
                     self.family, forward_cached=functools.partial(
                         self.family.forward_cached, qmm=quant_matmul_ref))
-        self._params = _to_device(params, self.device)
+        if mesh is None:
+            self._params = _to_device(params, self.device)
+        else:
+            self._params = self._shard_params(params)
         n = self.num_slots
         if self.paged:
             if self.page_size < 1:
@@ -667,6 +745,90 @@ class ServingEngine:
                 self._quant_info["head"]
             self._qmm_full = per * n_layers + head
             self._qmm_draft = per * self.spec_draft_layers + head
+
+    # --------------------------------------------- tensor-parallel seams
+    def _serving_table(self, params) -> dict:
+        """The family's serving specs on this engine's tp axis, with a
+        Llama k/v whole where tp does not divide its KV heads and the
+        int8 leaves' specs (quantization/serving.py quant_specs)."""
+        from ..parallel.mesh import P, remap_specs
+        specs = dict(self.family.serving_specs)
+        if self.tp_axis != "tp":
+            specs = remap_specs(specs, {"tp": self.tp_axis})
+        kv = int(getattr(self.cfg, "num_kv_heads", 0) or 0)
+        if kv and kv % self.tp:
+            group = self.cfg.num_heads // kv
+            if group % (self.cfg.num_heads // self.tp):
+                raise ValueError(
+                    f"tp={self.tp}: the query heads of a rank "
+                    f"({self.cfg.num_heads // self.tp}) straddle the "
+                    f"groups of {group} that share a KV head; pick a tp "
+                    f"that divides num_kv_heads={kv}, or one that puts "
+                    "each rank's query heads inside one group")
+            for name in ("k_w", "v_w"):
+                specs[name] = P()
+        if self._quant_info:
+            from ..quantization.serving import quant_specs
+            specs = quant_specs(specs, params)
+        return specs
+
+    def _shard_params(self, params) -> dict:
+        """This rank's shard of every leaf of the FULL tree `params`
+        (numpy arrays or tensors), by the serving table, shape-aware: a
+        dim tp does not divide stays whole. `_param_pins` keeps each
+        leaf's Sharding."""
+        from ..models.convert import params_from_jax
+        from ..parallel.layout import ServingLayout
+        from ..parallel.mesh import P, sharding_for
+        if self.cfg.num_heads % self.tp:
+            raise ValueError(f"tp={self.tp} does not divide num_heads="
+                             f"{self.cfg.num_heads} (head-sharded "
+                             "attention); see plan_serving_tp")
+        specs = self._serving_table(params)
+        self._param_pins = {}
+        self._full_shapes = {}
+        out = {}
+        for name, value in params.items():
+            if not isinstance(value, torch.Tensor):
+                value = params_from_jax({name: value}, "cpu")[name]
+            pin = sharding_for(specs.get(name, P()), self.mesh,
+                               shape=tuple(value.shape))
+            self._param_pins[name] = pin
+            self._full_shapes[name] = tuple(value.shape)
+            value = self.family.serving_order(name, value, self.tp)
+            out[name] = pin.shard(value).to(self.device)
+        self._layout = ServingLayout(
+            self.mesh, {k: v.spec for k, v in self._param_pins.items()},
+            self.tp_axis)
+        base = self.family
+        self.family = dataclasses.replace(
+            base, forward_cached=functools.partial(base.forward_cached,
+                                                   layout=self._layout))
+        self._pin_cache()
+        return out
+
+    def _pin_cache(self) -> None:
+        """The cache leaves' Shardings (decode_attention.cache_pspecs,
+        shape-aware on the head axis, the one the spec splits; the dense
+        shape stands for either layout), and the family's cache factory
+        bound to this rank's heads, so every cache the engine makes (the
+        pool, a dense prefill's one-row cache, the paged probe) holds
+        only them."""
+        from ..kernels.decode_attention import cache_pspecs
+        from ..parallel.mesh import P, sharding_for
+        probe = self.family.init_cache(self.cfg, 1, 1, device="cpu")
+        L, _, _, heads, hd = probe["k"].shape
+        specs = cache_pspecs(self.paged, self.tp_axis)
+        full = (L, self.num_slots, self.max_len, heads, hd)
+        self._cache_pins = {
+            k: sharding_for(specs[k], self.mesh, shape=full)
+            for k in ("k", "v")}
+        if self.paged:
+            self._cache_pins["pt"] = sharding_for(P(), self.mesh)
+        local = self._cache_pins["k"].local_shape(full)[3]
+        self.family = dataclasses.replace(
+            self.family, init_cache=functools.partial(
+                self.family.init_cache, heads=local))
 
     def _init_paged_cache(self) -> dict:
         """The page pool {"k","v": [L, P, page_size, heads, hd]} in the

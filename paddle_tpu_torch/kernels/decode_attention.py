@@ -43,7 +43,8 @@ import torch
 
 __all__ = ["write_kv", "cached_attention", "attended_tokens",
            "decode_attn_impl", "attn_math_impl", "gather_pages",
-           "write_kv_paged", "kv_view_extent", "write_and_attend"]
+           "write_kv_paged", "kv_view_extent", "write_and_attend",
+           "cache_pspecs"]
 
 ENV_DECODE_ATTN = "PADDLE_TPU_DECODE_ATTN_IMPL"
 
@@ -141,20 +142,46 @@ def write_kv_paged(pages, table, k, pos):
     return pages
 
 
-def write_and_attend(q, k, v, kc, vc, pos, pt=None):
+def write_and_attend(q, k, v, kc, vc, pos, pt=None, kv_heads=None):
     """One layer's cache step, write then attend, in either layout:
     dense kc/vc [B, S, KV, hd], or pages [P, page_size, KV, hd] with the
-    table `pt` [B, max_pages]. Returns ctx [B, T, H, hd] float32."""
+    table `pt` [B, max_pages]. Returns ctx [B, T, H, hd] float32.
+    `kv_heads` [a, b): the queries attend only those KV heads of the
+    cache (a tensor-parallel rank whose cache stays whole while it owns
+    a share of the query heads); all of them by default."""
+    def heads(c):
+        return c if kv_heads is None else c.narrow(
+            2, kv_heads[0], kv_heads[1] - kv_heads[0])
+
     if pt is None:
         write_kv(kc, k, pos)
         write_kv(vc, v, pos)
-        return cached_attention(q, kc, vc, pos)
+        return cached_attention(q, heads(kc), heads(vc), pos)
     B, T = k.shape[:2]
     slots = _page_slots(kc, pt, pos, B, T)        # shared by k and v
     kc[slots] = k.to(kc.dtype).reshape(B * T, *k.shape[2:])
     vc[slots] = v.to(vc.dtype).reshape(B * T, *v.shape[2:])
-    return cached_attention(q, gather_pages(kc, pt), gather_pages(vc, pt),
-                            pos)
+    return cached_attention(q, gather_pages(heads(kc), pt),
+                            gather_pages(heads(vc), pt), pos)
+
+
+def cache_pspecs(paged: bool, tp_axis: str = "tp"):
+    """The specs of the decode cache's leaves on a tensor-parallel serving
+    mesh (inference/serving.py `mesh=`). Both layouts are rank 5 with
+    the KV-head axis at position 3, dense [L, N, max_len, KV, hd] and
+    paged [L, P, page_size, KV, hd], so one spec head-shards either:
+    each rank holds every slot's (or page's) full position range for
+    its heads, which keeps the writes and the page gather local. The
+    page table stays whole: it indexes pages, not heads. Where tp does
+    not divide KV (deep GQA, MQA), the engine's shape-aware degrade
+    (parallel.mesh.sharding_for with shape=) keeps the leaf whole on
+    every rank, as the reference's does."""
+    from ..parallel.mesh import P
+    kv = P(None, None, None, tp_axis, None)
+    specs = {"k": kv, "v": kv}
+    if paged:
+        specs["pt"] = P()
+    return specs
 
 
 def kv_view_extent(paged: bool, max_len: int, max_pages: int = 0,

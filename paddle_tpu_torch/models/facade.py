@@ -426,12 +426,24 @@ class FacadeModel(nn.Module):
         engine is cached and reused while its knobs and the weights stay
         the same. Other engine knobs pass through `engine_kw`: the cache
         layout (kv_layout, page_size, num_pages, prefill_chunk,
-        prefix_sharing) and speculative decode (spec_decode, gamma,
-        draft_layers) among them; a changed knob rebuilds the engine."""
+        prefix_sharing), speculative decode (spec_decode, gamma,
+        draft_layers) and tensor parallelism (mesh, tp_axis) among them;
+        a changed knob, a mesh of another topology or tp degree included,
+        rebuilds the engine."""
         if quant is not None:
             engine_kw["quant"] = quant
+        knobs = dict(engine_kw)
+        if knobs.get("mesh") is not None:
+            # a tensor-parallel engine is keyed by its mesh's topology and
+            # tp degree, never shared with the single-device one
+            from ..parallel.mesh import axis_names, axis_size
+            mesh = knobs["mesh"]
+            axis = knobs.get("tp_axis", "tp")
+            knobs["mesh"] = (tuple(axis_names(mesh)), tuple(mesh.shape),
+                             tuple(mesh.mesh.flatten().tolist()),
+                             axis_size(mesh, axis))
         key = (num_slots, max_len, max_top_k, seed,
-               tuple(sorted(engine_kw.items())), self._weights_key())
+               tuple(sorted(knobs.items())), self._weights_key())
         if self._engine is None or self._engine_key != key:
             from ..inference.serving import create_serving_engine
             self._engine = create_serving_engine(

@@ -421,30 +421,50 @@ def train_step(params, opt_state, batch, cfg: GPTConfig, lr=3e-4,
     return loss, params, opt_state
 
 
-def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None):
-    """-> {"k","v": [L, B, max_len, H, hd]} in the activation dtype."""
+def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int, device=None,
+                  heads: Optional[int] = None):
+    """-> {"k","v": [L, B, max_len, H, hd]} in the activation dtype
+    (`heads` of them where a tensor-parallel engine holds its share)."""
     from ..device import resolve_device
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_len,
+             cfg.num_heads if heads is None else int(heads), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
+def qkv_head_order(hidden: int, tp: int) -> torch.Tensor:
+    """The column order that stores GPT's fused qkv (last dim 3D, q|k|v)
+    for tensor-parallel serving: chunk r of tp holds rank r's heads of q,
+    then of k, then of v, so each rank's contiguous shard is exactly the
+    columns its heads compute with. The reference stores the contiguous
+    3D/tp block and lets GSPMD regroup inside the tick; a rank here
+    holds what it uses, so the tick moves no weights."""
+    per = hidden // tp
+    return torch.cat([torch.arange(part * hidden + r * per,
+                                   part * hidden + (r + 1) * per)
+                      for r in range(tp) for part in range(3)])
+
+
 def _cached_attention(x, params_l, kc, vc, pos, cfg, qmm=quant_matmul,
-                      pt=None):
+                      pt=None, layout=None):
     """One block's attention with the cache update. x [B,T,D]; kc/vc
     [B,max_len,H,hd], or pages [P,page_size,H,hd] with the page table
-    `pt`, are written in place. Returns the attention out."""
+    `pt`, are written in place. Returns the attention out. Under a
+    serving `layout` the rank computes its heads (qkv's stored shard is
+    its q|k|v columns, qkv_head_order) and the out projection is
+    reduced over tp."""
     B, T, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
+    row = leaf_matmul if layout is None else layout.row_mm
     qkv = leaf_matmul(x, params_l, "qkv_w", qmm)
     if params_l.get("qkv_b") is not None:
         qkv = qkv + params_l["qkv_b"].to(x.dtype)
-    q, k, v = torch.split(qkv, D, dim=-1)
-    ctx = write_and_attend(q.reshape(B, T, H, hd), k.reshape(B, T, H, hd),
-                           v.reshape(B, T, H, hd), kc, vc, pos, pt)
-    ctx = ctx.reshape(B, T, D).to(x.dtype)
-    out = leaf_matmul(ctx, params_l, "attn_out_w", qmm)
+    q, k, v = torch.split(qkv, qkv.shape[-1] // 3, dim=-1)
+    ctx = write_and_attend(q.reshape(B, T, -1, hd), k.reshape(B, T, -1, hd),
+                           v.reshape(B, T, -1, hd), kc, vc, pos, pt)
+    ctx = ctx.reshape(B, T, -1).to(x.dtype)
+    out = row(ctx, params_l, "attn_out_w", qmm)
     if params_l.get("attn_out_b") is not None:
         out = out + params_l["attn_out_b"].to(x.dtype)
     return out
@@ -466,7 +486,8 @@ def _position_embedding(wpe, pos, B: int, T: int, device):
 
 
 def gpt_forward_cached(params, tokens, cache, pos, cfg: GPTConfig,
-                       layers: Optional[int] = None, qmm=quant_matmul):
+                       layers: Optional[int] = None, qmm=quant_matmul,
+                       layout=None):
     """Forward `tokens` [B,T] against a cache holding `pos` tokens
     (a scalar, or a [B] tensor of per-row slot positions).
     -> (logits [B,T,V], cache), the cache updated in place. `qmm` is the
@@ -480,10 +501,19 @@ def gpt_forward_cached(params, tokens, cache, pos, cfg: GPTConfig,
     self-draft pass of speculative decoding (inference/spec_decode.py).
     It writes layers < `layers` of the cache it is given (the whole cache
     or its first-`layers` view), with the bits the full pass writes
-    there, since layer l's K/V depends only on the layers below it."""
+    there, since layer l's K/V depends only on the layers below it.
+    `layout` (parallel/layout.py ServingLayout): the params and cache
+    are this rank's tp shards; qkv and mlp_up run column-parallel,
+    attn_out and mlp_down row-parallel with one all-reduce each, the
+    embedding vocab-parallel, and the logits come back whole."""
     B, T = tokens.shape
     pt = cache.get("pt")
-    x = params["wte"][tokens.long()].to(cfg.dtype)
+    if layout is None:
+        x = params["wte"][tokens.long()].to(cfg.dtype)
+        row = leaf_matmul
+    else:
+        x = layout.embed(params["wte"], tokens, cfg.dtype)
+        row = layout.row_mm
     x = x + _position_embedding(params["wpe"], pos, B, T,
                                 x.device).to(cfg.dtype)
     keys = _BLOCK_KEYS_DENSE + tuple(
@@ -494,21 +524,26 @@ def gpt_forward_cached(params, tokens, cache, pos, cfg: GPTConfig,
         p = {k: v[layer] for k, v in stacked.items()}
         a_in = _ln(x, p["ln1_scale"], p["ln1_bias"], eps)
         x = x + _cached_attention(a_in, p, cache["k"][layer],
-                                  cache["v"][layer], pos, cfg, qmm, pt)
+                                  cache["v"][layer], pos, cfg, qmm, pt,
+                                  layout)
         m_in = _ln(x, p["ln2_scale"], p["ln2_bias"], eps)
         mh = leaf_matmul(m_in, p, "mlp_up_w", qmm)
         if p.get("mlp_up_b") is not None:
             mh = mh + p["mlp_up_b"].to(mh.dtype)
         mh = F.gelu(mh, approximate="tanh")
-        m = leaf_matmul(mh, p, "mlp_down_w", qmm)
+        m = row(mh, p, "mlp_down_w", qmm)
         if p.get("mlp_down_b") is not None:
             m = m + p["mlp_down_b"].to(m.dtype)
         x = x + m
     x = _ln(x, params["ln_f_scale"], params["ln_f_bias"], eps)
     if "head_q" in params:
         logits = qmm(x, params["head_q"], params["head_scale"])
+        head = "head_q"
     else:
         logits = torch.einsum("bsd,vd->bsv", x, params["wte"].to(x.dtype))
+        head = "wte"
+    if layout is not None:
+        logits = layout.gather_logits(logits, head)
     return logits, cache
 
 

@@ -341,18 +341,37 @@ def train_step(params, opt_state, batch, cfg: LlamaConfig, lr=3e-4,
     return loss, params, opt_state
 
 
-def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, device=None):
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, device=None,
+                  heads: Optional[int] = None):
     """-> {"k","v": [L, B, max_len, KV, hd]} in the activation dtype: the
-    cache holds KV heads, not query heads."""
+    cache holds KV heads, not query heads (`heads` of them where a
+    tensor-parallel engine holds its share)."""
     from ..device import resolve_device
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_len,
+             cfg.num_kv_heads if heads is None else int(heads),
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
+def _kv_range(layout, lp, cfg: LlamaConfig):
+    """The cache's KV heads this rank's query heads attend, as [a, b),
+    where its k/v leaves are whole under tp (tp does not divide
+    num_kv_heads); None when the rank's cache holds exactly its heads'
+    KV (no layout, or the k/v leaves split)."""
+    if layout is None or layout.tp == 1 or \
+            layout.form(lp, "k_w") == "column":
+        return None
+    h0, h1 = layout.heads(cfg.num_heads)
+    group = cfg.num_heads // cfg.num_kv_heads
+    a = h0 // group
+    return a, (h1 - 1) // group + 1
+
+
 def llama_forward_cached(params, tokens, cache, pos, cfg: LlamaConfig,
-                         layers: Optional[int] = None, qmm=quant_matmul):
+                         layers: Optional[int] = None, qmm=quant_matmul,
+                         layout=None):
     """Forward `tokens` [B, T] against a cache holding `pos` tokens (a
     scalar, or a [B] tensor of per-row slot positions) -> (logits
     [B, T, V], cache), the cache updated in place. `qmm` is the
@@ -360,11 +379,19 @@ def llama_forward_cached(params, tokens, cache, pos, cfg: LlamaConfig,
     plain version where a caller wants the forward without the kernel.
     Cache layouts and `layers` (the speculative self-draft: the first
     `layers` blocks, then the final norm and the head) as
-    gpt_forward_cached's."""
+    gpt_forward_cached's. `layout` (parallel/layout.py ServingLayout):
+    the params and cache are this rank's tp shards; q/k/v/gate/up run
+    column-parallel, o and down row-parallel with one all-reduce each,
+    the embedding vocab-parallel, and the logits come back whole."""
     B, T = tokens.shape
     pt = cache.get("pt")
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    x = params["wte"][tokens.long()].to(cfg.dtype)
+    hd = cfg.head_dim
+    if layout is None:
+        x = params["wte"][tokens.long()].to(cfg.dtype)
+        row = leaf_matmul
+    else:
+        x = layout.embed(params["wte"], tokens, cfg.dtype)
+        row = layout.row_mm
     # RoPE over the cache's positions, taken at `pos` with the clamps of
     # GPT's position embedding: [1, T, hd/2] or [B, T, hd/2]
     cos_full, sin_full = cached_rope_tables(cfg, cache)
@@ -374,28 +401,35 @@ def llama_forward_cached(params, tokens, cache, pos, cfg: LlamaConfig,
         k2 for k in _BLOCK_KEYS for k2 in (k + "_q", k + "_scale"))
     stacked = {k: params[k] for k in keys if k in params}
     eps = cfg.rms_eps
+    kv_heads = None
     for layer in range(cfg.num_layers if layers is None else int(layers)):
         lp = {k: v[layer] for k, v in stacked.items()}
+        if layer == 0:
+            kv_heads = _kv_range(layout, lp, cfg)
         h = _rmsnorm(x, lp["attn_norm"], eps)
-        q = leaf_matmul(h, lp, "q_w", qmm).reshape(B, T, H, hd)
-        k = leaf_matmul(h, lp, "k_w", qmm).reshape(B, T, KV, hd)
-        v = leaf_matmul(h, lp, "v_w", qmm).reshape(B, T, KV, hd)
+        q = leaf_matmul(h, lp, "q_w", qmm).reshape(B, T, -1, hd)
+        k = leaf_matmul(h, lp, "k_w", qmm).reshape(B, T, -1, hd)
+        v = leaf_matmul(h, lp, "v_w", qmm).reshape(B, T, -1, hd)
         ctx = write_and_attend(_apply_rope(q, cos, sin),
                                _apply_rope(k, cos, sin), v,
-                               cache["k"][layer], cache["v"][layer], pos, pt)
-        x = x + leaf_matmul(ctx.reshape(B, T, H * hd).to(x.dtype), lp,
-                            "o_w", qmm)
+                               cache["k"][layer], cache["v"][layer], pos, pt,
+                               kv_heads=kv_heads)
+        x = x + row(ctx.reshape(B, T, -1).to(x.dtype), lp, "o_w", qmm)
         h = _rmsnorm(x, lp["ffn_norm"], eps)
         gated = F.silu(leaf_matmul(h, lp, "gate_w", qmm)) * \
             leaf_matmul(h, lp, "up_w", qmm)
-        x = x + leaf_matmul(gated, lp, "down_w", qmm)
+        x = x + row(gated, lp, "down_w", qmm)
     x = _rmsnorm(x, params["norm_f"], eps)
     if "head_q" in params:
         # the tied head's transposed int8 copy; `wte` stays fp for the
         # embedding (quantization/serving.py)
         logits = qmm(x, params["head_q"], params["head_scale"])
+        head = "head_q"
     else:
         logits = torch.einsum("bsd,vd->bsv", x, params["wte"].to(x.dtype))
+        head = "wte"
+    if layout is not None:
+        logits = layout.gather_logits(logits, head)
     return logits, cache
 
 

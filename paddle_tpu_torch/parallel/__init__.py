@@ -5,13 +5,14 @@ specs (mesh), the step's collectives and stage handoffs (collective),
 the cost model's plan search (planner), the layout the sharded step
 hands its model (layout, the port's own), for pp>1 plans the 1F1B
 schedule (pipeline) and the pipelined step (pipeline_train), sharded
-checkpoints that load under another plan (checkpoint), and the
-resilient step with skip, rollback and watchdog (resilience).
+checkpoints that load under another plan (checkpoint), the
+resilient step with skip, rollback and watchdog (resilience), and the
+elastic controller that replans onto the surviving ranks (elastic).
 
 One process drives one rank and one device; launch N ranks with
-`torchrun --nproc_per_node=N`. Elastic training (A6c part 2),
-tensor-parallel serving, MoE and context parallelism are later ROADMAP
-A6 items.
+`python -m paddle_tpu_torch.distributed.launch --nproc_per_node N` (or
+`torchrun --nproc_per_node=N`). MoE and context parallelism are a later
+ROADMAP A6 item.
 """
 from .env import (  # noqa: F401
     init_parallel_env, get_rank, get_world_size, is_initialized,
@@ -26,7 +27,7 @@ from .collective import (  # noqa: F401
 from .planner import (  # noqa: F401
     ChipSpec, ModelSpec, Plan, TrainPlan, NoFeasiblePlanError,
     enumerate_plans, plan_parallel, plan_train, spec_from_config,
-    best_mesh_axes)
+    best_mesh_axes, degrade_plan, plan_serving_tp)
 from .layout import ShardLayout, current_layout, use_layout  # noqa: F401
 from .pipeline import (  # noqa: F401
     bubble_fraction, naive_bubble_fraction, one_f_one_b, timeline,
@@ -39,3 +40,6 @@ from .checkpoint import (  # noqa: F401
 from .resilience import (  # noqa: F401
     ResilienceConfig, ResilientTrainer, StepHungError, make_resilient_step,
     plan_state_specs, pull_with_watchdog, run_resilient, WatchdogPuller)
+from .elastic import (  # noqa: F401
+    DeviceLeases, DeviceLossError, ElasticConfig, ElasticDeparture,
+    ElasticTrainer, request_degraded_restart, run_elastic)

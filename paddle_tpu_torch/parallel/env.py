@@ -13,7 +13,9 @@ launcher variables (PADDLE_TRAINERS_NUM, PADDLE_TRAINER_ID,
 PADDLE_MASTER) first and torchrun's (WORLD_SIZE, RANK, MASTER_ADDR,
 MASTER_PORT) after them, as the reference does; LOCAL_RANK picks the
 rank's card (device.resolve_device). The backend is NCCL where CUDA is
-available and gloo otherwise, unless the caller names one.
+available and gloo otherwise, unless the caller names one or the
+launcher exports PADDLE_DIST_BACKEND (distributed/launch: gloo for
+ranks on the host, and for ranks that share a card).
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ def init_parallel_env(strategy=None, backend: Optional[str] = None,
     given (1 process when it sets none: a caller asks for a world of one
     under a launcher with world_size=1); `init_method` defaults to
     tcp://MASTER_ADDR:MASTER_PORT, or an in-process store for a world of
-    one; `backend` to "nccl" with CUDA and "gloo" without. On CUDA the
+    one; `backend` to $PADDLE_DIST_BACKEND, else "nccl" with CUDA and
+    "gloo" without. On CUDA the
     rank's card (LOCAL_RANK, else the current device) becomes the
     current device first, as NCCL needs."""
     if dist.is_initialized():
@@ -54,7 +57,8 @@ def init_parallel_env(strategy=None, backend: Optional[str] = None,
         ("PADDLE_TRAINERS_NUM", "WORLD_SIZE"), 1)
     rank = _env_int(("PADDLE_TRAINER_ID", "RANK"), 0)
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        backend = os.environ.get("PADDLE_DIST_BACKEND") or (
+            "nccl" if torch.cuda.is_available() else "gloo")
     if backend == "nccl":
         from ..device import resolve_device
         torch.cuda.set_device(resolve_device(None))

@@ -51,6 +51,21 @@ The module functions `weight`, `whole`, `enter`, `column_mm` and
 operations without one; with every axis of size one, the layout's
 calls return their inputs themselves, so the sharded step on one rank
 runs the very ops of the unsharded one.
+
+`ServingLayout` is the serving engine's counterpart (inference/
+serving.py `mesh=`, the reference's SERVING_PARAM_SPECS under GSPMD):
+each rank stores only its tp shard of every leaf, so nothing is
+gathered, and the cached forwards (models/gpt.py, models/llama.py)
+run the q/k/v/gate/up projections on the rank's stored shard as they
+are (kernels/quant_matmul.py `leaf_matmul`: its own output columns,
+the int8 kernel on its shard included) and call `row_mm`
+for o and down (the rank's partial product over its input rows,
+all-reduced over tp: two all-reduces a layer). The embedding is
+vocab-parallel (`embed`: each rank looks up the ids its rows hold, -0.0
+elsewhere, summed over tp, exact), and the head's logits are gathered
+whole (`gather_logits`), so every rank samples the same tokens. A leaf
+tp does not divide stays whole on every rank (the reference's
+shape-aware degrade) and is used without a collective.
 """
 from __future__ import annotations
 
@@ -65,8 +80,9 @@ from .collective import (all_reduce, copy_to, gather_from, psum,
 from .mesh import P, _entry_axes, axis_group, axis_index, axis_names, \
     axis_size
 
-__all__ = ["ShardLayout", "current_layout", "use_layout", "weight",
-           "whole", "enter", "column_mm", "row_mm"]
+__all__ = ["ShardLayout", "ServingLayout", "current_layout", "use_layout",
+           "weight", "whole", "enter", "column_mm", "row_mm", "leaf_form",
+           "tp_heads"]
 
 TP = "tp"
 
@@ -118,12 +134,7 @@ class ShardLayout:
         """"column", "row" or "whole": how a rank computes with leaf
         `name`, from its spec (a top-level leaf, the embedding or a
         final norm, is always used whole)."""
-        spec = self._spec(name, layer) if layer else P()
-        if spec and spec[-1] == TP:
-            return "column"
-        if len(spec) > 1 and spec[0] == TP:
-            return "row"
-        return "whole"
+        return leaf_form(self._spec(name, layer) if layer else P())
 
     def weight(self, name: str, w, layer: bool = True, dtype=None):
         """Leaf `name`'s local value `w` (one layer's slice of a stacked
@@ -156,8 +167,7 @@ class ShardLayout:
     def heads(self, n: int):
         """The [first, last) of the n heads (or columns) this tp rank
         owns."""
-        per = n // self.tp
-        return self.tp_rank * per, (self.tp_rank + 1) * per
+        return tp_heads(n, self.tp, self.tp_rank)
 
     # -------------------------------------------------------- activations
     def enter(self, h):
@@ -231,6 +241,105 @@ class ShardLayout:
         total = psum((loss / self.world).reshape(1), axis_names(self.mesh),
                      self.mesh)
         return total.reshape(())
+
+
+class ServingLayout:
+    """The tp layout of a serving engine's cached forward: `mesh`, the
+    serving axis `tp_axis`, and `specs`, {leaf name: the cleaned spec of
+    the rank's stored shard} (the engine's parameter pins; an int8
+    leaf's `<name>_q` carries its weight's spec).
+
+    `row_mm` takes the rank's partial product in the dtype the matmul
+    gives it and sums it in f32, rounding once to x's dtype. For an fp
+    leaf the partial itself stays f32 (`_mm_f32`), so the layer rounds
+    once as the unsharded matmul does; the int8 kernel returns its
+    partial in x's dtype (bf16 on the card), so o and down are rounded
+    twice there, the kernel's contract unchanged. `collectives` counts
+    the all-reduces and all-gathers issued (host calls)."""
+
+    def __init__(self, mesh, specs: Dict[str, P], tp_axis: str = TP):
+        self.mesh = mesh
+        self.tp_axis = tp_axis
+        self.specs = dict(specs)
+        self.tp = axis_size(mesh, tp_axis)
+        self.tp_rank = axis_index(mesh, tp_axis)
+        self.tp_group = axis_group(mesh, tp_axis)
+        self.collectives = 0
+
+    def _spec(self, lp, name: str) -> P:
+        key = name + "_q" if name + "_q" in lp else name
+        return self.specs.get(key, P())
+
+    def form(self, lp, name: str) -> str:
+        """"column", "row" or "whole" for a stacked leaf (its spec's
+        entries after the layer axis)."""
+        return leaf_form(tuple(self._spec(lp, name))[1:], self.tp_axis)
+
+    def split(self, name: str) -> bool:
+        """Whether top-level leaf `name`'s first dim (or, for a [K, N]
+        head copy, its last) is split over tp."""
+        return self.tp_axis in tuple(self.specs.get(name, P()))
+
+    def heads(self, n: int):
+        """The [first, last) of n heads this rank owns."""
+        return tp_heads(n, self.tp, self.tp_rank)
+
+    def row_mm(self, x, lp, name: str, qmm):
+        """x @ a row-parallel leaf, summed over tp in f32 and rounded once
+        to x's dtype; a whole leaf's product as it is."""
+        from ..kernels.quant_matmul import leaf_matmul
+        if self.form(lp, name) != "row" or self.tp == 1:
+            return leaf_matmul(x, lp, name, qmm)
+        if name + "_q" in lp:
+            y = leaf_matmul(x, lp, name, qmm).float()
+        else:
+            y = _mm_f32(x, lp[name].to(x.dtype))
+        self.collectives += 1
+        return all_reduce(y, self.tp_group).to(x.dtype)
+
+    def embed(self, wte, tokens, dtype):
+        """Rows of the embedding for `tokens` [B, T]: a vocab-parallel
+        shard looks up the ids its rows hold (-0.0 elsewhere, so the f32
+        sum over tp is exact); a whole table as it is."""
+        if not self.split("wte") or self.tp == 1:
+            return wte[tokens.long()].to(dtype)
+        n = wte.shape[0]
+        ids = tokens.long() - self.tp_rank * n
+        inside = (ids >= 0) & (ids < n)
+        rows = wte[ids.clamp(0, n - 1)].to(dtype).float()
+        rows = torch.where(inside[..., None], rows,
+                           torch.full_like(rows, -0.0))
+        self.collectives += 1
+        return all_reduce(rows, self.tp_group).to(dtype)
+
+    def gather_logits(self, logits, name: str):
+        """The head's logits whole on every rank: gathered over tp along
+        the vocab when head leaf `name` is split."""
+        if not self.split(name) or self.tp == 1:
+            return logits
+        from .collective import all_gather
+        self.collectives += 1
+        return all_gather(logits.contiguous(), self.tp_group,
+                          dim=logits.dim() - 1)
+
+
+def leaf_form(spec, tp_axis: str = TP) -> str:
+    """"column", "row" or "whole": how a rank computes with a leaf whose
+    stored spec (after any layer axis) is `spec`: its last dim split
+    over tp is column-parallel, its first (of two or more) row-parallel,
+    anything else is used whole."""
+    spec = tuple(spec)
+    if spec and spec[-1] == tp_axis:
+        return "column"
+    if len(spec) > 1 and spec[0] == tp_axis:
+        return "row"
+    return "whole"
+
+
+def tp_heads(n: int, tp: int, rank: int):
+    """The [first, last) of n heads (or columns) tp rank `rank` owns."""
+    per = n // tp
+    return rank * per, (rank + 1) * per
 
 
 # the model's side: each the plain single-device operation without a

@@ -4,7 +4,8 @@ port's counterpart of paddle_tpu/parallel/planner.py (`NoFeasiblePlanError`
 `_ACT_BUFFERS`, `Plan`, `_ring_factor`, `_estimate`, `_factorizations`,
 `enumerate_plans`, `_diagnose_empty`, `plan_parallel` :125-390,
 `TrainPlan` :393-437, `_resolve_param_specs`, `_pick_microbatches`,
-`_pp_manual_constraints`, `plan_train` :440-646, `best_mesh_axes` :812).
+`_pp_manual_constraints`, `plan_train` :440-646, `_divisors_desc`,
+`degrade_plan`, `plan_serving_tp` :648-810, `best_mesh_axes` :812).
 
 Given a transformer spec, a device count and a chip profile, it
 enumerates every legal (dp, mp, pp, fsdp) factorization, prices each
@@ -20,11 +21,13 @@ DP one gradient reduction, FSDP parameter all-gathers, PP its bubble.
 does, and models/facade.py runs them through the pipelined step
 (parallel/pipeline_train.py); a trainer moves between plans through
 `_ShardedTrainStep.rebuild` and a checkpoint restored onto the new
-plan (parallel/resilience.py `ResilientTrainer.rebuild_plan`). Not
-carried: `degrade_plan` (the elastic controller's replan onto fewer
-devices, ROADMAP A6c part 2) and `plan_serving_tp` (tensor-parallel
-serving, A6d), and the `train.plan.*` monitor gauges and the pipelined
-step's `train.bubble_fraction` gauge, which wait for A7's monitor.
+plan (parallel/resilience.py `ResilientTrainer.rebuild_plan`).
+`degrade_plan` (:651-757) is the elastic controller's replan onto the
+surviving devices (parallel/elastic.py), and `plan_serving_tp`
+(:759-810) the tensor-parallel degree of a serving engine
+(inference/serving.py `mesh=`). The `train.plan.*` monitor gauges and
+the pipelined step's `train.bubble_fraction` gauge wait for A7's
+monitor.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from typing import Dict, List, Optional, Sequence
 __all__ = ["ChipSpec", "ModelSpec", "Plan", "TrainPlan",
            "NoFeasiblePlanError", "enumerate_plans", "plan_parallel",
            "plan_train", "spec_from_config", "spec_from_gpt_config",
-           "best_mesh_axes"]
+           "degrade_plan", "plan_serving_tp", "best_mesh_axes"]
 
 
 class NoFeasiblePlanError(ValueError):
@@ -635,6 +638,157 @@ def plan_train(cfg_or_spec, n_devices: int, global_batch: int,
     return TrainPlan(axes=axes, mapping=mapping,
                      batch_axes=("dp", "fsdp"), plan=best, specs=specs,
                      overlap=bool(overlap))
+
+
+def _divisors_desc(n: int) -> List[int]:
+    return [d for d in range(n, 0, -1) if n % d == 0]
+
+
+def degrade_plan(cfg_or_spec, old: TrainPlan, n_surviving: int,
+                 global_batch: int, chip: Optional[ChipSpec] = None,
+                 tp_axis: str = "tp",
+                 param_specs: Optional[Dict] = None) -> TrainPlan:
+    """Degrade `old` onto at most `n_surviving` devices after device
+    loss (parallel/elastic.py). Preference order: **dp gives way first,
+    then fsdp, and tp AND pp are held**: re-slicing the TP split would
+    change the per-layer collective pattern and the head partitioning,
+    and re-chunking the pipeline stages would re-slice every stacked
+    leaf's stage windows and change the 1F1B schedule, while shrinking
+    dp/fsdp only re-shards the batch and the ZeRO-3 windows, which the
+    checkpoint manifest re-slices for free. Candidates rank
+    largest-surviving-world first, so the degrade strands as few
+    devices as possible; when no held candidate is legal (tp·pp itself
+    exceeds the survivors) the full search runs on every world size
+    down from `n_surviving`, collapsing pipeline stages only when the
+    survivors cannot form the old stage grid.
+
+    Raises NoFeasiblePlanError naming the violated constraint when
+    nothing fits: divisibility (the pp stage-grid constraint included)
+    through the `_diagnose_empty` walk, HBM with the per-device state
+    bytes spelled out."""
+    spec = _coerce_spec(cfg_or_spec)
+    chip = chip or ChipSpec()
+    if n_surviving < 1:
+        raise NoFeasiblePlanError(
+            f"no surviving devices (n_surviving={n_surviving})",
+            constraint=f"n_surviving={n_surviving} < 1")
+    dp0 = old.axes.get("dp", 1)
+    fsdp0 = old.axes.get("fsdp", 1)
+    tp0 = old.axes.get(tp_axis, 1)
+    pp0 = old.axes.get("pp", 1)
+    oom = []                      # legal-but-OOM candidates, for the error
+    # the tp·pp-held lattice: every (dp' | dp, fsdp' | fsdp) shrink keeps
+    # the batch divisibility `old` satisfied; rank by total desc, then
+    # prefer the larger fsdp' (shrink dp before fsdp)
+    cands = sorted(((dp, fsdp) for dp in _divisors_desc(dp0)
+                    for fsdp in _divisors_desc(fsdp0)
+                    if dp * fsdp * tp0 * pp0 <= n_surviving),
+                   key=lambda c: (-(c[0] * c[1] * tp0 * pp0), -c[1],
+                                  -c[0]))
+    for dp, fsdp in cands:
+        mb = 1
+        if pp0 > 1:
+            probs, mb = _pp_manual_constraints(spec, dp, fsdp, tp0, pp0,
+                                               global_batch)
+            if probs:
+                continue          # this shrink cannot microbatch
+        priced = _estimate(Plan(dp=dp, mp=tp0, pp=pp0, fsdp=fsdp,
+                                microbatches=mb), spec, global_batch,
+                           chip)
+        if priced.fits:
+            return plan_train(cfg_or_spec, dp * fsdp * tp0 * pp0,
+                              global_batch, chip=chip, dp=dp, fsdp=fsdp,
+                              tp=tp0, pp=pp0,
+                              microbatches=mb if pp0 > 1 else None,
+                              tp_axis=tp_axis, param_specs=param_specs,
+                              overlap=getattr(old, "overlap", False))
+        oom.append(priced)
+    # tp/pp cannot be held (or every held candidate is OOM): the full
+    # search, largest world first; pp=1 plans preferred, pp>1 only
+    # through the HBM gate's legality, as plan_train's search applies it
+    for n in range(n_surviving, 0, -1):
+        plans = enumerate_plans(spec, n, global_batch, chip)
+        oom.extend(p for p in plans if p.pp == 1 and not p.fits)
+        best = next((p for p in plans if p.pp == 1 and p.fits), None)
+        mb = None
+        if best is None:
+            for p in (q for q in plans if q.pp > 1 and q.fits):
+                probs, cand_mb = _pp_manual_constraints(
+                    spec, p.dp, p.fsdp, p.mp, p.pp, global_batch)
+                if probs:
+                    continue
+                priced = _estimate(Plan(dp=p.dp, mp=p.mp, pp=p.pp,
+                                        fsdp=p.fsdp,
+                                        microbatches=cand_mb),
+                                   spec, global_batch, chip)
+                # fits must hold at the real microbatch count
+                if priced.fits:
+                    best, mb = priced, cand_mb
+                    break
+        if best is not None:
+            return plan_train(cfg_or_spec, n, global_batch, chip=chip,
+                              dp=best.dp, fsdp=best.fsdp, tp=best.mp,
+                              pp=best.pp, microbatches=mb,
+                              tp_axis=tp_axis, param_specs=param_specs,
+                              overlap=getattr(old, "overlap", False))
+    if oom:
+        best = min(oom, key=lambda p: p.mem_bytes)
+        raise NoFeasiblePlanError(
+            f"no degraded plan fits {n_surviving} surviving devices: "
+            f"best candidate {best!r} needs {best.mem_bytes / 1e9:.2f} "
+            f"GB/chip > 0.9*hbm_bytes = {0.9 * chip.hbm_bytes / 1e9:.2f}"
+            f" GB even at max sharding",
+            constraint=f"hbm: {best.mem_bytes / 1e9:.2f} GB/chip > "
+                       f"{0.9 * chip.hbm_bytes / 1e9:.2f} GB")
+    reason = _diagnose_empty(spec, n_surviving, global_batch, None)
+    raise NoFeasiblePlanError(
+        f"no legal degraded (dp, fsdp, tp, pp) assignment for "
+        f"{n_surviving} surviving devices: {reason}", constraint=reason)
+
+
+def plan_serving_tp(cfg_or_spec, n_devices: int, num_slots: int = 8,
+                    max_len: Optional[int] = None,
+                    chip: Optional[ChipSpec] = None,
+                    cache_bytes_per_elem: int = 2) -> Dict[str, int]:
+    """The tensor-parallel degree of a serving decode tick
+    (inference/serving.py `mesh=`). The tick is weight-bandwidth bound:
+    every decode step streams every weight byte once, plus the live KV
+    pool, so tp divides the bytes each device streams while paying two
+    activation all-reduces a layer, whose tiny [slots, D] payloads make
+    the fixed collective launch latency the real price. Memory is a hard
+    gate: weights + the KV pool must fit a device, so a model bigger
+    than one device forces tp > 1. Only degrees dividing both
+    `n_devices` and num_heads are considered (head-sharded attention).
+    Returns mesh axes for parallel.mesh.build_mesh, e.g. {'tp': 2}."""
+    spec = _coerce_spec(cfg_or_spec)
+    chip = chip or ChipSpec()
+    S = max_len or spec.seq_len
+    # per-tick streamed bytes: the weights in the serving compute dtype
+    # and the worst-case live KV pool (the dense-equivalent envelope),
+    # from cost_model.serving_memory_ledger; decode scratch rides in the
+    # 10% headroom of the 0.9 factor
+    from ..cost_model import serving_memory_ledger
+    led = serving_memory_ledger(
+        spec, layout="dense", quant="off", num_slots=num_slots,
+        max_len=S, cache_bytes_per_elem=cache_bytes_per_elem,
+        dtype_bytes=spec.act_bytes_per_elem)
+    w_bytes = led["components"]["weights"]
+    kv_bytes = led["components"]["kv_pool_device"]
+    degrees = [d for d in range(1, n_devices + 1)
+               if n_devices % d == 0 and spec.num_heads % d == 0]
+    best, best_t, best_fits = None, float("inf"), False
+    for tp in degrees:
+        shard = (w_bytes + kv_bytes) / tp
+        fits = shard <= 0.9 * chip.hbm_bytes
+        ar_bytes = (_ring_factor(tp) * 2 * spec.num_layers * num_slots
+                    * spec.hidden_size * spec.act_bytes_per_elem)
+        t = (shard / chip.hbm_bw + ar_bytes / chip.ici_bw
+             + (2 * spec.num_layers * chip.coll_latency
+                if tp > 1 else 0.0))
+        # a non-fitting degree only wins over another non-fitting one
+        if best is None or (not fits, t) < (not best_fits, best_t):
+            best, best_t, best_fits = tp, t, fits
+    return {"tp": best}      # tp=1 always qualifies, so best is set
 
 
 def best_mesh_axes(param_count: int, n_devices: int,

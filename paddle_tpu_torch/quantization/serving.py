@@ -10,8 +10,12 @@ embedding gather. The cached forward (models/gpt.py) routes every
 matmul through kernels/quant_matmul.leaf_matmul, which finds the pair
 in the tree.
 
-The tensor-parallel PartitionSpec half of the reference waits for
-tensor-parallel serving in the port.
+Tensor-parallel serving (`quant_specs`, the reference's qspecs): a
+`<name>_q` leaf takes its weight's spec (the same shape), and its scale
+shards with the weight's output-channel axis: split for a
+column-parallel weight, whole for a row-parallel one, whose tp split
+sits on the reduction dim. The head copy takes the vocab-parallel
+embedding spec transposed onto [D, V].
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ import torch
 
 from .int8 import _Q, quantize_weight, quantize_weight_stacked
 
-__all__ = ["QUANT_LEAVES", "HEAD_LEAF", "quantize_serving_params"]
+__all__ = ["QUANT_LEAVES", "HEAD_LEAF", "quantize_serving_params",
+           "quant_specs"]
 
 QUANT_LEAVES: Dict[str, tuple] = {
     "gpt": ("qkv_w", "attn_out_w", "mlp_up_w", "mlp_down_w"),
@@ -89,3 +94,32 @@ def quantize_serving_params(params: dict, family: str
             "per_layer": len(done), "head": head,
             "quant_leaf_names": tuple(done)}
     return out, info
+
+
+def _entry(spec, i: int):
+    """spec[i], with the implicit trailing Nones made explicit."""
+    return spec[i] if spec is not None and i < len(spec) else None
+
+
+def quant_specs(specs: dict, qparams: dict) -> dict:
+    """`specs` (the family's serving table over the fp leaves) extended to
+    the int8 tree `qparams`: `<name>_q` inherits `<name>`'s spec, the
+    scale [L, N] takes (the layer axis, the weight's output-channel
+    axis), and `head_q` [D, V] / `head_scale` [V] the embedding spec
+    transposed."""
+    from ..parallel.mesh import P
+    out = dict(specs)
+    for key, value in qparams.items():
+        if key.endswith("_q") and key != "head_q":
+            name = key[:-2]
+            wspec = out.pop(name, P())
+            out[key] = wspec
+            out[name + "_scale"] = P(_entry(wspec, 0),
+                                     _entry(wspec, value.dim() - 1
+                                            if hasattr(value, "dim")
+                                            else np.ndim(value) - 1))
+    if "head_q" in qparams:
+        espec = out.get(HEAD_LEAF, P())
+        out["head_q"] = P(_entry(espec, 1), _entry(espec, 0))
+        out["head_scale"] = P(_entry(espec, 0))
+    return out

@@ -1,6 +1,6 @@
 """Deterministic fault injectors for the training fault-tolerance
 runtime — the port's counterpart of paddle_tpu/testing/faults.py, its
-training kinds.
+training and elastic kinds.
 
 Faults are declared in a spec string (env `PADDLE_TPU_FAULTS`),
 injected at exact step and shard boundaries so drills are reproducible,
@@ -28,9 +28,32 @@ Spec grammar, comma-separated `kind@a[:b]` tokens:
                         launcher's lease watch must kill the worker.
 - ``elastic_exit@S``  — `sys.exit(ELASTIC_EXIT_CODE)` at step S.
 
-The reference's other kinds are refused by name until their modules are
-ported: the serving, router and journal kinds wait for ROADMAP A7, the
-elastic kinds (device_loss, collective_hang, straggler) for A6c part 2.
+Elastic kinds: parallel/elastic.py consults `on_elastic` through
+`elastic._FAULT_HOOK` at its phase boundaries, "step" before each step
+and "restore" at the start of each reshard-restore attempt; each fires
+at most once, by the same marker scheme. Every rank of a world consults
+the same plan at the same boundaries, so every rank draws the same
+actions:
+
+- ``device_loss@S:K``      — wedge the last K device leases at or after
+                             step S (K defaults to 1): the staleness
+                             check fires at that boundary and the
+                             controller replans onto the survivors. At
+                             most one device_loss fires a consult, so a
+                             second token queued at the same step fires
+                             at the next boundary, which after a loss at
+                             "step" is the replan's "restore": the
+                             killed-mid-restore drill.
+- ``collective_hang@S:MS`` — stall the watched step MS milliseconds at
+                             or after step S, inside the controller's
+                             watchdog clock (MS past the budget: the
+                             hang detector fires).
+- ``straggler@S:MS``       — the same stall, named for the
+                             within-budget case: the run slows and must
+                             not replan.
+
+The reference's serving, router and journal kinds are refused by name
+until their modules are ported (ROADMAP A7).
 
 File corruptors (`truncate_shard`, `bitflip_shard`, `remove_shard`)
 damage committed checkpoints in place and exempt them from the write
@@ -55,17 +78,15 @@ ENV_ONCE_DIR = "PADDLE_TPU_FAULTS_ONCE_DIR"
 # (101) and from a crash's usual 1, so drill logs attribute deaths.
 KILL_EXIT = 37
 
-_TRAINING_KINDS = ("kill", "crash_shard", "nan", "hb_stale", "elastic_exit")
+_ELASTIC_KINDS = ("device_loss", "collective_hang", "straggler")
+_TRAINING_KINDS = ("kill", "crash_shard", "nan", "hb_stale",
+                   "elastic_exit") + _ELASTIC_KINDS
 # the reference's other kinds, and the ROADMAP item each waits for
 _WAITING = {
-    **{k: "ROADMAP A7 (the serving, router and journal fault kinds)"
-       for k in ("nan_logits", "tick_stall", "prefill_raise",
-                 "decode_raise", "cow_raise", "draft_nan",
-                 "replica_preempt", "migrate_raise", "oom", "quota_flood",
-                 "sigkill", "journal_torn")},
-    **{k: "ROADMAP A6c part 2 (the elastic controller's fault kinds)"
-       for k in ("device_loss", "collective_hang", "straggler")},
-}
+    k: "ROADMAP A7 (the serving, router and journal fault kinds)"
+    for k in ("nan_logits", "tick_stall", "prefill_raise", "decode_raise",
+              "cow_raise", "draft_nan", "replica_preempt", "migrate_raise",
+              "oom", "quota_flood", "sigkill", "journal_torn")}
 _KINDS = _TRAINING_KINDS + tuple(_WAITING)
 
 
@@ -187,6 +208,32 @@ class FaultPlan:
                   f"{count} shard files)", file=sys.stderr, flush=True)
             os._exit(KILL_EXIT)
 
+    def on_elastic(self, phase: str, step: int) -> dict:
+        """elastic._FAULT_HOOK: called at the elastic controller's phase
+        boundaries with ("step"|"restore", current step); returns the
+        action dict the controller applies ({"lose": K} wedges the last
+        K device leases, {"stall_s": S} stalls the next watched step).
+        At most one device_loss fires a consult, so queued same-step
+        losses cascade into the restore phase; stalls fire only at
+        "step"."""
+        actions: dict = {}
+        for f in self.faults:
+            if f.done or f.kind not in _ELASTIC_KINDS or step < f.step:
+                continue
+            if f.kind == "device_loss" and "lose" not in actions:
+                self._mark_fired(f)
+                print(f"[faults] device_loss at {phase} (step {step}): "
+                      f"losing {max(f.arg, 1)} device(s)",
+                      file=sys.stderr, flush=True)
+                actions["lose"] = max(f.arg, 1)
+            elif f.kind in ("collective_hang", "straggler") \
+                    and phase == "step" and "stall_s" not in actions:
+                self._mark_fired(f)
+                print(f"[faults] {f.kind} at step {step}: stalling "
+                      f"{f.arg} ms", file=sys.stderr, flush=True)
+                actions["stall_s"] = f.arg / 1000.0
+        return actions
+
 
 _PLAN: Optional[FaultPlan] = None
 
@@ -203,18 +250,20 @@ def install(spec: Optional[str] = None,
     once = once_dir if once_dir is not None \
         else os.environ.get(ENV_ONCE_DIR) or None
     plan = FaultPlan(spec, once_dir=once)
-    from ..parallel import checkpoint, resilience
+    from ..parallel import checkpoint, elastic, resilience
     resilience._STEP_HOOK = plan.on_step
     checkpoint._SHARD_WRITE_HOOK = plan.on_shard_write
+    elastic._FAULT_HOOK = plan.on_elastic
     _PLAN = plan
     return plan
 
 
 def uninstall() -> None:
     global _PLAN
-    from ..parallel import checkpoint, resilience
+    from ..parallel import checkpoint, elastic, resilience
     resilience._STEP_HOOK = None
     checkpoint._SHARD_WRITE_HOOK = None
+    elastic._FAULT_HOOK = None
     _PLAN = None
 
 

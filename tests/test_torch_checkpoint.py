@@ -1057,13 +1057,20 @@ class TestFaultPlan:
 
     @pytest.mark.parametrize("kind,waits", [
         ("nan_logits", "A7"), ("journal_torn", "A7"), ("sigkill", "A7"),
-        ("device_loss", "A6c part 2"), ("straggler", "A6c part 2")])
+        ("tick_stall", "A7"), ("replica_preempt", "A7")])
     def test_unported_kinds_refused_naming_what_they_wait_for(self, kind,
                                                               waits):
         from paddle_tpu.testing import faults as jfaults
         assert kind in jfaults._KINDS          # the reference's kind
         with pytest.raises(ValueError, match=f"waits for ROADMAP {waits}"):
             faults.FaultPlan(f"{kind}@3")
+
+    @pytest.mark.parametrize("kind", ["device_loss", "collective_hang",
+                                      "straggler"])
+    def test_elastic_kinds_parse(self, kind):
+        plan = faults.FaultPlan(f"{kind}@3:2")
+        assert [(f.kind, f.step, f.arg) for f in plan.faults] == [
+            (kind, 3, 2)]
 
     def test_bad_spec_rejected(self):
         with pytest.raises(ValueError, match="unknown fault kind"):

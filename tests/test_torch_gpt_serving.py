@@ -258,7 +258,7 @@ def test_cancel_and_poisoned_quarantine(setup):
 def test_unported_knobs_and_families_raise(setup):
     _, tc, params = setup
     for knob in (dict(telemetry="on"), dict(retries=5),
-                 dict(mesh=object()), dict(max_queue=4),
+                 dict(queue_ttl_s=1.0), dict(max_queue=4),
                  dict(tracing=True), dict(watchdog_timeout=1.0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(params, tc, device="cpu", **knob)

@@ -48,7 +48,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "inference.host_kv", "parallel", "parallel.env",
                 "parallel.mesh", "parallel.collective", "parallel.planner",
                 "parallel.layout", "parallel.checkpoint",
-                "parallel.resilience", "distributed.launch.heartbeat",
+                "parallel.resilience", "parallel.elastic",
+                "distributed.launch.heartbeat", "distributed.launch.main",
+                "distributed.launch._boot", "distributed.launch.__main__",
                 "testing.faults"):
         assert f"paddle_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
@@ -146,3 +148,20 @@ def test_default_device_is_the_ranks_own_card(monkeypatch):
     monkeypatch.delenv("LOCAL_RANK")
     assert resolve_device() == torch.device("cuda", 3)
     assert resolve_device("cuda") == torch.device("cuda", 3)
+
+
+def test_launcher_on_the_card_needs_one(monkeypatch, tmp_path):
+    """`--devices gpu` (the default) without a card raises before any
+    worker starts, instead of running the ranks on the host; the host
+    ranks are asked for with `--devices cpu`."""
+    from paddle_tpu_torch.distributed.launch import main as launch_main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    script = tmp_path / "w.py"
+    script.write_text("raise SystemExit(0)\n")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        launch_main.launch(["--nproc_per_node", "2", str(script)])
+    args = launch_main._parse_args(["--devices", "cpu", str(script)])
+    env = launch_main._worker_env(args, 0, "127.0.0.1:1")
+    assert env["CUDA_VISIBLE_DEVICES"] == ""
+    assert env["PADDLE_DIST_BACKEND"] == "gloo"
+    assert env["PADDLE_LAUNCH_DEVICES"] == "cpu"

@@ -198,8 +198,13 @@ def test_spec_knobs_and_kill_switch(families, monkeypatch):
                   multi_tick=4, host_kv_bytes=1 << 20)
     assert eng.mt_k == 4 and eng._host_tier is not None
     assert eng._tick_span == 4 * (eng.spec_gamma + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        _engine(params, tc, "llama", "paged", mesh=object())
+    # tensor-parallel serving is ported (A6d): a mesh without a tp axis
+    # is refused by name
+    import types
+    with pytest.raises(ValueError, match="has no 'tp' axis"):
+        _engine(params, tc, "llama", "paged",
+                mesh=types.SimpleNamespace(mesh_dim_names=("dp",),
+                                           shape=(1,)))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         _engine(params, tc, "llama", "paged", watchdog_timeout=1.0)
 
