@@ -44,13 +44,16 @@ Phases, each failing the script (non-zero exit) when it fails:
      an f64 attention from the same inputs, forward and backward (a
      measurement line);
    - the one-pass cross entropy, bf16, at [8192, 32768] (the GPT train
-     step's logits) and [8192, 50304];
+     step's logits), [8192, 50304] and [8192, 50257] (rows off a 16-byte
+     boundary), and f32 at [2048, 128256] (a row over a cluster of 3
+     blocks), each with the plan it launches under;
    - the two-pass cross entropy (forward saving the lse, backward from
      it), bf16, at [8192, 32000] (the Llama train step's logits) and
      [8192, 50257] (rows off a 16-byte boundary), the backward at
      g = 1/T (the mean loss) and g = 1;
-   - the AdamW leaf update, f32, at each of the 11 leaf shapes of the
-     TinyLlama-width tree, with torch._fused_adamw_ as the yardstick;
+   - the AdamW update, f32, at each of the 11 leaf shapes of the
+     TinyLlama-width tree alone, then over all 11 in one launch (one
+     step's update), with torch._fused_adamw_ as the yardstick;
    - the threefry bits kernel (the serving sampler's draw, the slot
      keys' fold_ins included) at [8, 32768] and [8, 32000] (8 slots,
      the GPT and Llama vocabularies), every word equal to its plain
@@ -126,18 +129,17 @@ Phases, each failing the script (non-zero exit) when it fails:
    else beyond such a tie. The f64 logits of the two tokens at the
    parting (at step 2 where the streams agree) are printed beside the
    kernel's and the plain version's.
-5b. Llama serving at TinyLlama-1.1B widths and LLAMA_SERVE_LAYERS = 11
-   of its 22 layers (phases 5b, 5c and 5d (a)-(d); the first 11 layers
-   of the phase 4 config's random weights, drawn on the host from seed
-   0 at full depth; 5d's host tier runs all 22): the int8
+5b. Llama serving at TinyLlama-1.1B widths and LLAMA_SERVE_LAYERS = 4
+   of its 22 layers (phases 5b-5e; random weights drawn on the host
+   from seed 0 at that depth): the int8
    ServingEngine, family "llama", 8 slots, max_len 2048, 16 requests
    (prompt lengths 16..1024 from a seeded rng, 64 new tokens each, two
-   sampled with top-k), exactly 78 launches per prefill and per tick
-   (11 layers x 7 leaves + the head), and the checks, profile and fp
+   sampled with top-k), exactly 29 launches per prefill and per tick
+   (4 layers x 7 leaves + the head), and the checks, profile and fp
    engine of phase 5, but for the one-step rule at a parting: there the
    Llama stack carries two faithful roundings apart by more than one
    bf16 step, and the greedy verdict rests on the f64 bound of every
-   int8 call of both replays (78 a forward).
+   int8 call of both replays (29 a forward).
 5c. Paged and speculative Llama serving at TinyLlama-1.1B widths, on
    phase 5b's host-drawn weights: the int8 engine with kv_layout
    "paged", page_size 16, prefill_chunk 256 and 513 pages (half the
@@ -147,9 +149,9 @@ Phases, each failing the script (non-zero exit) when it fails:
    requests 14 and 15 repeating request 0's prompt (every page mapped,
    the last one copied), requests 3 and 11 sampled with top-k. Then a
    dense engine on the same prompts, the paged engine with spec_decode
-   "spec", gamma 4 and draft_layers 5, and the dense one with it. Each
-   run: every request ends "length"; exactly 78 launches a prefill
-   chunk (a prefill, dense) and a tick, 78 + 4 x (5 x 7 + 1) = 222 a
+   "spec", gamma 4 and draft_layers 2, and the dense one with it. Each
+   run: every request ends "length"; exactly 29 launches a prefill
+   chunk (a prefill, dense) and a tick, 29 + 4 x (2 x 7 + 1) = 89 a
    spec tick; the page pool checked after every step (table references
    equal refcounts, every page free, cached or live, reservations
    conserved, no slot mapping a page past its position) and at the end
@@ -169,7 +171,7 @@ Phases, each failing the script (non-zero exit) when it fails:
    (paged, paged spec, dense spec, 5c's requests) at multi_tick=4, where
    a dispatch runs 4 ticks and, after each sampling flag's eager
    warm-up, is one CUDA graph replay. Each run: every request ends
-   "length"; each warm-up launches exactly 4 x 78 (4 x 222 spec)
+   "length"; each warm-up launches exactly 4 x 29 (4 x 89 spec)
    int8 kernels, each capture records exactly as many, the replays
    launch the rest (graph_replays = dispatches - warm-ups, at most 2
    graphs); the pool checked after every step;
@@ -188,17 +190,14 @@ Phases, each failing the script (non-zero exit) when it fails:
    with 1025 pages: spills and swap-ins > 0, the tier's streams equal
    the 1025-page engine's token for token and the tier-less engine's or
    each parting passes the verdict; bytes, drops, ms a swapped-in page,
-   round-2 chunks and prefill p50 of each engine. The host tier runs the
-   full 22 layers (155 launches a pass), 5d (a)-(d) the 11 of 5b and 5c:
-   their streams are held to the K = 1 engines of 5b and 5c, so their
-   depth is those engines'.
+   round-2 chunks and prefill p50 of each engine.
 5e. Tensor-parallel Llama serving (ServingEngine(mesh=), parallel/
    layout.py ServingLayout): first the int8 kernel at M 8 on every
    leaf shape a tp2 rank holds (TP_LEAF_KN: q [2048, 1024], o [1024,
    2048], k/v [2048, 128], gate/up [2048, 2816], down [2816, 2048],
    the head [2048, 16000]), against its plain version (timed beside
    the library and the bound) and against the f64 bound, each call on
-   its own input. Then 5b's int8 engine (TinyLlama widths, 11 layers,
+   its own input. Then 5b's int8 engine (TinyLlama widths, 4 layers,
    8 slots, max_len 2048) on a tp2 mesh over two spawned ranks (one
    card each over NCCL where there are two; on one card both share it
    over gloo, every tp collective an all-reduce through the host: the
@@ -207,8 +206,8 @@ Phases, each failing the script (non-zero exit) when it fails:
    engine, K = 1, then 10 of 5c's (request 3 sampled; 14 and 15,
    repeating request 0's prompt, queued behind the 8 slots) on the paged
    engine with spec decode, 16 new tokens each. Each run:
-   every request ends "length", each rank launches exactly 78 int8
-   kernels a pass and 222 a spec tick and the threefry kernel once a
+   every request ends "length", each rank launches exactly 29 int8
+   kernels a pass and 89 a spec tick and the threefry kernel once a
    sampled pass and tick, the pool checked after every step; both
    ranks' streams identical, and each equal to 5b's (dense) or 5c's
    paged spec engine's, or its parting passes 5b's verdict along the
@@ -222,12 +221,13 @@ Phases, each failing the script (non-zero exit) when it fails:
    its 5 losses equal to phase 4's kernel trajectory (within 1e-6
    relative; whether to the bit is printed), its launches a step
    exactly phase 4's (flash 44 / 22 / 22, ce_fwd 1, ce_bwd 1,
-   leaf_update 11), its p50 and peak beside phase 4's. 6b: two spawned
+   leaf_update 1 over 11 leaves), its p50 and peak beside phase 4's.
+   6b: two spawned
    ranks (one card each over NCCL where there are two or more cards;
    on one card, both on it over gloo, every collective an all-reduce
    through parallel/collective.py's route for CUDA tensors), the plans
    tp2 (dp1×fsdp1×tp2) and fsdp2 (dp1×fsdp2×tp1) at the same global
-   batch and widths, SHARDED_LAYERS = 4 layers deep (every collective
+   batch and widths, SHARDED_LAYERS = 2 layers deep (every collective
    crosses the host on one card, in bytes that grow with the depth),
    held to the unsharded step at that depth from the same state (seed
    0), which rank 0 runs first: step 1's loss within 2e-3 relative of
@@ -246,11 +246,11 @@ Phases, each failing the script (non-zero exit) when it fails:
    to those checks). The route, backend and card count are printed; a
    failure in a rank fails the phase. In the same two-rank world, the
    pipelined step (parallel/pipeline_train.py) on the plan
-   dp1×fsdp1×tp1×pp2 with 4 microbatches of [1, 2048]: 2 layers a
+   dp1×fsdp1×tp1×pp2 with 4 microbatches of [1, 2048]: 1 layer a
    stage, the 1F1B schedule, the stage handoffs on the pp group's route
    (on one card "gloo_cuda_via_all_reduce"), the vocab-parallel loss in
    stock torch; held to the same gates, with the launches and state
-   bytes its plan gives (sharded_launches: flash 16 / 8 / 8 a step a
+   bytes its plan gives (sharded_launches: flash 8 / 4 / 4 a step a
    rank, no CE kernel, the update on the stage's 11 leaves; its
    params and moments exactly the bytes of shard_shapes, half of the
    stacked leaves and the whole wte and norm_f), its schedule's bubble
@@ -275,7 +275,7 @@ Phases, each failing the script (non-zero exit) when it fails:
    marginal (a leaf's sum of squares at each index of each dim, added
    over the ranks) equals the saved state's within 1e-9, and 3 steps
    run within 1e-3 of fsdp2's steps 3-5, every rank the same losses. The resilience drill (parallel/resilience.py): one rank,
-   TinyLlama widths at 4 layers, a ResilientTrainer (keep 2 snapshots,
+   TinyLlama widths at DRILL_LAYERS = 2 layers, a ResilientTrainer (keep 2 snapshots,
    one every 2 steps, rollback after 3 skips, a 120 s watchdog) clean
    and under nan@3:3: each skip leaves every param and moment equal to
    the bit, the rollback to step 2 re-runs the clean run's losses and
@@ -284,30 +284,39 @@ Phases, each failing the script (non-zero exit) when it fails:
    finally and fails when the disk has less free space than it writes.
 6d. The elastic drill (parallel/elastic.py, the port's launcher
    python -m paddle_tpu_torch.distributed.launch, with this script as
-   its worker, `--elastic-worker MODE DIR`): TinyLlama widths at 4
-   layers, fsdp2 over two ranks (on one card both share it over gloo).
-   First an ElasticTrainer with restart_on_loss under device_loss@3:1
-   (a snapshot every 3 steps) runs steps 0-2; at step 3's boundary the
+   its worker, `--elastic-worker MODE DIR`): TinyLlama widths at
+   DRILL_LAYERS = 2 layers, fsdp2 over two ranks (on one card both share
+   it over gloo).
+   First an ElasticTrainer with restart_on_loss under device_loss@2:1
+   (a snapshot every 2 steps) runs steps 0-1; at step 2's boundary the
    workers write the world spec {n_devices: 1} and exit 101; the
-   launcher relaunches one rank, which plans onto fsdp1, restores ckpt-3
-   and runs steps 3-5. Those equal, to the bit, a clean one-rank restore
-   of ckpt-3 run in this process. The seconds from the loss to the first
+   launcher relaunches one rank, which plans onto fsdp1, restores ckpt-2
+   and runs steps 2-3. Those equal, to the bit, a clean one-rank restore
+   of ckpt-2 run in this process. The seconds from the loss to the first
    resumed step (detection and exit, the respawn, the boot, the
    restore, the step) and the bytes restored are printed. Then two
-   ranks again: the uninterrupted run, 6 steps under an 8 s step budget
+   ranks again: the uninterrupted run, 4 steps under an 8 s step budget
    with a 1 s straggler at step 2 (which must not replan), whose steps
-   3-5 the resumed ones lie within 1e-3 of; after a snapshot at step 6,
+   2-3 the resumed ones lie within 1e-3 of; after a snapshot at step 4,
    a 10 s collective hang past the budget must replan, in-process: rank
    1 declared lost leaves with exit 103, rank 0 re-forms a world of one
-   on a fresh store, restores that snapshot onto fsdp1 and runs step 6.
-   Each worker's kernel launches must be its steps' (8 flash forwards,
-   4 of each backward, one CE pair and 11 leaf updates a step).
+   on a fresh store, restores that snapshot onto fsdp1 and runs step 4.
+   Each worker's kernel launches must be its steps' (4 flash forwards,
+   2 of each backward, one CE pair and one update launch over 11 leaves
+   a step). The launcher runs bound to the script's life and its
+   workers to the launcher's.
 7. The seconds each phase took, the kernels line (the eight ported
    kernels and the threefry bits kernel, launches from 6c and the
    drill included),
    the card line, and as the last
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
    1}}.
+
+No process the script starts outlives it: the spawned ranks and 6d's
+launcher are bound to its life (PR_SET_PDEATHSIG), the launcher's
+workers to the launcher's; a SIGTERM, or TIME_LIMIT_S - STOP_MARGIN_S
+seconds from the start (exit 3), stops everything below the script, and
+at its end it stops whatever is left.
 
 float32 matmuls run in full float32 here: TF32 is switched off for
 matmul and cuDNN, so the plain versions are exact-f32 references.
@@ -344,11 +353,10 @@ LLAMA = dict(vocab_size=32000, hidden_size=2048, num_layers=22,
              num_heads=32, num_kv_heads=4, max_seq_len=2048,
              rope_theta=10000.0, rms_eps=1e-5)
 LLAMA_BATCH, LLAMA_SEQ = 4, 2048
-# the Llama serving phases 5b, 5c and 5d (a)-(d) run the first 11 of the
-# 22 layers: the same widths and leaf shapes, half the depth, which pays
-# for phase 6c and the resilience drill within TIME_LIMIT_S (PERF.md);
-# 5d's host tier runs all 22
-LLAMA_SERVE_LAYERS = 11
+# the Llama serving phases 5b-5e run 4 of the 22 layers: the same widths
+# and leaf shapes at a cut depth, so that the script ends well inside
+# TIME_LIMIT_S on a slower host too (PERF.md)
+LLAMA_SERVE_LAYERS = 4
 _D, _L, _F, _KV = 2048, 22, 5632, 4 * 64
 
 
@@ -361,11 +369,11 @@ def llama_leaves(L):
 
 
 LLAMA_LEAVES = llama_leaves(_L)
-# phase 6b's depth: the TinyLlama widths at 4 layers (2 a stage under
+# phase 6b's depth: the TinyLlama widths at 2 layers (1 a stage under
 # pp2). Every collective of its plans crosses the host
 # on one card (gloo), in bytes that grow with the depth; at full depth
-# 6b took 233.0-280.3 s of TIME_LIMIT_S (PERF.md)
-SHARDED_LAYERS = 4
+# 6b took 233.0-280.3 s of TIME_LIMIT_S, at 4 layers 67.5-102.3 (PERF.md)
+SHARDED_LAYERS = 2
 ADAMW = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
 # the seconds the whole script must finish in, its kernels' builds
 # included
@@ -456,6 +464,126 @@ def qmm_f64_check(torch, qm, dev):
 
 def log(msg):
     print(msg, flush=True)
+
+
+# the script's own processes: every process it starts (the spawned ranks
+# of 5e and 6b, 6d's launcher, whose workers the launcher's boot shim
+# binds to it) is bound to the script's life, and the script stops what
+# is left below it before it exits, however it ends
+SCRIPT_PID_ENV = "CHIP_SMOKE_PID"
+# the script stops itself this many seconds before TIME_LIMIT_S (from its
+# import), so that a run that overruns ends with nothing left running
+STOP_MARGIN_S = 30
+
+
+def bind_to_script():
+    """On Linux, have the kernel SIGKILL this process when the script's
+    main process ($CHIP_SMOKE_PID), which started it, ends
+    (PR_SET_PDEATHSIG): a killed script leaves no rank or launcher
+    behind. A process whose script ended before the binding exits at
+    once. Does nothing outside a run of the script."""
+    parent = int(os.environ.get(SCRIPT_PID_ENV) or 0)
+    if not parent or not sys.platform.startswith("linux"):
+        return
+    import ctypes
+    import signal
+    ctypes.CDLL(None, use_errno=True).prctl(1, int(signal.SIGKILL), 0, 0,
+                                            0)     # PR_SET_PDEATHSIG
+    if os.getppid() != parent:
+        os._exit(1)
+
+
+def _proc_stat(pid):
+    """(state, parent pid) of a process from /proc, None when it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+    except (OSError, IndexError):
+        return None
+    return fields[0], int(fields[1])
+
+
+def descendants():
+    """Pids of every live (not zombie) process below this one."""
+    parents = {}
+    for name in os.listdir("/proc"):
+        st = _proc_stat(name) if name.isdigit() else None
+        if st is not None and st[0] != "Z":
+            parents[int(name)] = st[1]
+    out, frontier = [], {os.getpid()}
+    while frontier:
+        frontier = {p for p, pp in parents.items() if pp in frontier}
+        out += sorted(frontier)
+    return out
+
+
+def _cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return ""
+
+
+# multiprocessing's resource tracker (started for 5e's and 6b's spawned
+# ranks) ends by itself when the script's process does; killed before
+# that, the interpreter's exit would start a new one
+RESOURCE_TRACKER = "multiprocessing.resource_tracker"
+
+
+def stop_descendants(keep=()):
+    """SIGKILL every process below this one but those whose command line
+    holds a string of `keep`, and wait, up to 20 s, until each has ended
+    (a zombie, which holds nothing, counts as ended). Returns {pid:
+    command line} of those it stopped."""
+    import signal
+    stopped = {pid: _cmdline(pid) for pid in descendants()}
+    stopped = {pid: cmd for pid, cmd in stopped.items()
+               if not any(k in cmd for k in keep)}
+    pids = list(stopped)
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    deadline = time.time() + 20.0
+    while time.time() < deadline:
+        try:
+            while os.waitpid(-1, os.WNOHANG)[0]:      # reap our children
+                pass
+        except ChildProcessError:
+            pass
+        if all((_proc_stat(p) or "Z")[0] == "Z" for p in pids):
+            break
+        time.sleep(0.1)
+    return stopped
+
+
+def stop_before_limit():
+    """Bind what the script starts to it ($CHIP_SMOKE_PID), stop
+    everything below it on SIGTERM, and start a daemon thread that, at
+    TIME_LIMIT_S - STOP_MARGIN_S from the import, says so on the standard
+    error, stops everything below the script and ends it with exit 3."""
+    import signal
+    import threading
+    os.environ[SCRIPT_PID_ENV] = str(os.getpid())
+
+    def on_term(signum, frame):
+        stop_descendants()
+        os._exit(128 + signum)
+    signal.signal(signal.SIGTERM, on_term)
+
+    def watch():
+        time.sleep(max(0.0, T_IMPORT + TIME_LIMIT_S - STOP_MARGIN_S
+                       - time.time()))
+        print(f"[chip_smoke] {TIME_LIMIT_S - STOP_MARGIN_S} s since the "
+              f"start: stopping the run, and every process it started, "
+              f"before its {TIME_LIMIT_S} s limit", file=sys.stderr,
+              flush=True)
+        stop_descendants()
+        os._exit(3)
+    threading.Thread(target=watch, name="chip_smoke_deadline",
+                     daemon=True).start()
 
 
 def card_line():
@@ -1018,7 +1146,12 @@ def attention_oracle(torch, dev):
     return line
 
 
-CE_SHAPES = [(8192, 32768), (8192, 50304)]
+# the one-pass CE's checks: the GPT train step's logits, GPT-2's padded
+# and raw vocabularies (50257: bf16 rows off 16 bytes), and Llama 3's
+# vocabulary in f32, wider than one block's shared memory (a cluster of
+# 3 blocks a row)
+CE_SHAPES = [(8192, 32768, "bfloat16"), (8192, 50304, "bfloat16"),
+             (8192, 50257, "bfloat16"), (2048, 128256, "float32")]
 # the Llama step's logits, GPT-2's vocabulary, and the Llama step's
 # logits on one rank of each of phase 6b's 3D plans (tp2's are the whole
 # batch's; the pipelined step's vocab-parallel loss is stock torch and
@@ -1029,50 +1162,66 @@ CE_PAIR_SHAPES = [(8192, 32000), (8192, 50257)] + sorted(
     set(SHARDED_CE.values()) - {(8192, 32000)})
 
 
+CE_DESIGN = ("persistent blocks of 512 threads walk the rows; each row "
+             "comes into shared memory by one TMA bulk copy on an mbarrier "
+             "(two row buffers where they fit), is reduced there (max, "
+             "sum of exps) and dx leaves in 16-byte streaming stores; a "
+             "row wider than a block's 227 KB is split over a cluster of "
+             "2-4 blocks merged through distributed shared memory")
+
+
 def ce_check(torch, dev):
-    """Phase 2c, the one-pass CE. Returns {(T, V): row}."""
+    """Phase 2c, the one-pass CE, at each of CE_SHAPES with the plan it
+    launches under. Returns {(T, V, dtype): row}."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import fused_ce as fce
     rows = {}
-    for T, V in CE_SHAPES:
+    for T, V, dtype in CE_SHAPES:
         g = torch.Generator(device=dev).manual_seed(V)
         x = (torch.randn(T, V, generator=g, device=dev) * 2).to(
-            torch.bfloat16)
+            getattr(torch, dtype))
         t = torch.randint(0, V, (T,), generator=g, device=dev)
         loss, dx = fce.ce_fused(x, t)
         r_loss, r_dx = fce.ce_fused_ref(x, t)
         torch.cuda.synchronize()
         # tolerance: f32 sums of exps in another order (loss), and dx
-        # rounded once to bf16 from f32 values ~1e-6 apart: one step
-        # (the unit cotangent: every |dx| entry is up to 1)
+        # rounded once to its dtype from f32 values ~1e-6 apart: one
+        # bf16 step, or 1e-5 relative in f32 (the unit cotangent: every
+        # |dx| entry is up to 1)
+        step = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
         loss_err = float((loss - r_loss).abs().max())
         err = (dx.float() - r_dx.float()).abs()
         dx_err = float(err.max())
         if loss_err > 1e-3 or not bool(
-                (err <= 2.0 ** -7 * r_dx.float().abs() + 1e-6).all()):
+                (err <= step * r_dx.float().abs() + 1e-6).all()):
             raise AssertionError(
                 f"fused_ce kernel disagrees with its plain version at "
-                f"T={T} V={V}: loss |err| {loss_err}, dx |err| {dx_err}")
+                f"T={T} V={V} {dtype}: loss |err| {loss_err}, dx |err| "
+                f"{dx_err} (step {step})")
         del r_loss, r_dx, err
+        plan = fce._card_plan(T, V, x.dtype, x.device)
         t_k = event_ms(torch, lambda: fce.ce_fused(x, t))
         t_p = event_ms(torch, lambda: fce.ce_fused_ref(x, t), 3)
         xl = x.detach().requires_grad_()
         t_l = event_ms(torch, lambda: torch.autograd.grad(
             F.cross_entropy(xl, t, reduction="sum"), xl))
-        b_ms, b_by = bound_ms(0, 2 * T * V * 2 + T * 8 + T * 4)
+        b_ms, b_by = bound_ms(0, 2 * T * V * x.element_size() + T * 8
+                              + T * 4)
         row = {"phase": "kernel_check", "kernel": "fused_ce", "T": T,
-               "V": V, "dtype": "bfloat16", "ms": t_k, "plain_ms": t_p,
-               "library_ms": t_l,
-               "library": "F.cross_entropy forward + backward (bf16 "
+               "V": V, "dtype": dtype, "plan": plan, "ms": t_k,
+               "plain_ms": t_p, "library_ms": t_l,
+               "library": f"F.cross_entropy forward + backward ({dtype} "
                           "logits; a yardstick the port never calls)",
                "bound_ms": b_ms, "bound_by": b_by,
                "roofline_share": b_ms / t_k, "max_abs_err": max(loss_err,
                                                                 dx_err),
                "loss_max_abs_err": loss_err, "dx_max_abs_err": dx_err,
-               "tolerance": "loss 1e-3; dx 2^-7*|ref| + 1e-6"}
+               "dx_step": step,
+               "tolerance": f"loss 1e-3; dx {step:g}*|ref| + 1e-6"}
         log(json.dumps(row))
-        rows[(T, V)] = row
+        rows[(T, V, dtype)] = row
         del x, t, loss, dx, xl
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1192,15 +1341,15 @@ def sharded_launches(name, per_step):
     pp a rank runs its stage's L/pp layers on each of its m
     microbatches, the flash forward twice (full remat recomputes it),
     the backward pair once; no CE kernel (the vocab-parallel loss is
-    stock torch); the update on each of its leaves (every stage holds
-    wte, norm_f and its chunk of each stacked leaf)."""
+    stock torch); the update once over all its leaves (every stage
+    holds wte, norm_f and its chunk of each stacked leaf)."""
     if plan_pp(name) == 1:
         return dict(per_step)
     calls = SHARDED_LAYERS // plan_pp(name) * \
         SHARDED_PLANS[name]["microbatches"]
     out = {k: 0 for k in per_step}
     out.update(flash_fwd=2 * calls, flash_bwd_dq=calls, flash_bwd_dkv=calls,
-               leaf_update=len(shard_shapes(name)))
+               leaf_update=1, leaf_update_leaves=len(shard_shapes(name)))
     return out
 
 
@@ -1210,12 +1359,21 @@ def shard_state_bytes(name):
     return 3 * 4 * sum(math.prod(s) for s in shard_shapes(name).values())
 
 
+UPDATE_DESIGN = ("one launch over a by-value table of up to 80 leaves; a "
+                 "persistent grid whose blocks walk 4096-element chunks, "
+                 "finding a chunk's leaf by binary search; 4 16-byte "
+                 "vectors of each operand in flight a thread, plain "
+                 "loads and stores")
+
+
 def update_rows(torch, dev, shapes, hp, step, tag=""):
-    """The AdamW leaf update against its plain version at each of
-    `shapes` ({leaf: shape}, f32), each timed beside its plain version
-    and torch._fused_adamw_. Returns {leaf: row} and a "step" row, the
-    sums over the leaves (one train step's update), whose library time
-    is one torch._fused_adamw_ call over all of them."""
+    """The AdamW update kernel against its plain version at each of
+    `shapes` ({leaf: shape}, f32): each leaf alone (a table of one),
+    timed beside its plain version and torch._fused_adamw_, then one
+    train step's update as it runs, one leaves_update over all of them
+    (one launch), timed beside the plain version over every leaf and one
+    torch._fused_adamw_ call over all of them. Returns {leaf: row} and
+    that "step" row."""
     from paddle_tpu_torch.kernels import fused_update as fu
     gen = torch.Generator(device=dev).manual_seed(7)
     leaves, rows = {}, {}
@@ -1259,28 +1417,50 @@ def update_rows(torch, dev, shapes, hp, step, tag=""):
                       "tolerance": "p, m, v within 1 f32 ulp (0 expected)"}
         log(json.dumps(rows[name]))
         leaves[name] = (p, g, m, v)
+    # one step's update as it runs: one leaves_update over every leaf (one
+    # launch for the f32 tree), held to the plain version leaf by leaf
     n_all = sum(p.numel() for p, _, _, _ in leaves.values())
-    lists = list(zip(*leaves.values()))
+    ps, gs, ms, vs = (list(x) for x in zip(*leaves.values()))
+    want = [fu.leaf_update_ref(*ops, hp) for ops in leaves.values()]
+    before = dict(fu.launches)
+    fu.leaves_update(ps, gs, ms, vs, hp)
+    torch.cuda.synchronize()
+    got = {k: fu.launches[k] - before[k] for k in before}
+    if got != {"leaf_update": 1, "leaf_update_leaves": len(leaves)}:
+        raise AssertionError(f"leaves_update over {tag}all {len(leaves)}: "
+                             f"launches {got}")
+    errs = [max(float((a - b).abs().max()) for a, b in zip((p, m, v), ref))
+            for (p, _, m, v), ref in zip(leaves.values(), want)]
+    if not all(bool(((a - b).abs() <= 2.0 ** -23 * b.abs()).all())
+               for (p, _, m, v), ref in zip(leaves.values(), want)
+               for a, b in zip((p, m, v), ref)):
+        raise AssertionError(f"leaves_update disagrees with its plain "
+                             f"version over {tag}all {len(leaves)}: max "
+                             f"|err| by leaf {errs}")
+    del want
+    t_k = event_ms(torch, lambda: fu.leaves_update(ps, gs, ms, vs, hp))
+    t_p = event_ms(torch, lambda: [fu.leaf_update_ref(*ops, hp)
+                                   for ops in leaves.values()], 3)
     t_lib = event_ms(torch, lambda: torch._fused_adamw_(
-        list(lists[0]), list(lists[1]), list(lists[2]), list(lists[3]), [],
-        [step] * len(leaves), lr=ADAMW["lr"], beta1=ADAMW["beta1"],
-        beta2=ADAMW["beta2"], weight_decay=ADAMW["weight_decay"],
-        eps=ADAMW["eps"], amsgrad=False, maximize=False))
+        ps, gs, ms, vs, [], [step] * len(leaves), lr=ADAMW["lr"],
+        beta1=ADAMW["beta1"], beta2=ADAMW["beta2"],
+        weight_decay=ADAMW["weight_decay"], eps=ADAMW["eps"],
+        amsgrad=False, maximize=False))
     b_ms, b_by = bound_ms(10 * n_all, 28 * n_all)
     rows["step"] = {
         "phase": "kernel_check", "kernel": "leaf_update",
-        "leaf": f"{tag}all {len(leaves)}", "n": n_all,
-        "ms": sum(r["ms"] for r in rows.values()),
-        "plain_ms": sum(r["plain_ms"] for r in rows.values()),
-        "library_ms": t_lib,
+        "leaf": f"{tag}all {len(leaves)}", "n": n_all, "launches": 1,
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
+        "sum_of_leaf_ms": sum(r["ms"] for r in rows.values()),
         "library": f"one torch._fused_adamw_ call over the {len(leaves)} "
                    "leaves (the function behind "
                    "torch.optim.AdamW(fused=True))",
-        "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
-    rows["step"]["roofline_share"] = b_ms / rows["step"]["ms"]
+        "bound_ms": b_ms, "bound_by": b_by, "roofline_share": b_ms / t_k,
+        "max_abs_err": max(errs + [r["max_abs_err"]
+                                   for r in rows.values()]),
+        "tolerance": "p, m, v within 1 f32 ulp (0 expected)"}
     log(json.dumps(rows["step"]))
-    del leaves, lists
+    del leaves, ps, gs, ms, vs
     torch.cuda.empty_cache()
     return rows
 
@@ -1494,9 +1674,9 @@ def kernel_shapes():
         seen.setdefault(kernel, set()).add((B, Sq, H, D))
         return call(kernel, dtype, ptrs, dims, *args, **kw)
 
-    def ce_launch(kernel, dtype, args, T, V, device):
+    def ce_launch(kernel, dtype, args, T, V, device, **kw):
         seen.setdefault(kernel, set()).add((T, V))
-        return launch(kernel, dtype, args, T, V, device)
+        return launch(kernel, dtype, args, T, V, device, **kw)
     out = {}
     fa._call, fce._launch = flash_call, ce_launch
     try:
@@ -2001,7 +2181,8 @@ def llama_training(torch, dev, card):
             torch, dev, card, "llama_train", llama, cfg, params,
             LLAMA_BATCH, LLAMA_SEQ, 3,
             {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-             "ce_fwd": 1, "ce_bwd": 1, "leaf_update": len(params)})
+             "ce_fwd": 1, "ce_bwd": 1, "leaf_update": 1,
+             "leaf_update_leaves": len(params)})
 
     # a primal-only call (an eval loss) launches the CE forward alone
     torch.cuda.synchronize()
@@ -2471,21 +2652,14 @@ def serving(torch, qm, dev, card):
 
 
 def llama_host_params():
-    """The TinyLlama-width config and its weights, drawn on the host from
-    seed 0 once for phases 5b-5d (the draw takes ~15 s): (full config,
-    full weights, the config at LLAMA_SERVE_LAYERS layers, its weights
-    as the first layers of each stacked leaf, views with no second
-    draw)."""
+    """The TinyLlama-width config at LLAMA_SERVE_LAYERS layers and its
+    weights, drawn on the host from seed 0 once for phases 5b-5e."""
     from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
-    cfg = LlamaConfig(**LLAMA)
+    cfg = LlamaConfig(**dict(LLAMA, num_layers=LLAMA_SERVE_LAYERS))
     t0 = time.perf_counter()
     params = init_llama_params(cfg, seed=0, device="cpu")
     log(f"llama host params drawn in {time.perf_counter() - t0:.1f} s")
-    cut = LlamaConfig(**dict(LLAMA, num_layers=LLAMA_SERVE_LAYERS))
-    stacked = {k for k, shape in LLAMA_LEAVES.items() if shape[0] == _L}
-    cut_params = {k: v[:LLAMA_SERVE_LAYERS] if k in stacked else v
-                  for k, v in params.items()}
-    return cfg, params, cut, cut_params
+    return cfg, params
 
 
 def llama_prompts(vocab):
@@ -2508,7 +2682,7 @@ def llama_serving(torch, qm, dev, card, cfg, params):
 # phase 5c: the paged and speculative Llama engines
 PAGED = dict(kv_layout="paged", page_size=16, prefill_chunk=256,
              num_pages=513)
-SPEC = dict(spec_decode="spec", gamma=4, draft_layers=5)
+SPEC = dict(spec_decode="spec", gamma=4, draft_layers=2)
 SAMPLED = {3: (0.8, 40), 11: (1.0, 20)}
 
 
@@ -2923,7 +3097,7 @@ def paged_serving(torch, qm, dev, card, cfg, params):
     prompts = paged_prompts(cfg.vocab_size)
     per_pass = sum(pass_calls(LLAMA_LEAF_KN, cfg.num_layers).values())
     draft = sum(pass_calls(LLAMA_LEAF_KN, SPEC["draft_layers"]).values())
-    spec_tick = per_pass + SPEC["gamma"] * draft        # 155 + 4 x 78
+    spec_tick = per_pass + SPEC["gamma"] * draft        # 29 + 4 x 15
     streams, launches, summaries = {}, {}, {}
     for label, kw in (("paged", PAGED), ("dense", {"kv_layout": "dense"}),
                       ("spec", dict(PAGED, **SPEC)),
@@ -2998,6 +3172,7 @@ def _tp_serving_rank(rank, world, workdir):
     over its prompts through `run_engine` (launches and draws checked
     there, the pool after every step), the tp collectives of every
     dispatch counted. Writes its results to workdir/rank<rank>.json."""
+    bind_to_script()
     import torch
     import torch.distributed as dist
     t0 = time.perf_counter()
@@ -3098,7 +3273,7 @@ def tp_serving(torch, qm, dev, card, cfg, params, k1c):
     show the host link, not scaling), on 10 of 5b's 16 requests (dense,
     K = 1) and of 5c's (paged with spec decode; TP_REQUESTS), the first
     TP_NEW_TOKENS of each stream. Every request ends "length";
-    each rank launches 78 int8 kernels a pass and 222 a spec tick; both
+    each rank launches 29 int8 kernels a pass and 89 a spec tick; both
     ranks' streams are identical; each stream equals 5b's (dense) or
     5c's paged spec engine's, or its parting passes 5b's f64 verdict
     along the single-card path. Returns (the int8 kernel's launches
@@ -3301,8 +3476,9 @@ def tier_prompts(vocab):
 
 def host_tier_serving(torch, qm, dev, card, cfg, params):
     """Phase 5d (e): the paged multi-tick engine with 257 pages (a page's
-    K+V is 22 x 16 x 4 x 64 x 2 x 2 = 360,448 B, and the 8 prefixes
-    alone take 256 pages, so the pool cannot keep them while slots run)
+    K+V is L x 16 x 4 x 64 x 2 x 2 B, 65,536 at 4 layers, and the 8
+    prefixes alone take 256 pages, so the pool cannot keep them while
+    slots run)
     serves `tier_prompts` twice, 32 new tokens each, greedy: with a 256
     MiB host tier, without it, and with a pool of 1025 pages that keeps
     every page on the device. Checks: spills and swap-ins > 0, the tier
@@ -3710,6 +3886,7 @@ def _sharded_rank(rank, world, workdir, backend):
     counted, the kernels' shapes recorded and the peak read. Writes its
     results, with the seconds each part took, to
     workdir/rank<rank>.json."""
+    bind_to_script()
     import torch
     import torch.distributed as dist
     t0 = time.perf_counter()
@@ -4070,7 +4247,8 @@ def sharded_two_ranks(torch, card):
 
 # phase 6c (a): the full-depth state saved asynchronously and resumed;
 # the drill: the resilient step at DRILL_LAYERS layers
-DRILL_LAYERS = 4
+# the resilience drill's and 6d's depth
+DRILL_LAYERS = 2
 DRILL_STEPS, DRILL_FAULT = 6, "nan@3:3"
 
 
@@ -4363,7 +4541,8 @@ def resilience_drill(torch, dev, card):
     torch.cuda.empty_cache()
     log(json.dumps(line))
     per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-                "ce_fwd": 1, "ce_bwd": 1, "leaf_update": 11}
+                "ce_fwd": 1, "ce_bwd": 1, "leaf_update": 1,
+                "leaf_update_leaves": 11}
     bad = []
     if (line["skipped"], line["rollbacks"], line["step"]) != (3, 1,
                                                               DRILL_STEPS):
@@ -4388,9 +4567,11 @@ def resilience_drill(torch, dev, card):
 
 # phase 6d: the elastic drill at DRILL_LAYERS layers, fsdp2 on two ranks
 # through the port's launcher (python -m paddle_tpu_torch.distributed.
-# launch), each rank this script run as `--elastic-worker MODE DIR`
-ELASTIC_STEPS = 6
-ELASTIC_LOSS = "device_loss@3:1"
+# launch), each rank this script run as `--elastic-worker MODE DIR`; the
+# loss at step ELASTIC_LOSS_AT's boundary, after the snapshot there
+ELASTIC_STEPS = 4
+ELASTIC_LOSS_AT = 2
+ELASTIC_LOSS = f"device_loss@{ELASTIC_LOSS_AT}:1"
 ELASTIC_BUDGET_S = 8.0
 ELASTIC_STRAGGLER = "straggler@2:1000"
 # the hang comes after the uninterrupted run's ELASTIC_STEPS steps
@@ -4418,12 +4599,12 @@ def elastic_worker(mode, workdir):
     step), on the plan fsdp2 (ranks sharing a card over gloo):
 
     - mode "loss", first launch: an ElasticTrainer with restart_on_loss
-      under ELASTIC_LOSS (snapshots every 3 steps) runs steps 0-2; the
-      loss at step 3's boundary writes the world spec {n_devices: 1}
-      and exits 101;
+      under ELASTIC_LOSS (a snapshot every ELASTIC_LOSS_AT steps) runs
+      steps 0 to ELASTIC_LOSS_AT - 1; the loss at step ELASTIC_LOSS_AT's
+      boundary writes the world spec {n_devices: 1} and exits 101;
     - mode "loss", relaunched (one rank, the spec granted): the trainer
-      plans onto fsdp1, resumes from ckpt-3 and runs steps 3-5 (no more
-      snapshots);
+      plans onto fsdp1, resumes from ckpt-ELASTIC_LOSS_AT and runs the
+      steps from there to ELASTIC_STEPS (no more snapshots);
     - mode "hang": the uninterrupted run, ELASTIC_STEPS steps under the
       ELASTIC_BUDGET_S step watchdog with a straggler within it (no
       replan; a snapshot every ELASTIC_STEPS steps), then a collective
@@ -4500,7 +4681,8 @@ def elastic_worker(mode, workdir):
             if mode == "loss" and launch == "first":
                 faults.install(ELASTIC_LOSS, once_dir=os.path.join(
                     workdir, f"once{rank}"))
-                et = trainer("ckpt", ElasticConfig(restart_on_loss=True), 3)
+                et = trainer("ckpt", ElasticConfig(restart_on_loss=True),
+                             ELASTIC_LOSS_AT)
                 out["losses"], out["times"] = {}, {}
                 try:
                     run(et, ELASTIC_STEPS, out["losses"], out["times"])
@@ -4556,11 +4738,13 @@ def elastic_worker(mode, workdir):
 def _launch(mode, workdir, timeout):
     """The port's launcher over two ranks of `elastic_worker(mode)`;
     raises with the workers' log tails unless it exits 0 within
-    `timeout` seconds. The launcher and its workers share a process
-    group of their own, which is killed when the time runs out."""
+    `timeout` seconds. The launcher (bound to the script's life, and its
+    workers to the launcher's) and its workers share a process group of
+    their own, which is killed when the launcher returns or the time
+    runs out."""
     import signal
     logs = os.path.join(workdir, f"logs_{mode}")
-    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--launch",
            "--nproc_per_node", "2", "--devices", "gpu",
            "--max_elastic_restart", "1", "--log_dir", logs,
            os.path.join(HERE, "chip_smoke.py"), "--elastic-worker", mode,
@@ -4578,6 +4762,12 @@ def _launch(mode, workdir, timeout):
         os.killpg(proc.pid, signal.SIGKILL)
         _, err = proc.communicate()
         rc = f"nothing: killed after {timeout} s"
+    finally:
+        try:                    # whatever is left of its group
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        proc.wait()
     took = time.perf_counter() - t0
     if rc != 0:
         tails = {}
@@ -4601,12 +4791,13 @@ def _worker_json(workdir, mode, launch, rank):
 def elastic_drill(torch, dev, card):
     """Phase 6d (parallel/elastic.py and the launcher's degraded
     restart): fsdp2 on two ranks through the port's launcher loses a
-    device at step 3's boundary; the workers exit 101 with the world
-    spec {n_devices: 1} and the launcher relaunches one rank, which
-    restores ckpt-3 onto fsdp1 and runs steps 3-5. Those must equal a
-    clean one-rank restore of ckpt-3 in this process to the bit. Then,
+    device at step ELASTIC_LOSS_AT's boundary; the workers exit 101 with
+    the world spec {n_devices: 1} and the launcher relaunches one rank,
+    which restores that step's snapshot onto fsdp1 and runs the steps
+    from there to ELASTIC_STEPS. Those must equal a clean one-rank
+    restore of the snapshot in this process to the bit. Then,
     on two ranks again, the uninterrupted fsdp2 run (a straggler within
-    the step budget must not replan), whose steps 3-5 the resumed ones
+    the step budget must not replan), whose same steps the resumed ones
     must lie within 1e-3 of, and after it a collective hang past the
     budget, which must replan in-process onto the surviving rank.
     Every worker's launches must be its steps' (DRILL_LAYERS layers,
@@ -4628,7 +4819,7 @@ def elastic_drill(torch, dev, card):
     line = {"phase": "llama_elastic_drill", "card": card,
             "layers": DRILL_LAYERS, "fault": ELASTIC_LOSS}
     try:
-        # ckpt-3 of the loss run, then the hang run's step-ELASTIC_STEPS
+        # the loss run's snapshot, then the hang run's step-ELASTIC_STEPS
         # snapshot, 12 bytes a parameter each
         n_params = sum(math.prod(v)
                        for v in llama_leaves(cfg.num_layers).values())
@@ -4640,21 +4831,23 @@ def elastic_drill(torch, dev, card):
         if "DEGRADED world spec" not in err or again["world"] != 1:
             raise AssertionError(f"6d: no degraded relaunch: {err[-2000:]}")
         for r in first:
-            if r.get("exit_code") != 101 or sorted(r["losses"]) != [
-                    "0", "1", "2"]:
+            if r.get("exit_code") != 101 or sorted(r["losses"], key=int) \
+                    != [str(s) for s in range(ELASTIC_LOSS_AT)]:
                 raise AssertionError(
                     f"6d: rank {r['rank']} exited {r.get('exit_code')}, "
-                    f"not 101 after steps 0-2: {sorted(r['losses'])}")
+                    f"not 101 after steps 0-{ELASTIC_LOSS_AT - 1}: "
+                    f"{sorted(r['losses'])}")
         spec = again["granted"]
         if spec.get("n_devices") != 1 or not again["resumed"] or \
-                again["start"] != 3 or again["axes"] != {
+                again["start"] != ELASTIC_LOSS_AT or again["axes"] != {
                     "dp": 1, "fsdp": 1, "tp": 1}:
             raise AssertionError(f"6d: relaunch {json.dumps(again)[:2000]}")
-        # the clean one-rank restore of ckpt-3, in this process
+        # the clean one-rank restore of the snapshot, in this process
         plan = plan_train(cfg, 1, LLAMA_BATCH, dp=1, fsdp=1, tp=1)
         mesh = plan.build_mesh()
         t_s = time.perf_counter()
-        state = load_sharded(os.path.join(workdir, "ckpt", "ckpt-3"),
+        state = load_sharded(os.path.join(workdir, "ckpt",
+                                          f"ckpt-{ELASTIC_LOSS_AT}"),
                              mesh=mesh, specs=plan_state_specs(plan),
                              device=dev)
         restore_here_s = time.perf_counter() - t_s
@@ -4664,7 +4857,7 @@ def elastic_drill(torch, dev, card):
             p, o = state["params"], state["opt_state"]
             step.adopt_shapes(p, o)
             clean_restore = {}
-            for s in range(3, ELASTIC_STEPS):
+            for s in range(ELASTIC_LOSS_AT, ELASTIC_STEPS):
                 loss, p, o = step(p, o, drill_tokens(torch, dev, cfg, s))
                 clean_restore[s] = float(loss)
         del state, p, o, step
@@ -4699,30 +4892,33 @@ def elastic_drill(torch, dev, card):
                                  f"{uninterrupted} by {rel}")
         # every worker's launches: its steps' (each rank of fsdp2 and the
         # one of fsdp1 runs every layer on its rows and updates its
-        # shard of each of the 11 leaves; a hung step, superseded by the
-        # replan, launches nothing)
+        # shard of each of the 11 leaves in one launch; a hung step,
+        # superseded by the replan, launches nothing)
         per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L,
                     "flash_bwd_dkv": L, "ce_fwd": 1, "ce_bwd": 1,
-                    "leaf_update": 11}
+                    "leaf_update": 1, "leaf_update_leaves": 11}
         workers = first + [again] + hang
         off = [(w["mode"], w["launch"], w["rank"], w["steps_run"],
                 w["launches"]) for w in workers
                if w["launches"] != {k: w["steps_run"] * per_step.get(k, 0)
                                     for k in w["launches"]}]
         if off or [w["steps_run"] for w in workers] != [
-                3, 3, 3, ELASTIC_HANG_STEPS, ELASTIC_STEPS]:
+                ELASTIC_LOSS_AT, ELASTIC_LOSS_AT,
+                ELASTIC_STEPS - ELASTIC_LOSS_AT, ELASTIC_HANG_STEPS,
+                ELASTIC_STEPS]:
             raise AssertionError(f"6d: launches, want steps x {per_step}: "
                                  f"{off or [w['steps_run'] for w in workers]}")
-        t_loss = first[0]["times"]["2"]          # step 2 done: the boundary
-        t_first = again["times"]["3"]
+        # the last step before the loss done: the boundary
+        t_loss = first[0]["times"][str(ELASTIC_LOSS_AT - 1)]
+        t_first = again["times"][str(ELASTIC_LOSS_AT)]
         line.update({
             "first_launch_route": first[0]["route"],
             "first_launch_boot_s": [r["t_entry"] - r["t_spawn"]
                                     for r in first],
             "losses_before_loss": first[0]["losses"],
-            "loss_run_steps_0_2_equal_uninterrupted": all(
+            "loss_run_steps_before_loss_equal_uninterrupted": all(
                 first[0]["losses"][str(s)] == uninterrupted[s]
-                for s in range(3)),
+                for s in range(ELASTIC_LOSS_AT)),
             "resumed_fsdp1": resumed, "clean_restore_fsdp1": clean_restore,
             "resumed_equal_clean_restore": True,
             "uninterrupted_fsdp2": uninterrupted,
@@ -4746,7 +4942,8 @@ def elastic_drill(torch, dev, card):
                 "first_step": t_first - again["t_restored"]},
             "relaunch_step_s": [again["times"][str(s + 1)]
                                 - again["times"][str(s)]
-                                for s in range(3, ELASTIC_STEPS - 1)],
+                                for s in range(ELASTIC_LOSS_AT,
+                                               ELASTIC_STEPS - 1)],
             "hang_launch_boot_s": [r["t_entry"] - r["t_spawn"]
                                    for r in hang],
             "hang_build_s": h["build_s"],
@@ -4801,6 +4998,10 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                 for name, sh in shapes.items()}
     agg = tick_aggregate(rows, LEAF_KN, FULL["num_layers"])
     l_agg = tick_aggregate(rows, LLAMA_LEAF_KN, LLAMA["num_layers"])
+    # the int8 launches of a Llama serving pass and spec tick
+    lpass = sum(pass_calls(LLAMA_LEAF_KN, LLAMA_SERVE_LAYERS).values())
+    lspec = lpass + SPEC["gamma"] * sum(
+        pass_calls(LLAMA_LEAF_KN, SPEC["draft_layers"]).values())
     entries = [{
         "name": "quant_matmul", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
@@ -4825,13 +5026,14 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                "(97 launches); llama_tick: a full-depth tick, 22 x 7 + 1 "
                "= 155; from the "
                "kernel_check lines; launches over the 16-request serving "
-               "run of each family (Llama's at LLAMA_SERVE_LAYERS = 11 "
-               "layers: 78 a pass), of phase 5c's paged and paged spec "
-               "engines (222 a spec tick), and of phase 5d's multi-tick "
-               "engines (11 layers) and host tier runs (22 layers, 155 a "
-               "pass), where the wrapper counts the prefills and each "
-               "sampling flag's eager warm-up dispatch (4 x 78, 4 x 222 "
-               "or 4 x 155) and the CUDA graph replays launch "
+               f"run of each family (Llama's at LLAMA_SERVE_LAYERS = "
+               f"{LLAMA_SERVE_LAYERS} layers: {lpass} a pass), of phase "
+               f"5c's paged and paged spec engines ({lspec} a spec tick), "
+               "and of phase 5d's multi-tick "
+               "engines and host tier runs (at the same depth), where the "
+               "wrapper counts the prefills and each "
+               f"sampling flag's eager warm-up dispatch (4 x {lpass} or "
+               f"4 x {lspec}) and the CUDA graph replays launch "
                "the rest: replay_launches_by_path, replays x 4 x the "
                "tick's calls (each capture checked to record exactly "
                "4 x the tick's calls), and for the four 5d engines the "
@@ -4839,7 +5041,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                "checked at 99-100% of the engine's count (the profiler "
                "drops a few records late in the process); llama_tp2 and "
                "llama_tp2_spec: phase 5e's tp2 engines, both ranks' "
-               "launches summed (78 a pass and 222 a spec tick a rank), "
+               f"launches summed ({lpass} a pass and {lspec} a spec tick "
+               "a rank), "
                "at the tp2_shapes (M 8, each also held to the f64 bound)",
     }]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4866,11 +5069,12 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                    "steps of each train path, over phase 3b's timed "
                    "and route steps (gpt_race), over phase 6's 5 "
                    "steps on one rank and on two (both ranks, the 3D "
-                   "plans, and the pipelined plan; SHARDED_LAYERS = 4 "
-                   "layers), over 6c (a)'s 8 "
-                   "steps and the resilience drill's 16 (4 layers, "
-                   "skipped steps included), and over every step of 6d's "
-                   "launcher workers (4 layers); on_shards: at a "
+                   "plans, and the pipelined plan; SHARDED_LAYERS = "
+                   f"{SHARDED_LAYERS} layers), over 6c (a)'s 8 "
+                   f"steps and the resilience drill's 16 ({DRILL_LAYERS} "
+                   "layers, skipped steps included), and over every step "
+                   f"of 6d's launcher workers ({DRILL_LAYERS} layers); "
+                   "on_shards: at a "
                    "rank's [B, S, H, 64] under each of phase 6b's plans "
                    "(SHARDED_ATTN: a "
                    "microbatch's [1, 2048, 32, 64] under pp2), checked "
@@ -4891,9 +5095,14 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
         "launches_by_path": train_paths("fused_ce"),
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows.values()),
         **{k: ce_main[k] for k in keys},
+        "plan": ce_main["plan"],
+        "design": CE_DESIGN,
+        "on_shapes": {f"{T}x{V} {dtype}": {k: r[k] for k in nums + ("plan", "tolerance")}
+                      for (T, V, dtype), r in ce_rows.items()},
         "per": "one call at the GPT train step's [8192, 32768] bf16 "
                "logits; launches over the 10 timed steps of each train "
-               "path (the GPT path forces this route)"})
+               "path (the GPT path forces this route); on_shapes: every "
+               "CE_SHAPES check with its plan and tolerance"})
     pair_main = pair_rows[CE_PAIR_SHAPES[0]]
     for name, where in (("ce_fwd", "paddle_tpu/kernels/pallas_ce.py:179"),
                         ("ce_bwd", "paddle_tpu/kernels/pallas_ce.py:218")):
@@ -4920,19 +5129,23 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
         "replaces": "paddle_tpu/kernels/pallas_update.py:87",
         "launches": sum(train_paths("leaf_update").values()),
         "launches_by_path": train_paths("leaf_update"),
+        "leaves_by_path": train_paths("leaf_update_leaves"),
+        "design": UPDATE_DESIGN,
         "max_abs_err": max([upd["max_abs_err"]] + [
             r["max_abs_err"] for r in upd_rows["sharded"].values()]),
         **{k: upd[k] for k in keys},
         "on_shards": {name: {k: r[k] for k in nums}
                       for name, r in upd_rows["sharded"].items()},
-        "per": "one Llama step's update: the 11 leaves of the "
-               "TinyLlama-width tree in f32, summed (library: one "
-               "torch._fused_adamw_ call over all 11); launches over the "
-               "10 timed steps of each train path and phase 6's steps "
-               "(on local shards; 6c and the drill included); "
+        "per": "one Llama step's update: one leaves_update over the 11 "
+               "leaves of the TinyLlama-width tree in f32, one launch "
+               "(library: one torch._fused_adamw_ call over all 11); "
+               "launches over the 10 timed steps of each train path and "
+               "phase 6's steps (on local shards; 6c and the drill "
+               "included), one a step a rank, and leaves_by_path the "
+               "leaves they updated, 11 a step a rank; "
                "on_shards: one rank's update of its "
                "11 shards under each of phase 6b's plans (shard_shapes, "
-               "SHARDED_LAYERS = 4 layers; "
+               f"SHARDED_LAYERS = {SHARDED_LAYERS} layers; "
                "under pp2 a stage's half of each stacked leaf and the "
                "whole wte and norm_f)"})
     tf_main = tf_rows[THREEFRY_SHAPES[0]]
@@ -4966,12 +5179,32 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
 def main():
     if len(sys.argv) > 3 and sys.argv[1] == "--elastic-worker":
         return elastic_worker(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 1 and sys.argv[1] == "--launch":
+        # 6d's launcher, bound to the script's life (`_launch`)
+        bind_to_script()
+        sys.path.insert(0, HERE)
+        from paddle_tpu_torch.distributed.launch.main import main as launch
+        sys.argv = [sys.argv[0]] + sys.argv[2:]
+        return launch()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    stop_before_limit()
+    try:
+        return run(torch)
+    finally:
+        left = stop_descendants(keep=(RESOURCE_TRACKER,))
+        if left:
+            print(f"[chip_smoke] stopped {len(left)} process(es) left "
+                  f"below the script: {json.dumps(left)}", file=sys.stderr,
+                  flush=True)
+
+
+def run(torch):
+    """Every phase in order; 0 when all passed (a failed check raises)."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import quant_matmul as qm
 
@@ -5048,10 +5281,9 @@ def main():
     serving_launches = {
         "gpt_serving": sampling_phase("gpt_serving", serving, torch, qm,
                                       dev, card)[0]}
-    # phases 5b-5d share the host-drawn TinyLlama-width weights and
-    # their int8 rewrite: 5b, 5c and 5d (a)-(d) the first
-    # LLAMA_SERVE_LAYERS layers, the host tier all of them
-    full_cfg, full_params, lcfg, lparams = llama_host_params()
+    # phases 5b-5e share the host-drawn TinyLlama-width weights at
+    # LLAMA_SERVE_LAYERS layers and their int8 rewrite
+    lcfg, lparams = llama_host_params()
     with quantize_once():
         serving_launches["llama_serving"], k1 = sampling_phase(
             "llama_serving", llama_serving, torch, qm, dev, card, lcfg,
@@ -5073,9 +5305,9 @@ def main():
         del k1, k1c
         serving_launches["llama_host_tier"], tier_replays = sampling_phase(
             "llama_host_tier", host_tier_serving, torch, qm, dev, card,
-            full_cfg, full_params)
+            lcfg, lparams)
         replay_launches["llama_host_tier"] = {"replays": tier_replays}
-    del lparams, full_params
+    del lparams
     # every serving phase with sampled requests drew through the kernel
     # (the host tier's requests are greedy)
     unsampled = [k for k in SAMPLING_PHASES

@@ -32,7 +32,10 @@ hosts are torchrun's). The launcher:
   survivor the degraded plan leaves out; 103, a rank declared lost) has
   left the world cleanly: the others run on;
 - `--min_procs M`: after the crash restarts are spent, relaunch one rank
-  fewer, down to M.
+  fewer, down to M;
+- no worker outlives the launcher: SIGTERM stops the pod as Ctrl-C
+  does, and on Linux the boot shim has the kernel kill a worker whose
+  launcher ended (PR_SET_PDEATHSIG), a SIGKILL of the launcher included.
 
 The controller's monitor counters, spans and flight-recorder dumps wait
 for ROADMAP A7.
@@ -142,6 +145,8 @@ def _worker_env(args, local_rank: int, master: str) -> dict:
         "WORLD_SIZE": str(nprocs),
         "MASTER_ADDR": host,
         "MASTER_PORT": port,
+        # the boot shim binds the worker's life to this process
+        "PADDLE_LAUNCHER_PID": str(os.getpid()),
     })
     if args.devices == "cpu":
         env["CUDA_VISIBLE_DEVICES"] = ""
@@ -325,7 +330,14 @@ def launch(argv: Optional[List[str]] = None) -> int:
         attempt += 1
 
 
+def _stop(signum, frame):
+    """SIGTERM stops the pod as Ctrl-C does: `_wait` terminates every
+    worker before the launcher exits."""
+    raise KeyboardInterrupt
+
+
 def main():
+    signal.signal(signal.SIGTERM, _stop)
     sys.exit(launch())
 
 

@@ -19,7 +19,11 @@ hand-written kernels of csrc/fused_ce.cu through the custom ops
 `paddle_tpu_torch::ce_fwd`, `::ce_bwd` and `::fused_ce`, after checking
 their operands, and raise on anything the kernels do not take; on CPU
 tensors they run the plain versions. They never fall back.
-`launches[name]` counts kernel launches.
+`launches[name]` counts kernel launches. The one-pass kernel reads each
+row once into shared memory; `_ce_fused_plan(V, dtype)` (a pure
+function) picks its cluster of blocks a row, columns a block, row
+buffers and shared bytes, and refuses a V no plan holds; `_card_plan`
+adds the persistent grid, from the card's count of resident clusters.
 
 Autograd:
 - `ce_with_logits` saves (logits, targets, lse) in the forward and
@@ -97,15 +101,84 @@ def ce_fused_ref(logits2d, targets) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # ----------------------------------------------------------- kernel half
-def _launch(kernel: str, dtype, args, T: int, V: int, device):
+# the one-pass kernel's block (csrc/fused_ce.cu's FUSED_THREADS); the
+# shared memory a block may take (227 KB); a bound on the kernel's
+# static shared memory (mbarriers, reductions)
+CE_THREADS = 512
+SMEM_BLOCK = 232448
+SMEM_STATIC = 1024
+CE_CLUSTERS = (1, 2, 3, 4)
+# row buffers a block at most (csrc/fused_ce.cu's MAX_BUFFERS; a third
+# bought nothing at [8192, 32768] bf16, tools/torch_train_kernels_ab.py)
+CE_MAX_BUFFERS = 2
+
+
+def _ce_fused_plan(V: int, dtype) -> dict:
+    """How csrc/fused_ce.cu's one-pass kernel takes rows of V logits of
+    `dtype`: the smallest cluster (1-4 blocks) whose blocks each hold
+    their slice of a row in one shared buffer (a slice: a multiple of 16
+    columns; one block, the whole row), and as many buffers as fit up to
+    CE_MAX_BUFFERS (the copies of the next rows fly while one is
+    reduced). -> {"cluster", "slice", "buffers", "buffer_bytes",
+    "smem_bytes" (dynamic, a block), "threads"}. Raises where no cluster
+    of 4 holds a row. The grid is the card's: `_card_plan`."""
+    es = torch.empty((), dtype=dtype).element_size()
+    for cluster in CE_CLUSTERS:
+        slice_ = V if cluster == 1 else -(-(-(-V // cluster)) // 16) * 16
+        # a slice as it lies modulo 16 bytes, rounded to whole vectors
+        buf = -(-(slice_ * es + 32) // 128) * 128
+        if SMEM_STATIC + buf <= SMEM_BLOCK and (cluster - 1) * slice_ < V:
+            break
+    else:
+        raise ValueError(f"fused_ce: no plan holds a row of V={V} "
+                         f"{dtype} in {CE_CLUSTERS[-1]} blocks' shared "
+                         f"memory ({SMEM_BLOCK} bytes a block)")
+    buffers = max(b for b in range(1, CE_MAX_BUFFERS + 1)
+                  if SMEM_STATIC + b * buf <= SMEM_BLOCK)
+    return {"cluster": cluster, "slice": slice_, "buffers": buffers,
+            "buffer_bytes": buf, "smem_bytes": buffers * buf,
+            "threads": CE_THREADS}
+
+
+# (device index, dtype, cluster, shared bytes) -> clusters resident
+_RESIDENT: dict = {}
+
+
+def _card_plan(T, V, dtype, device):
+    """_ce_fused_plan and its persistent grid on the card: as many
+    clusters as the card holds at once at this plan (its occupancy,
+    asked once a plan), at most one a row. -> the plan with "grid"
+    (blocks)."""
+    plan = _ce_fused_plan(V, dtype)
+    key = (device.index, dtype, plan["cluster"], plan["smem_bytes"])
+    if key not in _RESIDENT:
+        from . import _build
+        fn = getattr(_build.load("fused_ce"),
+                     f"fused_ce_resident_{_SUFFIX[dtype]}")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = fn(plan["cluster"], plan["smem_bytes"], ctypes.byref(n))
+        if err != 0 or n.value <= 0:
+            raise RuntimeError(f"fused_ce: the card holds {n.value} clusters "
+                               f"of {plan} (CUDA error {err})")
+        _RESIDENT[key] = n.value
+    return {**plan, "grid": min(T, _RESIDENT[key]) * plan["cluster"]}
+
+
+def _launch(kernel: str, dtype, args, T: int, V: int, device, plan=()):
+    """Launch `kernel` on (T, V); `plan`: the ints the kernel takes after
+    T and V (the one-pass kernel's plan)."""
     from . import _build
     fn = getattr(_build.load("fused_ce"), f"{kernel}_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * len(args)
+                   + [ctypes.c_int] * (2 + len(plan)) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, T, V, stream)
+        err = fn(*args, T, V, *plan, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} "
                            f"at T={T} V={V}")
@@ -117,11 +190,14 @@ def _launch(kernel: str, dtype, args, T: int, V: int, device):
 def _fused_ce_op(logits2d: torch.Tensor, targets: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     T, V = logits2d.shape
+    plan = _card_plan(T, V, logits2d.dtype, logits2d.device)
     loss = torch.empty((T,), dtype=torch.float32, device=logits2d.device)
     dx = torch.empty_like(logits2d)
     _launch("fused_ce", logits2d.dtype,
             (logits2d.data_ptr(), targets.data_ptr(), loss.data_ptr(),
-             dx.data_ptr()), T, V, logits2d.device)
+             dx.data_ptr()), T, V, logits2d.device,
+            plan=tuple(plan[k] for k in ("cluster", "slice", "buffers",
+                                         "buffer_bytes", "grid")))
     return loss, dx
 
 

@@ -86,7 +86,7 @@ KNOWN_IMPLS: Dict[str, tuple] = {
     # "jax" = the plain f32 form
     "ce": ("pallas", "jax", "pallas_fused"),
     # "jax" = the plain per-leaf AdamW (default and oracle), "pallas" =
-    # one leaf_update kernel launch per leaf
+    # one leaves_update kernel launch over a table of every leaf
     "fused_update": ("jax", "pallas"),
     "varlen_attention": ("blockwise", "dense"),
     "decode_attention": ("dense", "mixed"),

@@ -439,26 +439,65 @@ def test_flash_wrappers_raise_on_bad_operands(cuda_device):
 
 
 # ------------------------------------------------------------ fused CE
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,V", [(300, 32768), (64, 50304), (33, 600),
-                                 (5, 1)])
-def test_fused_ce_kernel_matches_plain_version(cuda_device, T, V, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(T + V)
-    x = (torch.randn(T, V, generator=g, device=cuda_device) * 3).to(dtype)
-    t = torch.randint(0, V, (T,), generator=g, device=cuda_device)
-    t[0] = -1                                   # gathers nothing
+def _check_fused_ce(x, t):
+    """One launch of the one-pass kernel on (x, t) against its plain
+    version: f32 sums of exps in another order; d_logits rounded once to
+    the dtype from f32 values that differ by ~1e-6 relative: one step."""
     before = fce.launches["fused_ce"]
     loss, dx = fce.ce_fused(x, t)
     assert fce.launches["fused_ce"] == before + 1
     r_loss, r_dx = fce.ce_fused_ref(x, t)
     torch.cuda.synchronize()
-    assert loss.dtype == torch.float32 and dx.dtype == dtype
-    # f32 sums of exps in another order; d_logits rounded once to the
-    # dtype from f32 values that differ by ~1e-6 relative: one step
+    assert loss.dtype == torch.float32 and dx.dtype == x.dtype
     assert (loss - r_loss).abs().max() <= 1e-4
-    step = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    step = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-5
     err = (dx.float() - r_dx.float()).abs()
     assert bool((err <= step * r_dx.float().abs() + 1e-6).all())
+
+
+def _ce_operands(T, V, dtype, dev):
+    g = torch.Generator(device=dev).manual_seed(T + V)
+    x = (torch.randn(T, V, generator=g, device=dev) * 3).to(dtype)
+    t = torch.randint(0, V, (T,), generator=g, device=dev)
+    t[0] = -1                                   # gathers nothing
+    t[-1] = V                                   # nor does this
+    return x, t
+
+
+# rows beyond the persistent grid (300 > 132), the GPT and Llama vocabs
+# (V = 50257: bf16 rows off 16 bytes, head and tail elements loaded by
+# the threads), one and two row buffers (f32 at V >= 32768 takes one),
+# rows shorter than one 16-byte vector
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,V", [(300, 32768), (300, 32000), (64, 50304),
+                                 (64, 50257), (33, 600), (33, 7), (5, 1)])
+def test_fused_ce_kernel_matches_plain_version(cuda_device, T, V, dtype):
+    _check_fused_ce(*_ce_operands(T, V, dtype, cuda_device))
+
+
+@pytest.mark.parametrize("dtype,cluster", [(torch.float32, 3),
+                                           (torch.bfloat16, 2),
+                                           (torch.float32, 2)])
+def test_fused_ce_cluster_route(cuda_device, dtype, cluster):
+    """A row wider than one block's shared memory is split over a
+    cluster of blocks, their (max, sum) pairs merged through distributed
+    shared memory: Llama 3's vocab, and one just past one f32 block."""
+    V = 58100 if cluster == 2 and dtype == torch.float32 else 128256
+    assert fce._ce_fused_plan(V, dtype)["cluster"] == cluster
+    _check_fused_ce(*_ce_operands(40, V, dtype, cuda_device))
+
+
+def test_fused_ce_logits_off_16_bytes(cuda_device):
+    """Logits whose base is off a 16-byte boundary (a contiguous view at
+    an odd offset): dx, allocated aligned, lies otherwise than x modulo
+    16 bytes, so the kernel stores it element by element."""
+    T, V = 64, 32768
+    x, t = _ce_operands(T, V, torch.bfloat16, cuda_device)
+    base = torch.empty(T * V + 1, dtype=torch.bfloat16, device=cuda_device)
+    view = base[1:].view(T, V)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 2
+    _check_fused_ce(view, t)
 
 
 def test_fused_ce_train_launches_once_per_step(cuda_device):
@@ -633,6 +672,58 @@ def test_leaf_update_unaligned_views(cuda_device):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+# the 11 Llama leaves at a small width (hidden 256, 2 layers, FFN 704,
+# vocab 1000, 4 heads over 2 KV heads)
+LLAMA_SMALL = [((1000, 256), F32, F32), ((2, 256), F32, F32),
+               ((2, 256, 256), F32, F32), ((2, 256, 128), F32, F32),
+               ((2, 256, 128), F32, F32), ((2, 256, 256), F32, F32),
+               ((2, 256), F32, F32), ((2, 256, 704), F32, F32),
+               ((2, 256, 704), F32, F32), ((2, 704, 256), F32, F32),
+               ((256,), F32, F32)]
+
+
+@pytest.mark.parametrize("tree", ["one", "llama", "over_a_table", "mixed"])
+def test_leaves_update_matches_plain_version(cuda_device, tree):
+    """One launch a (p dtype, g dtype) group and table: the table of one,
+    the 11 Llama leaves, more leaves than a table holds (odd counts 1-7,
+    views off 16 bytes), and a tree of all four dtype pairs. Every leaf
+    equals the plain version's to the bit."""
+    if tree == "one":
+        shapes = [((4099,), F32, F32)]
+    elif tree == "llama":
+        shapes = LLAMA_SMALL
+    elif tree == "over_a_table":
+        shapes = [((1 + i % 7,), F32, F32) if i % 3 else
+                  ((4096 * (i % 4) + 1 + i,), F32, F32)
+                  for i in range(fu.TABLE_LEAVES + 13)]
+    else:
+        shapes = [((300 + i, 7), p, g) for i, (p, g) in enumerate(
+            [(F32, F32), (F32, BF16), (BF16, F32), (BF16, BF16)] * 3)]
+    leaves = [_leaf(shape, p, g, cuda_device, i)
+              for i, (shape, p, g) in enumerate(shapes)]
+    if tree == "over_a_table":   # every fifth leaf a view at an odd offset
+        leaves = [tuple(t[1:] for t in ops) if i % 5 == 4 and
+                  ops[0].numel() > 1 else ops
+                  for i, ops in enumerate(leaves)]
+    hp = _hp(cuda_device)
+    want = [fu.leaf_update_ref(*ops, hp) for ops in leaves]
+    groups = {(ops[0].dtype, ops[1].dtype) for ops in leaves}
+    tables = sum(-(-sum(1 for ops in leaves
+                        if (ops[0].dtype, ops[1].dtype) == k)
+                   // fu.TABLE_LEAVES) for k in groups)
+    before = dict(fu.launches)
+    ps, gs, ms, vs = (list(x) for x in zip(*leaves))
+    fu.leaves_update(ps, gs, ms, vs, hp)
+    torch.cuda.synchronize()
+    assert fu.launches["leaf_update"] == before["leaf_update"] + tables
+    assert fu.launches["leaf_update_leaves"] == (
+        before["leaf_update_leaves"] + len(leaves))
+    for (p, _, m, v), ref in zip(leaves, want):
+        for got, r in zip((p, m, v), ref):
+            torch.testing.assert_close(got, r, rtol=0, atol=0)
+
+
 def test_leaf_update_raises_on_bad_operands(cuda_device):
     p, g, m, v = _leaf((64, 8), torch.float32, torch.float32, cuda_device)
     hp = _hp(cuda_device)
@@ -669,7 +760,8 @@ def test_fused_apply_adamw_never_waits_on_the_card(cuda_device):
             fu.fused_apply_adamw(grads, params, opt, 3e-4)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert fu.launches["leaf_update"] == before + 6
+    # one launch a step over both leaves
+    assert fu.launches["leaf_update"] == before + 3
     assert float(opt["step"]) == 3.0
 
 
@@ -718,7 +810,7 @@ def test_gpt_train_step_launches_each_kernel(cuda_device, monkeypatch, remat,
     assert {k: after[k] - before[k] for k in after} == {
         "flash_fwd": 2 * L if remat else L, "flash_bwd_dq": L,
         "flash_bwd_dkv": L, "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0,
-        "leaf_update": 0}
+        "leaf_update": 0, "leaf_update_leaves": 0}
     # the same step on the plain versions: the model looks both names up
     # at each call
     monkeypatch.setattr(tg, "flash_attention_fn", functools.partial(
@@ -768,7 +860,7 @@ def test_gpt_step_launches_under_the_new_remat_policies(cuda_device, policy,
     assert {k: after[k] - before[k] for k in after} == {
         "flash_fwd": fwd_per_layer * L, "flash_bwd_dq": L,
         "flash_bwd_dkv": L, "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0,
-        "leaf_update": 0}
+        "leaf_update": 0, "leaf_update_leaves": 0}
     assert torch.equal(loss, base_loss)
     for name, g in grads.items():
         assert torch.equal(g, base_grads[name]), name
@@ -835,7 +927,8 @@ def test_kill_switches_and_impls_on_the_card(cuda_device, monkeypatch, env,
     assert {k: after[k] - before[k] for k in after} == {
         "flash_fwd": L if attn else 0, "flash_bwd_dq": L if bwd else 0,
         "flash_bwd_dkv": L if bwd else 0, "ce_fwd": int(ce),
-        "ce_bwd": int(ce), "fused_ce": 0, "leaf_update": 0}
+        "ce_bwd": int(ce), "fused_ce": 0, "leaf_update": 0,
+        "leaf_update_leaves": 0}
     assert abs(loss - want_loss) <= 2e-3 * abs(want_loss)
 
 
@@ -962,7 +1055,7 @@ def test_ce_routes_follow_the_registry_on_the_card(cuda_device, forced):
 def test_llama_train_step_launches_each_kernel(cuda_device, forced):
     """A 2-layer bf16 GQA Llama step on the card with the fused update
     selected: flash forward 2L (remat), dq and dk/dv L, the two-pass CE
-    once each way, the update once per leaf (11); the loss agrees with
+    once each way, the update once over the 11 leaves; the loss agrees with
     the step on the plain versions."""
     from paddle_tpu_torch.models.gpt import init_opt_state
     from paddle_tpu_torch.models.llama import (LlamaConfig,
@@ -982,7 +1075,8 @@ def test_llama_train_step_launches_each_kernel(cuda_device, forced):
     L = cfg.num_layers
     assert {k: after[k] - before[k] for k in after} == {
         "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-        "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0, "leaf_update": 11}
+        "ce_fwd": 1, "ce_bwd": 1, "fused_ce": 0, "leaf_update": 1,
+        "leaf_update_leaves": 11}
     assert torch.isfinite(loss)
 
 

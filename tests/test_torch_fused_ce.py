@@ -132,3 +132,69 @@ def test_ce_fused_rejects_other_devices():
     x = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fce.ce_fused(x, torch.zeros(4, dtype=torch.int64, device="meta"))
+
+
+# the one-pass kernel's plan (csrc/fused_ce.cu's launch shape), a pure
+# function of (V, dtype), and the persistent grid `_card_plan` gives it
+PLAN_V = [1, 7, 8, 600, 32000, 32768, 50257, 50304, 58000, 58100, 116000,
+          128256, 150000, 230000]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("V", PLAN_V)
+def test_ce_fused_plan_fits_a_block(V, dtype):
+    """Every plan's buffers fit 227 KB a block beside the kernel's static
+    shared memory, hold a slice as it lies modulo 16 bytes, and split
+    the row over 1-4 blocks that each get columns; as many buffers as
+    fit, up to CE_MAX_BUFFERS."""
+    es = torch.empty((), dtype=dtype).element_size()
+    plan = fce._ce_fused_plan(V, dtype)
+    c, sl = plan["cluster"], plan["slice"]
+    assert c in fce.CE_CLUSTERS
+    assert plan["smem_bytes"] + fce.SMEM_STATIC <= 232448
+    assert plan["smem_bytes"] == plan["buffers"] * plan["buffer_bytes"]
+    assert plan["buffer_bytes"] % 128 == 0
+    assert plan["buffer_bytes"] >= sl * es + 31
+    assert c * sl >= V and (c - 1) * sl < V
+    if c > 1:
+        assert sl % 16 == 0
+        # the smallest cluster that holds a slice: one block fewer
+        # would not
+        fewer = V if c == 2 else -(-V // (c - 1) // 16) * 16
+        assert fewer * es + 32 + fce.SMEM_STATIC > 232448
+    b = plan["buffers"]
+    assert 1 <= b <= fce.CE_MAX_BUFFERS
+    assert b == fce.CE_MAX_BUFFERS or (
+        (b + 1) * plan["buffer_bytes"] + fce.SMEM_STATIC > 232448)
+    assert plan["threads"] == fce.CE_THREADS
+
+
+@pytest.mark.parametrize("T,V,dtype,resident,want", [
+    (8192, 32768, torch.bfloat16, 132, (1, 2, 132)),
+    (8192, 50304, torch.bfloat16, 132, (1, 2, 132)),
+    (8192, 50257, torch.bfloat16, 132, (1, 2, 132)),
+    (8192, 32768, torch.float32, 132, (1, 1, 132)),
+    (8192, 58100, torch.float32, 66, (2, 1, 132)),
+    (2048, 128256, torch.float32, 44, (3, 1, 132)),
+    (2048, 128256, torch.bfloat16, 66, (2, 1, 132)),
+    (100, 600, torch.float32, 264, (1, 2, 100)),
+    (1000, 600, torch.float32, 264, (1, 2, 264))])
+def test_ce_fused_plan_routes(monkeypatch, T, V, dtype, resident, want):
+    """(cluster, buffers, grid) at the main path's and the checks'
+    shapes: GPT's bf16 rows double-buffered in one block, f32 rows past
+    ~58k columns over a cluster; the grid is the clusters the card holds
+    at once (`resident`, here given), at most one a row, in blocks."""
+    plan = fce._ce_fused_plan(V, dtype)
+    dev = torch.device("cuda", 0)
+    monkeypatch.setitem(fce._RESIDENT, (dev.index, dtype, plan["cluster"],
+                                        plan["smem_bytes"]), resident)
+    card = fce._card_plan(T, V, dtype, dev)
+    assert (card["cluster"], card["buffers"], card["grid"]) == want
+    assert {k: card[k] for k in plan} == plan
+
+
+@pytest.mark.parametrize("V,dtype", [(240000, torch.float32),
+                                     (470000, torch.bfloat16)])
+def test_ce_fused_plan_refuses_a_row_no_cluster_holds(V, dtype):
+    with pytest.raises(ValueError, match="no plan"):
+        fce._ce_fused_plan(V, dtype)

@@ -13,6 +13,8 @@ to 4 f32 steps of |v'| (its terms are positive), and p to 2 steps of its
 dtype at |p'| plus the m error carried through lr / bc1 / den; over
 several steps the bounds add up.
 """
+import bisect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -240,3 +242,139 @@ def test_apply_adamw_consults_the_fused_update(monkeypatch, enabled):
                          **HYPER)
     assert out[0] is p and out[1] is opt
     assert len(calls) == int(enabled) and float(opt["step"]) == 1.0
+
+
+# ---------------------------------------------------- the table of leaves
+def _chunk_spans(table, sizes, vec):
+    """What each chunk of a launch updates, as csrc/fused_update.cu's
+    blocks map a chunk to its leaf (a binary search over the table's
+    first chunks): [(leaf, start, vec_stop, stop)], elements [start,
+    vec_stop) of the leaf in 4-element vectors, [vec_stop, stop) one at
+    a time (`vec[i]`: leaf i starts on a 16-byte boundary in all four
+    operands)."""
+    spans = []
+    for c in range(table["chunks"]):
+        k = bisect.bisect_right(table["chunk0"], c) - 1
+        leaf = table["leaves"][k]
+        start = (c - table["chunk0"][k]) * fu.CHUNK
+        stop = min(start + fu.CHUNK, sizes[leaf])
+        vec_stop = start + ((stop - start) & ~3) if vec[leaf] else start
+        spans.append((leaf, start, vec_stop, stop))
+    return spans
+
+
+def _spans_cover(sizes, vec):
+    """Every element of every leaf, as the kernel's chunks of each launch
+    map them: counted once, vectors on 4-element boundaries."""
+    tables = fu._plan_tables(sizes)
+    seen = [np.zeros(n, np.int64) for n in sizes]
+    for tab in tables:
+        assert 1 <= len(tab["leaves"]) <= fu.TABLE_LEAVES
+        for leaf, start, vec_stop, stop in _chunk_spans(tab, sizes, vec):
+            assert start % 4 == 0 and (vec_stop - start) % 4 == 0
+            assert stop - start <= fu.CHUNK
+            if vec[leaf]:
+                assert stop - vec_stop < 4      # only the last n % 4
+            else:
+                assert vec_stop == start        # element by element
+            seen[leaf][start:stop] += 1
+    assert all((s == 1).all() for s in seen)
+    return tables
+
+
+@pytest.mark.parametrize("sizes", [
+    [1], [4096], [4097, 3, 1, 8192, 5], [65536000, 2048, 45056, 92274688],
+    [1 + i % 7 for i in range(40)]])
+def test_plan_tables_cover_every_element_once(sizes):
+    vec = [i % 3 != 1 for i in range(len(sizes))]
+    tables = _spans_cover(sizes, vec)
+    assert len(tables) == 1
+    # a leaf's chunks follow the previous leaf's
+    assert tables[0]["chunk0"] == list(np.cumsum(
+        [0] + [-(-n // fu.CHUNK) for n in sizes[:-1]]))
+
+
+def test_plan_tables_split_past_a_table():
+    """More leaves than a table holds go in several launches, in order,
+    each full but the last."""
+    sizes = [1 + (i * 37) % 9000 for i in range(2 * fu.TABLE_LEAVES + 3)]
+    tables = _spans_cover(sizes, [True] * len(sizes))
+    assert [len(t["leaves"]) for t in tables] == [fu.TABLE_LEAVES,
+                                                  fu.TABLE_LEAVES, 3]
+    assert sum((t["leaves"] for t in tables), []) == list(range(len(sizes)))
+    with pytest.raises(ValueError, match="0 elements"):
+        fu._plan_tables([3, 0])
+
+
+def _mixed_tree(seed=9):
+    """Odd sizes, 1-element leaves, a bf16 p and a bf16 g: (params,
+    grads over two steps, {leaf: (p dtype, g dtype)})."""
+    dtypes = {"wte": ("float32", "float32"), "norm": ("float32", "bfloat16"),
+              "one": ("float32", "float32"), "q_w": ("bfloat16", "float32"),
+              "odd": ("bfloat16", "bfloat16"), "scalar": ("float32",
+                                                          "bfloat16")}
+    shapes = {"wte": (37, 16), "norm": (7,), "one": (1,), "q_w": (3, 16, 5),
+              "odd": (1031,), "scalar": ()}
+    rng = np.random.default_rng(seed)
+
+    def cast(a, dtype):
+        return np.asarray(jnp.asarray(a).astype(
+            jnp.bfloat16 if dtype == "bfloat16" else jnp.float32))
+    params = {k: cast(rng.standard_normal(s, dtype=np.float32) * 0.02,
+                      dtypes[k][0]) for k, s in shapes.items()}
+    grads = [{k: cast(rng.standard_normal(s, dtype=np.float32) * 1e-3,
+                      dtypes[k][1]) for k, s in shapes.items()}
+             for _ in range(2)]
+    return params, grads, dtypes
+
+
+def test_leaves_update_on_a_mixed_tree_matches_reference():
+    """One leaves_update over a tree that mixes dtype pairs and sizes (on
+    the CPU the plain version leaf by leaf) against the reference's
+    fused_apply_adamw with the Pallas kernel in interpret mode, over two
+    steps: each leaf to the bit against leaf_update_ref on the same hp;
+    against the reference within _Bounds, not to the bit, since XLA's CPU
+    code contracts b * m + c * g into one multiply-add where PyTorch
+    rounds each product."""
+    params, grads, dtypes = _mixed_tree()
+    jp = {k: jnp.asarray(a) for k, a in params.items()}
+    jopt = {"m": {k: jnp.zeros(a.shape, jnp.float32) for k, a in jp.items()},
+            "v": {k: jnp.zeros(a.shape, jnp.float32) for k, a in jp.items()},
+            "step": jnp.zeros((), jnp.float32)}
+    tp = params_from_jax(params, device="cpu")
+    tm = {k: torch.zeros(p.shape) for k, p in tp.items()}
+    tv = {k: torch.zeros(p.shape) for k, p in tp.items()}
+    keys = list(tp)
+    bounds = {k: _Bounds(np.zeros(a.shape)) for k, a in params.items()}
+    for step, g in enumerate(grads, 1):
+        tg_ = params_from_jax(g, device="cpu")
+        hp = torch.from_numpy(_hp(step))
+        want = {k: fu.leaf_update_ref(tp[k], tg_[k], tm[k], tv[k], hp)
+                for k in keys}
+        out = fu.leaves_update([tp[k] for k in keys], [tg_[k] for k in keys],
+                               [tm[k] for k in keys], [tv[k] for k in keys],
+                               hp)
+        assert out[0][0] is tp[keys[0]]                     # in place
+        for k in keys:
+            for got, ref in zip((tp[k], tm[k], tv[k]), want[k]):
+                torch.testing.assert_close(got, ref, rtol=0, atol=0)
+        jp, jopt = jpu.fused_apply_adamw(
+            {k: jnp.asarray(a) for k, a in g.items()}, jp, jopt,
+            interpret=True, **HYPER)
+        tols = {k: bounds[k].step(
+            g[k].astype(np.float32), _hp(step),
+            np.asarray(jp[k].astype(jnp.float32)), np.asarray(jopt["v"][k]),
+            BF16_STEP if dtypes[k][0] == "bfloat16" else F32_STEP)
+            for k in keys}
+    for k in keys:
+        assert str(tp[k].dtype).endswith(dtypes[k][0])
+        tol_p, tol_m, tol_v = tols[k]
+        _check(tp[k].float(), jp[k].astype(jnp.float32), tol_p, k)
+        _check(tm[k], jopt["m"][k], tol_m, k)
+        _check(tv[k], jopt["v"][k], tol_v, k)
+
+
+def test_leaves_update_rejects_other_devices():
+    t = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.leaves_update([t], [t], [t], [t], torch.zeros(7, device="meta"))

@@ -17,7 +17,6 @@ profile holds the listed count to 99-100% of the engine's; this shows
 what a fresh process lists. Exits non-zero without a card.
 """
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -42,14 +41,12 @@ def main():
 
     import chip_smoke as cs
     from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg, params = cs.llama_host_params()
-    if args.layers != cfg.num_layers:
-        params = {k: v[:args.layers] if v.dim() and k not in (
-            "wte", "norm_f") else v for k, v in params.items()}
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = LlamaConfig(**dict(cs.LLAMA, num_layers=args.layers))
+    params = init_llama_params(cfg, seed=0, device="cpu")
     prompts = cs.llama_prompts(cfg.vocab_size)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 

@@ -5,8 +5,8 @@ card: chip_smoke.py's phases 5e and 6d without the rest.
     python3 tools/torch_tp_elastic_quick.py
 
 Builds the kernels (nvcc for sm_90a, or the cached libraries), draws
-phase 5b's TinyLlama-width host weights (the first LLAMA_SERVE_LAYERS
-layers), runs the single-card int8 engines whose streams 5e is held to
+phase 5b's TinyLlama-width host weights (LLAMA_SERVE_LAYERS layers),
+runs the single-card int8 engines whose streams 5e is held to
 (5b's dense engine and 5c's paged spec engine, through
 chip_smoke.run_engine), then phase 5e (the int8 kernel at a tp2 rank's
 leaf shapes, the tp2 engines on two ranks) and phase 6d (the elastic
@@ -42,7 +42,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device(None)
     seconds = {"build": time.perf_counter() - t0}
-    _, _, lcfg, lparams = cs.llama_host_params()
+    lcfg, lparams = cs.llama_host_params()
     per_pass = sum(cs.pass_calls(cs.LLAMA_LEAF_KN, lcfg.num_layers).values())
     draft = sum(cs.pass_calls(cs.LLAMA_LEAF_KN,
                               cs.SPEC["draft_layers"]).values())
