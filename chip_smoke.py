@@ -66,7 +66,7 @@ Phases, each failing the script (non-zero exit) when it fails:
    activations, f32 parameters, random weights from seed 0), with the
    registry's "ce" winner forced to "pallas_fused" (the one-pass CE) as
    the reference's tools/ablate_step.py forces its own.
-3b. The GPT step's selection surface at the same widths and 12 of its
+3b. The GPT step's selection surface at the same widths and 6 of its
    24 layers (RACE_LAYERS), the port's
    counterpart of the rung's variant race (bench.py:270-320) with the
    attention impl fixed to "pallas" (on CUDA "jax_flash" and "splash"
@@ -93,6 +93,22 @@ Phases, each failing the script (non-zero exit) when it fails:
    pick and hits on the second; an env tile outranks the cache, a
    foreign cache entry is skipped and counted, an env tile the kernels
    lack raises.
+3c. GPT with experts (models/gpt.py num_experts, parallel/moe.py) at
+   the same widths and MOE_LAYERS = 4 of its 24 layers: 8 experts
+   (Switch-Base-8's count), the switch gate, capacity factor 1.25, aux
+   weight 0.01 (the reference's defaults), remat "full", the CE on its
+   default two-pass route and the fused update forced (one launch over
+   the 17 leaves). From one starting state (kept on the host): the
+   switch and the gshard (top-2) step against the plain versions
+   (losses of a forward and of a train step within 2e-3 relative; the
+   tokens whose top-1 expert differs between the two forwards counted
+   and printed, not gated: a bf16 difference in attention can move a
+   near-tie token; the dropped share and the aux loss printed), each
+   step's launches exactly flash 2L / L / L, ce_fwd 1, ce_bwd 1,
+   leaf_update 1 over 17 leaves; 5-step switch trajectories on each
+   (within 1e-2); 2 warm-up and 10 timed switch steps (step ms p50/p90,
+   tokens/s, MFU counted from the active parameters, the formula
+   printed, peak memory) with the launches asserted; a 2-step profile.
 4. Llama training at TinyLlama-1.1B's widths (vocab 32000, hidden 2048,
    22 layers, 32 heads over 4 KV heads, FFN 5632, max_seq_len 2048; the
    head tied to wte, 1,034,512,384 parameters), batch 4 x 2048 tokens,
@@ -274,7 +290,20 @@ Phases, each failing the script (non-zero exit) when it fails:
    steps the snapshot is restored onto pp2: every params, m and v
    marginal (a leaf's sum of squares at each index of each dim, added
    over the ranks) equals the saved state's within 1e-9, and 3 steps
-   run within 1e-3 of fsdp2's steps 3-5, every rank the same losses. The resilience drill (parallel/resilience.py): one rank,
+   run within 1e-3 of fsdp2's steps 3-5, every rank the same losses.
+   (c) Inside 6b too: GPT at the headline widths, SHARDED_LAYERS deep,
+   on hand-built meshes (the planner plans neither axis): "ep2" (mesh
+   {ep 2}, phase 3c's experts, 4 a rank), "sp2_ring" and "sp2_ulysses"
+   (mesh {sp 2}, context_parallel "ring" / "ulysses", 8 heads a
+   Ulysses rank), each held to the unsharded step of its config with
+   context_parallel "none", which rank 0 runs first, by 6b's gates over
+   GPT_PLAN_STEPS = 3 steps, with exactly gpt_step_launches a step a
+   rank (no flash launch under the ring, whose f32 chunk updates are
+   plain torch), the flash kernels at the plan's shape (a Ulysses
+   rank's [8, 1024, 8, 64], checked in phase 2b) and the CE pair at
+   [8192, 32768] (phase 2d); each plan's ms a step a rank and the
+   collective bytes a rank hands to torch.distributed a step printed.
+   The resilience drill (parallel/resilience.py): one rank,
    TinyLlama widths at DRILL_LAYERS = 2 layers, a ResilientTrainer (keep 2 snapshots,
    one every 2 steps, rollback after 3 skips, a 120 s watchdog) clean
    and under nan@3:3: each skip leaves every param and moment equal to
@@ -894,6 +923,11 @@ def kernel_rows(name):
 SHARDED_ATTN = {name: (kernel_rows(name), LLAMA_SEQ, SHARDED_HEADS[name][0],
                        LLAMA["hidden_size"] // LLAMA["num_heads"], None)
                 for name in SHARDED_PLANS}
+# phase 6b's GPT plans (GPT_PLANS): a Ulysses rank of sp2 runs the flash
+# kernels on half the heads over the whole sequence
+SHARDED_ATTN["gpt_sp2_ulysses"] = (
+    TRAIN_BATCH, TRAIN_SEQ, FULL["num_heads"] // 2,
+    FULL["hidden_size"] // FULL["num_heads"], None)
 # (B, S, H, D, kv_len): the GPT train step's attention, a ragged S with
 # a kv_len bound, head dim 128 (the 6.7B/13B head width), the Llama
 # train step's (32 query heads, the 4 KV heads repeated to match), and
@@ -1158,7 +1192,10 @@ CE_SHAPES = [(8192, 32768, "bfloat16"), (8192, 50304, "bfloat16"),
 # launches no CE kernel)
 SHARDED_CE = {name: (sharded_rows(name) * LLAMA_SEQ, LLAMA["vocab_size"])
               for name in SHARDED_PLANS if plan_pp(name) == 1}
-CE_PAIR_SHAPES = [(8192, 32000), (8192, 50257)] + sorted(
+# and the GPT step's logits on the default CE route (phases 3b and 3c,
+# every rank of 6b's GPT plans)
+CE_PAIR_SHAPES = [(8192, 32000), (8192, 50257),
+                  (TRAIN_BATCH * TRAIN_SEQ, FULL["vocab_size"])] + sorted(
     set(SHARDED_CE.values()) - {(8192, 32000)})
 
 
@@ -1467,9 +1504,12 @@ def update_rows(torch, dev, shapes, hp, step, tag=""):
 
 def update_check(torch, dev):
     """Phase 2e, the AdamW leaf update, f32, at every leaf shape of the
-    TinyLlama-width tree, and at every shard shape of it under phase
-    6b's plans. Returns {leaf: row}, a "step" row (one train step's
-    update) and {"sharded": {plan: its step row}}."""
+    TinyLlama-width tree, at every shard shape of it under phase 6b's
+    plans, and at every leaf shape of the GPT trees the update runs on:
+    phase 3c's MoE tree and a rank's shards under 6b's GPT plans (the
+    dense tree once for both sp2 plans, which replicate it). Returns
+    {leaf: row}, a "step" row (one train step's update), {"sharded":
+    {plan: its step row}} and {"gpt": {tree: its step row}}."""
     step = torch.full((), 3.0, device=dev)
     hp = torch.stack([torch.full((), ADAMW[k], device=dev) for k in
                       ("lr", "beta1", "beta2", "eps", "weight_decay")]
@@ -1480,6 +1520,17 @@ def update_check(torch, dev):
         name: update_rows(torch, dev, shard_shapes(name), hp, step,
                           tag=f"{name}:")["step"]
         for name in SHARDED_PLANS}
+    trees = {"gpt_moe": GPT_MOE_LEAVES}
+    for name in GPT_PLANS:
+        shapes = gpt_plan_shapes(name)
+        same = [k for k, v in trees.items() if v == shapes]
+        if same:
+            trees[f"{same[0]}+{name}"] = trees.pop(same[0])
+        else:
+            trees[f"gpt_{name}"] = shapes
+    rows["gpt"] = {tree: update_rows(torch, dev, shapes, hp, step,
+                                     tag=f"{tree}:")["step"]
+                   for tree, shapes in trees.items()}
     return rows
 
 
@@ -1810,16 +1861,19 @@ def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
 
 
 def timed_steps(torch, card, label, mod, cfg, params, opt, tokens, per_step,
-                **extra):
+                flops_params=None, **extra):
     """2 warm-up and 10 timed steps through make_train_step, the counts
     set to 0 just before the timed steps and read just after, asserted
     equal to 10 x `per_step`; prints the line (step ms p50/p90,
-    tokens/s, MFU, peak memory, the warm-up losses, `extra`). Returns
+    tokens/s, MFU, peak memory, the warm-up losses, `extra`). MFU counts
+    `flops_params` parameters (default: every parameter). Returns
     (launches over the 10 steps, the line, the step function)."""
     from paddle_tpu_torch.cost_model import train_flops_per_token
     from paddle_tpu_torch.models.facade import make_train_step
     batch, seq = tokens.shape[0], tokens.shape[1] - 1
     n_params = sum(p.numel() for p in params.values())
+    if flops_params is None:
+        flops_params = n_params
     step = make_train_step(mod.train_step, cfg=cfg, **ADAMW)
     warm = [float(step(params, opt, tokens)[0]) for _ in range(2)]
     torch.cuda.synchronize()
@@ -1840,10 +1894,11 @@ def timed_steps(torch, card, label, mod, cfg, params, opt, tokens, per_step,
         raise AssertionError(f"{label}: non-finite losses {warm + losses}")
     p50 = statistics.median(step_ms)
     tok_s = batch * seq / (p50 / 1e3)
-    fpt = train_flops_per_token(n_params, cfg.num_layers, cfg.hidden_size,
-                                seq)
+    fpt = train_flops_per_token(flops_params, cfg.num_layers,
+                                cfg.hidden_size, seq)
     line = {
-        "phase": label, "card": card, "params": n_params, "batch": batch,
+        "phase": label, "card": card, "params": n_params,
+        "flops_params": flops_params, "batch": batch,
         "seq": seq, "remat": cfg.remat,
         "remat_policy": getattr(cfg, "remat_policy", "full"), **extra,
         "steps": 10, "step_ms": step_ms, "step_ms_p50": p50,
@@ -1888,9 +1943,9 @@ RACE = [("dots", True, "dots", 8), ("full", True, "full", 8),
 # policies whose backward reruns no attention forward
 ONE_FWD = ("dots_flash", "all_but_mlp")
 ROUTE_LAYERS = 4
-# the race's depth: half the headline's 24 layers at its widths, so that
-# phase 6 fits the script's time limit (PERF.md)
-RACE_LAYERS = 12
+# the race's depth: a quarter of the headline's 24 layers at its widths,
+# so that phases 3c and 6 fit the script's time limit (PERF.md)
+RACE_LAYERS = 6
 # (name, env) of the route steps, each set for its own step only
 ROUTES = [("default", {}), ("xla", {"PADDLE_TPU_ATTN_IMPL": "xla"}),
           ("attn_kill", {"PADDLE_TPU_DISABLE_PALLAS_ATTN": "1"}),
@@ -2159,6 +2214,218 @@ def autotune_tiles(torch, dev, card):
             autotune._CACHE.update(saved[1])
             autotune._loaded = saved[2]
     return out
+
+
+# phase 3c: the GPT step with experts at the headline widths (FULL),
+# MOE_LAYERS of its 24 layers for time (PERF.md section 4): 8 experts
+# (Switch-Base-8's count) and the reference's MoE defaults
+MOE = dict(num_experts=8, moe_gate="switch", expert_capacity_factor=1.25,
+           moe_aux_weight=0.01)
+MOE_LAYERS = 4
+EXPERT_LEAVES = ("moe_up_w", "moe_up_b", "moe_down_w", "moe_down_b")
+
+
+def gpt_leaves(L, experts=0):
+    """{leaf: shape} of the GPT tree at the headline widths (FULL), L
+    layers, with `experts` experts in place of the dense FFN (as
+    models/gpt.py init_gpt_params draws it)."""
+    D, V, S = FULL["hidden_size"], FULL["vocab_size"], FULL["max_seq_len"]
+    F, E = 4 * D, experts
+    out = {"wte": (V, D), "wpe": (S, D), "ln_f_scale": (D,),
+           "ln_f_bias": (D,), "ln1_scale": (L, D), "ln1_bias": (L, D),
+           "ln2_scale": (L, D), "ln2_bias": (L, D), "qkv_w": (L, D, 3 * D),
+           "qkv_b": (L, 3 * D), "attn_out_w": (L, D, D),
+           "attn_out_b": (L, D)}
+    if E:
+        out.update({"gate_w": (L, D, E), "moe_up_w": (L, E, D, F),
+                    "moe_up_b": (L, E, F), "moe_down_w": (L, E, F, D),
+                    "moe_down_b": (L, E, D)})
+    else:
+        out.update({"mlp_up_w": (L, D, F), "mlp_up_b": (L, F),
+                    "mlp_down_w": (L, F, D), "mlp_down_b": (L, D)})
+    return out
+
+
+# phase 3c's tree: 17 leaves, 320,047,104 f32 parameters
+GPT_MOE_LEAVES = gpt_leaves(MOE_LAYERS, MOE["num_experts"])
+
+
+def gpt_step_launches(cfg, n_leaves):
+    """Kernel launches of one GPT step under remat "full" with the CE on
+    its default route and the fused update forced: the flash forward
+    twice a layer (the forward and the recompute) and each backward
+    kernel once, none under ring attention (its chunk updates are
+    plain f32 torch, as the reference's are plain jnp); one CE pair; one
+    update launch over every leaf."""
+    L = cfg.num_layers
+    flash = getattr(cfg, "context_parallel", "none") != "ring"
+    return {"flash_fwd": 2 * L if flash else 0,
+            "flash_bwd_dq": L if flash else 0,
+            "flash_bwd_dkv": L if flash else 0,
+            "ce_fwd": 1, "ce_bwd": 1, "leaf_update": 1,
+            "leaf_update_leaves": n_leaves}
+
+
+def active_params(params, cfg):
+    """Parameters a token runs through: every non-expert leaf and k of the
+    E experts' leaves (the router counted whole)."""
+    from paddle_tpu_torch.parallel.moe import GATES
+    k = GATES[cfg.moe_gate].top_k
+    expert = sum(params[n].numel() for n in EXPERT_LEAVES)
+    total = sum(p.numel() for p in params.values())
+    return total - expert + expert * k // cfg.num_experts
+
+
+@contextlib.contextmanager
+def routing_record():
+    """Each MoE layer's routing inside the body, as parallel/moe.py's
+    route_tokens returns it: a list of (top-1 expert [T], keep [k, T])."""
+    from paddle_tpu_torch.parallel import moe
+    seen = []
+    orig = moe.route_tokens
+
+    def record(*args, **kw):
+        r = orig(*args, **kw)
+        seen.append((r.expert[0], r.keep))
+        return r
+    moe.route_tokens = record
+    try:
+        yield seen
+    finally:
+        moe.route_tokens = orig
+
+
+def moe_forward(torch, gpt, params, tokens, cfg):
+    """One forward under no_grad: (loss, aux, [top-1 expert a layer],
+    dropped share of the (token, choice) pairs)."""
+    with torch.no_grad(), routing_record() as seen:
+        logits, aux = gpt._gpt_forward_impl(params, tokens[:, :-1], cfg)
+        loss = gpt.fused_softmax_ce(logits, tokens[:, 1:]) \
+            + cfg.moe_aux_weight * aux
+    keep = torch.stack([kp for _, kp in seen])
+    return (float(loss), float(aux), [e for e, _ in seen],
+            1.0 - float(keep.float().mean()))
+
+
+def moe_check(torch, gpt, params, opt, tokens, cfg, restore, label, card):
+    """Step 1 of `cfg` on the kernels against the plain versions from one
+    state: losses within 2e-3 relative, and the top-1 choices that
+    differ between the two forwards counted (a bf16 difference in
+    attention can move a near-tie token to another expert: printed
+    beside the loss gap, not gated); then one train step each, their
+    losses within 2e-3, the kernels' launches exactly one step's.
+    Returns (the line, the kernel step's launches)."""
+    k_loss, k_aux, k_top, k_drop = moe_forward(torch, gpt, params, tokens,
+                                               cfg)
+    with plain_versions():
+        p_loss, p_aux, p_top, p_drop = moe_forward(torch, gpt, params,
+                                                   tokens, cfg)
+    flips = [int((a != b).sum()) for a, b in zip(k_top, p_top)]
+    restore()
+    zero_launch_counts()
+    with forced_registry(fused_update="pallas"):
+        s_k = float(gpt.train_step(params, opt, tokens, cfg, **ADAMW)[0])
+    launches = launch_counts()
+    restore()
+    with plain_versions():
+        s_p = float(gpt.train_step(params, opt, tokens, cfg, **ADAMW)[0])
+    restore()
+    want = gpt_step_launches(cfg, len(params))
+    line = {"phase": f"{label}_kernel_vs_plain", "card": card,
+            "gate": cfg.moe_gate, "experts": cfg.num_experts,
+            "capacity_factor": cfg.expert_capacity_factor,
+            "loss_kernel": k_loss, "loss_plain": p_loss,
+            "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
+            "aux_kernel": k_aux, "aux_plain": p_aux,
+            "dropped_share_kernel": k_drop, "dropped_share_plain": p_drop,
+            "top1_flips_by_layer": flips,
+            "tokens_a_layer": int(k_top[0].numel()),
+            "step_loss_kernel": s_k, "step_loss_plain": s_p,
+            "step_launches": launches,
+            "tolerance": "losses 2e-3 relative; flips counted, not gated"}
+    log(json.dumps(line))
+    bad = []
+    if not all(math.isfinite(x) for x in (k_loss, p_loss, s_k, s_p)):
+        bad.append("non-finite loss")
+    if abs(k_loss - p_loss) > 2e-3 * abs(p_loss) or \
+            abs(s_k - s_p) > 2e-3 * abs(s_p):
+        bad.append("loss")
+    if {k: launches.get(k, 0) for k in want} != want or any(
+            v for k, v in launches.items() if k not in want):
+        bad.append(f"launches, want {want}")
+    if bad:
+        raise AssertionError(f"{label} ({cfg.moe_gate}): {bad}: {line}")
+    return line, launches
+
+
+def moe_training(torch, dev, card):
+    """Phase 3c: the GPT step with 8 experts (MOE) at the headline widths,
+    MOE_LAYERS deep, remat "full", the CE on its default two-pass route
+    and the fused update forced (one launch over the 17 leaves). From
+    one starting state (kept on the host): the switch and the gshard
+    step against the plain versions (moe_check), 5-step switch
+    trajectories on each (within 1e-2), then 2 warm-up and 10 timed
+    switch steps with the exact launches asserted (MFU from the active
+    parameters), and a 2-step profile. Returns the launches over the 10
+    timed steps and over the gshard step."""
+    import dataclasses
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig(**dict(FULL, num_layers=MOE_LAYERS), remat=True,
+                        remat_policy="full", **MOE)
+    t0 = time.perf_counter()
+    params = gpt.init_gpt_params(cfg, seed=0)
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    if shapes != GPT_MOE_LEAVES:
+        raise AssertionError(f"gpt moe leaves {shapes} != {GPT_MOE_LEAVES}")
+    log(f"gpt_moe_train: params built in {time.perf_counter() - t0:.1f} s")
+    opt = gpt.init_opt_state(params)
+    tokens = train_tokens(torch, dev, cfg, TRAIN_BATCH, TRAIN_SEQ, 4)
+    restore = host_state(params, opt)
+    label = "gpt_moe_train"
+    switch, _ = moe_check(torch, gpt, params, opt, tokens, cfg, restore,
+                          label, card)
+    gcfg = dataclasses.replace(cfg, moe_gate="gshard")
+    _, gshard_launches = moe_check(torch, gpt, params, opt, tokens, gcfg,
+                                   restore, label, card)
+    traj = {}
+    for name, ctx in (("kernel", functools.partial(
+            forced_registry, fused_update="pallas")),
+            ("plain", plain_versions)):
+        restore()
+        with ctx():
+            traj[name] = [float(gpt.train_step(params, opt, tokens, cfg,
+                                               **ADAMW)[0])
+                          for _ in range(5)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(traj["kernel"],
+                                               traj["plain"])]
+    log(json.dumps({"phase": f"{label}_trajectory", "card": card,
+                    "kernel": traj["kernel"], "plain": traj["plain"],
+                    "rel_diff": rel}))
+    if max(rel) > 1e-2 or abs(traj["kernel"][0] - switch["step_loss_kernel"]
+                             ) > 1e-6 * abs(traj["kernel"][0]):
+        raise AssertionError(f"{label} trajectories differ: {traj}")
+    restore()
+    del restore
+    torch.cuda.empty_cache()
+    n_active = active_params(params, cfg)
+    with forced_registry(fused_update="pallas"):
+        launches, line, step = timed_steps(
+            torch, card, label, gpt, cfg, params, opt, tokens,
+            gpt_step_launches(cfg, len(params)), flops_params=n_active,
+            experts=cfg.num_experts, gate=cfg.moe_gate,
+            capacity_factor=cfg.expert_capacity_factor,
+            layers=MOE_LAYERS, active_params=n_active,
+            expert_params=sum(params[n].numel() for n in EXPERT_LEAVES),
+            mfu_formula="(6 * N_active + 12 * L * D * S) * tokens/s / "
+                        "989e12; N_active = non-expert params + k * "
+                        "(expert params / E), k = 1 (switch)",
+            dropped_share=switch["dropped_share_kernel"],
+            aux_loss=switch["aux_kernel"],
+            top1_flips_vs_plain=sum(switch["top1_flips_by_layer"]))
+        train_profile(torch, step, params, opt, tokens, card, label)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return launches, gshard_launches
 
 
 def llama_training(torch, dev, card):
@@ -3875,6 +4142,278 @@ def unsharded_reference(torch, llama, cfg, params, tokens):
     return ref
 
 
+# phase 6b's GPT plans in the same two-rank world, at SHARDED_LAYERS and
+# the headline widths, on hand-built meshes (the planner plans no 'ep'
+# or 'sp'): (mesh axes, GPTConfig fields); each held to the unsharded
+# step of its config with context_parallel "none", for GPT_PLAN_STEPS
+# steps (5 for the Llama plans)
+GPT_PLANS = {"ep2": ({"ep": 2}, dict(MOE)),
+             "sp2_ring": ({"sp": 2}, {"context_parallel": "ring"}),
+             "sp2_ulysses": ({"sp": 2}, {"context_parallel": "ulysses"})}
+GPT_PLAN_STEPS = 3
+GPT_PLAN_ATTN = {"ep2": ATTN_MAIN, "sp2_ring": None,
+                 "sp2_ulysses": SHARDED_ATTN["gpt_sp2_ulysses"]}
+
+
+def gpt_plan_shapes(name):
+    """{leaf: the shape of a rank's shard} of the GPT tree of 6b's plan
+    `name` at SHARDED_LAYERS: each dim divided by the sizes of the
+    plan's mesh axes that models/gpt.py's PARAM_SPECS names for it,
+    where they divide it (models/facade.py mesh_plan; these meshes have
+    no 'mp' or 'pp'). check_gpt_plans holds every rank's shards to
+    it."""
+    from paddle_tpu_torch.models.gpt import PARAM_SPECS
+    axes, fields = GPT_PLANS[name]
+    out = {}
+    for leaf, shape in gpt_leaves(SHARDED_LAYERS,
+                                  fields.get("num_experts", 0)).items():
+        local = list(shape)
+        for d, entry in enumerate(PARAM_SPECS[leaf]):
+            names = entry if isinstance(entry, tuple) else (entry,)
+            n = math.prod(axes.get(a, 1) for a in names if a)
+            if local[d] % n == 0:
+                local[d] //= n
+        out[leaf] = tuple(local)
+    return out
+
+
+def gpt_plan_cfg(name):
+    from paddle_tpu_torch.models import gpt
+    return gpt.GPTConfig(**dict(FULL, num_layers=SHARDED_LAYERS),
+                         remat=True, remat_policy="full",
+                         **GPT_PLANS[name][1])
+
+
+def _arg_bytes(name, args):
+    """Bytes a rank hands to one torch.distributed call."""
+    import torch.distributed as dist
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    if name in ("all_reduce", "isend"):
+        return nbytes(args[0])
+    if name in ("all_gather", "all_to_all_single"):
+        return nbytes(args[1])
+    if name == "reduce_scatter":
+        return sum(nbytes(t) for t in args[1])
+    if name == "batch_isend_irecv":
+        return sum(nbytes(op.tensor) for op in args[0]
+                   if op.op is dist.isend)
+    return 0
+
+
+@contextlib.contextmanager
+def collective_bytes():
+    """{"calls", "bytes"}: the torch.distributed calls made inside the
+    body and the bytes this rank handed to them (a receive counts none)."""
+    import torch.distributed as dist
+    names = ("all_reduce", "all_gather", "reduce_scatter",
+             "all_to_all_single", "isend", "irecv", "batch_isend_irecv")
+    count = {"calls": 0, "bytes": 0}
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            count["calls"] += 1
+            count["bytes"] += _arg_bytes(name, args)
+            return fn(*args, **kw)
+        return call
+    for n, fn in saved.items():
+        setattr(dist, n, counted(n, fn))
+    try:
+        yield count
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def gpt_reference(torch, gpt, cfg, host, tokens, dev):
+    """Rank 0's unsharded GPT step of `cfg` from `host`: step 1's loss and
+    gradients (their norms, and the gradients themselves pinned on the
+    host), then GPT_PLAN_STEPS steps with the fused update forced and
+    their launches a step."""
+    full = {k: v.to(dev, copy=True) for k, v in host.items()}
+    with forced_registry(fused_update="pallas"):
+        loss1, grads = gpt.loss_and_grads(full, tokens, cfg)
+        norms = {k: float(g.double().norm()) for k, g in grads.items()}
+        grads = {k: torch.empty(g.shape, dtype=g.dtype,
+                                pin_memory=True).copy_(g)
+                 for k, g in grads.items()}
+        opt = gpt.init_opt_state(full)
+        zero_launch_counts()
+        losses, ms = timed_losses(torch, lambda p, o, t: gpt.train_step(
+            p, o, t, cfg, **ADAMW), full, opt, tokens, GPT_PLAN_STEPS)
+        launches = launch_counts()
+    del full, opt
+    torch.cuda.empty_cache()
+    return {"step1_loss": float(loss1), "norms": norms, "grads": grads,
+            "losses": losses, "step_ms": ms,
+            "per_step": {k: v // GPT_PLAN_STEPS
+                         for k, v in launches.items()}}
+
+
+def gpt_sharded_plans(torch, rank, dev):
+    """Phase 6b's GPT plans on this rank (GPT_PLANS): rank 0 first runs
+    each config's unsharded step (gpt_reference); then each plan's step
+    1 (rank 0 gathers its gradients whole for the cosines and norm
+    ratios), and GPT_PLAN_STEPS steps with the launches counted, the
+    kernels' shapes recorded and the collective bytes a step read."""
+    import dataclasses
+    import torch.distributed as dist
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models.facade import make_train_step
+    from paddle_tpu_torch.parallel import build_mesh
+    tokens = train_tokens(torch, dev, gpt_plan_cfg("ep2"), TRAIN_BATCH,
+                          TRAIN_SEQ, 6)
+    hosts, refs, out = {}, {}, {}
+    for name in GPT_PLANS:
+        key = "moe" if "num_experts" in GPT_PLANS[name][1] else "dense"
+        if key not in hosts:
+            cfg = dataclasses.replace(gpt_plan_cfg(name),
+                                      context_parallel="none")
+            hosts[key] = gpt.init_gpt_params(cfg, seed=0, device="cpu")
+            if rank == 0:
+                t_s = time.perf_counter()
+                refs[key] = gpt_reference(torch, gpt, cfg, hosts[key],
+                                          tokens, dev)
+                refs[key]["seconds"] = time.perf_counter() - t_s
+    dist.barrier()
+    for name, (axes, _) in GPT_PLANS.items():
+        key = "moe" if "num_experts" in GPT_PLANS[name][1] else "dense"
+        cfg, host = gpt_plan_cfg(name), hosts[key]
+        t_s = time.perf_counter()
+        step = make_train_step(gpt.train_step, cfg=cfg,
+                               mesh=build_mesh(axes), **ADAMW)
+        params, opt, _ = step.shard_args(host, lazy_opt_state(torch, host),
+                                         tokens)
+        row = {"axes": axes, "leaves": len(params),
+               "shard_shapes": {k: list(v.shape) for k, v in
+                                params.items()}}
+        with forced_registry(fused_update="pallas"):
+            loss1, grads = step.loss_and_grads(params, tokens)
+            full = step.gather_full(grads)
+            del grads
+            row["step1_loss"] = float(loss1)
+            if rank == 0:
+                ref = refs[key]
+                row["cosine_by_leaf"] = {
+                    k: _cos(full[k], ref["grads"][k].to(dev)) for k in full}
+                row["norm_ratio_by_leaf"] = {
+                    k: float(full[k].double().norm()) / ref["norms"][k]
+                    for k in full}
+            del full
+            torch.cuda.empty_cache()
+            with kernel_shapes() as shapes, collective_bytes() as moved:
+                zero_launch_counts()              # the main path starts
+                row["losses"], row["step_ms"] = timed_losses(
+                    torch, step, params, opt, tokens, GPT_PLAN_STEPS)
+                row["launches"] = launch_counts()  # ... and ends
+        row["kernel_shapes"] = shapes
+        row["collective_calls_per_step"] = moved["calls"] / GPT_PLAN_STEPS
+        row["collective_bytes_per_step"] = moved["bytes"] / GPT_PLAN_STEPS
+        row["seconds"] = time.perf_counter() - t_s
+        out[name] = row
+        del step, params, opt
+        torch.cuda.empty_cache()
+    for ref in refs.values():
+        del ref["grads"]
+    return {"plans": out, "refs": refs}
+
+
+def check_gpt_plans(results, card):
+    """6b's GPT verdict, each plan against the unsharded step of its
+    config (rank 0's gpt_reference), with 6b's gates: step 1's loss
+    within 2e-3 relative, every gradient leaf's cosine >= 0.999 and its
+    norm within GRAD_NORM_TOL, the trajectory within 1e-2, exactly
+    gpt_step_launches a step on each rank (each rank computes the whole
+    batch's attention and CE: tokens are split over neither 'ep' nor,
+    outside attention, 'sp'), the flash kernels at the plan's shape
+    (GPT_PLAN_ATTN; a Ulysses rank's [8, 1024, 8, 64], which phase 2b
+    checked) and the CE pair at [8192, 32768]. Prints one line a plan
+    with its ms a step a rank and its collective bytes a step. Returns
+    {plan: [each rank's launches]}."""
+    r0 = results[0]["gpt"]
+    shared = results[0]["cards"] < 2
+    out, failed = {}, {}
+    for name in GPT_PLANS:
+        rows = [res["gpt"]["plans"][name] for res in results]
+        key = "moe" if "num_experts" in GPT_PLANS[name][1] else "dense"
+        ref = r0["refs"][key]
+        cos = rows[0]["cosine_by_leaf"]
+        ratio = rows[0]["norm_ratio_by_leaf"]
+        rel = [abs(a - b) / abs(b)
+               for a, b in zip(rows[0]["losses"], ref["losses"])]
+        want = {k: GPT_PLAN_STEPS * v for k, v in gpt_step_launches(
+            gpt_plan_cfg(name), rows[0]["leaves"]).items()}
+        attn = GPT_PLAN_ATTN[name]
+        want_shapes = {k: None if attn is None else [list(attn[:4])]
+                       for k in ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv")}
+        want_shapes.update({k: [[TRAIN_BATCH * TRAIN_SEQ,
+                                 FULL["vocab_size"]]]
+                            for k in ("ce_fwd", "ce_bwd")})
+        line = {
+            "phase": "gpt_sharded_2rank", "card": card, "plan": name,
+            "axes": rows[0]["axes"], "layers": SHARDED_LAYERS,
+            "config": GPT_PLANS[name][1],
+            "backend": results[0]["backend"], "route": results[0]["route"],
+            "shared_card": shared,
+            "step1_loss": rows[0]["step1_loss"],
+            "step1_loss_unsharded": ref["step1_loss"],
+            "step1_loss_rel_diff": abs(rows[0]["step1_loss"]
+                                       - ref["step1_loss"])
+            / abs(ref["step1_loss"]),
+            "min_cosine": min(cos.values()), "cosine_by_leaf": cos,
+            "max_norm_ratio_dev": max(abs(r - 1) for r in ratio.values()),
+            "losses": rows[0]["losses"], "losses_unsharded": ref["losses"],
+            "rel_diff": rel, "max_rel_diff": max(rel),
+            "launches_by_rank": [r["launches"] for r in rows],
+            "launches_per_step_unsharded": ref["per_step"],
+            "kernel_shapes_by_rank": [r["kernel_shapes"] for r in rows],
+            "step_ms_by_rank": [r["step_ms"] for r in rows],
+            "step_ms_p50_by_rank": [statistics.median(r["step_ms"])
+                                    for r in rows],
+            "step_ms_p50_unsharded": statistics.median(ref["step_ms"]),
+            "collective_calls_per_step_by_rank":
+                [r["collective_calls_per_step"] for r in rows],
+            "collective_bytes_per_step_by_rank":
+                [r["collective_bytes_per_step"] for r in rows],
+            "seconds_by_rank": [r["seconds"] for r in rows],
+            "unsharded_seconds": ref["seconds"],
+            "timing": ("both ranks on one card over gloo: the step times "
+                       "show the host link, not scaling" if shared else
+                       "one card a rank")}
+        log(json.dumps(line))
+        bad = []
+        if not line["step1_loss_rel_diff"] <= 2e-3:
+            bad.append("step-1 loss")
+        if not line["min_cosine"] >= 0.999:
+            worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+            bad.append(f"cosine {worst}")
+        if not line["max_norm_ratio_dev"] <= GRAD_NORM_TOL:
+            bad.append(f"gradient norm ratio {ratio}")
+        if not line["max_rel_diff"] <= 1e-2:
+            bad.append("trajectory")
+        if any({k: r["launches"].get(k, 0) for k in want} != want
+               or any(v for k, v in r["launches"].items() if k not in want)
+               for r in rows):
+            bad.append(f"launches, want {want}")
+        if any({k: r["kernel_shapes"].get(k) for k in want_shapes}
+               != want_shapes for r in rows) or (
+                attn is not None and tuple(attn) not in ATTN_SHAPES):
+            bad.append(f"kernel shapes, want {want_shapes}")
+        shards = {k: list(v) for k, v in gpt_plan_shapes(name).items()}
+        if any(r["shard_shapes"] != shards for r in rows):
+            bad.append(f"shard shapes, want {shards} (gpt_plan_shapes, "
+                       "which phase 2e's update check ran at)")
+        if bad:
+            failed[name] = bad
+        out[name] = [r["launches"] for r in rows]
+    if failed:
+        raise AssertionError(f"6b GPT plans: {failed}")
+    return out
+
+
 def _sharded_rank(rank, world, workdir, backend):
     """One rank of phase 6b, in its own process: joins the 2-rank group
     through a file store, draws the Llama state at SHARDED_LAYERS (seed
@@ -4012,6 +4551,10 @@ def _sharded_rank(rank, world, workdir, backend):
             out[plan.name] = row
             del step, params, opt
             torch.cuda.empty_cache()
+        del host
+        t_s = time.perf_counter()
+        out["gpt"] = gpt_sharded_plans(torch, rank, dev)
+        out["seconds"]["gpt_plans"] = time.perf_counter() - t_s
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -4242,7 +4785,7 @@ def sharded_two_ranks(torch, card):
         shutil.rmtree(workdir, ignore_errors=True)
     out = check_two_ranks(results, card)
     check_resume(results, card)
-    return out
+    return out, check_gpt_plans(results, card)
 
 
 # phase 6c (a): the full-depth state saved asynchronously and resumed;
@@ -5077,8 +5620,13 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                    "on_shards: at a "
                    "rank's [B, S, H, 64] under each of phase 6b's plans "
                    "(SHARDED_ATTN: a "
-                   "microbatch's [1, 2048, 32, 64] under pp2), checked "
-                   "as the main shape is"})
+                   "microbatch's [1, 2048, 32, 64] under pp2; a Ulysses "
+                   "sp2 rank's [8, 1024, 8, 64]), checked "
+                   "as the main shape is; gpt_moe_train: phase 3c's 10 "
+                   "timed steps (MOE_LAYERS "
+                   "layers, 8 experts), gpt_moe_gshard_step: its one "
+                   "gshard step; gpt_<plan>_2rank: 6b's GPT plans "
+                   "(GPT_PLAN_STEPS steps, both ranks summed)"})
         if name == "flash_fwd":
             entries[-1]["tiles"] = tiles
             entries[-1]["tiles_note"] = (
@@ -5121,7 +5669,13 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                    "train path and phase 6's steps (6c and the drill "
                    "included); on_shards: at a "
                    "rank's [T, 32000] under each of phase 6b's 3D plans "
-                   "(SHARDED_CE; the pipelined step launches none)"})
+                   "(SHARDED_CE; the pipelined step launches none); the "
+                   "GPT paths' logits are [8192, 32768], in its "
+                   "kernel_check line; gpt_moe_train: phase 3c's 10 "
+                   "timed steps (MOE_LAYERS "
+                   "layers, 8 experts), gpt_moe_gshard_step: its one "
+                   "gshard step; gpt_<plan>_2rank: 6b's GPT plans "
+                   "(GPT_PLAN_STEPS steps, both ranks summed)"})
     upd = upd_rows["step"]
     entries.append({
         "name": "leaf_update", "route": "cuda",
@@ -5132,10 +5686,14 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
         "leaves_by_path": train_paths("leaf_update_leaves"),
         "design": UPDATE_DESIGN,
         "max_abs_err": max([upd["max_abs_err"]] + [
-            r["max_abs_err"] for r in upd_rows["sharded"].values()]),
+            r["max_abs_err"] for r in upd_rows["sharded"].values()] + [
+            r["max_abs_err"] for r in upd_rows["gpt"].values()]),
         **{k: upd[k] for k in keys},
         "on_shards": {name: {k: r[k] for k in nums}
                       for name, r in upd_rows["sharded"].items()},
+        "on_gpt_trees": {name: {"leaves": int(r["leaf"].split()[-1]),
+                                "n": r["n"], **{k: r[k] for k in nums}}
+                         for name, r in upd_rows["gpt"].items()},
         "per": "one Llama step's update: one leaves_update over the 11 "
                "leaves of the TinyLlama-width tree in f32, one launch "
                "(library: one torch._fused_adamw_ call over all 11); "
@@ -5147,7 +5705,17 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
                "11 shards under each of phase 6b's plans (shard_shapes, "
                f"SHARDED_LAYERS = {SHARDED_LAYERS} layers; "
                "under pp2 a stage's half of each stacked leaf and the "
-               "whole wte and norm_f)"})
+               "whole wte and norm_f); the GPT paths update 17 leaves a "
+               "step with experts, 16 without; on_gpt_trees: one "
+               "leaves_update over phase 3c's MoE tree (gpt_moe, "
+               "GPT_MOE_LEAVES) and over a rank's shards under 6b's GPT "
+               "plans (gpt_plan_shapes), each held to the plain version "
+               "within 1 ulp and timed beside it and one "
+               "torch._fused_adamw_ call; gpt_moe_train: phase "
+               "3c's 10 timed steps (MOE_LAYERS layers, 8 experts), "
+               "gpt_moe_gshard_step: its one gshard step; "
+               "gpt_<plan>_2rank: 6b's GPT plans (GPT_PLAN_STEPS steps, "
+               "both ranks summed)"})
     tf_main = tf_rows[THREEFRY_SHAPES[0]]
     entries.append({
         "name": "threefry_bits", "route": "cuda",
@@ -5276,6 +5844,8 @@ def run(torch):
     gpt_launches = phase("gpt_train", training, torch, dev, card)
     race_launches = phase("gpt_race", race, torch, dev, card)
     tiles = phase("flash_fwd_tiles", autotune_tiles, torch, dev, card)
+    moe, moe_gshard = phase("gpt_moe_train", moe_training, torch, dev, card)
+    moe_paths = {"gpt_moe_train": moe, "gpt_moe_gshard_step": moe_gshard}
     llama_launches, p4 = phase("llama_train", llama_training, torch, dev,
                                card)
     serving_launches = {
@@ -5317,8 +5887,13 @@ def run(torch):
                              f"{sampler}")
     p6a = phase("llama_sharded_1rank", sharded_one_rank, torch, dev, card,
                 p4)
-    two = phase("llama_sharded_2rank", sharded_two_ranks, torch, card)
+    two, gpt_two = phase("llama_sharded_2rank", sharded_two_ranks, torch,
+                         card)
     sharded = {"llama_sharded_1rank": p6a["launches"]}
+    sharded.update(moe_paths)
+    for name, ranks in gpt_two.items():
+        sharded[f"gpt_{name}_2rank"] = {k: sum(c.get(k, 0) for c in ranks)
+                                        for k in p6a["launches"]}
     for path, pp in (("llama_sharded_2rank", False),
                      ("llama_pipelined_2rank", True)):
         sharded[path] = {k: sum(c[k] for name, ranks in two.items()

@@ -29,8 +29,9 @@ from torch import nn
 from ..device import resolve_device
 from ..parallel.collective import all_gather
 from ..parallel.layout import ShardLayout, use_layout
-from ..parallel.mesh import (P, _entry_axes, axis_group, axis_size,
-                             leaf_path_name, sharding_for, use_mesh)
+from ..parallel.mesh import (P, _entry_axes, axis_group, axis_names,
+                             axis_size, leaf_path_name, remap_specs,
+                             sharding_for, use_mesh)
 from .gpt import gpt_forward, gpt_loss, init_gpt_params
 from .llama import init_llama_params, llama_forward
 
@@ -132,6 +133,22 @@ def make_train_step(step_fn, cfg=None, mesh=None, plan=None, overlap=None,
     return _ShardedTrainStep(cell, mesh, plan, cfg=cfg, overlap=overlap)
 
 
+def mesh_plan(cfg, mesh):
+    """The TrainPlan of a hand-built mesh (one with an 'ep' or 'sp'
+    axis, which plan_train never emits): its own axes, the batch over
+    whichever of dp and fsdp it has, and the family's PARAM_SPECS
+    remapped onto it ('mp' -> 'tp', 'fsdp' and 'ep' kept, 'pp' dropped),
+    each leaf then cleaned shape-aware by its pin."""
+    from ..parallel.planner import TrainPlan, _resolve_param_specs
+    table = _resolve_param_specs(cfg) or {}
+    names = axis_names(mesh)
+    mapping = {"fsdp": "fsdp", "mp": "tp", "ep": "ep"}
+    return TrainPlan(
+        axes={a: axis_size(mesh, a) for a in names}, mapping=mapping,
+        batch_axes=tuple(a for a in ("dp", "fsdp") if a in names),
+        plan=None, specs=remap_specs(table, mapping))
+
+
 def _map_tree(fn, tree, path=()):
     """fn(path, leaf) over a nested dict of leaves, keeping its shape."""
     if isinstance(tree, dict):
@@ -192,8 +209,8 @@ class _ShardedTrainStep:
         self._cell = cell
         self._wrapper = wrapper
         self.mesh = mesh
-        self.plan = plan
         self.cfg = cfg
+        self._adopt_plan(plan)
         self.overlap = bool(overlap)
         self.in_pins = None
         self.out_pins = None
@@ -209,6 +226,15 @@ class _ShardedTrainStep:
     def _fn(self):
         """The resolved step (the PipelinedStep under pp)."""
         return self._cell.fn
+
+    def _adopt_plan(self, plan):
+        """Set `plan`, or without one, on a mesh with an 'ep' or 'sp' axis
+        (which the planner plans none of: the reference's tests build
+        such meshes by hand), the mesh's own (`mesh_plan`)."""
+        self._mesh_planned = plan is None and self.cfg is not None and \
+            bool({"ep", "sp"} & set(axis_names(self.mesh)))
+        self.plan = mesh_plan(self.cfg, self.mesh) if self._mesh_planned \
+            else plan
 
     # ----------------------------------------------------------- pins
     def _specs(self):
@@ -301,11 +327,17 @@ class _ShardedTrainStep:
         # whole sequences
         sp = bool(getattr(self.cfg, "sequence_parallel", False) and tp > 1
                   and (int(tokens.shape[1]) - 1) % tp == 0)
+        # the axes the rows are really split over (the batch pin's), over
+        # which MoE routing exchanges its statistics
+        pins = self.in_pins[2]
+        pin = pins["tokens"] if isinstance(pins, dict) else pins
+        split = _entry_axes(pin.spec[0]) if pin is not None and \
+            len(pin.spec) else ()
         return ShardLayout(
             self.mesh, {k: s.spec for k, s in self.in_pins[0].items()},
             sequence_parallel=sp,
             batch_axes=(self.plan.batch_axes if self.plan is not None
-                        else ("dp", "fsdp")))
+                        else ("dp", "fsdp")), split_axes=split)
 
     def _run(self, fn, *args, batch):
         if self._pp:
@@ -366,7 +398,9 @@ class _ShardedTrainStep:
         if mesh is not None:
             self.mesh = mesh
         if plan is not None:
-            self.plan = plan
+            self._adopt_plan(plan)
+        elif mesh is not None and (self.plan is None or self._mesh_planned):
+            self._adopt_plan(None)
         self.in_pins = self.out_pins = self._global = None
         self.bubble_fraction = None
         self._derived = 0

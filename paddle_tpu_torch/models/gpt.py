@@ -4,10 +4,11 @@
 Counterpart of paddle_tpu/models/gpt.py: `GPTConfig`, `init_gpt_params`
 (the same leaf names and stacked [L, ...] shapes, so a JAX params tree
 converts one to one — models/convert.py), `_ln`; the training half
-`_attention`, `_dense_ffn`, `_block`, `_apply_stack` (with the remat
-policies), `gpt_forward`, `gpt_loss`, `init_opt_state`, `apply_adamw`
-and `train_step`; the serving half `init_kv_cache`, `_cached_attention`,
-`gpt_forward_cached` and `greedy_generate`.
+`_attention` (with its context-parallel route), `_dense_ffn`,
+`_moe_ffn`, `_block`, `_apply_stack` (with the remat policies),
+`gpt_forward`, `gpt_loss` (with the MoE aux loss), `init_opt_state`,
+`apply_adamw` and `train_step`; the serving half `init_kv_cache`,
+`_cached_attention`, `gpt_forward_cached` and `greedy_generate`.
 
 The reference scans the stacked leaves with lax.scan; here a Python
 loop over the layer axis indexes them (`leaf[l]` is a view, so nothing
@@ -46,6 +47,18 @@ row-parallel, `wte` gathered whole for the embedding and the tied head;
 with `sequence_parallel` and tp > 1, the activations between blocks on
 a sequence shard of the tp group. With no layout the code path and its
 bits are the single-GPU ones.
+
+Mixture of experts (reference :83-90, :178-193, :347-374, :564-565):
+with `num_experts` > 0 the blocks' FFN is parallel/moe.py's `moe_ffn`
+over the stacked expert leaves (`gate_w`, `moe_up_w`, ...), each block
+returns its load-balancing loss beside x, and `gpt_loss` adds
+`moe_aux_weight` times their sum over the layers. Under a mesh with an
+'ep' axis each rank holds its experts of every expert leaf, and routing
+runs over the global batch (parallel/moe.py). Context parallelism
+(reference :277-303): with `context_parallel` "ring" or "ulysses" and
+an 'sp' mesh axis, attention runs sequence-sharded over 'sp'
+(parallel/context_parallel.py) and everything else alike on every sp
+rank.
 """
 from __future__ import annotations
 
@@ -101,6 +114,14 @@ class GPTConfig:
     # under a tp > 1 plan, activations between blocks live on a sequence
     # shard of the tp group (Megatron-SP), as the reference's default
     sequence_parallel: bool = True
+    # context parallelism for long sequences: "none" | "ring" | "ulysses";
+    # attention shards the sequence over the mesh's 'sp' axis
+    context_parallel: str = "none"
+    # MoE (expert parallel over the mesh's 'ep' axis); 0 experts = dense
+    num_experts: int = 0
+    expert_capacity_factor: float = 1.25
+    moe_gate: str = "switch"          # parallel.moe.GATES: naive|switch|gshard
+    moe_aux_weight: float = 0.01      # load-balancing loss coefficient
 
     def __post_init__(self):
         if self.ffn_hidden is None:
@@ -115,11 +136,19 @@ class GPTConfig:
 _BLOCK_KEYS_DENSE = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
                      "qkv_w", "qkv_b", "attn_out_w", "attn_out_b",
                      "mlp_up_w", "mlp_up_b", "mlp_down_w", "mlp_down_b")
+_BLOCK_KEYS_MOE = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
+                   "qkv_w", "qkv_b", "attn_out_w", "attn_out_b",
+                   "gate_w", "moe_up_w", "moe_up_b", "moe_down_w",
+                   "moe_down_b")
+
+
+def _block_keys(cfg) -> tuple:
+    return _BLOCK_KEYS_MOE if cfg.num_experts > 0 else _BLOCK_KEYS_DENSE
+
 
 # Sharding rules (reference gpt.py:115-139): leaf name -> spec over
-# (dp, fsdp, pp, mp). Block weights carry the stacked layer axis first
-# ('pp'); the MoE rows are the reference's, kept as data (the port has
-# no MoE FFN yet: ROADMAP A6).
+# (dp, fsdp, pp, mp, ep). Block weights carry the stacked layer axis
+# first ('pp'); the expert leaves split their expert dim over 'ep'.
 PARAM_SPECS = {
     "wte":        P("mp", "fsdp"),          # vocab-parallel embedding
     "wpe":        P(None, "fsdp"),
@@ -154,7 +183,10 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0, device=None
                     ) -> Dict[str, torch.Tensor]:
     """Random parameters drawn with numpy from `seed` (std 0.02, wpe
     0.01, output projections scaled by 1/sqrt(2L), as the reference
-    initializes), on `device` (default: the card)."""
+    initializes), on `device` (default: the card). With num_experts > 0
+    the expert leaves `gate_w` [L, D, E], `moe_up_w` [L, E, D, F],
+    `moe_up_b`, `moe_down_w` and `moe_down_b` take the `mlp_*` leaves'
+    place."""
     from ..device import resolve_device
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -169,7 +201,7 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0, device=None
     def const(shape, value):
         return torch.full(shape, value, dtype=cfg.param_dtype, device=dev)
 
-    return {
+    params = {
         "wte": norm((V, D)),
         "wpe": norm((cfg.max_seq_len, D), 0.01),
         "ln_f_scale": const((D,), 1.0),
@@ -182,11 +214,24 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0, device=None
         "qkv_b": const((L, 3 * D), 0.0),
         "attn_out_w": norm((L, D, D), std / math.sqrt(2 * L)),
         "attn_out_b": const((L, D), 0.0),
-        "mlp_up_w": norm((L, D, Fh)),
-        "mlp_up_b": const((L, Fh), 0.0),
-        "mlp_down_w": norm((L, Fh, D), std / math.sqrt(2 * L)),
-        "mlp_down_b": const((L, D), 0.0),
     }
+    E = cfg.num_experts
+    if E > 0:
+        params.update({
+            "gate_w": norm((L, D, E)),
+            "moe_up_w": norm((L, E, D, Fh)),
+            "moe_up_b": const((L, E, Fh), 0.0),
+            "moe_down_w": norm((L, E, Fh, D), std / math.sqrt(2 * L)),
+            "moe_down_b": const((L, E, D), 0.0),
+        })
+    else:
+        params.update({
+            "mlp_up_w": norm((L, D, Fh)),
+            "mlp_up_b": const((L, Fh), 0.0),
+            "mlp_down_w": norm((L, Fh, D), std / math.sqrt(2 * L)),
+            "mlp_down_b": const((L, D), 0.0),
+        })
+    return params
 
 
 def shard_gpt_params(params, mesh=None):
@@ -243,12 +288,47 @@ def _attention(x, w_qkv, b_qkv, w_out, b_out, cfg, layout=None):
         p = p + b_qkv.to(x.dtype)
     B, S = p.shape[:2]
     p = p.view(B, S, 3, H, hd)
-    ctx = flash_attention_fn(p[:, :, 0], p[:, :, 1], p[:, :, 2],
-                             causal=True)
+    if cfg.context_parallel in ("ring", "ulysses"):
+        ctx = _cp_attention(p[:, :, 0], p[:, :, 1], p[:, :, 2], cfg, layout)
+    else:
+        ctx = flash_attention_fn(p[:, :, 0], p[:, :, 1], p[:, :, 2],
+                                 causal=True)
     out = row_mm(layout, ctx.reshape(B, S, H * hd), w_out)
     if b_out is not None:
         out = out + weight(layout, "attn_out_b", b_out, dtype=x.dtype)
     return out
+
+
+def _cp_attention(q, k, v, cfg, layout=None):
+    """Causal attention sequence-sharded over the mesh's 'sp' axis
+    (reference gpt.py:277-303): q/k/v [B, S, H, hd], alike on every sp
+    rank, in; the whole context, alike on every sp rank, out. The ring
+    or Ulysses (parallel/context_parallel.py); Ulysses runs this
+    module's `flash_attention_fn` on its head shard."""
+    from ..parallel import context_parallel as cp
+    from ..parallel.mesh import axis_names
+    mesh = layout.mesh if layout is not None else get_mesh()
+    kind = cfg.context_parallel
+    if mesh is None:
+        raise ValueError(
+            f"context_parallel={kind!r} needs a mesh with an 'sp' axis "
+            "(the sharded step's, or parallel.mesh.use_mesh)")
+    names = axis_names(mesh)
+    if "sp" not in names:
+        if "mp" in names or "tp" in names:
+            raise NotImplementedError(
+                f"context_parallel={kind!r} on the tensor-parallel axis "
+                "(the reference's 'mp' fallback) is not ported: ROADMAP "
+                "A6e; give the mesh an 'sp' axis")
+        raise ValueError(f"context_parallel={kind!r}: mesh axes {names} "
+                         "have neither an 'sp' nor an 'mp' axis")
+    if layout is not None and layout.tp > 1:
+        raise NotImplementedError(
+            "context parallelism under tp > 1 is not ported: ROADMAP A6e")
+    if kind == "ring":
+        return cp.ring_attention(q, k, v, mesh, axis="sp", causal=True)
+    return cp.ulysses_attention(q, k, v, mesh, axis="sp", causal=True,
+                                attn=flash_attention_fn)
 
 
 def _dense_ffn(x, up_w, up_b, down_w, down_b, layout=None):
@@ -266,9 +346,32 @@ def _dense_ffn(x, up_w, up_b, down_w, down_b, layout=None):
     return out
 
 
+def _moe_ffn(x, gate_w, up_w, up_b, down_w, down_b, cfg, layout=None):
+    """The capacity-routed MoE FFN (parallel/moe.py; reference
+    gpt.py:347-356): (y, the load-balancing aux loss), the gate and the
+    capacity factor from the config. Under a layout the expert leaves
+    are this rank's experts, and routing runs over the global batch."""
+    from ..parallel.moe import moe_ffn
+    if layout is not None:
+        if layout.tp > 1:
+            raise NotImplementedError(
+                "MoE under tp > 1 (the experts' F dim over 'tp') is not "
+                "ported: ROADMAP A6e")
+        gate_w = weight(layout, "gate_w", gate_w)
+        up_w, up_b, down_w, down_b = (
+            layout.experts(n, w) for n, w in (
+                ("moe_up_w", up_w), ("moe_up_b", up_b),
+                ("moe_down_w", down_w), ("moe_down_b", down_b)))
+    return moe_ffn(x, gate_w, up_w, up_b, down_w, down_b,
+                   gate=cfg.moe_gate,
+                   capacity_factor=cfg.expert_capacity_factor,
+                   layout=layout)
+
+
 def _block(params_l, x, cfg, layout=None):
     """One transformer block on the layer slice `params_l` (under a
-    layout, this rank's shards of it)."""
+    layout, this rank's shards of it). Returns (x, aux): the MoE
+    load-balancing loss, None for a dense block."""
     def norm(name):
         return weight(layout, name, params_l[name])
     a_in = _ln(x, norm("ln1_scale"), norm("ln1_bias"), cfg.layer_norm_eps)
@@ -276,14 +379,22 @@ def _block(params_l, x, cfg, layout=None):
                        params_l["attn_out_w"], params_l.get("attn_out_b"),
                        cfg, layout)
     m_in = _ln(x, norm("ln2_scale"), norm("ln2_bias"), cfg.layer_norm_eps)
+    if cfg.num_experts > 0:
+        # no checkpoint of its own under "all_but_mlp" (reference
+        # gpt.py:370-374)
+        m, aux = _moe_ffn(m_in, params_l["gate_w"], params_l["moe_up_w"],
+                          params_l["moe_up_b"], params_l["moe_down_w"],
+                          params_l["moe_down_b"], cfg, layout)
+        return x + m, aux
     ffn_args = (m_in, params_l["mlp_up_w"], params_l.get("mlp_up_b"),
                 params_l["mlp_down_w"], params_l.get("mlp_down_b"), layout)
     if cfg.remat and cfg.remat_policy == "all_but_mlp":
         # a checkpoint around the dense FFN alone, inside a block that has
         # none (reference gpt.py:376-384): its 4D-wide hidden activations
         # are recomputed, everything else is saved
-        return x + checkpoint(_dense_ffn, *ffn_args, use_reentrant=False)
-    return x + _dense_ffn(*ffn_args)
+        return x + checkpoint(_dense_ffn, *ffn_args,
+                              use_reentrant=False), None
+    return x + _dense_ffn(*ffn_args), None
 
 
 def _apply_stack(stacked, x, cfg: GPTConfig, layout=None):
@@ -292,24 +403,36 @@ def _apply_stack(stacked, x, cfg: GPTConfig, layout=None):
     "dots_flash" and "offload_dots" through their context_fn
     (models/remat.py), "all_but_mlp" inside `_block`, anything else as
     "full". The layout rides each checkpoint as an argument, so the
-    recompute (on autograd's thread) runs the same collectives."""
+    recompute (on autograd's thread) runs the same collectives.
+    Returns (x, aux): the MoE loss summed over the layers (f32 zero for
+    a dense stack)."""
     layers = {k: v.unbind(0) for k, v in stacked.items()}
     block_remat = cfg.remat and cfg.remat_policy != "all_but_mlp"
     ctx_fn = POLICIES.get(cfg.remat_policy, noop_context_fn)
+    aux = None
     for layer in range(cfg.num_layers):
         p = {k: v[layer] for k, v in layers.items()}
         if block_remat:
-            x = checkpoint(_block, p, x, cfg, layout, use_reentrant=False,
-                           context_fn=ctx_fn)
+            x, a = checkpoint(_block, p, x, cfg, layout, use_reentrant=False,
+                              context_fn=ctx_fn)
         else:
-            x = _block(p, x, cfg, layout)
-    return x
+            x, a = _block(p, x, cfg, layout)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def gpt_forward(params, tokens, cfg: GPTConfig):
     """tokens [B, S] -> logits [B, S, V] in cfg.dtype. Under the sharded
     step's layout: this rank's rows, and under sequence parallelism its
     sequence shard, [B, S / tp, V]."""
+    return _gpt_forward_impl(params, tokens, cfg)[0]
+
+
+def _gpt_forward_impl(params, tokens, cfg: GPTConfig):
+    """-> (logits, the MoE aux loss)."""
     layout = current_layout()
     B, S = tokens.shape
     # the tied table whole (reference :522): every tp rank embeds and
@@ -319,27 +442,33 @@ def gpt_forward(params, tokens, cfg: GPTConfig):
     s0, s1 = (0, S) if layout is None else layout.seq_range(S)
     x = F.embedding(tokens[:, s0:s1].long(), wte).to(cfg.dtype)
     x = x + wpe[s0:s1][None].to(cfg.dtype)
-    stacked = {k: params[k] for k in _BLOCK_KEYS_DENSE if k in params}
-    x = _apply_stack(stacked, x, cfg, layout)
+    stacked = {k: params[k] for k in _block_keys(cfg) if k in params}
+    x, aux = _apply_stack(stacked, x, cfg, layout)
     x = _ln(x, weight(layout, "ln_f_scale", params["ln_f_scale"],
                       layer=False),
             weight(layout, "ln_f_bias", params["ln_f_bias"], layer=False),
             cfg.layer_norm_eps)
     # tied head, "bsd,vd->bsv"
-    return x @ wte.to(x.dtype).t()
+    return x @ wte.to(x.dtype).t(), aux
 
 
 def gpt_loss(params, batch, cfg: GPTConfig):
     """Causal LM loss of `batch` (tokens [B, S+1], or {"tokens": ...}):
     the mean fused cross entropy of the logits of tokens[:, :-1] against
     tokens[:, 1:] (under the sharded step, over this rank's rows and
-    sequence shard)."""
+    sequence shard), plus moe_aux_weight times the MoE aux loss when
+    experts are active (reference gpt.py:564-565; over the global
+    batch)."""
     tokens = batch["tokens"] if isinstance(batch, dict) else batch
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     layout = current_layout()
     if layout is not None:
         tgt = layout.seq_local(tgt)
-    return fused_softmax_ce(gpt_forward(params, inp, cfg), tgt)
+    logits, aux = _gpt_forward_impl(params, inp, cfg)
+    loss = fused_softmax_ce(logits, tgt)
+    if cfg.num_experts > 0:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 def value_and_grad(loss_fn, params, batch, cfg):
@@ -505,7 +634,12 @@ def gpt_forward_cached(params, tokens, cache, pos, cfg: GPTConfig,
     `layout` (parallel/layout.py ServingLayout): the params and cache
     are this rank's tp shards; qkv and mlp_up run column-parallel,
     attn_out and mlp_down row-parallel with one all-reduce each, the
-    embedding vocab-parallel, and the logits come back whole."""
+    embedding vocab-parallel, and the logits come back whole.
+
+    With experts the FFN is `_moe_ffn` over this pass's B·T tokens (its
+    capacity from that T; reference :801-806) and its aux is dropped;
+    the int8 rewrite leaves the expert stacks in fp. An MoE model has
+    no tensor-parallel serving layout yet (ROADMAP A6e)."""
     B, T = tokens.shape
     pt = cache.get("pt")
     if layout is None:
@@ -516,8 +650,13 @@ def gpt_forward_cached(params, tokens, cache, pos, cfg: GPTConfig,
         row = layout.row_mm
     x = x + _position_embedding(params["wpe"], pos, B, T,
                                 x.device).to(cfg.dtype)
-    keys = _BLOCK_KEYS_DENSE + tuple(
-        k2 for k in _BLOCK_KEYS_DENSE for k2 in (k + "_q", k + "_scale"))
+    moe = cfg.num_experts > 0
+    if moe and layout is not None:
+        raise NotImplementedError("tensor-parallel serving of an MoE "
+                                  "model: ROADMAP A6e")
+    block_keys = _block_keys(cfg)
+    keys = block_keys + tuple(
+        k2 for k in block_keys for k2 in (k + "_q", k + "_scale"))
     stacked = {k: params[k] for k in keys if k in params}
     eps = cfg.layer_norm_eps
     for layer in range(cfg.num_layers if layers is None else int(layers)):
@@ -527,6 +666,11 @@ def gpt_forward_cached(params, tokens, cache, pos, cfg: GPTConfig,
                                   cache["v"][layer], pos, cfg, qmm, pt,
                                   layout)
         m_in = _ln(x, p["ln2_scale"], p["ln2_bias"], eps)
+        if moe:
+            x = x + _moe_ffn(m_in, p["gate_w"], p["moe_up_w"],
+                             p["moe_up_b"], p["moe_down_w"],
+                             p["moe_down_b"], cfg)[0]
+            continue
         mh = leaf_matmul(m_in, p, "mlp_up_w", qmm)
         if p.get("mlp_up_b") is not None:
             mh = mh + p["mlp_up_b"].to(mh.dtype)

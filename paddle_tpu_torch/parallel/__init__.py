@@ -6,13 +6,15 @@ the cost model's plan search (planner), the layout the sharded step
 hands its model (layout, the port's own), for pp>1 plans the 1F1B
 schedule (pipeline) and the pipelined step (pipeline_train), sharded
 checkpoints that load under another plan (checkpoint), the
-resilient step with skip, rollback and watchdog (resilience), and the
-elastic controller that replans onto the surviving ranks (elastic).
+resilient step with skip, rollback and watchdog (resilience), the
+elastic controller that replans onto the surviving ranks (elastic), the
+capacity-routed mixture of experts over an 'ep' axis (moe, with the
+equal-count all-to-all pair of dist_utils), and ring and Ulysses
+attention over an 'sp' axis (context_parallel).
 
 One process drives one rank and one device; launch N ranks with
 `python -m paddle_tpu_torch.distributed.launch --nproc_per_node N` (or
-`torchrun --nproc_per_node=N`). MoE and context parallelism are a later
-ROADMAP A6 item.
+`torchrun --nproc_per_node=N`).
 """
 from .env import (  # noqa: F401
     init_parallel_env, get_rank, get_world_size, is_initialized,
@@ -23,7 +25,8 @@ from .mesh import (  # noqa: F401
     tp_specs, leaf_path_name)
 from .collective import (  # noqa: F401
     collective_route, all_gather, reduce_scatter, all_reduce, psum, pmean,
-    gather_from, copy_to, reduce_from, reduce_scatter_to, exchange)
+    gather_from, copy_to, reduce_from, reduce_scatter_to, all_reduce_sum,
+    all_to_all, exchange)
 from .planner import (  # noqa: F401
     ChipSpec, ModelSpec, Plan, TrainPlan, NoFeasiblePlanError,
     enumerate_plans, plan_parallel, plan_train, spec_from_config,
@@ -43,3 +46,9 @@ from .resilience import (  # noqa: F401
 from .elastic import (  # noqa: F401
     DeviceLeases, DeviceLossError, ElasticConfig, ElasticDeparture,
     ElasticTrainer, request_degraded_restart, run_elastic)
+from .moe import (  # noqa: F401
+    GATES, GateSpec, MoELayer, compute_capacity, moe_ffn, topk_gating)
+from .dist_utils import global_gather, global_scatter  # noqa: F401
+from .context_parallel import (  # noqa: F401
+    ring_attention, ring_attention_local, ulysses_attention,
+    ulysses_attention_local)

@@ -7,7 +7,8 @@ Every collective of the step goes through this module, on one of three
 routes that `collective_route(group, device)` names from the group's
 backend and the tensors' device:
 
-- "nccl": NCCL's own all-gather, reduce-scatter and all-reduce;
+- "nccl": NCCL's own all-gather, reduce-scatter, all-reduce and
+  all-to-all (`all_to_all_single`);
 - "gloo": gloo's own, on CPU tensors;
 - "gloo_cuda_via_all_reduce": a gloo group carrying CUDA tensors, which
   the torch.distributed backend table gives only all-reduce and
@@ -15,7 +16,9 @@ backend and the tensors' device:
   writes the rank's shard at its offset into a buffer of -0.0 and
   all-reduces it: x + (-0.0) is x for every x, so the result is exact.
   Reduce-scatter all-reduces the whole tensor and keeps the rank's
-  slice.
+  slice. All-to-all writes the rank's n chunks into row `rank` of an
+  [n, n, chunk] buffer of -0.0, all-reduces it and keeps column `rank`:
+  exact by the same argument, at n times the bytes.
 
 A group of one rank communicates nothing: every function returns its
 input itself.
@@ -37,7 +40,16 @@ uses them:
   backward, after a row-parallel matmul;
 - `reduce_scatter_to(x, group, dim, out_dtype=None)`: reduce-scatter
   forward, all-gather backward, after a row-parallel matmul under
-  sequence parallelism.
+  sequence parallelism;
+- `all_reduce_sum(x, group)`: all-reduce forward and backward, a sum
+  that every rank of the group goes on to use alike (the MoE routing's
+  global means over the batch ranks);
+- `all_to_all(x, group, split_dim, concat_dim)`: chunk j of x along
+  `split_dim` goes to group rank j, and the chunks received are
+  concatenated along `concat_dim` in group rank order; the backward is
+  the inverse all-to-all (Ulysses' sequence <-> head re-shard,
+  parallel/context_parallel.py; `global_scatter`,
+  parallel/dist_utils.py).
 
 The pipelined step's stage handoffs go point to point between pp
 neighbours through `exchange(slot, outgoing, group, shape, dtype,
@@ -74,7 +86,8 @@ import torch.distributed as dist
 
 __all__ = ["ROUTES", "collective_route", "group_size", "all_gather",
            "reduce_scatter", "all_reduce", "psum", "pmean", "gather_from",
-           "copy_to", "reduce_from", "reduce_scatter_to", "exchange"]
+           "copy_to", "reduce_from", "reduce_scatter_to", "all_reduce_sum",
+           "all_to_all", "exchange"]
 
 ROUTES = ("nccl", "gloo", "gloo_cuda_via_all_reduce")
 
@@ -156,6 +169,40 @@ def all_reduce(x: torch.Tensor, group, route: Optional[str] = None
     out = x.contiguous().clone()
     dist.all_reduce(out, group=group)
     return out
+
+
+def _all_to_all_chunks(chunks: torch.Tensor, group,
+                       route: Optional[str] = None) -> torch.Tensor:
+    """`chunks` [n, ...]: row j goes to group rank j. Returns [n, ...]
+    whose row j is what group rank j sent this rank."""
+    n = group_size(group)
+    if n == 1:
+        return chunks
+    if chunks.shape[0] != n:
+        raise ValueError(f"all_to_all: {chunks.shape[0]} chunks for a "
+                         f"group of {n}")
+    chunks = chunks.contiguous()
+    if _route(group, chunks.device, route) == "gloo_cuda_via_all_reduce":
+        buf = torch.full((n,) + tuple(chunks.shape), -0.0,
+                         dtype=chunks.dtype, device=chunks.device)
+        me = dist.get_rank(group)
+        buf[me] = chunks
+        dist.all_reduce(buf, group=group)
+        return buf[:, me].contiguous()
+    out = torch.empty_like(chunks)
+    dist.all_to_all_single(out, chunks, group=group)
+    return out
+
+
+def _all_to_all(x, group, split_dim: int, concat_dim: int,
+                route: Optional[str] = None) -> torch.Tensor:
+    n = group_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of "
+                         f"{tuple(x.shape)} does not split over {n} ranks")
+    got = _all_to_all_chunks(torch.stack(x.chunk(n, split_dim)), group,
+                             route)
+    return torch.cat(got.unbind(0), concat_dim)
 
 
 def exchange(slot, outgoing, group, shape, dtype, device,
@@ -297,6 +344,28 @@ class _ReduceScatterTo(torch.autograd.Function):
             None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim, route):
+        ctx.args = (group, concat_dim, split_dim, route)
+        return _all_to_all(x, group, split_dim, concat_dim, route)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
 def gather_from(x, group, dim: int, grad: str = "sum", dtype=None,
                 out_dtype=None):
     """All-gather along `dim` (of x cast to `dtype`, if given; the
@@ -329,3 +398,20 @@ def reduce_scatter_to(x, group, dim: int, out_dtype=None):
     if group_size(group) == 1:
         return x
     return _ReduceScatterTo.apply(x, group, dim, out_dtype)
+
+
+def all_reduce_sum(x, group):
+    """All-reduce forward and backward: the group's sum, which each rank
+    goes on to use alike, so that its gradient is the sum of theirs."""
+    return x if group_size(group) == 1 else _AllReduceSum.apply(x, group)
+
+
+def all_to_all(x, group, split_dim: int, concat_dim: int,
+               route: Optional[str] = None):
+    """Chunk j of x along `split_dim` to group rank j; the chunks this
+    rank receives concatenated along `concat_dim` in group rank order.
+    The backward is the inverse all-to-all. `x` itself for a group of
+    one."""
+    if group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim, concat_dim, route)

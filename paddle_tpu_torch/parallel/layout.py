@@ -52,6 +52,23 @@ operations without one; with every axis of size one, the layout's
 calls return their inputs themselves, so the sharded step on one rank
 runs the very ops of the unsharded one.
 
+Two more axes, read from the mesh (the reference's planner plans
+neither; its tests build such meshes by hand):
+- 'ep' (expert parallelism, parallel/moe.py): a rank holds its E / ep
+  experts of each MoE leaf (`experts`: gathered over every other axis
+  its spec names, never over 'ep'); tokens are not split over 'ep', and
+  the MoE FFN reduces its partial output over 'ep' itself. Routing
+  exchanges its statistics over `batch_groups`, the groups of the batch
+  axes the rows are really split over (`split_axes`), inner first;
+- 'sp' (context parallelism, parallel/context_parallel.py, GPT's
+  `context_parallel` "ring" or "ulysses", over the mesh's own 'sp'
+  group): everything outside attention is computed alike on every sp
+  rank, so no leaf's gradient is partial over 'sp'; attention enters
+  its region through `copy_to`, runs on this rank's sequence chunk and
+  leaves through an all-gather whose backward keeps the rank's slice.
+Both compute alike what the rows give alike, so neither takes part in
+`loss_scale` or `reduce_grads`.
+
 `ServingLayout` is the serving engine's counterpart (inference/
 serving.py `mesh=`, the reference's SERVING_PARAM_SPECS under GSPMD):
 each rank stores only its tp shard of every leaf, so nothing is
@@ -85,6 +102,7 @@ __all__ = ["ShardLayout", "ServingLayout", "current_layout", "use_layout",
            "tp_heads"]
 
 TP = "tp"
+EP = "ep"
 
 
 class ShardLayout:
@@ -95,7 +113,7 @@ class ShardLayout:
     a sequence shard of the tp group (taken only with tp > 1)."""
 
     def __init__(self, mesh, specs: Dict[str, P], sequence_parallel: bool,
-                 batch_axes=("dp", "fsdp")):
+                 batch_axes=("dp", "fsdp"), split_axes=None):
         self.mesh = mesh
         self.specs = dict(specs)
         self.tp = axis_size(mesh, TP)
@@ -103,6 +121,11 @@ class ShardLayout:
         self.tp_group = axis_group(mesh, TP)
         self.sp = bool(sequence_parallel) and self.tp > 1
         self.batch_axes = tuple(batch_axes)
+        split = self.batch_axes if split_axes is None else tuple(split_axes)
+        self.batch_groups = [axis_group(mesh, a) for a in reversed(split)]
+        self.ep = axis_size(mesh, EP)
+        self.ep_rank = axis_index(mesh, EP)
+        self.ep_group = axis_group(mesh, EP)
         rows = math.prod(axis_size(mesh, a) for a in self.batch_axes)
         self.loss_scale = 1.0 / (rows * (self.tp if self.sp else 1))
         self.world = math.prod(axis_size(mesh, a) for a in axis_names(mesh))
@@ -168,6 +191,13 @@ class ShardLayout:
         """The [first, last) of the n heads (or columns) this tp rank
         owns."""
         return tp_heads(n, self.tp, self.tp_rank)
+
+    def experts(self, name: str, w, dtype=None):
+        """A stacked expert leaf's layer slice as this rank stores it
+        over 'ep' (its experts), gathered over any other axis its spec
+        names."""
+        return self._gather(w, self._spec(name, True), skip=(0, EP),
+                            dtype=dtype)
 
     # -------------------------------------------------------- activations
     def enter(self, h):

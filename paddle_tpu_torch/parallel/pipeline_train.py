@@ -193,6 +193,13 @@ class _Family:
         return _vocab_parallel_ce(logits, tgt, ctx.vocab_group, ctx.v0)
 
 
+def _gpt_block_x(params_l, x, cfg, layout):
+    """A dense GPT block's x (models/gpt.py `_block` also returns the MoE
+    aux, None here: the pp step refuses MoE)."""
+    from ..models import gpt
+    return gpt._block(params_l, x, cfg, layout)[0]
+
+
 class _GPTStage(_Family):
     """reference :195-286: the fused qkv's head columns cut per q/k/v
     (models/gpt.py `_local_qkv`), the tied vocab-parallel head."""
@@ -205,7 +212,7 @@ class _GPTStage(_Family):
         cfg = self.cfg
         self.remat = cfg.remat and cfg.remat_policy != "all_but_mlp"
         self.context_fn = POLICIES.get(cfg.remat_policy, noop_context_fn)
-        self.compute = functools.partial(gpt._block, cfg=cfg,
+        self.compute = functools.partial(_gpt_block_x, cfg=cfg,
                                          layout=ctx.layout)
 
     def first(self, tok):

@@ -283,6 +283,48 @@ def test_flash_kernels_match_plain_versions(cuda_device, B, Sq, Skv, H, D,
         assert _close_to_plain(g, r, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_at_the_ulysses_rank_shape(cuda_device, dtype):
+    """A Ulysses sp2 rank of the GPT step (parallel/context_parallel.py)
+    runs the pair on half the heads over the whole sequence, [8, 1024,
+    8, 64] causal, on the contiguous tensors its all-to-all makes."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, do = (torch.randn(8, 1024, 8, 64, generator=g,
+                               device=cuda_device).to(dtype)
+                   for _ in range(4))
+    before = dict(fa.launches)
+    out, lse = fa.mha_fwd(q, k, v, causal=True)
+    grads = fa.mha_bwd(q, k, v, out, lse, do, causal=True)
+    assert fa.launches == {n: c + 1 for n, c in before.items()}
+    r_out, r_lse = fa.mha_fwd_ref(q, k, v, True)
+    r_grads = fa.mha_bwd_ref(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert _close_to_plain(out, r_out, dtype)
+    assert (lse - r_lse).abs().max() <= 1e-3
+    for got, ref in zip(grads, r_grads):
+        assert bool(torch.isfinite(got).all())
+        assert _close_to_plain(got, ref, dtype)
+
+
+def test_ulysses_attention_launches_the_flash_kernels(cuda_device):
+    """ulysses_attention_local on a group of one is the flash pair
+    itself: one launch of each kernel, the plain versions' values."""
+    from paddle_tpu_torch.parallel.context_parallel import (
+        ulysses_attention_local)
+    q, k, v, do = _flash_operands(2, 256, 256, 4, 64, torch.bfloat16,
+                                  cuda_device, seed=3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.launches)
+    out = ulysses_attention_local(*leaves, None, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert fa.launches == {n: c + 1 for n, c in before.items()}
+    r_out, r_lse = fa.mha_fwd_ref(q, k, v, True)
+    r_grads = fa.mha_bwd_ref(q, k, v, r_out, r_lse, do, True)
+    assert _close_to_plain(out, r_out, torch.bfloat16)
+    for got, ref in zip(grads, r_grads):
+        assert _close_to_plain(got, ref, torch.bfloat16)
+
+
 @pytest.mark.parametrize("causal,kv_len", [(True, None), (False, None),
                                            (True, 100), (False, 70)])
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
