@@ -66,7 +66,7 @@ Phases, each failing the script (non-zero exit) when it fails:
    activations, f32 parameters, random weights from seed 0), with the
    registry's "ce" winner forced to "pallas_fused" (the one-pass CE) as
    the reference's tools/ablate_step.py forces its own.
-3b. The GPT step's selection surface at the same widths and 6 of its
+3b. The GPT step's selection surface at the same widths and 4 of its
    24 layers (RACE_LAYERS), the port's
    counterpart of the rung's variant race (bench.py:270-320) with the
    attention impl fixed to "pallas" (on CUDA "jax_flash" and "splash"
@@ -233,11 +233,25 @@ Phases, each failing the script (non-zero exit) when it fails:
 6. The planner-driven dp×fsdp×tp train step (paddle_tpu_torch/parallel,
    models/facade.py make_train_step(mesh=, plan=)) at phase 4's
    configuration, from phase 4's starting state (seed 0, drawn again).
-   6a: a 1-rank NCCL group, plan dp1×fsdp1×tp1, the fused update forced:
-   its 5 losses equal to phase 4's kernel trajectory (within 1e-6
-   relative; whether to the bit is printed), its launches a step
-   exactly phase 4's (flash 44 / 22 / 22, ce_fwd 1, ce_bwd 1,
-   leaf_update 1 over 11 leaves), its p50 and peak beside phase 4's.
+   6a: a 1-rank NCCL group, plan dp1×fsdp1×tp1, the fused update forced,
+   its 5 trajectory steps through the device telemetry
+   (profiler/telemetry.py instrument_train_step, MFU_FIELDS, a flush
+   every 4 steps), the build and step 0 under the port's Profiler:
+   its 5 losses equal to phase 4's kernel trajectory to the bit, its
+   launches a step exactly phase 4's (flash 44 / 22 / 22, ce_fwd 1,
+   ce_bwd 1, leaf_update 1 over 11 leaves), its p50 (5 plain steps)
+   and peak beside phase 4's; exactly 2 pulls (the flush and the tail),
+   every recorded loss the step's, nonfinite 0, param_norm within 1e-5
+   and grad_norm (the moment identity) within 1e-4 of f64 norms (the
+   gradient's from step.loss_and_grads before step 4), as many
+   synchronizing calls a step (torch.cuda.set_sync_debug_mode) as the
+   plain step, train.mfu within 15% of the MFU of the step its window
+   timed (the plain steps' and phase 4's printed), the stream read
+   by tools/telemetry_report.py, the Profiler's trace naming the three
+   flash kernels and the facade.make_train_step span; then a 256 x 2048
+   batch must raise torch.OutOfMemoryError in the forward, leave the
+   oom_forensics flight dump naming every params and moment leaf, and
+   leave torch.cuda.memory_allocated() as it was.
    6b: two spawned
    ranks (one card each over NCCL where there are two or more cards;
    on one card, both on it over gloo, every collective an all-reduce
@@ -284,7 +298,9 @@ Phases, each failing the script (non-zero exit) when it fails:
    and its copies' device ms (and again into the kept pinned buffers),
    the writer's seconds and GB/s, verify and restore seconds, the free
    disk before and after, and the resilient guard's copy and check ms
-   on that state (the check must catch a planted inf, -inf and nan).
+   on that state (the check must catch a planted inf, -inf and nan);
+   the monitor counts the save, snapshot, verify and load once each,
+   and the span log holds their spans.
    (b) Inside 6b: the fsdp2 plan saves synchronously after its step 2,
    each rank its half, out of the timed steps; after the pp2 plan's
    steps the snapshot is restored onto pp2: every params, m and v
@@ -308,8 +324,11 @@ Phases, each failing the script (non-zero exit) when it fails:
    one every 2 steps, rollback after 3 skips, a 120 s watchdog) clean
    and under nan@3:3: each skip leaves every param and moment equal to
    the bit, the rollback to step 2 re-runs the clean run's losses and
-   final state to the bit; a 2 s stall under a 0.5 s budget with no
-   retries raises StepHungError. Each part deletes its snapshots in a
+   final state to the bit with the device telemetry on (RESILIENT_FIELDS:
+   ok 0 on exactly the three skipped steps); a 2 s stall under a 0.5 s
+   budget with no retries raises StepHungError; the monitor counts 3
+   skips, 1 rollback, 1 watchdog hang, and the rollback and hang flight
+   dumps load. Each part deletes its snapshots in a
    finally and fails when the disk has less free space than it writes.
 6d. The elastic drill (parallel/elastic.py, the port's launcher
    python -m paddle_tpu_torch.distributed.launch, with this script as
@@ -332,8 +351,12 @@ Phases, each failing the script (non-zero exit) when it fails:
    on a fresh store, restores that snapshot onto fsdp1 and runs step 4.
    Each worker's kernel launches must be its steps' (4 flash forwards,
    2 of each backward, one CE pair and one update launch over 11 leaves
-   a step). The launcher runs bound to the script's life and its
-   workers to the launcher's.
+   a step). Every worker's flight directory is the one the launcher set
+   (<log dir>/flight); each worker that met the loss or the hang left
+   its elastic_device_loss dump there (the loss's also
+   elastic_degraded_exit) carrying the train.elastic.* counters, and
+   the hang's survivor reads one replan. The launcher runs bound to the
+   script's life and its workers to the launcher's.
 7. The seconds each phase took, the kernels line (the eight ported
    kernels and the threefry bits kernel, launches from 6c and the
    drill included),
@@ -1943,9 +1966,10 @@ RACE = [("dots", True, "dots", 8), ("full", True, "full", 8),
 # policies whose backward reruns no attention forward
 ONE_FWD = ("dots_flash", "all_but_mlp")
 ROUTE_LAYERS = 4
-# the race's depth: a quarter of the headline's 24 layers at its widths,
-# so that phases 3c and 6 fit the script's time limit (PERF.md)
-RACE_LAYERS = 6
+# the race's depth: a sixth of the headline's 24 layers at its widths,
+# so that phases 3c and 6, 6a's telemetry, Profiler window and
+# out-of-memory check included, fit the script's time limit (PERF.md)
+RACE_LAYERS = 4
 # (name, env) of the route steps, each set for its own step only
 ROUTES = [("default", {}), ("xla", {"PADDLE_TPU_ATTN_IMPL": "xla"}),
           ("attn_kill", {"PADDLE_TPU_DISABLE_PALLAS_ATTN": "1"}),
@@ -3886,47 +3910,277 @@ def timed_losses(torch, step, params, opt, tokens, n):
     return losses, ms
 
 
+# 6a's device telemetry (paddle_tpu_torch/profiler/telemetry.py): the 5
+# trajectory steps through instrument_train_step, a flush every
+# TELE_EVERY steps (one flush and the tail on close)
+TELE_EVERY = 4
+# the recorded grad_norm (the Adam moment identity (sum v' - b2 sum v) /
+# (1 - b2), each sum an f32 reduction over the 1.03 G moments) against
+# an f64 norm of the gradient at the same state: at the 5th update the
+# two sums are ~0.23 and ~0.18 of the gradients' squares, so the
+# difference amplifies each sum's relative error ~8x; an f32 tree
+# reduction's is <= 2e-6 here, the norm's (half the sum's) <= 1e-5 -
+# held to 10x that. The param norm's one f32 reduction a leaf: 1e-5.
+GRAD_NORM_ID_TOL = 1e-4
+PARAM_NORM_TOL = 1e-5
+# train.mfu (its window: the flush after step 3 to the tail's pull after
+# step 4) against the MFU of step 4 on the host clock, the step that
+# window timed; phase 4's MFU and the 5 plain steps' are printed beside
+# it. A reference that times other steps misses by the step-to-step
+# spread: one run read 333-445 ms for the same step (PERF.md)
+MFU_TOL = 0.15
+# a batch that exhausts the card during the forward: at 256 x 2048 the
+# remat inputs alone (22 layers x 4.3 GB) exceed 80 GB, and no kernel
+# operand passes 2^31 elements (q is 1.07 G), so the error is the
+# allocator's and the card stays usable
+OOM_BATCH = 256
+
+
+@contextlib.contextmanager
+def paused_counts():
+    """Launches inside the body are not counted: every train kernel's
+    counter is put back as it was (a check's own call is not the main
+    path's)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fce
+    from paddle_tpu_torch.kernels import fused_update as fu
+    saved = [(c, dict(c)) for c in (fa.launches, fce.launches, fu.launches)]
+    try:
+        yield
+    finally:
+        for counts, was in saved:
+            counts.update(was)
+
+
+def count_syncs(torch, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): (its result,
+    the first line of each synchronizing call's warning)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [str(w.message).splitlines()[0][:160] for w in seen
+                 if "called a synchronizing" in str(w.message)]
+
+
+def f64_norm(torch, tree):
+    """The global norm of a tree's tensors, each leaf summed in f64."""
+    return math.sqrt(sum(float(torch.sum(torch.square(t.double())))
+                         for t in tree.values()))
+
+
+def trace_names(path):
+    """Every event name of a chrome-trace JSON file."""
+    with open(path) as f:
+        return {e.get("name", "") for e in json.load(f)["traceEvents"]}
+
+
 def sharded_one_rank(torch, dev, card, p4):
     """Phase 6a: the sharded step on a 1-rank NCCL group, plan
     dp1×fsdp1×tp1, at phase 4's configuration from phase 4's starting
     state (seed 0, drawn again), the fused AdamW forced and the CE on
-    its default route. Its 5 losses must equal phase 4's kernel
-    trajectory (within 1e-6 relative; whether they agree to the bit is
-    printed), its launches per step phase 4's exactly; 5 more steps
-    give its p50 beside phase 4's. Returns its losses, launches, state
-    bytes, peak and p50."""
+    its default route. Its 5 trajectory steps go through
+    profiler/telemetry.py's instrument_train_step (MFU_FIELDS, a flush
+    every TELE_EVERY steps, flops_per_token from
+    cost_model.train_flops_per_token), the build and step 0 under the
+    port's Profiler. Checked: the 5 losses equal phase 4's kernel
+    trajectory to the bit; launches per step phase 4's exactly; exactly
+    2 pulls (the flush and the tail on close); every recorded loss the
+    step's; nonfinite 0; the recorded param_norm within PARAM_NORM_TOL of
+    an f64 norm of the params, and grad_norm within GRAD_NORM_ID_TOL of
+    the f64 norm of step.loss_and_grads at the state before step 4 (the
+    check's launches not counted); as many synchronizing calls in an
+    instrumented step as in a plain one (set_sync_debug_mode); train.mfu
+    within MFU_TOL of step 4's MFU on the host clock, the step its window
+    timed (the plain steps' and phase 4's printed beside it);
+    tools/telemetry_report.py reads the
+    stream; the Profiler's trace names the three flash kernels and the
+    facade.make_train_step span. 5 plain steps give its p50 beside phase
+    4's. Then one OOM_BATCH x LLAMA_SEQ batch through a fresh step must
+    raise torch.OutOfMemoryError, leave an oom_forensics flight dump
+    naming every params and moment leaf, and leave
+    torch.cuda.memory_allocated() as it was. Returns its losses,
+    launches, state bytes, peak and p50."""
+    import shutil
+    import tempfile
     import torch.distributed as dist
+    from paddle_tpu_torch.cost_model import train_flops_per_token
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.models.facade import make_train_step
     from paddle_tpu_torch.parallel import (collective_route,
                                            init_parallel_env, plan_train)
+    from paddle_tpu_torch.profiler import (Profiler, flight_recorder,
+                                           monitor, telemetry)
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from telemetry_report import summarize
     cfg = llama.LlamaConfig(**LLAMA, remat=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_6a_")
+    rec = flight_recorder.recorder()
+    saved_rec = (rec.dir, rec.autodump_every)
+    rec.set_dir(os.path.join(work, "flight"))
+    rec.autodump_every = 0
+    orig_pull = telemetry._host_pull
+    pulls = []
+    telemetry._host_pull = lambda x: (pulls.append(1), orig_pull(x))[1]
     init_parallel_env(backend="nccl", world_size=1)
+    tl = {"phase": "llama_sharded_1rank_telemetry", "card": card,
+          "every": TELE_EVERY}
     try:
         plan = plan_train(cfg, 1, LLAMA_BATCH, dp=1, fsdp=1, tp=1)
         mesh = plan.build_mesh()
         host = llama.init_llama_params(cfg, seed=0, device="cpu")
         tokens = train_tokens(torch, dev, cfg, LLAMA_BATCH, LLAMA_SEQ, 3)
-        step = make_train_step(llama.train_step, cfg=cfg, mesh=mesh,
-                               plan=plan, **ADAMW)
-        params, opt, _ = step.shard_args(host, lazy_opt_state(torch, host),
-                                         tokens)
-        del host
+        fpt = train_flops_per_token(sum(p.numel() for p in host.values()),
+                                    cfg.num_layers, cfg.hidden_size,
+                                    LLAMA_SEQ)
+        path = os.path.join(work, "telemetry.jsonl")
+        tele = telemetry.TelemetryPipeline(
+            path, every=TELE_EVERY, fields=telemetry.MFU_FIELDS,
+            flops_per_token=fpt, meta={"samples_per_step": LLAMA_BATCH,
+                                       "card": card})
+        losses, traj_ms, oracle = [], [], {}
         with forced_registry(fused_update="pallas"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             zero_launch_counts()                  # the main path starts
-            losses, traj_ms = timed_losses(torch, step, params, opt,
-                                           tokens, 5)
-            launches = launch_counts()            # ... and ends
-            peak = torch.cuda.max_memory_allocated()
-            _, step_ms = timed_losses(torch, step, params, opt, tokens, 5)
+            prof = Profiler(scheduler=(0, 1),
+                            trace_dir=os.path.join(work, "trace")).start()
+            step = telemetry.instrument_train_step(
+                llama.train_step, tele, cfg=cfg, mesh=mesh, plan=plan,
+                **ADAMW)
+            ts = tele.device_init(device=dev)
+            params, opt, _ = step.shard_args(
+                host, lazy_opt_state(torch, host), tokens)
+            del host
+            for i in range(5):
+                t_s = time.perf_counter()
+                if i == 2:                        # not a flush step
+                    loss, tl["syncs_instrumented"] = count_syncs(
+                        torch, lambda: float(step(params, opt, tokens,
+                                                  ts)[0]))
+                else:
+                    loss = float(step(params, opt, tokens, ts)[0])
+                traj_ms.append((time.perf_counter() - t_s) * 1e3)
+                losses.append(loss)
+                if i == 0:
+                    prof.step()                   # the trace ends
+                if i == 3:
+                    # the state before step 4, before the flush that opens
+                    # train.mfu's window; its launches and memory not
+                    # the main path's
+                    peak = torch.cuda.max_memory_allocated()
+                    with paused_counts():
+                        _, grads = step.loss_and_grads(params, tokens)
+                        oracle["grad_norm_f64"] = f64_norm(torch, grads)
+                        del grads
+                    torch.cuda.reset_peak_memory_stats()
+                tele.tick(i, ts)
+            tele.close(ts)                        # the MFU window ends
+            launches = launch_counts()            # ... and the main path
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            oracle["param_norm_f64"] = f64_norm(torch, params)
+            prof.stop()
+            plain = make_train_step(llama.train_step, cfg=cfg, mesh=mesh,
+                                    plan=plan, **ADAMW)
+            plain.adopt_shapes(params, opt)
+            _, step_ms = timed_losses(torch, plain, params, opt, tokens, 5)
+            _, tl["syncs_plain"] = count_syncs(
+                torch, lambda: float(plain(params, opt, tokens)[0]))
+        tl["pulls"] = len(pulls)
+        telemetry._host_pull = orig_pull
+        recs = [json.loads(ln) for ln in open(path)]
+        rows = [r for r in recs if r["kind"] == "step"]
+        tl["rows"] = rows
+        tl["mfu"] = monitor.gauge("train.mfu").value
+        tl["tokens_per_s"] = monitor.gauge("train.tokens_per_s").value
+        tl["phase4_mfu"] = p4["train"]["mfu"]
+        tl["plain_mfu"] = fpt * LLAMA_BATCH * LLAMA_SEQ / (
+            statistics.median(step_ms) / 1e3) / PEAK_BF16_FLOPS
+        tl["step4_mfu"] = fpt * LLAMA_BATCH * LLAMA_SEQ / (
+            traj_ms[4] / 1e3) / PEAK_BF16_FLOPS
+        last = rows[-1]
+        tl.update(oracle)
+        tl["grad_norm_rel"] = abs(last["grad_norm"] / oracle[
+            "grad_norm_f64"] - 1)
+        tl["param_norm_rel"] = abs(last["param_norm"] / oracle[
+            "param_norm_f64"] - 1)
+        report = summarize(path)
+        tl["report"] = {k: report.get(k) for k in (
+            "runs", "steps_recorded", "flushes", "bad_lines", "bad_steps",
+            "mfu", "step_time")}
+        names = trace_names(prof.trace_paths[0])
+        tl["trace_events"] = len(names)
+        tl["trace_has"] = {k: any(k in n for n in names) for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+            "facade.make_train_step")}
+        # out of memory in the forward of a fresh step
+        big = train_tokens(torch, dev, cfg, OOM_BATCH, LLAMA_SEQ, 4)
+        oom = make_train_step(llama.train_step, cfg=cfg, mesh=mesh,
+                              plan=plan, **ADAMW)
+        oom.adopt_shapes(params, opt)
+        n_oom = monitor.counter("train.oom_forensics").value
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t_s = time.perf_counter()
+        raised = None
+        try:
+            oom(params, opt, big)
+        except torch.OutOfMemoryError as e:
+            raised = str(e).splitlines()[0][:200]
+        tl["oom_s"] = time.perf_counter() - t_s
+        gc.collect()
+        torch.cuda.synchronize()
+        # the telemetry's reads of the state on their own, on the device:
+        # the second moments' sum (taken before and after an update),
+        # the params' norm and non-finite count, as a step makes them
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(3):
+            for _ in range(2):
+                telemetry.moment_sums(opt)
+            telemetry._sumsq(params)
+            telemetry._nonfinite(params)
+        ev[1].record()
+        torch.cuda.synchronize()
+        tl["scalars_device_ms"] = ev[0].elapsed_time(ev[1]) / 3
+        # the least: the params and the moments before and after read
+        # once each (the reads run the params twice, for the norm and the
+        # count, and write a byte a parameter)
+        tl["scalars_bound_ms"] = 3 * state_bytes(
+            params, {"m": {}, "v": {}}) / PEAK_BYTES * 1e3
+        flight = os.path.join(work, "flight")
+        dumps = sorted(f for f in os.listdir(flight)
+                       if f.endswith("-oom_forensics.json"))
+        fo = flight_recorder.load_dump(os.path.join(flight, dumps[0])) \
+            ["config"]["oom_forensics"] if dumps else {}
+        tl["oom"] = {
+            "batch": [OOM_BATCH, LLAMA_SEQ], "raised": raised,
+            "counted": monitor.counter("train.oom_forensics").value - n_oom,
+            "dumps": dumps, "allocated_before": before,
+            "allocated_after": torch.cuda.memory_allocated(),
+            "ledger_total": (fo.get("ledger") or {}).get("total"),
+            "live_bytes": fo.get("live_bytes"),
+            "other_bytes": fo.get("other_bytes"),
+            "leaves": sorted({leaf for row in fo.get("census", {}).values()
+                              for leaf in row["leaves"]})}
         nbytes = state_bytes(params, opt)
         backend, route = str(dist.get_backend()), collective_route(None, dev)
-        del step, params, opt, tokens
+        del step, plain, oom, params, opt, tokens, big, ts
     finally:
+        telemetry._host_pull = orig_pull
+        rec.clear()
+        rec.set_dir(saved_rec[0])
+        rec.autodump_every = saved_rec[1]
         dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
     torch.cuda.empty_cache()
+    log(json.dumps(tl))
     want4 = p4["trajectory"]
     per_step = {k: v // 5 for k, v in launches.items()}
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, want4)]
@@ -3936,18 +4190,53 @@ def sharded_one_rank(torch, dev, card, p4):
             "bitwise_equal": losses == want4,
             "launches": launches, "launches_per_step": per_step,
             "phase4_launches_per_step": p4["train"]["launches_per_step"],
+            "trajectory_ms": traj_ms,
             "step_ms": step_ms, "step_ms_p50": statistics.median(step_ms),
             "phase4_step_ms_p50": p4["train"]["step_ms_p50"],
             "state_bytes": nbytes, "max_memory_allocated_bytes": peak,
             "phase4_max_memory_allocated_bytes":
                 p4["train"]["max_memory_allocated_bytes"]}
     log(json.dumps(line))
-    if max(rel) > 1e-6:
+    if losses != want4:
         raise AssertionError(f"6a: losses {losses} != phase 4's {want4}")
     if per_step != p4["train"]["launches_per_step"] or any(
             v % 5 for v in launches.values()):
         raise AssertionError(f"6a: launches {launches} over 5 steps, phase "
                              f"4 {p4['train']['launches_per_step']} a step")
+    bad = []
+    if tl["pulls"] != 2:
+        bad.append(f"{tl['pulls']} pulls, not 2")
+    if [r["step"] for r in rows] != list(range(5)) or \
+            [r["loss"] for r in rows] != losses:
+        bad.append("the recorded losses are not the steps'")
+    if any(r["nonfinite"] != 0 for r in rows) or any(
+            r["tokens"] != LLAMA_BATCH * LLAMA_SEQ for r in rows):
+        bad.append("nonfinite or tokens")
+    if tl["param_norm_rel"] > PARAM_NORM_TOL:
+        bad.append(f"param_norm {tl['param_norm_rel']}")
+    if tl["grad_norm_rel"] > GRAD_NORM_ID_TOL:
+        bad.append(f"grad_norm {tl['grad_norm_rel']}")
+    if len(tl["syncs_instrumented"]) != len(tl["syncs_plain"]):
+        bad.append("the instrumented step synchronizes more")
+    if not abs(tl["mfu"] / tl["step4_mfu"] - 1) <= MFU_TOL:
+        bad.append(f"train.mfu {tl['mfu']} vs step 4's {tl['step4_mfu']} "
+                   f"(the plain steps' {tl['plain_mfu']}, phase 4's "
+                   f"{tl['phase4_mfu']})")
+    r = tl["report"]
+    if (r["steps_recorded"], r["flushes"], r["bad_lines"]) != (5, 2, 0) or \
+            not (r.get("mfu") or {}).get("mfu"):
+        bad.append(f"telemetry_report: {r}")
+    if not all(tl["trace_has"].values()):
+        bad.append(f"the Profiler's trace lacks {tl['trace_has']}")
+    o = tl["oom"]
+    want_leaves = {f"params/{k}" for k in LLAMA_LEAVES} | {
+        f"opt_state/{m}/{k}" for m in ("m", "v") for k in LLAMA_LEAVES}
+    if o["raised"] is None or o["counted"] != 1 or len(o["dumps"]) != 1 \
+            or o["allocated_after"] != o["allocated_before"] or \
+            not want_leaves <= set(o["leaves"]) or not o["ledger_total"]:
+        bad.append(f"oom_forensics: {o}")
+    if bad:
+        raise AssertionError(f"6a telemetry: {bad}")
     return {"losses": losses, "per_step": per_step, "state_bytes": nbytes,
             "peak": peak, "step_ms_p50": line["step_ms_p50"],
             "launches": launches}
@@ -4849,13 +5138,20 @@ def checkpoint_resume(torch, dev, card, p4):
     Prints the bytes, save_async's host ms and the copies' device ms,
     the writer's seconds and GB/s, verify and restore seconds, and the
     free disk before and after. The snapshot is deleted in a finally.
-    Returns the train kernels' launches over its 8 steps."""
+    The monitor must count the save (the async writer's), the snapshot,
+    the verify and the load (the restore into fresh buffers), and the
+    span log hold their spans (CKPT_COUNTERS, CKPT_SPANS). Returns the
+    train kernels' launches over its 8 steps."""
     import shutil
     import tempfile
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.models.facade import make_train_step
     from paddle_tpu_torch.models.gpt import init_opt_state
     from paddle_tpu_torch.parallel import checkpoint as ck
+    from paddle_tpu_torch.profiler import (clear_profiler_spans,
+                                           get_profiler_spans, monitor)
+    counted = {n: monitor.counter(n).value for n in CKPT_COUNTERS}
+    clear_profiler_spans()
     cfg = llama.LlamaConfig(**LLAMA, remat=True)
     params = llama.init_llama_params(cfg, seed=0)
     opt = init_opt_state(params)
@@ -4932,6 +5228,15 @@ def checkpoint_resume(torch, dev, card, p4):
     gc.collect()
     torch.cuda.empty_cache()
     per_step = p4["train"]["launches_per_step"]
+    line["monitor"] = {n: monitor.counter(n).value - counted[n]
+                       for n in CKPT_COUNTERS}
+    line["monitor"]["checkpoint_async_pending"] = monitor.gauge(
+        "checkpoint_async_pending").value
+    spans = {}
+    for name, _start, dur, *_ in get_profiler_spans():
+        if name in CKPT_SPANS:
+            spans.setdefault(name, []).append(dur)
+    line["spans_s"] = spans
     line.update({"losses": losses, "resumed_steps_3_5": resumed,
                  "phase4_losses": p4["trajectory"],
                  "equal_to_phase4": losses == p4["trajectory"],
@@ -4945,7 +5250,20 @@ def checkpoint_resume(torch, dev, card, p4):
     if launches != {k: 8 * v for k, v in per_step.items()}:
         raise AssertionError(f"6c (a): launches {launches} over 8 steps, "
                              f"phase 4 {per_step} a step")
+    if line["monitor"] != dict(CKPT_COUNTERS, checkpoint_async_pending=0) \
+            or sorted(spans) != sorted(CKPT_SPANS):
+        raise AssertionError(f"6c (a): counters {line['monitor']} (want "
+                             f"{CKPT_COUNTERS}), spans {sorted(spans)}")
     return launches
+
+
+# what 6c (a) runs, counted by the checkpoint module's monitor stats and
+# spans: one save_async (its writer's save), one verify, one load
+CKPT_COUNTERS = {"checkpoint_save": 1, "checkpoint_async_save": 1,
+                 "checkpoint_verify": 1, "checkpoint_load": 1,
+                 "checkpoint_async_retry": 0}
+CKPT_SPANS = ("checkpoint.save", "checkpoint.snapshot", "checkpoint.verify",
+              "checkpoint.load")
 
 
 def drill_tokens(torch, dev, cfg, s):
@@ -4965,14 +5283,20 @@ def resilience_drill(torch, dev, card):
     state equal to the clean run's to the bit. Then a 2 s stall inside
     the step under a 0.5 s budget with 0 retries must raise
     StepHungError (the stalled step is waited out before the phase
-    ends). The guard's copy and check are timed on this state. Returns
-    the train kernels' launches over the two runs' steps."""
+    ends). The faulted run carries the device telemetry
+    (RESILIENT_FIELDS, a flush every DRILL_TELE_EVERY steps): its stream
+    must read ok 0 on exactly the three skipped steps, the monitor 3
+    skips, 1 rollback and 1 watchdog hang, and the 'rollback' and
+    'watchdog_hang' flight dumps must load. The guard's copy and check
+    are timed on this state. Returns the train kernels' launches over
+    the two runs' steps."""
     import shutil
     import tempfile
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.models.gpt import init_opt_state
     from paddle_tpu_torch.parallel import resilience
     from paddle_tpu_torch.parallel.checkpoint import CheckpointManager
+    from paddle_tpu_torch.profiler import flight_recorder, monitor, telemetry
     from paddle_tpu_torch.testing import faults
     cfg = llama.LlamaConfig(**dict(LLAMA, num_layers=DRILL_LAYERS),
                             remat=True)
@@ -4980,12 +5304,12 @@ def resilience_drill(torch, dev, card):
     init = llama.init_llama_params(cfg, seed=0)
     root = tempfile.mkdtemp(prefix="chip_smoke_drill_")
 
-    def trainer(name, **cfg_kw):
+    def trainer(name, tele=None, **cfg_kw):
         params = {k: v.clone() for k, v in init.items()}
         return resilience.ResilientTrainer(
             llama.train_step, params, init_opt_state(params), cfg=cfg,
             manager=CheckpointManager(os.path.join(root, name),
-                                      max_to_keep=2),
+                                      max_to_keep=2), telemetry=tele,
             config=resilience.ResilienceConfig(
                 checkpoint_every=2, rollback_after=3, watchdog_timeout=120.0,
                 retries=0, **cfg_kw), **ADAMW)
@@ -5003,6 +5327,14 @@ def resilience_drill(torch, dev, card):
                 for k, v in tree.items()}
     line = {"phase": "llama_resilience_drill", "card": card, "layers": L,
             "fault": DRILL_FAULT}
+    rec = flight_recorder.recorder()
+    saved_rec = (rec.dir, rec.autodump_every)
+    rec.set_dir(os.path.join(root, "flight"))
+    rec.autodump_every = 0
+    counted = {n: monitor.counter(n).value for n in DRILL_COUNTERS}
+    tele = telemetry.TelemetryPipeline(
+        os.path.join(root, "drill.jsonl"), every=DRILL_TELE_EVERY,
+        fields=resilience.RESILIENT_FIELDS)
     try:
         # at most 2 kept snapshots and 1 being staged at a time
         nbytes = 3 * 4 * sum(p.numel() for p in init.values())
@@ -5022,7 +5354,7 @@ def resilience_drill(torch, dev, card):
             shutil.rmtree(clean.manager.root, ignore_errors=True)
             del clean
             t_s = time.perf_counter()
-            tr = trainer("fault")
+            tr = trainer("fault", tele)
             fault_traj, skip_equal, box = {}, [], {}
             rollback = tr._rollback
 
@@ -5077,7 +5409,24 @@ def resilience_drill(torch, dev, card):
             # the stalled step runs on after its budget: wait it out
             stalled.get(timeout=120)
             torch.cuda.synchronize()
+            tele.close(tr._tstate)
+            line["telemetry"] = [
+                r for r in map(json.loads, open(os.path.join(
+                    root, "drill.jsonl"))) if r["kind"] == "step"]
+            line["telemetry_pulls"] = tele.pulls
+            line["monitor"] = {n: monitor.counter(n).value - counted[n]
+                               for n in DRILL_COUNTERS}
+            dumps = {}
+            for reason in ("rollback", "watchdog_hang"):
+                doc = flight_recorder.load_dump(os.path.join(
+                    root, "flight", f"flight-{os.getpid()}-{reason}.json"))
+                dumps[reason] = {"steps": len(doc["steps"]),
+                                 "config": sorted(doc["config"])}
+            line["dumps"] = dumps
     finally:
+        rec.clear()
+        rec.set_dir(saved_rec[0])
+        rec.autodump_every = saved_rec[1]
         shutil.rmtree(root, ignore_errors=True)
     del tr, init
     gc.collect()
@@ -5103,9 +5452,27 @@ def resilience_drill(torch, dev, card):
         bad.append("stall")
     if launches != {k: executed * per_step.get(k, 0) for k in launches}:
         bad.append(f"launches, want {executed} x {per_step}")
+    rows = line["telemetry"]
+    # the faulted run's steps in order (the rollback writes the rows
+    # since the last flush and restarts the ids at step 2), then the
+    # stalled step, which ran on after its budget
+    if [r["step"] for r in rows] != [0, 1, 2, 3, 4, 5, 2, 3, 4, 5, 6] or \
+            [r["ok"] for r in rows].count(0.0) != 3 or \
+            [r["step"] for r in rows if r["ok"] == 0.0] != [3, 4, 5] or \
+            any(r["nonfinite"] != 0 for r in rows):
+        bad.append("telemetry rows")
+    if line["monitor"] != DRILL_COUNTERS:
+        bad.append(f"counters {line['monitor']}, want {DRILL_COUNTERS}")
     if bad:
         raise AssertionError(f"drill: {bad}")
     return launches
+
+
+# the drill's device telemetry cadence, and what its monitor must count
+# over the faulted run and the stall
+DRILL_TELE_EVERY = 4
+DRILL_COUNTERS = {"resilience_skip_step": 3, "resilience_rollback": 1,
+                  "resilience_watchdog_hang": 1, "checkpoint_restore": 1}
 
 
 # phase 6d: the elastic drill at DRILL_LAYERS layers, fsdp2 on two ranks
@@ -5214,7 +5581,12 @@ def elastic_worker(mode, workdir):
         run_elastic(et, batch, steps, on_step=on_step)
 
     def save():
+        from paddle_tpu_torch.profiler import monitor
         out["launches"] = launch_counts()
+        out["pid"] = os.getpid()
+        out["flight_dir"] = os.environ.get("PADDLE_TPU_FLIGHT_DIR")
+        out["elastic"] = {k: v for k, v in monitor.snapshot().items()
+                          if k.startswith("train.elastic.")}
         with open(os.path.join(workdir, f"{mode}.{launch}.rank{rank}.json"),
                   "w") as f:
             json.dump(out, f)
@@ -5501,10 +5873,56 @@ def elastic_drill(torch, dev, card):
         launches = {k: sum(w["launches"][k] for w in workers)
                     for k in first[0]["launches"]}
         line["launches"] = launches
+        line["flight"] = elastic_flight(workdir, first, again, hang)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps(line))
     return launches
+
+
+def elastic_flight(workdir, first, again, hang):
+    """6d's flight-recorder and monitor checks: every worker was given
+    <its launch's log dir>/flight by the launcher; each worker that met
+    the loss or the hang left its 'elastic_device_loss' dump there (the
+    loss run's also 'elastic_degraded_exit', with the world spec), each
+    carrying the train.elastic.* family with the detection counted; the
+    hang's survivor reads one replan onto a world of one. Returns what
+    it read."""
+    from paddle_tpu_torch.profiler.flight_recorder import load_dump
+    got, bad = {}, []
+    for mode, workers, reasons, counter in (
+            ("loss", first, ("elastic_device_loss", "elastic_degraded_exit"),
+             "device_loss"),
+            ("hang", hang, ("elastic_device_loss",), "collective_hang")):
+        flight = os.path.join(workdir, f"logs_{mode}", "flight")
+        for w in workers:
+            if w["flight_dir"] != flight:
+                bad.append(f"{mode} rank {w['rank']}: flight dir "
+                           f"{w['flight_dir']}")
+                continue
+            for reason in reasons:
+                path = os.path.join(flight, f"flight-{w['pid']}-{reason}.json")
+                try:
+                    doc = load_dump(path)
+                except (OSError, ValueError) as e:
+                    bad.append(f"{mode} rank {w['rank']}: {e!r}")
+                    continue
+                mon = {k: v for k, v in doc["monitor"].items()
+                       if k.startswith("train.elastic.")}
+                got[f"{mode}.rank{w['rank']}.{reason}"] = mon
+                if mon.get(f"train.elastic.{counter}") != 1:
+                    bad.append(f"{mode} rank {w['rank']} {reason}: {mon}")
+    if again["flight_dir"] != os.path.join(workdir, "logs_loss", "flight"):
+        bad.append(f"relaunch: flight dir {again['flight_dir']}")
+    survivor = hang[0]["elastic"]
+    got["hang.survivor"] = survivor
+    if survivor.get("train.elastic.replans") != 1 or \
+            survivor.get("train.elastic.world_size") != 1 or \
+            not survivor.get("train.elastic.reshard_bytes"):
+        bad.append(f"hang survivor: {survivor}")
+    if bad:
+        raise AssertionError(f"6d flight and monitor: {bad}")
+    return got
 
 
 def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,

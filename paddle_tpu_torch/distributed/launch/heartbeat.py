@@ -20,6 +20,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 from typing import Optional
 
 __all__ = ["ELASTIC_EXIT_CODE", "ENV_FILE", "ENV_INTERVAL", "ENV_STEP_MODE",
@@ -127,11 +128,20 @@ def stop() -> None:
     _stop.set()
 
 
+_last_pulse = 0.0
+
+
 def pulse() -> None:
     """Touch the lease now (one a committed step under the resilient
-    trainer)."""
-    # waits for A7: the heartbeat_staleness_s gauge (the gap between
-    # pulses)
+    trainer), and publish the gap since the previous pulse as the
+    `heartbeat_staleness_s` monitor gauge (reference :157): how close the
+    worker sails to the controller's --hang_timeout."""
+    global _last_pulse
+    now = time.time()
+    if _last_pulse:
+        from ...profiler import monitor
+        monitor.gauge("heartbeat_staleness_s").set(now - _last_pulse)
+    _last_pulse = now
     path = os.environ.get(ENV_FILE)
     if path and not _stop.is_set():
         _touch(path)

@@ -37,8 +37,14 @@ hosts are torchrun's). The launcher:
   does, and on Linux the boot shim has the kernel kill a worker whose
   launcher ended (PR_SET_PDEATHSIG), a SIGKILL of the launcher included.
 
-The controller's monitor counters, spans and flight-recorder dumps wait
-for ROADMAP A7.
+Observability (the reference's :140-145, :281-302, :339, :373-376):
+every worker gets a flight-recorder directory, $PADDLE_TPU_FLIGHT_DIR =
+<run dir>/flight unless the caller's environment sets one; the
+controller opens the `launch.spawn` and `launch.wait` spans, notes each
+pod exit in its own flight recorder, counts `launch_pod_restart`,
+`launch_elastic_restart`, `launch_degraded_world`, `launch_hung_worker`
+and `launch_scale_down`, and when its restarts are spent dumps
+`launch_failed` beside the workers' dumps.
 
 Usage:
   python -m paddle_tpu_torch.distributed.launch --nproc_per_node 4 \\
@@ -58,6 +64,7 @@ import sys
 import time
 from typing import List, Optional
 
+from ...profiler.flight_recorder import ENV_DIR as ENV_FLIGHT_DIR
 from .heartbeat import (ELASTIC_EXIT_CODE, ENV_WORLD, ENV_WORLD_FILE,
                         read_world_spec)
 
@@ -167,8 +174,15 @@ def _worker_env(args, local_rank: int, master: str) -> dict:
     granted = getattr(args, "_elastic_world", None)
     if granted:
         env[ENV_WORLD] = granted
-    # waits for A7: the flight recorder's dump directory
+    # the crash flight recorder (profiler/flight_recorder.py): a dead
+    # pod leaves a black box; the caller's own directory wins
+    env.setdefault(ENV_FLIGHT_DIR, _flight_dir(args))
     return env
+
+
+def _flight_dir(args) -> str:
+    return os.environ.get(ENV_FLIGHT_DIR) or os.path.join(_run_dir(args),
+                                                          "flight")
 
 
 class _Worker:
@@ -276,6 +290,11 @@ def _wait(workers: List[_Worker], hang_timeout: float = 0.0
 
 def launch(argv: Optional[List[str]] = None) -> int:
     """The launcher's entry: returns the job's exit code."""
+    from ...profiler import RecordEvent, flight_recorder, monitor
+    mon_restart = monitor.counter("launch_pod_restart")
+    mon_elastic = monitor.counter("launch_elastic_restart")
+    mon_hung = monitor.counter("launch_hung_worker")
+    mon_scale = monitor.counter("launch_scale_down")
     args = _parse_args(argv)
     args._cards = _card_count() if args.devices == "gpu" else 0
     attempt = 0
@@ -284,8 +303,14 @@ def launch(argv: Optional[List[str]] = None) -> int:
         if attempt:
             print(f"[launch] pod restart {attempt}/{args.max_restart} "
                   f"(crash budget)", file=sys.stderr, flush=True)
-        # waits for A7: the launch.spawn / launch.wait spans
-        rc = _wait(_spawn(args), args.hang_timeout)
+        with RecordEvent("launch.spawn"):
+            workers = _spawn(args)
+        with RecordEvent("launch.wait"):
+            rc = _wait(workers, args.hang_timeout)
+        flight_recorder.note(phase="pod_exit", rc=rc, attempt=attempt,
+                             elastic=elastic)
+        if rc == HUNG:
+            mon_hung.add()
         if rc == 0:
             return 0
         if rc is None:
@@ -294,6 +319,7 @@ def launch(argv: Optional[List[str]] = None) -> int:
             # the worker asked for this restart (ELASTIC_EXIT_CODE=101);
             # budgeted apart from the crash restarts
             elastic += 1
+            mon_elastic.add()
             wpath = os.environ.get(ENV_WORLD_FILE) or os.path.join(
                 _run_dir(args), "elastic_world.json")
             spec = read_world_spec(wpath)
@@ -305,6 +331,7 @@ def launch(argv: Optional[List[str]] = None) -> int:
                     pass
                 if spec.get("n_devices"):
                     args.nproc_per_node = int(spec["n_devices"])
+                monitor.counter("launch_degraded_world").add()
                 print(f"[launch] elastic restart carries a DEGRADED world "
                       f"spec: {spec}", file=sys.stderr, flush=True)
             print(f"[launch] worker requested elastic restart "
@@ -318,6 +345,7 @@ def launch(argv: Optional[List[str]] = None) -> int:
                     args.nproc_per_node - 1 >= args.min_procs:
                 args.nproc_per_node -= 1
                 attempt = 0
+                mon_scale.add()
                 print(f"[launch] restarts exhausted (rc={rc}); scaling "
                       f"down to {args.nproc_per_node} ranks after "
                       f"{SCALE_GRACE_S}s grace", file=sys.stderr,
@@ -326,8 +354,13 @@ def launch(argv: Optional[List[str]] = None) -> int:
                 continue
             print(f"[launch] workers failed (rc={rc}); restarts exhausted",
                   file=sys.stderr, flush=True)
+            # the job is dying: the controller's black box (the pod exits
+            # and restart counters) beside the workers' dumps
+            flight_recorder.recorder().set_dir(_flight_dir(args))
+            flight_recorder.dump("launch_failed")
             return 1 if rc == HUNG else rc
         attempt += 1
+        mon_restart.add()
 
 
 def _stop(signum, frame):

@@ -14,8 +14,9 @@ Differences from the reference:
   reference's `perf/kernel_registry.json` (whose validation admits only
   the "tpu" and "cpu" classes). No table is committed: an absent table
   means every consult site keeps its default;
-- the reference's resolution counters (`monitor.counter`) wait for the
-  port's profiler (ROADMAP A7).
+- as the reference's (:232-245), `winner` counts which impl it served,
+  `kernel_registry_resolution.<kernel>.<impl>`, or that it served none,
+  `kernel_registry_miss.<kernel>`, in the port's monitor.
 
 Entry kinds:
 - `measured`: impl + ms + flops/bytes evidence; must sit inside the
@@ -189,13 +190,17 @@ def winner(kernel: str, backend: Optional[str] = None,
     """The registered impl for (kernel, backend class, bucket), falling
     back from the exact bucket to the '*' wildcard; None when the table
     has no trustworthy row (the consult site keeps its default)."""
+    from ..profiler import monitor
     backend = backend or backend_class()
     entries = _load(path).get("entries") or {}
     for b in dict.fromkeys((bucket, "*")):
         key = _key(kernel, backend, b)
         ent = entries.get(key)
         if ent is not None and _entry_problem(key, ent) is None:
+            monitor.counter(f"kernel_registry_resolution.{kernel}."
+                            f"{ent.get('impl')}").add()
             return ent.get("impl")
+    monitor.counter(f"kernel_registry_miss.{kernel}").add()
     return None
 
 

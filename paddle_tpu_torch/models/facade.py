@@ -14,9 +14,17 @@ with its `generate`), paddle_tpu/models/gpt.py
 as frozen nn.Parameters, integer leaves (a quantized tree's int8 pairs)
 as buffers, under the reference's leaf names.
 
-Not carried: the sharded step's `oom_forensics` flight dump (reference
-:400) and the `facade_train_step_builds` / `_rebuilds` counters, which
-wait for ROADMAP A7's monitor and flight recorder.
+Observability (the reference's :140-145, :386-420, :462): every build
+opens the `facade.make_train_step` span and counts
+`facade_train_step_builds`; `rebuild` counts `facade_train_step_rebuilds`;
+a `torch.OutOfMemoryError` inside a sharded step's call writes the
+`oom_forensics` flight dump (the plan's `train_memory_ledger` and a
+census of the step's argument tensors beside what else the allocator
+holds), counts `train.oom_forensics` and re-raises; a pipelined step
+publishes its `train.bubble_fraction` at its first call. The reference's
+`train.compile.wall_ms` and `train.compile.executables` gauges time an
+XLA compile at the first call, which an eager step does not have, so
+the port does not publish them.
 """
 from __future__ import annotations
 
@@ -118,19 +126,22 @@ def make_train_step(step_fn, cfg=None, mesh=None, plan=None, overlap=None,
     is a set of XLA compiler options for the TPU (reference :234-249)
     and, under pp, a gather prefetch through its scan carry for XLA's
     scheduler; neither has a counterpart in an eager step."""
+    from ..profiler import RecordEvent, monitor
     if overlap is None:
         overlap = bool(getattr(plan, "overlap", False))
-    cell = getattr(step_fn, "_plan_cell", None)
-    if cell is not None:
+    with RecordEvent("facade.make_train_step"):
+        monitor.counter("facade_train_step_builds").add()
+        cell = getattr(step_fn, "_plan_cell", None)
+        if cell is not None:
+            if mesh is None:
+                return step_fn
+            return _ShardedTrainStep(cell, mesh, plan, cfg=cfg,
+                                     overlap=overlap, wrapper=step_fn)
+        cell = plan_step_cell(step_fn, cfg=cfg, mesh=mesh, plan=plan,
+                              overlap=overlap, **step_kw)
         if mesh is None:
-            return step_fn
-        return _ShardedTrainStep(cell, mesh, plan, cfg=cfg, overlap=overlap,
-                                 wrapper=step_fn)
-    cell = plan_step_cell(step_fn, cfg=cfg, mesh=mesh, plan=plan,
-                          overlap=overlap, **step_kw)
-    if mesh is None:
-        return cell.fn
-    return _ShardedTrainStep(cell, mesh, plan, cfg=cfg, overlap=overlap)
+            return cell.fn
+        return _ShardedTrainStep(cell, mesh, plan, cfg=cfg, overlap=overlap)
 
 
 def mesh_plan(cfg, mesh):
@@ -181,9 +192,8 @@ class _ShardedTrainStep:
     this class under a pp>1 plan: whether a call pipelines is read from
     the current plan, so `rebuild` can cross between 3D and pp. Its
     `bubble_fraction` is the first call's (the 1F1B schedule's, which
-    the plan's (pp, m) fix); the reference also publishes it as the
-    `train.bubble_fraction` gauge, which waits for the port of its
-    monitor (ROADMAP A7).
+    the plan's (pp, m) fix), also published as the
+    `train.bubble_fraction` gauge.
 
     Leaves are plain local tensors beside that pin table. `shard_args`
     turns full trees (numpy or tensors) into this rank's shards; the
@@ -354,11 +364,52 @@ class _ShardedTrainStep:
                                                        batch)
         else:
             batch = self._local_batch(batch)
-        out = self._run(self._wrapper or self._fn, params, opt_state,
-                        batch, *rest, batch=batch)
+        try:
+            out = self._run(self._wrapper or self._fn, params, opt_state,
+                            batch, *rest, batch=batch)
+        except torch.OutOfMemoryError as e:
+            self._dump_oom_forensics(repr(e)[:500], params, opt_state, batch)
+            raise
         if self._pp and self.bubble_fraction is None:
+            from ..profiler import monitor
             self.bubble_fraction = float(self._fn.bubble)
+            monitor.gauge("train.bubble_fraction").set(
+                round(self.bubble_fraction, 6))
         return out
+
+    def _dump_oom_forensics(self, error, params, opt_state, batch) -> None:
+        """The `oom_forensics` flight dump of a step out of device memory
+        (reference :386-420): the plan's `train_memory_ledger` at this
+        batch, and the census of the step's argument tensors (leaf
+        names, shapes, dtypes, pins) beside what else the allocator
+        holds. Reads metadata only and keeps no reference to the failed
+        call's tensors, so their memory returns once the error is
+        dropped."""
+        from ..profiler import flight_recorder, monitor
+        from ..profiler.mem_audit import live_array_census
+        ledger = None
+        if self.cfg is not None and self.plan is not None:
+            from ..cost_model import train_memory_ledger
+            shapes = self._global[2] if self._global is not None else None
+            tokens = shapes["tokens"] if isinstance(shapes, dict) else shapes
+            if tokens is not None and len(tokens) >= 2:
+                ledger = train_memory_ledger(
+                    self.cfg, self.plan, global_batch=int(tokens[0]),
+                    seq=max(int(tokens[1]) - 1, 1))
+        pins = self.in_pins or (None, None, None)
+        census = live_array_census(
+            {"params": params, "opt_state": opt_state, "batch": batch},
+            pins={"params": pins[0], "opt_state": pins[1],
+                  "batch": pins[2]})
+        monitor.counter("train.oom_forensics").add()
+        rec = flight_recorder.recorder()
+        rec.configure(oom_forensics={
+            "where": "train_step", "error": error, "ledger": ledger,
+            "census": census["rows"], "live_bytes": census["total_bytes"],
+            "other_bytes": census["other_bytes"],
+            "plan": getattr(self.plan, "name", repr(self.plan))})
+        rec.note(oom_forensics="train_step")
+        rec.dump("oom_forensics")
 
     def loss_and_grads(self, params, batch):
         """(global loss, this rank's reduced gradient shards) at the
@@ -405,7 +456,8 @@ class _ShardedTrainStep:
         self.bubble_fraction = None
         self._derived = 0
         self._cell.rebuild(self.mesh, self.plan)
-        # waits for A7: the facade_train_step_rebuilds counter
+        from ..profiler import monitor
+        monitor.counter("facade_train_step_rebuilds").add()
         return self
 
 

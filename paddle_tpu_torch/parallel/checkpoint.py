@@ -52,9 +52,14 @@ Training state is f32 and int64. numpy has no bfloat16 without
 ml_dtypes, so a bfloat16 leaf is refused by name rather than written in
 a form the reference would cast by value.
 
-The reference's monitor counters and gauges, `RecordEvent` spans and
-flight-recorder dumps wait for ROADMAP A7; each call site keeps a
-one-line comment naming what waits.
+Observability, the reference's (:322-328, :509-517, :610-613,
+:850-880, :935-958): the `checkpoint.save`, `checkpoint.verify`,
+`checkpoint.load` and `checkpoint.snapshot` spans; the `checkpoint_save`
+(with `checkpoint_save_ms`), `checkpoint_verify`, `checkpoint_load`,
+`checkpoint_async_save`, `checkpoint_async_retry`,
+`checkpoint_fallback_restore` and `checkpoint_restore` counters; the
+`checkpoint_async_pending` gauge (1 while a writer runs); and the
+`checkpoint_async_retry` and `checkpoint_async_fail` flight dumps.
 """
 from __future__ import annotations
 
@@ -502,10 +507,16 @@ def save_sharded(state, path: str, update_pointer: bool = True,
     branch (`process_index=`, each host's manifest listing only its own
     shards) has no counterpart: ranks here share one commit. Returns
     `path`."""
-    # waits for A7: the `checkpoint.save` span and the checkpoint_save /
-    # checkpoint_save_ms monitor stats
-    return _save_sharded_impl(state, path, update_pointer, shardings,
-                              on_commit)
+    import time as _time
+    from ..profiler import RecordEvent, monitor
+    t0 = _time.perf_counter()
+    with RecordEvent("checkpoint.save"):
+        out = _save_sharded_impl(state, path, update_pointer, shardings,
+                                 on_commit)
+    monitor.counter("checkpoint_save").add()
+    monitor.gauge("checkpoint_save_ms").set(
+        (_time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def _flat_state(state, shardings, rank, world):
@@ -752,11 +763,13 @@ def verify_checkpoint(path: str) -> Dict[str, Any]:
     matches its recorded byte size and CRC32. Raises
     CheckpointCorruptError on the first violation; returns the
     manifest."""
-    # waits for A7: the `checkpoint.verify` span and counter
-    manifest = _load_manifest(path)
-    _parallel(lambda sh: _verify_shard_stream(path, sh),
-              [sh for entry in manifest["leaves"].values()
-               if entry["kind"] == "array" for sh in entry["shards"]])
+    from ..profiler import RecordEvent, monitor
+    with RecordEvent("checkpoint.verify"):
+        manifest = _load_manifest(path)
+        _parallel(lambda sh: _verify_shard_stream(path, sh),
+                  [sh for entry in manifest["leaves"].values()
+                   if entry["kind"] == "array" for sh in entry["shards"]])
+    monitor.counter("checkpoint_verify").add()
     return manifest
 
 
@@ -859,8 +872,11 @@ def load_sharded(path: str, mesh=_UNSET, specs=None, template=None,
     root (a `LATEST` pointer), the pointed snapshot is loaded, falling
     back to the newest intact one; a bare path whose commit rename was
     interrupted recovers its complete sibling `<path>.{tmp,old}-*`."""
-    # waits for A7: the `checkpoint.load` span and counter
-    return _load_sharded_impl(path, mesh, specs, template, verify, device)
+    from ..profiler import RecordEvent, monitor
+    with RecordEvent("checkpoint.load"):
+        out = _load_sharded_impl(path, mesh, specs, template, verify, device)
+    monitor.counter("checkpoint_load").add()
+    return out
 
 
 def _load_sharded_impl(path, mesh, specs, template, verify, device):
@@ -1064,30 +1080,44 @@ class CheckpointManager:
         save_async waits out the first, surfacing its failure here. A
         writer failure retries once after `async_retry_backoff_s` (the
         staging is rewritten from the snapshot); a second failure
-        surfaces as AsyncSaveError at the next barrier."""
+        surfaces as AsyncSaveError at the next barrier. Each failure
+        is counted (`checkpoint_async_retry`) and flight-dumped
+        ('checkpoint_async_retry', then 'checkpoint_async_fail');
+        `checkpoint_async_pending` reads 1 while the writer runs."""
         import time as _time
+        from ..profiler import RecordEvent, flight_recorder, monitor
         self.wait()
-        # waits for A7: the `checkpoint.snapshot` span, the
-        # checkpoint_async_save counter, checkpoint_async_pending gauge
-        snap = HostSnapshot(state, shardings=shardings, pool=self._pool)
+        with RecordEvent("checkpoint.snapshot"):
+            snap = HostSnapshot(state, shardings=shardings, pool=self._pool)
         self.last_snapshot_bytes = snap.nbytes
         self.last_write_s = None
         path = self._path(step)
+        monitor.counter("checkpoint_async_save").add()
+        monitor.gauge("checkpoint_async_pending").set(1)
 
         def work():
             t0 = _time.perf_counter()
             try:
                 try:
                     save_sharded(snap, path, on_commit=self._gc)
-                except BaseException:
-                    # waits for A7: the checkpoint_async_retry counter and
-                    # its flight-recorder dump
+                except BaseException as e:
+                    monitor.counter("checkpoint_async_retry").add()
+                    rec = flight_recorder.recorder()
+                    rec.configure(last_error=f"async checkpoint save of "
+                                             f"step {step} failed "
+                                             f"(retrying once): {e!r}")
+                    rec.dump("checkpoint_async_retry")
                     _time.sleep(self.async_retry_backoff_s)
                     save_sharded(snap, path, on_commit=self._gc)
                 self.last_write_s = _time.perf_counter() - t0
             except BaseException as e:     # surfaced at the next barrier
-                # waits for A7: the checkpoint_async_fail flight dump
                 self._async_err = e
+                rec = flight_recorder.recorder()
+                rec.configure(last_error=f"async checkpoint save of step "
+                                         f"{step} failed twice: {e!r}")
+                rec.dump("checkpoint_async_fail")
+            finally:
+                monitor.gauge("checkpoint_async_pending").set(0)
 
         with self._async_lock:
             t = threading.Thread(target=work, name="paddle-ckpt-async",
@@ -1138,11 +1168,15 @@ class CheckpointManager:
         skipped newest-first. An in-flight async save is waited out
         first; a failed writer is absorbed here (restore's contract is
         the newest intact snapshot). `mesh`, `specs`, `template` and
-        `device` as load_sharded's."""
+        `device` as load_sharded's. A restore past a failed writer or a
+        corrupt snapshot counts `checkpoint_fallback_restore` (the count a
+        production run alerts on); a restored snapshot
+        `checkpoint_restore`."""
+        from ..profiler import monitor
         try:
             self.wait()
         except AsyncSaveError:
-            pass      # waits for A7: the checkpoint_fallback_restore counter
+            monitor.counter("checkpoint_fallback_restore").add()
         with self._retain_lock:
             for cand in self._candidates():
                 try:
@@ -1151,9 +1185,9 @@ class CheckpointManager:
                                          template=template, verify=False,
                                          device=device)
                 except CheckpointCorruptError:
-                    # waits for A7: the checkpoint_fallback_restore counter
+                    monitor.counter("checkpoint_fallback_restore").add()
                     continue
-                # waits for A7: the checkpoint_restore counter
+                monitor.counter("checkpoint_restore").add()
                 return state, self._step_of(cand)
         return None, None
 

@@ -89,8 +89,12 @@ shared CheckpointManager, so a zombie step completing late cannot save
 an abandoned-timeline checkpoint into the restored run) -> resume at
 the restored step.
 
-The `train.elastic.*` monitor family and the flight-recorder dumps wait
-for ROADMAP A7; each call site keeps a one-line comment.
+Observability, the reference's (:200, :281-289, :417-462): the
+`train.elastic.*` monitor family (`replans`, `device_loss` and
+`collective_hang` counters; `world_size`, `replan_ms` and
+`reshard_bytes` gauges), an `elastic_device_loss` flight dump at each
+loss (before a leaver departs), an `elastic_degraded_exit` dump before
+the exit-101 route, and a replan note in the flight recorder's ring.
 """
 from __future__ import annotations
 
@@ -291,8 +295,12 @@ def request_degraded_restart(spec: dict, reason: str = "device_loss"
     re-exports the spec, `heartbeat.degraded_world()` hands it to the
     restarted workers), which resume from LATEST. The spec carries the
     wall time of the request (`t_exit`), so a restarted worker can time
-    its relaunch."""
-    # waits for A7: the flight recorder's 'elastic_degraded_exit' dump
+    its relaunch. Dumps 'elastic_degraded_exit' first, so the exiting
+    worker leaves a black box naming what it lost."""
+    from ..profiler import flight_recorder
+    rec = flight_recorder.recorder()
+    rec.configure(elastic_world_spec=spec, elastic_reason=reason)
+    rec.dump("elastic_degraded_exit")
     path = write_world_spec(dict(spec, reason=reason, t_exit=time.time()))
     print(f"[elastic] {reason}: requesting degraded restart "
           f"(world spec {spec}"
@@ -393,8 +401,16 @@ class ElasticTrainer:
         self._gen = 0
         self._pending_stall = 0.0
         self._puller = WatchdogPuller(label="elastic-step")
+        from ..profiler import flight_recorder, monitor
+        self._mon_replans = monitor.counter("train.elastic.replans")
+        self._mon_loss = monitor.counter("train.elastic.device_loss")
+        self._mon_hang = monitor.counter("train.elastic.collective_hang")
+        self._mon_world = monitor.gauge("train.elastic.world_size")
+        self._mon_replan_ms = monitor.gauge("train.elastic.replan_ms")
+        self._mon_reshard = monitor.gauge("train.elastic.reshard_bytes")
+        self._mon_world.set(len(self.world))
+        self._flight = flight_recorder.recorder()
         self._trainer = self._make_trainer(params, opt_state, step=0)
-        # waits for A7: the train.elastic.* monitor family and flight dumps
 
     def _resolve_run_dir(self) -> Optional[str]:
         """The manager's `<root>/elastic`, where every rank meets: the
@@ -487,6 +503,7 @@ class ElasticTrainer:
             self.leases.pulse()
             lost = self.leases.stale(c.heartbeat_timeout)
         if lost:
+            self._mon_loss.add()
             self._replan(lost, reason="heartbeat_stale", t0=t_detect)
             return None
         stall, self._pending_stall = self._pending_stall, 0.0
@@ -514,7 +531,7 @@ class ElasticTrainer:
             loss, ok = self._puller.pull(watched, budget,
                                          retries=c.hang_retries)
         except StepHungError:
-            # waits for A7: the train.elastic.collective_hang counter
+            self._mon_hang.add()
             lost = self.leases.stale(c.heartbeat_timeout)
             if not lost:
                 # the hung rank is unidentifiable from a wedged
@@ -581,7 +598,8 @@ class ElasticTrainer:
         lost = sorted(set(lost))
         print(f"[elastic] device loss ({reason}): lost {lost} of "
               f"{len(self.world)}; replanning", file=sys.stderr, flush=True)
-        # waits for A7: train.elastic.device_loss, 'elastic_device_loss'
+        self._flight.configure(elastic_reason=reason, elastic_lost=lost)
+        self._flight.dump("elastic_device_loss")
         t_detect = time.perf_counter()
         self._settle_writes()
         t_settle = time.perf_counter()
@@ -604,6 +622,7 @@ class ElasticTrainer:
                 print(f"[elastic] device loss DURING restore (attempt "
                       f"{attempt + 1}): lost {e.lost}; re-degrading",
                       file=sys.stderr, flush=True)
+                self._flight.dump("elastic_device_loss")
                 survivors = [s for s in survivors if s not in e.lost]
                 if self._key in e.lost:
                     self._depart(DECLARED_LOST_EXIT,
@@ -629,7 +648,15 @@ class ElasticTrainer:
                             "reform_s": t_reform - t_settle,
                             "restore_s": t1 - t_reform,
                             "reshard_bytes": float(nbytes)}
-        # waits for A7: train.elastic.replans/world_size/replan_ms/bytes
+        ms = (t1 - t0) * 1e3
+        self._mon_replans.add()
+        self._mon_world.set(len(self.world))
+        self._mon_replan_ms.set(round(ms, 3))
+        self._mon_reshard.set(nbytes)
+        self._flight.configure(elastic_plan=new_plan.name,
+                               elastic_world=len(self.world))
+        self._flight.note(event="elastic_replan", plan=new_plan.name,
+                          step=self.step, replan_ms=round(ms, 3))
         print(f"[elastic] replanned onto {new_plan.name} "
               f"({len(self.world)} ranks) at step {self.step} in "
               f"{(t1 - t0) * 1e3:.0f} ms", file=sys.stderr, flush=True)

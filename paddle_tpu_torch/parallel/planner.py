@@ -25,9 +25,10 @@ plan (parallel/resilience.py `ResilientTrainer.rebuild_plan`).
 `degrade_plan` (:651-757) is the elastic controller's replan onto the
 surviving devices (parallel/elastic.py), and `plan_serving_tp`
 (:759-810) the tensor-parallel degree of a serving engine
-(inference/serving.py `mesh=`). The `train.plan.*` monitor gauges and
-the pipelined step's `train.bubble_fraction` gauge wait for A7's
-monitor.
+(inference/serving.py `mesh=`). `plan_train` publishes the chosen
+degrees as the `train.plan.*` monitor gauges (reference :627-641), and
+`train.bubble_fraction` 0.0 for a pp=1 plan; the pipelined step
+publishes its measured bubble (models/facade.py).
 """
 from __future__ import annotations
 
@@ -538,9 +539,8 @@ def plan_train(cfg_or_spec, n_devices: int, global_batch: int,
     (_pp_manual_constraints) and a microbatch count with
     (pp-1)/microbatches priced as its bubble.
 
-    The reference also publishes the chosen degrees as `train.plan.*`
-    monitor gauges; those wait for the port of its monitor (ROADMAP
-    A7)."""
+    The chosen degrees are published as the `train.plan.*` monitor
+    gauges."""
     spec = _coerce_spec(cfg_or_spec)
     chip = chip or ChipSpec()
     if any(d is not None for d in (dp, fsdp, tp, pp)):
@@ -635,6 +635,19 @@ def plan_train(cfg_or_spec, n_devices: int, global_batch: int,
     if param_specs is not None:
         from .mesh import remap_specs
         specs = remap_specs(param_specs, mapping)
+    from ..profiler import monitor
+    for ax, n in axes.items():
+        monitor.gauge(f"train.plan.{ax}").set(n)
+    monitor.gauge("train.plan.n_devices").set(best.n_devices)
+    # the pp family publishes unconditionally: after an elastic degrade
+    # from pp>1 to pp=1, stale pp gauges would advertise the old plan;
+    # pp=1 resets them (bubble 0.0: no pipeline; a pp>1 step's measured
+    # bubble overwrites it at its first call)
+    monitor.gauge("train.plan.pp").set(best.pp)
+    monitor.gauge("train.plan.microbatches").set(
+        best.microbatches if best.pp > 1 else 1)
+    if best.pp <= 1:
+        monitor.gauge("train.bubble_fraction").set(0.0)
     return TrainPlan(axes=axes, mapping=mapping,
                      batch_axes=("dp", "fsdp"), plan=best, specs=specs,
                      overlap=bool(overlap))

@@ -30,14 +30,27 @@ Three guards around models.facade.make_train_step:
   (101) so a launcher restarts the worker and it resumes from `LATEST`.
   After a hang the trainer's state is untrusted.
 
-`make_resilient_step(telemetry=)` (the reference's device telemetry
-accumulator), the monitor counters and gauges and the flight-recorder
-dumps wait for ROADMAP A7; each call site keeps a one-line comment.
+Observability, the reference's (:158-194, :411-418, :485-548):
+`make_resilient_step(telemetry=)` records RESILIENT_FIELDS into the
+device accumulator of a profiler.telemetry.TelemetryPipeline, the raw
+(pre-guard) loss, the update norm and the non-finite count read before
+the guard restores anything (the update norm against the guard's own
+pre-step copies, so the state is never copied twice); the trainer
+counts `resilience_steps`, `resilience_skip_step`, `resilience_rollback`
+and `resilience_watchdog_hang`, sets `resilience_step_ms`, notes every
+step in the flight recorder and dumps it at a rollback
+('rollback') and a hang ('watchdog_hang', or 'watchdog_elastic_exit'
+before the exit 101). Unlike the reference, whose accumulator cursor
+runs on through a rollback while its flush cadence follows the rewound
+step counter, the trainer writes the rows since the last flush at a
+rollback and restarts the cursor at the restored step: the stream holds
+every attempted step once, the re-run ones under their ids again.
 """
 from __future__ import annotations
 
 import sys
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -49,7 +62,8 @@ from ..distributed.launch.heartbeat import ELASTIC_EXIT_CODE  # noqa: F401
 
 __all__ = ["StepHungError", "ResilienceConfig", "plan_state_specs",
            "make_resilient_step", "pull_with_watchdog", "WatchdogPuller",
-           "ResilientTrainer", "run_resilient", "ELASTIC_EXIT_CODE"]
+           "ResilientTrainer", "run_resilient", "ELASTIC_EXIT_CODE",
+           "RESILIENT_FIELDS"]
 
 # Fault-injection seam (paddle_tpu_torch.testing.faults): called with the
 # step index about to run, inside the watchdog budget; returns a loss
@@ -145,6 +159,22 @@ class _Backup:
             if isinstance(leaf, torch.Tensor):
                 leaf.copy_(self.bufs[key])
 
+    def update_sumsq(self, params, reducer=None):
+        """The (mesh-weighted) sum over the param leaves of
+        ||leaf - its pre-step copy||² (0-d f32), the params being the
+        first tree saved; None without a floating leaf."""
+        from ..profiler.telemetry import _weighted
+        parts, weights = [], []
+        for key, leaf in _flatten(params, "#0/").items():
+            if not (isinstance(leaf, torch.Tensor)
+                    and leaf.is_floating_point() and leaf.numel()):
+                continue
+            parts.append(torch.square(torch.linalg.vector_norm(
+                leaf.float() - self.bufs[key].float())))
+            weights.append(1.0 if reducer is None
+                           else reducer.weight(0, key.split("/")[1:]))
+        return _weighted(parts, weights)
+
 
 def make_resilient_step(step_fn, cfg=None, telemetry=None, mesh=None,
                         plan=None, **step_kw):
@@ -157,19 +187,24 @@ def make_resilient_step(step_fn, cfg=None, telemetry=None, mesh=None,
     another plan). `ok` is a 0-d bool tensor, the same on every rank;
     when it is false the returned trees are the inputs with their
     pre-step values and the loss is nan, so one pull of the loss tells
-    both. `telemetry` waits for ROADMAP A7 (the device telemetry
-    accumulator) and raises."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "make_resilient_step(telemetry=...): the device telemetry "
-            "accumulator (paddle_tpu/profiler/telemetry.py) is not ported "
-            "yet; it waits for ROADMAP A7")
+    both.
+
+    With `telemetry` (a profiler.telemetry.TelemetryPipeline) the step
+    also takes and returns the device accumulator, `(params, opt_state,
+    batch, poison, tstate) -> (loss, params, opt_state, ok, tstate)`,
+    and records the fields of RESILIENT_FIELDS it declares: the raw loss
+    (× poison, before the guard folds it to nan), the update global norm
+    and the non-finite count of the updated params (read before a
+    restore, so a diverging run shows its blow-up), the param global
+    norm of the kept params, and ok. Under a mesh each is the whole
+    model's, every block counted once."""
     from ..models.facade import make_train_step, plan_step_cell
     cell = plan_step_cell(step_fn, cfg=cfg, mesh=mesh, plan=plan,
                           **step_kw)
     backup = _Backup()
+    box = {}
 
-    def guarded(params, opt_state, batch, poison=1.0):
+    def guarded(params, opt_state, batch, poison=1.0, tstate=None):
         backup.save(params, opt_state)
         loss, new_params, new_opt = cell.fn(params, opt_state, batch)[:3]
         loss = loss * poison
@@ -179,14 +214,70 @@ def make_resilient_step(step_fn, cfg=None, telemetry=None, mesh=None,
             if fin is not None:
                 ok = ok & fin.to(ok.device)
         ok = _all_ranks(ok)
+        if telemetry is not None:
+            # queued before the restore below, so they read the raw update
+            red = _reducer(box)
+            raw = _raw_partials(telemetry, red, backup, new_params)
         if bool(ok):
-            return loss, new_params, new_opt, ok
-        backup.restore(params, opt_state)
-        return torch.full_like(loss, float("nan")), params, opt_state, ok
+            out = (loss, new_params, new_opt, ok)
+        else:
+            backup.restore(params, opt_state)
+            out = (torch.full_like(loss, float("nan")), params, opt_state,
+                   ok)
+        if telemetry is None:
+            return out
+        _record(telemetry, red, tstate, raw, loss, out[1], ok)
+        return out + (tstate,)
 
     guarded._plan_cell = cell
     guarded.backup = backup
-    return make_train_step(guarded, mesh=mesh, plan=plan)
+    step = make_train_step(guarded, mesh=mesh, plan=plan)
+    if step is not guarded:
+        box["step"] = step
+    return step
+
+
+# the telemetry fields of the resilient step (DEFAULT_FIELDS' grad_norm
+# and lr are not the guard's to see): TelemetryPipeline(fields=...)
+RESILIENT_FIELDS = ("loss", "update_norm", "param_norm", "nonfinite", "ok")
+
+
+def _reducer(box):
+    from ..profiler.telemetry import _Reducer
+    pins = getattr(box.get("step"), "in_pins", None)
+    return _Reducer(pins) if pins is not None else None
+
+
+def _raw_partials(telemetry, red, backup, new_params):
+    """This rank's partial sums of the raw update: the update's sum of
+    squares and the updated params' non-finite count."""
+    from ..profiler.telemetry import _nonfinite
+    want = set(telemetry.fields)
+    return {"update_norm": backup.update_sumsq(new_params, red)
+            if "update_norm" in want else None,
+            "nonfinite": _nonfinite(new_params, red)
+            if "nonfinite" in want else None}
+
+
+def _record(telemetry, red, tstate, raw, loss, kept_params, ok):
+    """Reduce the partial sums over the mesh in one vector and write the
+    row."""
+    from ..profiler.telemetry import _sumsq
+    parts = dict(raw)
+    if "param_norm" in telemetry.fields:
+        parts["param_norm"] = _sumsq(kept_params, red)
+    names = [k for k, v in parts.items() if v is not None]
+    scalars = {}
+    if names:
+        vec = torch.stack([parts[k].to(torch.float32) for k in names])
+        if red is not None:
+            vec = red.sum(vec)
+        for k, v in zip(names, vec):
+            scalars[k] = v.round() if k == "nonfinite" else torch.sqrt(v)
+    scalars["loss"] = loss
+    scalars["ok"] = ok.to(torch.float32)
+    telemetry.device_record(tstate, **{k: v for k, v in scalars.items()
+                                       if k in telemetry.fields})
 
 
 # ------------------------------------------------------------- watchdog
@@ -362,7 +453,16 @@ class ResilientTrainer:
     rank's block of the plan's layout (`plan_state_specs`) on the mesh's
     device. Without, restores land on the device of the given params.
     `mesh=` alone (no plan) sets only the restore layout. The optimizer
-    keywords (`lr`, ...) go through `step_kw`."""
+    keywords (`lr`, ...) go through `step_kw`.
+
+    With `telemetry` (a TelemetryPipeline, fields from RESILIENT_FIELDS)
+    the accumulator is made at the first step on the trainer's device,
+    its cursor seeded from the step then (a resumed run continues its
+    ids), ticked after every step, and written out and restarted at the
+    restored step on a rollback, a resume or a replan. The trainer's
+    flight recorder installs its exit hooks; dumps go nowhere until a
+    directory is set ($PADDLE_TPU_FLIGHT_DIR, which the launcher
+    exports)."""
 
     def __init__(self, step_fn, params, opt_state, *, cfg=None,
                  manager: Optional[CheckpointManager] = None,
@@ -398,18 +498,40 @@ class ResilientTrainer:
         self.rollbacks = 0
         self._bad_streak = 0
         self._puller = WatchdogPuller(label="step")
+        self.telemetry = telemetry
+        self._tstate = None
         # liveness: a no-op unless the launcher exported the contract
         from ..distributed.launch import heartbeat
         heartbeat.start_from_env()
         self._heartbeat = heartbeat
-        # waits for A7: the resilience_* monitor counters and gauges and
-        # the flight recorder's configure/exit hooks
+        from ..profiler import flight_recorder, monitor
+        self._mon_skip = monitor.counter("resilience_skip_step")
+        self._mon_rollback = monitor.counter("resilience_rollback")
+        self._mon_hang = monitor.counter("resilience_watchdog_hang")
+        self._mon_steps = monitor.counter("resilience_steps")
+        self._mon_step_ms = monitor.gauge("resilience_step_ms")
+        self._flight = flight_recorder.recorder()
+        self._flight.install_exit_hooks()
+        c = self.config
+        self._flight.configure(
+            trainer="ResilientTrainer", start_step=self.step,
+            rollback_after=c.rollback_after, max_rollbacks=c.max_rollbacks,
+            checkpoint_every=c.checkpoint_every,
+            watchdog_timeout=c.watchdog_timeout)
 
     # ------------------------------------------------------------- state
     def _restore_device(self):
         return self._device if self._device is not None else "cpu"
 
+    def _restart_cursor(self) -> None:
+        """Write the accumulator's rows since the last flush and drop it:
+        the next step makes a fresh one seeded from the (rewound) step."""
+        if self.telemetry is not None and self._tstate is not None:
+            self.telemetry.flush_tail(self._tstate)
+        self._tstate = None
+
     def _install(self, state, step) -> None:
+        self._restart_cursor()
         self.params = state["params"]
         self.opt_state = state.get("opt_state", self.opt_state)
         saved = state.get("step")
@@ -466,6 +588,7 @@ class ResilientTrainer:
                 "(manager.restore(mesh=mesh, "
                 "specs=plan_state_specs(plan)))")
         self._guarded.rebuild(mesh=mesh, plan=plan)
+        self._restart_cursor()
         self._mesh = mesh
         if plan is not None and plan.specs:
             self._specs = plan_state_specs(plan)
@@ -505,8 +628,15 @@ class ResilientTrainer:
         poison = 1.0
         if _STEP_HOOK is not None:
             poison = _STEP_HOOK(self.step)
-        loss, params, opt, _ok = self._guarded(self.params, self.opt_state,
-                                               batch, poison)
+        if self.telemetry is not None:
+            if self._tstate is None:
+                self._tstate = self.telemetry.device_init(
+                    start=self.step, device=self._restore_device())
+            loss, params, opt, _ok, _ = self._guarded(
+                self.params, self.opt_state, batch, poison, self._tstate)
+        else:
+            loss, params, opt, _ok = self._guarded(
+                self.params, self.opt_state, batch, poison)
         box["state"] = (params, opt)
         # the guard folds every badness into a nan loss, so the one
         # pull of the loss tells ok as well
@@ -521,24 +651,32 @@ class ResilientTrainer:
         `maybe_resume()`."""
         c = self.config
         box = {}
+        t0 = time.perf_counter()
         try:
             loss_host = float(self._puller.pull(
                 lambda: self._run_step(batch, box), c.watchdog_timeout,
                 c.retries, c.backoff_base, c.backoff_max))
         except StepHungError as e:
-            # waits for A7: the resilience_watchdog_hang counter and the
-            # watchdog_hang / watchdog_elastic_exit flight dumps
+            self._mon_hang.add()
+            self._flight.configure(last_error=str(e))
             if c.exit_on_hang:
+                self._flight.dump("watchdog_elastic_exit")
                 print(f"[resilience] {e}; exiting {ELASTIC_EXIT_CODE} for "
                       f"elastic restart", file=sys.stderr, flush=True)
                 sys.exit(ELASTIC_EXIT_CODE)
+            self._flight.dump("watchdog_hang")
             raise
         ok_host = bool(np.isfinite(loss_host))
         self.params, self.opt_state = box["state"]
         self._heartbeat.pulse()
         self.step += 1
-        # waits for A7: the resilience_steps counter, resilience_step_ms
-        # gauge and the flight recorder's per-step note
+        dur_s = time.perf_counter() - t0
+        self._mon_steps.add()
+        self._mon_step_ms.set(dur_s * 1e3)
+        self._flight.note(step=self.step - 1, loss=loss_host, ok=ok_host,
+                          dur_s=round(dur_s, 6))
+        if self.telemetry is not None:
+            self.telemetry.tick(self.step - 1, self._tstate)
         if ok_host:
             self._bad_streak = 0
             if (self.manager is not None and c.checkpoint_every > 0
@@ -547,6 +685,7 @@ class ResilientTrainer:
         else:
             self.skipped += 1
             self._bad_streak += 1
+            self._mon_skip.add()
             print(f"[resilience] non-finite loss at step "
                   f"{self.step - 1}: update skipped "
                   f"({self._bad_streak}/{c.rollback_after} before "
@@ -556,8 +695,9 @@ class ResilientTrainer:
         return loss_host, ok_host
 
     def _rollback(self) -> None:
-        # waits for A7: the resilience_rollback counter and the rollback
-        # flight dump
+        self._mon_rollback.add()
+        # the black box holds the bad streak before the state rewinds
+        self._flight.dump("rollback")
         if self.manager is None:
             # nothing to roll back to: limp on with skips alone
             self._bad_streak = 0

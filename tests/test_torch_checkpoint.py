@@ -1163,3 +1163,94 @@ class TestHeartbeat:
         assert heartbeat.degraded_world() == spec
         monkeypatch.delenv(heartbeat.ENV_WORLD_FILE, raising=False)
         assert heartbeat.write_world_spec(spec) is None
+
+
+# ------------------------------------ observability (ROADMAP A7 part 1)
+@pytest.fixture
+def flight_dir(tmp_path):
+    """The process's flight recorder pointed at a fresh directory, no
+    autodumps; restored after."""
+    from paddle_tpu_torch.profiler import flight_recorder
+    rec = flight_recorder.recorder()
+    saved = (rec.dir, rec.autodump_every)
+    rec.set_dir(str(tmp_path / "flight"))
+    rec.autodump_every = 0
+    yield tmp_path / "flight"
+    rec.set_dir(saved[0])
+    rec.autodump_every = saved[1]
+
+
+def _counts(names):
+    from paddle_tpu_torch.profiler import monitor
+    return {n: monitor.counter(n).value for n in names}
+
+
+def test_spans_counters_and_gauges_of_a_managed_run(tmp_path):
+    """save, save_async, verify, a restore that falls back past a torn
+    snapshot: each counter moves by what ran, each path opens its span,
+    and checkpoint_async_pending reads 0 once the writer is done."""
+    from paddle_tpu_torch.profiler import (clear_profiler_spans,
+                                           get_profiler_spans, monitor)
+    names = ("checkpoint_save", "checkpoint_async_save", "checkpoint_verify",
+             "checkpoint_load", "checkpoint_restore",
+             "checkpoint_fallback_restore", "checkpoint_async_retry")
+    before = _counts(names)
+    clear_profiler_spans()
+    mgr = CheckpointManager(str(tmp_path / "root"), max_to_keep=3)
+    mgr.save(_small_state(0), 1)
+    mgr.save_async(_small_state(1), 2)
+    mgr.wait()
+    assert monitor.gauge("checkpoint_async_pending").value == 0
+    assert monitor.gauge("checkpoint_save_ms").value > 0
+    verify_checkpoint(str(tmp_path / "root" / "ckpt-2"))
+    faults.truncate_shard(str(tmp_path / "root" / "ckpt-2"))
+    state, step = mgr.restore(mesh=None, device="cpu")
+    assert step == 1
+    got = {n: v - before[n] for n, v in _counts(names).items()}
+    assert got == {"checkpoint_save": 2, "checkpoint_async_save": 1,
+                   "checkpoint_verify": 2, "checkpoint_load": 1,
+                   "checkpoint_restore": 1, "checkpoint_fallback_restore": 1,
+                   "checkpoint_async_retry": 0}
+    spans = {s[0] for s in get_profiler_spans()}
+    assert {"checkpoint.save", "checkpoint.snapshot", "checkpoint.verify",
+            "checkpoint.load"} <= spans
+
+
+def test_async_retry_and_failure_are_counted_and_dumped(tmp_path,
+                                                        monkeypatch,
+                                                        flight_dir):
+    """A writer that fails once: the retry is counted and dumped, the
+    snapshot commits. One that fails twice: a second retry count, the
+    'checkpoint_async_fail' dump naming the step, AsyncSaveError at the
+    barrier, and the pending gauge back at 0."""
+    from paddle_tpu_torch.profiler import flight_recorder, monitor
+    retries = monitor.counter("checkpoint_async_retry").value
+    mgr = CheckpointManager(str(tmp_path / "root"),
+                            async_retry_backoff_s=0.01)
+    orig = ck._write_shard
+    calls = {"n": 0}
+
+    def flaky(path, arr):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise OSError("transient blip")
+        return orig(path, arr)
+    monkeypatch.setattr(ck, "_write_shard", flaky)
+    mgr.save_async(_small_state(), 1)
+    mgr.wait()
+    verify_checkpoint(str(tmp_path / "root" / "ckpt-1"))
+    assert monitor.counter("checkpoint_async_retry").value == retries + 1
+    doc = flight_recorder.load_dump(str(
+        flight_dir / f"flight-{os.getpid()}-checkpoint_async_retry.json"))
+    assert "transient blip" in doc["config"]["last_error"]
+    monkeypatch.setattr(
+        ck, "_write_shard",
+        lambda path, arr: (_ for _ in ()).throw(OSError("disk full")))
+    mgr.save_async(_small_state(), 2)
+    with pytest.raises(AsyncSaveError, match="disk full"):
+        mgr.wait()
+    assert monitor.counter("checkpoint_async_retry").value == retries + 2
+    assert monitor.gauge("checkpoint_async_pending").value == 0
+    doc = flight_recorder.load_dump(str(
+        flight_dir / f"flight-{os.getpid()}-checkpoint_async_fail.json"))
+    assert "step 2 failed twice" in doc["config"]["last_error"]

@@ -29,7 +29,12 @@ the controller's code):
 - the launcher runs 4 ranks whose workers exit 101 with the world spec
   {n_devices: 2}; it relaunches 2 ranks, which resume from ckpt-3 on
   dp1×tp2 and equal, to the bit, the in-process replan that restored
-  ckpt-3 onto that plan after the hang.
+  ckpt-3 onto that plan after the hang;
+- every rank that meets a loss or a hang leaves an
+  'elastic_device_loss' flight dump (and under the launcher an
+  'elastic_degraded_exit' one, in the directory the launcher gives each
+  worker), and the survivors' `train.elastic.*` monitor family reads
+  one replan.
 
 The rank processes import this module without jax.
 """
@@ -109,7 +114,10 @@ def _elastic_run(rank, workdir, spec, ecfg, steps, name):
 
 def _summary(et, losses):
     import torch.distributed as dist
-    return {"losses": losses, "replans": et.replans, "axes": et.plan.axes,
+    from paddle_tpu_torch.profiler import monitor
+    return {"monitor": {k: v for k, v in monitor.snapshot().items()
+                        if k.startswith("train.elastic.")},
+            "losses": losses, "replans": et.replans, "axes": et.plan.axes,
             "world": et.world, "step": et.step,
             "trace_count": et.trace_count,
             "restored": et.last_restore_step,
@@ -201,6 +209,10 @@ def _rank_main(scenario, rank, world, workdir):
     from paddle_tpu_torch.parallel import init_parallel_env
     init_parallel_env(backend="gloo", timeout_s=120,
                       init_method=f"file://{workdir}/store.{scenario}")
+    from paddle_tpu_torch.profiler import flight_recorder
+    flight_recorder.recorder().set_dir(os.path.join(workdir,
+                                                    f"flight.{scenario}"))
+    flight_recorder.recorder().autodump_every = 0
     out, code = {}, 0
     try:
         out = SCENARIOS[scenario](rank, workdir)
@@ -209,6 +221,7 @@ def _rank_main(scenario, rank, world, workdir):
     except BaseException as e:                  # recorded for the test
         out = {"error": repr(e)}
     finally:
+        out["pid"] = os.getpid()
         torch.save(out, os.path.join(workdir, f"{scenario}.rank{rank}.pt"))
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -258,7 +271,8 @@ run_elastic(et, batch, 6, on_step=lambda s, l, ok: losses.__setitem__(s, l))
 with open(os.path.join(workdir, f"out.{dist.get_rank()}.json"), "w") as f:
     json.dump({"resumed": resumed, "start": start, "losses": losses,
                "axes": et.plan.axes, "granted": et.granted,
-               "world": dist.get_world_size()}, f)
+               "world": dist.get_world_size(),
+               "flight_dir": os.environ.get("PADDLE_TPU_FLIGHT_DIR")}, f)
 dist.destroy_process_group()
 '''
 
@@ -365,6 +379,7 @@ def worlds(jax_ref):
     torch.save(jax_ref["init"], os.path.join(lwork, "init.pt"))
     out = {s: _collect(s, _start(s, workdir), workdir) for s in SCENARIOS}
     out["launch"] = _launcher_finish(_launcher_start(lwork), lwork)
+    out["workdir"] = workdir
     return out
 
 
@@ -450,6 +465,44 @@ def test_device_loss_mid_restore_re_degrades(worlds):
         assert sorted(r["losses"]) == list(range(6))
         assert len(r["fired"]) == 2
     assert live[0]["losses"] == live[1]["losses"]
+
+
+def test_elastic_counters_and_flight_dumps(worlds):
+    """Each rank of the loss and the hang worlds leaves its
+    'elastic_device_loss' dump (the lost and the left-out ranks before
+    they depart) with its detection counted; each survivor's
+    train.elastic.* family reads one replan onto a world of 2, the
+    bytes it restored and the replan's ms. Under the launcher each of
+    the 4 first workers dumps 'elastic_degraded_exit' with its world
+    spec into <log dir>/flight, which the relaunched workers were given
+    too."""
+    from paddle_tpu_torch.profiler.flight_recorder import load_dump
+    for scenario, reason, counter in (
+            ("loss", "heartbeat_stale", "device_loss"),
+            ("hang", "collective_hang", "collective_hang")):
+        flight = os.path.join(worlds["workdir"], f"flight.{scenario}")
+        for r in worlds[scenario]:
+            doc = load_dump(os.path.join(
+                flight, f"flight-{r['pid']}-elastic_device_loss.json"))
+            assert doc["config"]["elastic_reason"] == reason, scenario
+            assert doc["monitor"][f"train.elastic.{counter}"] == 1, scenario
+        for r in _survivors(worlds[scenario], 2):
+            m = r["monitor"]
+            assert m["train.elastic.replans"] == 1, (scenario, m)
+            assert m[f"train.elastic.{counter}"] == 1, (scenario, m)
+            assert m["train.elastic.world_size"] == 2, (scenario, m)
+            assert m["train.elastic.reshard_bytes"] > 0, (scenario, m)
+            assert m["train.elastic.replan_ms"] > 0, (scenario, m)
+    run = worlds["launch"]
+    flight = os.path.join(worlds["workdir"], "launch", "logs", "flight")
+    exits = [f for f in os.listdir(flight)
+             if f.endswith("-elastic_degraded_exit.json")]
+    assert len(exits) == 4, os.listdir(flight)
+    for f in exits:
+        doc = load_dump(os.path.join(flight, f))
+        assert doc["config"]["elastic_world_spec"]["n_devices"] == 2
+        assert doc["monitor"]["train.elastic.device_loss"] == 1
+    assert [o["flight_dir"] for o in run["outs"]] == [flight] * 2
 
 
 def test_replans_exhausted_raises(worlds):

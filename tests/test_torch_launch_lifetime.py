@@ -116,3 +116,48 @@ def test_smoke_stops_what_it_started(tmp_path):
     assert got["child"] in got["stopped"] and got["kept"] not in got["stopped"]
     assert len(got["stopped"]) == 2 and got["kept_alive"]
     assert all(_ended(p) for p in got["stopped"])
+
+
+FAILER = """
+import os, sys
+with open(os.path.join(os.environ["LIFETIME_DIR"],
+                       "flight%s.%s" % (os.environ["RANK"], os.getpid())),
+          "w") as f:
+    f.write(os.environ.get("PADDLE_TPU_FLIGHT_DIR", ""))
+sys.exit(3)
+"""
+
+
+def test_failed_pod_leaves_the_controllers_flight_dump(tmp_path):
+    """A worker that fails every launch (one rank, so no peer is stopped
+    before it writes): each launch's worker is given <log dir>/flight as
+    its flight-recorder directory; once the one crash restart is spent
+    the launcher returns the worker's code and dumps 'launch_failed'
+    there, its ring holding both pod exits and its monitor the restart."""
+    from paddle_tpu_torch.profiler.flight_recorder import load_dump
+    script = tmp_path / "failer.py"
+    script.write_text(FAILER)
+    logs = tmp_path / "logs"
+    env = dict(os.environ, PYTHONPATH=REPO, LIFETIME_DIR=str(tmp_path),
+               OMP_NUM_THREADS="1")
+    for k in ("PADDLE_TPU_FAULTS", "PADDLE_TPU_FLIGHT_DIR"):
+        env.pop(k, None)
+    run = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "1", "--devices", "cpu", "--max_restart", "1",
+         "--log_dir", str(logs), str(script)],
+        env=env, capture_output=True, text=True, timeout=180)
+    assert run.returncode == 3, run.stderr[-2000:]
+    given = [(tmp_path / f).read_text() for f in os.listdir(tmp_path)
+             if f.startswith("flight")]
+    assert given == [str(logs / "flight")] * 2
+    dumps = [f for f in os.listdir(logs / "flight")
+             if f.endswith("-launch_failed.json")]
+    assert len(dumps) == 1
+    doc = load_dump(str(logs / "flight" / dumps[0]))
+    assert [(r["phase"], r["rc"], r["attempt"]) for r in doc["steps"]] == [
+        ("pod_exit", 3, 0), ("pod_exit", 3, 1)]
+    assert doc["monitor"]["launch_pod_restart"] == 1
+    assert doc["monitor"]["launch_elastic_restart"] == 0
+    assert {s["name"] for s in doc["spans"]} == {"launch.spawn",
+                                                "launch.wait"}

@@ -22,6 +22,16 @@ bit. The same 4-rank world checks parallel/collective.py on 2-rank
 groups: each route against gloo's own collective, and the gradient of
 each differentiable pair against a hand-computed sum.
 
+The device telemetry (profiler/telemetry.py) rides the same worlds:
+GPT under dp2×fsdp2 and dp2×tp2 through `instrument_train_step` for 3
+steps, whose losses must equal the plain sharded step's to the bit and
+whose recorded loss, grad_norm and param_norm (each rank's shards
+summed over the mesh, every block once) must agree with the port's
+unsharded instrumented step within 2e-4 on every rank; and on the world
+of one, a sharded step whose inner step runs out of memory writes the
+`oom_forensics` flight dump naming the leaves and re-raises, with no
+`train.compile.*` gauge published.
+
 The rank processes import this module without jax: the JAX side is
 imported in the fixtures, in the test process only.
 """
@@ -271,10 +281,12 @@ def _rank_main(rank, world, workdir):
     try:
         if world == 1:
             out["one_rank"] = _one_rank(init)
+            out["oom"] = _oom_forensics(init, workdir)
         else:
             out["collectives"] = _collective_checks(rank)
             for case in CASES:
                 out[case[0]] = _run_case(case, init[case[1]])
+            out["telemetry"] = _telemetry_run(init["gpt"], workdir, rank)
     finally:
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
         dist.destroy_process_group()
@@ -315,6 +327,84 @@ def _one_rank(init):
                            for m in ("m", "v") for k in p0),
             "step": torch.equal(o0["step"], o1["step"])}
     return res
+
+
+TELEMETRY_PLANS = {"dp2_fsdp2": dict(dp=2, fsdp=2, tp=1),
+                   "dp2_tp2": dict(dp=2, fsdp=1, tp=2)}
+TELEMETRY_STEPS = 3
+
+
+def _instrumented_gpt(params0, path, mesh=None, plan=None):
+    """GPT through instrument_train_step for TELEMETRY_STEPS steps on
+    _tokens(0): (losses, the JSONL's step records)."""
+    import json
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.profiler import telemetry
+    cfg = _tcfg("gpt")
+    tele = telemetry.TelemetryPipeline(path, every=TELEMETRY_STEPS,
+                                       fields=telemetry.MFU_FIELDS)
+    step = telemetry.instrument_train_step(gpt.train_step, tele, cfg=cfg,
+                                           lr=LR, mesh=mesh, plan=plan)
+    params = {k: torch.from_numpy(v.copy()) for k, v in params0.items()}
+    opt = gpt.init_opt_state(params)
+    ts = tele.device_init(device="cpu")
+    losses = []
+    for i in range(TELEMETRY_STEPS):
+        loss, params, opt, ts = step(params, opt,
+                                     torch.from_numpy(_tokens(0)), ts)
+        losses.append(float(loss))
+        tele.tick(i, ts)
+    tele.close(ts)
+    recs = [json.loads(ln) for ln in open(path)]
+    return losses, [r for r in recs if r["kind"] == "step"]
+
+
+def _telemetry_run(params0, workdir, rank):
+    """Each TELEMETRY_PLANS plan, instrumented, on this rank."""
+    from paddle_tpu_torch.parallel import plan_train
+    out = {}
+    for name, axes in TELEMETRY_PLANS.items():
+        plan = plan_train(_tcfg("gpt"), 4, B, **axes)
+        out[name] = _instrumented_gpt(
+            params0, os.path.join(workdir, f"tele.{name}.{rank}.jsonl"),
+            mesh=plan.build_mesh(device_type="cpu"), plan=plan)
+    return out
+
+
+def _oom_forensics(init, workdir):
+    """A dp1×fsdp1×tp1 step whose inner step raises the allocator's
+    error: what the flight dump and the monitor show."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models.facade import make_train_step
+    from paddle_tpu_torch.parallel import plan_train
+    from paddle_tpu_torch.profiler import flight_recorder, monitor
+    rec = flight_recorder.recorder()
+    flight = os.path.join(workdir, "flight")
+    rec.set_dir(flight)
+    rec.autodump_every = 0
+
+    def oom_step(params, opt_state, batch, **kw):
+        raise torch.OutOfMemoryError("out of memory (in the test)")
+
+    cfg = _tcfg("gpt")
+    plan = plan_train(cfg, 1, B, dp=1, fsdp=1, tp=1)
+    step = make_train_step(oom_step, cfg=cfg, lr=LR, plan=plan,
+                           mesh=plan.build_mesh(device_type="cpu"))
+    params = {k: torch.from_numpy(v.copy()) for k, v in init["gpt"].items()}
+    before = monitor.counter("train.oom_forensics").value
+    try:
+        step(params, gpt.init_opt_state(params), _tokens(0))
+        raised = None
+    except torch.OutOfMemoryError as e:
+        raised = str(e)
+    dumps = sorted(f for f in os.listdir(flight) if "oom_forensics" in f)
+    doc = flight_recorder.load_dump(os.path.join(flight, dumps[0]))
+    return {"raised": raised, "dumps": dumps,
+            "count": monitor.counter("train.oom_forensics").value - before,
+            "forensics": doc["config"]["oom_forensics"],
+            "noted": doc["steps"][-1],
+            "compile_gauges": [k for k in monitor.snapshot()
+                               if k.startswith("train.compile.")]}
 
 
 def _spawn(world, init):
@@ -453,6 +543,47 @@ def test_one_rank_plan_equals_the_unsharded_step_to_the_bit(world1):
     for family, res in world1[0]["one_rank"].items():
         assert res == {"losses": True, "params": True, "moments": True,
                        "step": True}, family
+
+
+def test_telemetry_norms_of_sharded_plans_match_unsharded(ref, world4,
+                                                         tmp_path):
+    """fsdp2 and tp2 (each beside dp2): the instrumented losses equal
+    the plain sharded step's to the bit, every rank records the same
+    row, and each recorded loss, grad_norm and param_norm agrees with
+    the unsharded instrumented step's within 2e-4 (the sharded
+    trajectories' tolerance); nonfinite 0, lr and tokens (the global
+    batch's B·S) exact."""
+    _, want = _instrumented_gpt(ref["gpt"]["init"],
+                                str(tmp_path / "unsharded.jsonl"))
+    cases = {"dp2_fsdp2": "gpt-dp2_fsdp2", "dp2_tp2": "gpt-dp2_tp2-nosp"}
+    for name, case in cases.items():
+        rows = [res["telemetry"][name][1] for res in world4]
+        for rank, res in enumerate(world4):
+            losses, got = res["telemetry"][name]
+            assert losses == res[case]["losses"][:TELEMETRY_STEPS], name
+            assert got == rows[0], (name, rank)
+        for g, w in zip(rows[0], want):
+            assert g["step"] == w["step"]
+            for f in ("loss", "grad_norm", "param_norm"):
+                assert g[f] == pytest.approx(w[f], rel=2e-4), (name, f, g, w)
+            assert (g["nonfinite"], g["lr"], g["tokens"]) == (
+                0.0, w["lr"], float(B * S)), (name, g)
+
+
+def test_oom_in_a_sharded_step_dumps_forensics_and_reraises(world1):
+    got = world1[0]["oom"]
+    assert got["raised"] == "out of memory (in the test)"
+    assert got["count"] == 1 and len(got["dumps"]) == 1
+    f = got["forensics"]
+    leaves = {leaf for row in f["census"].values() for leaf in row["leaves"]}
+    assert {"params/wte", "opt_state/m/qkv_w", "opt_state/v/wte",
+            "batch"} <= leaves
+    assert f["ledger"]["total"] > 0 and f["plan"] == "dp1_fsdp1_tp1"
+    assert f["live_bytes"] > 0 and got["noted"]["oom_forensics"] == \
+        "train_step"
+    # an eager step compiles nothing: the reference's train.compile.*
+    # gauges are not published
+    assert got["compile_gauges"] == []
 
 
 def test_collective_routes_and_pair_gradients(world4):

@@ -17,8 +17,13 @@ In the test process:
   2e-4, nan where JAX has nan), skips, rollbacks and step, and final
   state within 2e-4;
 - a stall inside the step under a 0.5 s budget raises StepHungError
-  (the budget covers the dispatch, not only the pull), and in a
-  subprocess a wedged step with `exit_on_hang` exits with 101.
+  (the budget covers the dispatch, not only the pull), counted and
+  flight-dumped, and in a subprocess a wedged step with `exit_on_hang`
+  exits with 101;
+- the device telemetry of the guarded step (RESILIENT_FIELDS: the raw
+  loss, update norm and non-finite count read before a restore, the
+  kept params' norm, ok), and the trainer's monitor counters, flight
+  dumps and the accumulator's cursor restarted at a rollback.
 One world of 4 ranks over gloo, started once for the module:
 - an inf in one rank's shard of one weight, and in one rank's shard of
   one moment (which the loss never reads), makes every rank skip, every
@@ -93,6 +98,20 @@ def _port_write_audit():
     for p in paths:
         if os.path.isdir(p):
             ck.verify_checkpoint(p)
+
+
+@pytest.fixture
+def flight_dir(tmp_path):
+    """The process's flight recorder pointed at a fresh directory, no
+    autodumps; restored after."""
+    from paddle_tpu_torch.profiler import flight_recorder
+    rec = flight_recorder.recorder()
+    saved = (rec.dir, rec.autodump_every)
+    rec.set_dir(str(tmp_path / "flight"))
+    rec.autodump_every = 0
+    yield tmp_path / "flight"
+    rec.set_dir(saved[0])
+    rec.autodump_every = saved[1]
 
 
 def _clone(tree):
@@ -425,10 +444,89 @@ def test_tree_finite_is_isfinite_all(bad, where):
     assert resilience._tree_finite({"ids": torch.arange(3)}) is None
 
 
-def test_telemetry_waits_for_a7():
-    gpt, cfg, _ = _tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_resilient_step(gpt.train_step, cfg=cfg, telemetry=object())
+def _pipeline(path, every=4):
+    from paddle_tpu_torch.profiler.telemetry import TelemetryPipeline
+    return TelemetryPipeline(str(path), every=every,
+                             fields=resilience.RESILIENT_FIELDS)
+
+
+def _steps(path):
+    import json
+    return [r for r in map(json.loads, open(path)) if r["kind"] == "step"]
+
+
+def test_telemetry_waits_for_a7(tmp_path):
+    """ROADMAP A7 part 1 is ported: the guarded step records
+    RESILIENT_FIELDS. A good, a poisoned and a good step: the poisoned
+    one records its raw (nan) loss, its raw update's norm and ok 0, and
+    the param norm of the params the guard kept (the previous step's);
+    each update norm is the norm of the params' change."""
+    gpt, cfg, params = _tiny()
+    opt = gpt.init_opt_state(params)
+    tele = _pipeline(tmp_path / "g.jsonl")
+    step = make_resilient_step(gpt.train_step, cfg=cfg, lr=LR,
+                               telemetry=tele)
+    ts = tele.device_init(device="cpu")
+    tokens = torch.from_numpy(_tiny_tokens(0))
+    norms, changes = [], []
+    for poison in (1.0, float("nan"), 1.0):
+        before = _clone(params)
+        loss, params, opt, ok, ts = step(params, opt, tokens, poison, ts)
+        changes.append(float(torch.sqrt(sum(
+            torch.sum((params[k] - before[k]) ** 2) for k in params))))
+        norms.append(float(torch.sqrt(sum(torch.sum(v ** 2)
+                                          for v in params.values()))))
+    tele.close(ts)
+    recs = _steps(tmp_path / "g.jsonl")
+    assert [r["ok"] for r in recs] == [1.0, 0.0, 1.0]
+    assert recs[1]["loss"] is None and recs[0]["loss"] > 0
+    assert [r["nonfinite"] for r in recs] == [0.0] * 3
+    assert changes[1] == 0.0 and recs[1]["update_norm"] > 0
+    for i in (0, 2):
+        assert recs[i]["update_norm"] == pytest.approx(changes[i], rel=1e-4)
+    for r, n in zip(recs, norms):
+        assert r["param_norm"] == pytest.approx(n, rel=1e-5)
+    assert recs[1]["param_norm"] == recs[0]["param_norm"]
+
+
+def test_trainer_counts_dumps_and_restarts_the_cursor(tmp_path,
+                                                      flight_dir):
+    """nan@4:2 with rollback_after 2 and a snapshot a step: 2 skips, 1
+    rollback to step 4 and the re-run; the monitor counts them, the
+    rollback dump holds the bad streak, and the stream holds every
+    attempted step once in order, the re-run under its ids again, ok 0
+    on exactly the two skipped ones."""
+    from paddle_tpu_torch.profiler import flight_recorder, monitor
+    names = ("resilience_steps", "resilience_skip_step",
+             "resilience_rollback", "checkpoint_restore")
+    before = {n: monitor.counter(n).value for n in names}
+    path = tmp_path / "t.jsonl"
+    tele = _pipeline(path, every=3)
+    faults.install("nan@4:2", once_dir=None)
+    try:
+        gpt, cfg, init = _tiny()
+        params = _clone(init)
+        tr = ResilientTrainer(
+            gpt.train_step, params, gpt.init_opt_state(params), cfg=cfg,
+            lr=LR, telemetry=tele,
+            manager=CheckpointManager(str(tmp_path / "ck"), max_to_keep=3),
+            config=ResilienceConfig(checkpoint_every=1, rollback_after=2))
+        run_resilient(tr, _batch, 8)
+    finally:
+        faults.uninstall()
+    tele.close(tr._tstate)
+    got = {n: monitor.counter(n).value - before[n] for n in names}
+    assert got == {"resilience_steps": 10, "resilience_skip_step": 2,
+                   "resilience_rollback": 1, "checkpoint_restore": 1}
+    assert monitor.gauge("resilience_step_ms").value > 0
+    recs = _steps(path)
+    assert [r["step"] for r in recs] == [0, 1, 2, 3, 4, 5, 4, 5, 6, 7]
+    assert [r["ok"] for r in recs] == [1.0] * 4 + [0.0, 0.0] + [1.0] * 4
+    dump = flight_dir / f"flight-{os.getpid()}-rollback.json"
+    doc = flight_recorder.load_dump(str(dump))
+    assert [r["ok"] for r in doc["steps"][-2:]] == [False, False]
+    assert doc["config"]["trainer"] == "ResilientTrainer"
+    assert doc["monitor"]["resilience_rollback"] >= 1
 
 
 def _trainer(root, params=None, **cfg_kw):
@@ -624,10 +722,14 @@ def test_puller_callable_deadline_and_retries():
     assert got[0].dtype == np.float32 and got[1].dtype == np.int32
 
 
-def test_stall_inside_the_step_raises_step_hung(tmp_path, monkeypatch):
+def test_stall_inside_the_step_raises_step_hung(tmp_path, monkeypatch,
+                                                flight_dir):
     """The budget covers the whole guarded step: a 2 s stall inside it
-    (the fault hook) under a 0.5 s budget with no retries raises."""
+    (the fault hook) under a 0.5 s budget with no retries raises,
+    counted in resilience_watchdog_hang and dumped as 'watchdog_hang'."""
     import time as _time
+    from paddle_tpu_torch.profiler import flight_recorder, monitor
+    hangs = monitor.counter("resilience_watchdog_hang").value
     tr = _trainer(tmp_path, watchdog_timeout=0.5, retries=0)
     tr.train_step(_batch(0))
     monkeypatch.setattr(resilience, "_STEP_HOOK",
@@ -636,6 +738,10 @@ def test_stall_inside_the_step_raises_step_hung(tmp_path, monkeypatch):
     with pytest.raises(StepHungError):
         tr.train_step(_batch(1))
     assert _time.perf_counter() - t0 < 1.5
+    assert monitor.counter("resilience_watchdog_hang").value == hangs + 1
+    doc = flight_recorder.load_dump(str(
+        flight_dir / f"flight-{os.getpid()}-watchdog_hang.json"))
+    assert "did not arrive" in doc["config"]["last_error"]
 
 
 def test_exit_on_hang_uses_elastic_code(tmp_path, monkeypatch):

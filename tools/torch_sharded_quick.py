@@ -30,28 +30,16 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("torch_sharded_quick: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    import chip_smoke as cs
-    from paddle_tpu_torch.device import resolve_device
-    from paddle_tpu_torch.kernels import _build
+def phase4_standin(torch, cs, dev):
+    """A stand-in for chip_smoke.py's phase 4, what phase 6 reads of it:
+    the unsharded Llama step at phase 4's configuration (TinyLlama
+    widths, batch 4 x 2048, full remat, the fused update forced) for 5
+    steps from phase 4's starting state: the trajectory, the launches a
+    step, the p50 of steps 2-5, the peak and the MFU."""
+    from paddle_tpu_torch.cost_model import train_flops_per_token
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.models.facade import make_train_step
     from paddle_tpu_torch.models.gpt import init_opt_state
-
-    _build.build("flash_attention", "fused_ce", "fused_update")
-    card = cs.card_line()
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = resolve_device(None)
-    cs.attention_check(torch, dev)
-    cs.ce_pair_check(torch, dev)
-    cs.update_check(torch, dev)
     cfg = llama.LlamaConfig(**cs.LLAMA, remat=True)
     params = llama.init_llama_params(cfg, seed=0)
     opt = init_opt_state(params)
@@ -64,13 +52,42 @@ def main():
         cs.zero_launch_counts()
         traj, ms = cs.timed_losses(torch, step, params, opt, tokens, 5)
         launches = cs.launch_counts()
+    p50 = statistics.median(ms[1:])
+    fpt = train_flops_per_token(sum(p.numel() for p in params.values()),
+                                cfg.num_layers, cfg.hidden_size,
+                                cs.LLAMA_SEQ)
     p4 = {"trajectory": traj, "train": {
         "launches_per_step": {k: v // 5 for k, v in launches.items()},
-        "step_ms_p50": statistics.median(ms[1:]),
-        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}}
-    print({"unsharded": p4}, flush=True)
+        "step_ms_p50": p50,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "mfu": fpt * cs.LLAMA_BATCH * cs.LLAMA_SEQ / (p50 / 1e3)
+        / cs.PEAK_BF16_FLOPS}}
     del step, params, opt, tokens
     torch.cuda.empty_cache()
+    return p4
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_sharded_quick: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.kernels import _build
+
+    _build.build("flash_attention", "fused_ce", "fused_update")
+    card = cs.card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device(None)
+    cs.attention_check(torch, dev)
+    cs.ce_pair_check(torch, dev)
+    cs.update_check(torch, dev)
+    p4 = phase4_standin(torch, cs, dev)
+    print({"unsharded": p4}, flush=True)
     tmp = tempfile.gettempdir()
     print({"tmp": tmp, "free_bytes": shutil.disk_usage(tmp).free,
            "cwd_free_bytes": shutil.disk_usage(HERE).free}, flush=True)
