@@ -66,7 +66,7 @@ Phases, each failing the script (non-zero exit) when it fails:
    activations, f32 parameters, random weights from seed 0), with the
    registry's "ce" winner forced to "pallas_fused" (the one-pass CE) as
    the reference's tools/ablate_step.py forces its own.
-3b. The GPT step's selection surface at the same widths and 4 of its
+3b. The GPT step's selection surface at the same widths and 2 of its
    24 layers (RACE_LAYERS), the port's
    counterpart of the rung's variant race (bench.py:270-320) with the
    attention impl fixed to "pallas" (on CUDA "jax_flash" and "splash"
@@ -160,7 +160,8 @@ Phases, each failing the script (non-zero exit) when it fails:
    phase 5b's host-drawn weights: the int8 engine with kv_layout
    "paged", page_size 16, prefill_chunk 256 and 513 pages (half the
    dense-equivalent 1025), 8 slots, max_len 2048, over 16 requests of
-   64 new tokens (seed 7): a shared 512-token prefix and a suffix of
+   PAGED_NEW = 16 new tokens (seed 7): a shared 512-token prefix and a
+   suffix of
    16..512 tokens, request 0's suffix 256 tokens (48 full pages),
    requests 14 and 15 repeating request 0's prompt (every page mapped,
    the last one copied), requests 3 and 11 sampled with top-k. Then a
@@ -183,8 +184,9 @@ Phases, each failing the script (non-zero exit) when it fails:
    verdict holds: every int8 call within the f64 bound, the two paths'
    logits and each replay's own tokens within 5% of the span.
 5d. Multi-tick decode and the host KV tier at TinyLlama-1.1B widths, on
-   the same weights: the engines of 5b (dense, its 16 requests) and 5c
-   (paged, paged spec, dense spec, 5c's requests) at multi_tick=4, where
+   the same weights: the engines of 5b (dense, its 16 requests, 64 new
+   tokens) and 5c (paged, paged spec, dense spec, 5c's requests,
+   PAGED_NEW tokens) at multi_tick=4, where
    a dispatch runs 4 ticks and, after each sampling flag's eager
    warm-up, is one CUDA graph replay. Each run: every request ends
    "length"; each warm-up launches exactly 4 x 29 (4 x 89 spec)
@@ -230,6 +232,38 @@ Phases, each failing the script (non-zero exit) when it fails:
    single-card path; tick ms p50/p90 a rank, the tp collectives a
    dispatch, peak memory a rank, and plan_serving_tp's pick for this
    model on 1 and on 2 devices.
+5f. The serving engine's robustness and observability, on phase 5's GPT
+   (the headline widths, all 24 layers, its host weights and their int8
+   rewrite; `gpt_serving_chaos`, after phase 5): (a) 8 requests (two
+   sampled) through the dense K = 1, the paged (chunks of 128), the spec
+   (gamma 4, 2 draft layers) and the K = 4 graphed engines with
+   telemetry off and on: the same bits, one pull a prefill and a
+   dispatch, the same captures and replays, the TICK_FIELDS rows' tokens
+   and `attended` against the host's mirrors, no poisoned row; the K = 1
+   tick and the K = 4 dispatch timed off and on in mirrored order. (b)
+   tools/chaos_serving.py's engine scenarios, each against the
+   fault-free run of its engine and drive (4 requests of CHAOS_NEW = 8
+   tokens on 4 slots, one sampled; 6 of CHAOS_NEW_LONG = 12 tokens, 2 of
+   them queued, on the K = 4 engine, 4 of 12 on the spec one):
+   nan_logits@2:1 (every 5f engine is int8, so it is quant_nan_logits
+   too: the int8 counters), tick_stall@2:400 under a 0.2 s watchdog,
+   prefill_raise@0, decode_raise@2, oom@2 (the oom_forensics dump), the
+   queue floods (reject, shed_oldest), cancel with a deadline, on the
+   dense K = 1 engine; nan_logits, tick_stall and decode_raise with
+   retries=0 (the hard reset, then fresh streams equal the clean run's)
+   on the K = 4 graphed one; paged_nan_poison, paged_pool_flood and
+   cow_raise@0 on the paged one; spec_draft_nan and spec_nan_logits with
+   full-depth drafts (gamma 2). Each: every request in one terminal
+   reason and one terminal span, survivors' streams equal to the bit and
+   the others prefixes, a flight dump where the fault is eventful, the
+   graph captures at the clean run's count, the serving.* counters moved
+   as the reference's scenario expects. (c) One request's span tree on
+   the paged engine (queue, >= 2 prefill chunks, decode, a decode.tick a
+   token, one terminal span; the chrome export loads) and a
+   BurnRateMonitor fed the nan_logits run's export_slo_jsonl and
+   poisoned count raising its alert. (d) Every run's int8 launches
+   against its passes and dispatches (serving.quant_matmuls = the
+   wrapper's + the replays'), its threefry launches against its draws.
 6. The planner-driven dp×fsdp×tp train step (paddle_tpu_torch/parallel,
    models/facade.py make_train_step(mesh=, plan=)) at phase 4's
    configuration, from phase 4's starting state (seed 0, drawn again).
@@ -373,6 +407,7 @@ at its end it stops whatever is left.
 float32 matmuls run in full float32 here: TF32 is switched off for
 matmul and cuDNN, so the plain versions are exact-f32 references.
 """
+import collections
 import contextlib
 import functools
 import gc
@@ -1559,8 +1594,9 @@ def update_check(torch, dev):
 
 # the serving phases with sampled requests, each of which must launch the
 # threefry kernel
-SAMPLING_PHASES = ("gpt_serving", "llama_serving", "llama_paged",
-                   "llama_multi_tick", "llama_tp2", "llama_tp2_spec")
+SAMPLING_PHASES = ("gpt_serving", "gpt_serving_chaos", "llama_serving",
+                   "llama_paged", "llama_multi_tick", "llama_tp2",
+                   "llama_tp2_spec")
 # the serving sampler's draws: [slots, V] at the GPT and the Llama vocab
 THREEFRY_SHAPES = [(8, FULL["vocab_size"]), (8, LLAMA["vocab_size"])]
 # 32-bit integer operations a second: the data sheet's f32 rate (67
@@ -1966,10 +2002,10 @@ RACE = [("dots", True, "dots", 8), ("full", True, "full", 8),
 # policies whose backward reruns no attention forward
 ONE_FWD = ("dots_flash", "all_but_mlp")
 ROUTE_LAYERS = 4
-# the race's depth: a sixth of the headline's 24 layers at its widths,
-# so that phases 3c and 6, 6a's telemetry, Profiler window and
+# the race's depth: a twelfth of the headline's 24 layers at its widths,
+# so that phases 3c, 5f and 6, 6a's telemetry, Profiler window and
 # out-of-memory check included, fit the script's time limit (PERF.md)
-RACE_LAYERS = 4
+RACE_LAYERS = 2
 # (name, env) of the route steps, each set for its own step only
 ROUTES = [("default", {}), ("xla", {"PADDLE_TPU_ATTN_IMPL": "xla"}),
           ("attn_kill", {"PADDLE_TPU_DISABLE_PALLAS_ATTN": "1"}),
@@ -2927,19 +2963,659 @@ def serve(torch, qm, dev, card, family, cfg, params, prompts, max_len,
     return launches, summary
 
 
-def serving(torch, qm, dev, card):
+def gpt_host_params():
+    """Phases 5 and 5f's GPT at the headline width, its weights drawn on
+    the host from seed 0 (each engine quantizes them there and uploads
+    only the int8 tree)."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    cfg = GPTConfig(**FULL)
+    return cfg, init_gpt_params(cfg, seed=0, device="cpu")
+
+
+def serving(torch, qm, dev, card, cfg, params):
     """Phase 5, GPT at the headline width: 16 requests, prompts of
     16..512 tokens (seed 1), max_len 1024. Returns (launches on the main
     path, summary dict)."""
-    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
-    cfg = GPTConfig(**FULL)
-    params = init_gpt_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(1)
     lens = rng.integers(16, 513, size=16)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
     per_pass = sum(pass_calls(LEAF_KN, cfg.num_layers).values())
     return serve(torch, qm, dev, card, "gpt", cfg, params, prompts, 1024,
                  per_pass)
+
+
+# phase 5f: the GPT engine of phase 5 under the reference's serving fault
+# kinds, with its telemetry, tracing and SLO records on
+CHAOS_NEW = 8                   # new tokens a request
+# the K = 4 and spec scenarios': slots still decode at their tick 2
+CHAOS_NEW_LONG = 12
+CHAOS_SLOTS = 4                 # a scenario's slots and requests
+CHAOS_K4_REQUESTS = 6           # the K = 4 scenarios': 2 wait to start
+CHAOS_SAMPLED = {3: (0.8, 40)}  # a scenario's sampled request
+TELE_SAMPLED = {3: (0.8, 40), 6: (1.0, 20)}
+CHAOS_PAGED = dict(kv_layout="paged", page_size=16)
+CHAOS_CHUNK = 128               # (a)'s and (c)'s prefill chunk, paged
+CHAOS_K = 4
+# (a)'s engines: (label, knobs, telemetry off/on runs in this order)
+TELE_ENGINES = (
+    ("dense", {}, ("off", "on", "on", "off")),
+    ("paged", dict(CHAOS_PAGED, prefill_chunk=CHAOS_CHUNK),
+     ("off", "on")),
+    ("spec", dict(spec_decode="spec", gamma=4, draft_layers=2),
+     ("off", "on")),
+    ("dense_k4", dict(multi_tick=CHAOS_K), ("off", "on", "on", "off")))
+
+
+def chaos_prompts(vocab, n, seed, lo=16, hi=160):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, size=n)
+    return [rng.integers(0, vocab, size=int(k)) for k in lens]
+
+
+def cuda_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serving_counters():
+    """{name: value} of the port's serving.* monitor counters."""
+    from paddle_tpu_torch.profiler import monitor
+    reg = monitor.registry()
+    return {k: reg.get(k).value for k in monitor.snapshot()
+            if k.startswith("serving.") and reg.get(k).kind == "counter"}
+
+
+def submit_all(prompts, sampled, n=CHAOS_NEW, **kw):
+    """A drive: every prompt submitted (`sampled` {index: (temperature,
+    top_k)}), then the engine stepped until idle."""
+    def drive(eng):
+        reqs = [eng.submit(p, n, temperature=sampled.get(i, (0.0, 0))[0],
+                           top_k=sampled.get(i, (0.0, 0))[1], **kw)
+                for i, p in enumerate(prompts)]
+        while eng.has_work():
+            eng.step()
+        return reqs
+    return drive
+
+
+def host_attended(eng, toks, positions, active):
+    """The cache tokens a dispatch's attention admitted, from the host
+    mirrors before it and the emission matrix it returned: a step a slot
+    was alive attends its position + 1 (non-spec: each column before
+    MT_PAD; the single spec tick: each active slot once)."""
+    from paddle_tpu_torch.inference.multi_tick import MT_PAD
+    total = 0
+    for i in np.nonzero(active)[0]:
+        if eng.spec:
+            total += int(positions[i]) + 1
+            continue
+        row = toks[i].tolist()
+        n = row.index(MT_PAD) if MT_PAD in row else len(row)
+        total += sum(int(positions[i]) + j + 1 for j in range(n))
+    return total
+
+
+def chaos_run(torch, qm, dev, eng, drive, label, per_pass, per_tick,
+              spec=None, sdir=None, detail=False):
+    """One engine run of phase 5f: the flight recorder pointed at
+    `sdir`/flight, the fault `spec` installed with a once-dir of its own,
+    the kernels' counts zeroed where the run starts and read where it
+    ends. Holds the int8 kernel's launches to the path's passes and
+    dispatches (`check_launches`, the engine's `serving.quant_matmuls`
+    to them plus the replays' launches), the sampler's to its draws
+    (`check_draws`), and every request to exactly one terminal reason
+    and one terminal span. With `detail` it counts the pulls and works
+    out each dispatch's `attended` from the host mirrors."""
+    from paddle_tpu_torch.inference import TERMINAL_REASONS
+    from paddle_tpu_torch.kernels import threefry as tf
+    from paddle_tpu_torch.profiler import flight_recorder, tracing
+    from paddle_tpu_torch.testing import faults
+    rec = flight_recorder.recorder()
+    fdir = os.path.join(sdir, "flight") if sdir else None
+    if fdir:
+        os.makedirs(fdir, exist_ok=True)
+    rec.clear()
+    rec.set_dir(fdir)
+    tracing.clear()
+    warm = count_warmups(torch, qm, eng) if eng.mt_k > 1 else []
+    pulls, attended, snap = [0], [], []
+    if detail:
+        pull, dispatch = eng._pull, eng._dispatch
+        apply_ = (eng._apply_spec_emissions if eng.spec
+                  else eng._apply_multi_emissions)
+
+        def counted_pull(value, stall_s=0.0):
+            pulls[0] += 1
+            return pull(value, stall_s)
+
+        def snapped(sampling):
+            snap.append((eng._positions.copy(), eng._active.copy()))
+            return dispatch(sampling)
+
+        def applied(toks, events, tick_now):
+            attended.append(host_attended(eng, toks, *snap[-1]))
+            return apply_(toks, events, tick_now)
+        eng._pull, eng._dispatch = counted_pull, snapped
+        if eng.spec:
+            eng._apply_spec_emissions = applied
+        else:
+            eng._apply_multi_emissions = applied
+    n_rec0 = len(eng.tick_records())
+    n_tick_ms0 = len(eng.tick_ms)
+    m0, c0 = serving_counters(), dict(eng.counters)
+    cuda_sync(torch, dev)
+    qm.launches = 0                          # the main path starts here
+    cap0 = qm.captured
+    tf.launches["threefry_bits"] = 0
+    tf_cap0 = tf.captured
+    if spec:
+        faults.install(spec, once_dir=os.path.join(sdir, "once"))
+    t0 = time.perf_counter()
+    try:
+        reqs = drive(eng)
+        cuda_sync(torch, dev)
+    finally:
+        if spec:
+            faults.uninstall()
+        rec.set_dir(None)
+        for name in ("_pull", "_dispatch", "_multi_ticks",
+                     "_apply_spec_emissions", "_apply_multi_emissions"):
+            eng.__dict__.pop(name, None)      # this run's wrappers
+    wall = time.perf_counter() - t0
+    launches = qm.launches                   # ... and ends here
+    c = {k: v - c0[k] for k, v in eng.counters.items()}
+    m1 = serving_counters()
+    m = {k: v - m0.get(k, 0) for k, v in m1.items() if v - m0.get(k, 0)}
+    check_launches(eng, label, c, launches, per_pass, per_tick, warm,
+                   qm.captured - cap0)
+    check_draws(eng, label, c, tf.launches["threefry_bits"],
+                tf.captured - tf_cap0)
+    replays = c["graph_replays"] * eng.mt_k * per_tick
+    if m.get("serving.quant_matmuls", 0) != launches + replays:
+        raise AssertionError(
+            f"{label}: serving.quant_matmuls moved "
+            f"{m.get('serving.quant_matmuls', 0)}, the kernel launched "
+            f"{launches} through the wrapper + {replays} in replays")
+    tr = tracing.tracer()
+    for r in reqs:
+        terms = tr.terminal_spans(r.trace.trace_id) if r.trace else [None]
+        if (not r.done or r.finish_reason not in TERMINAL_REASONS
+                or r.slot is not None or len(terms) != 1
+                or (r.trace and terms[0].attrs["reason"]
+                    != r.finish_reason)):
+            raise AssertionError(
+                f"{label}: request {r.id} done={r.done} reason="
+                f"{r.finish_reason} slot={r.slot}, {len(terms)} terminal "
+                "spans")
+    dumps = []
+    if fdir:
+        for name in sorted(os.listdir(fdir)):
+            doc = flight_recorder.load_dump(os.path.join(fdir, name))
+            dumps.append(doc["reason"])
+    ticks = [r for r in eng.tick_records()[n_rec0:]
+             if r["kind"] == "serving_tick"]
+    return {"streams": [list(map(int, r.tokens)) for r in reqs],
+            "reasons": [r.finish_reason for r in reqs], "counters": c,
+            "monitor": m, "launches": launches, "replays": replays,
+            "draws": tf.launches["threefry_bits"], "dumps": dumps,
+            "pulls": pulls[0], "attended": attended, "ticks": ticks,
+            "tick_ms": list(eng.tick_ms)[n_tick_ms0:], "wall_s": wall}
+
+
+def chaos_check(name, out, base, reasons=None, monitor=None,
+                at_least=None, dump=None, captures=True):
+    """A scenario's three invariants against the fault-free run `base`
+    of the same engine and drive: every request ends in one terminal
+    reason (`chaos_run` checked the spans); the finished streams equal
+    the fault-free run's to the bit and the others are prefixes of them;
+    an eventful fault leaves a flight dump `dump` names (loaded), and
+    the CUDA graph captures stay at the fault-free run's count. Then the
+    serving.* counters: `monitor` exact deltas, `at_least` lower bounds,
+    and the finish reasons where `reasons` gives them. Returns the
+    scenario's JSON line."""
+    bad = []
+    for i, (got, want, why) in enumerate(zip(out["streams"],
+                                             base["streams"],
+                                             out["reasons"])):
+        ok = (got == want if why in ("length", "eos")
+              else got == want[:len(got)])
+        if not ok:
+            bad.append(f"request {i} ({why}) {got[:6]} vs {want[:6]}")
+    if reasons is not None and out["reasons"] != reasons:
+        bad.append(f"reasons {out['reasons']} != {reasons}")
+    for k, v in (monitor or {}).items():
+        if out["monitor"].get(k, 0) != v:
+            bad.append(f"{k} moved {out['monitor'].get(k, 0)} != {v}")
+    for k, v in (at_least or {}).items():
+        if out["monitor"].get(k, 0) < v:
+            bad.append(f"{k} moved {out['monitor'].get(k, 0)} < {v}")
+    if dump and not any(dump in d for d in out["dumps"]):
+        bad.append(f"no {dump!r} flight dump in {out['dumps']}")
+    if captures and out["counters"]["graph_captures"] != \
+            base["counters"]["graph_captures"]:
+        bad.append(f"{out['counters']['graph_captures']} captures != the "
+                   f"clean run's {base['counters']['graph_captures']}")
+    line = {"phase": "gpt_serving_chaos", "scenario": name,
+            "ok": not bad, "reasons": out["reasons"],
+            "faults": out["monitor"].get("serving.faults", 0),
+            "retries": out["monitor"].get("serving.retries", 0),
+            "dumps": out["dumps"], "launches": out["launches"],
+            "replay_launches": out["replays"], "draws": out["draws"],
+            "graph_captures": out["counters"]["graph_captures"],
+            "wall_s": out["wall_s"]}
+    if bad:
+        line["misses"] = bad
+    log(json.dumps(line))
+    if bad:
+        raise AssertionError(f"5f {name}: {bad}")
+    return line
+
+
+def tele_parity(torch, qm, dev, card, cfg, params, per_pass, spec_tick,
+                tmp, engine):
+    """5f (a): one workload of mixed-length prompts (8 requests on 8
+    slots, two sampled) through each of TELE_ENGINES with telemetry off
+    and on: the streams equal to the bit run for run, one pull a prefill
+    and a dispatch either way, the same captures and replays, the
+    tokens field plus the prefills the emitted tokens (the spec row's
+    tokens count what the device advanced, a finish mid-block dropping
+    the rest, so there at least those), `attended` as the host works it
+    out, `poisoned` 0. The dense K = 1 tick and the K = 4 dispatch are
+    timed off and on in mirrored order (the median over every dispatch
+    of the 4 runs; a capture lands in one)."""
+    prompts = chaos_prompts(cfg.vocab_size, 8, seed=21)
+    drive = submit_all(prompts, TELE_SAMPLED)
+    lines = {}
+    launches = replays = 0
+    for label, kw, order in TELE_ENGINES:
+        per_tick = spec_tick if kw.get("spec_decode") else per_pass
+        engs = {t: engine(num_slots=8, telemetry=t, **kw)
+                for t in ("off", "on")}
+        runs = {"off": [], "on": []}
+        for t in order:
+            out = chaos_run(torch, qm, dev, engs[t], drive,
+                            f"5f_{label}_{t}", per_pass, per_tick,
+                            detail=True)
+            runs[t].append(out)
+            launches += out["launches"]
+            replays += out["replays"]
+        bad = []
+        for a, b in zip(runs["off"], runs["on"]):
+            if a["streams"] != b["streams"]:
+                bad.append("streams differ off/on")
+            for o in (a, b):
+                c = o["counters"]
+                if o["pulls"] != c["prefills"] + c["decode_ticks"]:
+                    bad.append(f"{o['pulls']} pulls != {c['prefills']} "
+                               f"prefills + {c['decode_ticks']} dispatches")
+            for k in ("graph_captures", "graph_replays", "decode_ticks"):
+                if a["counters"][k] != b["counters"][k]:
+                    bad.append(f"{k} {a['counters'][k]} off vs "
+                               f"{b['counters'][k]} on")
+            if a["ticks"]:
+                bad.append("telemetry off wrote tick records")
+            ticks = b["ticks"]
+            emitted = b["counters"]["tokens_emitted"]
+            field = sum(r["tokens"] for r in ticks) + \
+                b["counters"]["prefills"]
+            if (field < emitted) if engs["on"].spec else (field != emitted):
+                bad.append(f"tokens field + prefills {field} vs "
+                           f"{emitted} emitted")
+            if [r["attended"] for r in ticks] != b["attended"]:
+                bad.append(f"attended {[r['attended'] for r in ticks][:4]} "
+                           f"vs the host's {b['attended'][:4]}")
+            if any(r["poisoned"] for r in ticks) or len(ticks) != \
+                    b["counters"]["decode_ticks"]:
+                bad.append("poisoned rows, or a record missing")
+        line = {"phase": "gpt_serving_chaos", "part": "telemetry_parity",
+                "engine": label, "card": card, "knobs": kw, "ok": not bad,
+                "runs": len(order),
+                "dispatches": runs["on"][0]["counters"]["decode_ticks"],
+                "pulls": runs["on"][0]["pulls"],
+                "graph_captures": runs["on"][0]["counters"][
+                    "graph_captures"],
+                "graph_replays": runs["on"][0]["counters"]["graph_replays"]}
+        if len(order) > 2:
+            off = [ms for o in runs["off"] for ms in o["tick_ms"]]
+            on = [ms for o in runs["on"] for ms in o["tick_ms"]]
+            line.update({"tick_ms_p50_off": statistics.median(off),
+                         "tick_ms_p50_on": statistics.median(on),
+                         "tick_ms_p50_delta": statistics.median(on)
+                         - statistics.median(off),
+                         "tick_ms": "per dispatch (K ticks)"
+                         if engs["on"].mt_k > 1 else "per tick"})
+        if bad:
+            line["misses"] = bad
+        log(json.dumps(line))
+        if bad:
+            raise AssertionError(f"5f (a) {label}: {bad}")
+        lines[label] = line
+        del engs
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return lines, launches, replays
+
+
+def gpt_serving_chaos(torch, qm, dev, card, cfg, params):
+    """Phase 5f: phase 5's GPT (FULL, seed 0, its int8 rewrite) serving
+    under the reference's engine fault kinds (tools/chaos_serving.py
+    :442-783, the router's scenario aside), telemetry, tracing and SLO
+    records on: (a) `tele_parity`; (b) each scenario against the
+    fault-free run of its engine and drive (`chaos_check`), on the dense
+    K = 1 engine, the K = 4 graphed one, the paged one and a spec one
+    with full-depth drafts; (c) one request's span tree on the paged
+    engine with chunked prefill, a chrome export that loads, and a
+    BurnRateMonitor fed the nan_logits run's SLO record and poisoned
+    count raising its alert; (d) through `chaos_run`, every run's int8
+    and threefry launches. Returns (the int8 kernel's launches through
+    the wrapper, {"replays": launches inside graph replays})."""
+    import tempfile
+
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.serving import BackpressureError
+    from paddle_tpu_torch.profiler import flight_recorder, tracing
+    from paddle_tpu_torch.profiler.slo import BurnRateMonitor, Objective
+    per_pass = sum(pass_calls(LEAF_KN, cfg.num_layers).values())
+    # full-depth drafts: a greedy draft the verify accepts, so a
+    # poisoned draft lane shows as a lost acceptance
+    spec_kw = dict(spec_decode="spec", gamma=2, draft_layers=cfg.num_layers)
+    spec_full = per_pass + spec_kw["gamma"] * per_pass
+    spec_two = per_pass + 4 * sum(pass_calls(LEAF_KN, 2).values())
+    parts = {}
+
+    def engine(num_slots=CHAOS_SLOTS, **kw):
+        kw.setdefault("tracing", True)
+        return ServingEngine(params, cfg, family="gpt", num_slots=num_slots,
+                             max_len=1024, max_top_k=50, seed=0,
+                             quant="int8", device=dev, **kw)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5f_")
+    old_flight = flight_recorder.recorder().dir
+    try:
+        t0 = time.perf_counter()
+        tele, launches, replays = tele_parity(
+            torch, qm, dev, card, cfg, params, per_pass, spec_two, tmp,
+            engine)
+        parts["a"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        prompts6 = chaos_prompts(cfg.vocab_size, CHAOS_K4_REQUESTS, seed=31)
+        prompts = prompts6[:CHAOS_SLOTS]
+        drive = submit_all(prompts, CHAOS_SAMPLED)
+        drive6 = submit_all(prompts6, CHAOS_SAMPLED, n=CHAOS_NEW_LONG)
+        drive_s = submit_all(prompts, CHAOS_SAMPLED, n=CHAOS_NEW_LONG)
+        n_req = len(prompts)
+        scen = {}
+
+        def run(label, eng, spec=None, per_tick=per_pass, drv=drive):
+            nonlocal launches, replays
+            out = chaos_run(torch, qm, dev, eng, drv, f"5f_{label}",
+                            per_pass, per_tick, spec=spec,
+                            sdir=os.path.join(tmp, label))
+            launches += out["launches"]
+            replays += out["replays"]
+            return out
+
+        def scenario(name, eng, spec, base, per_tick=per_pass, drv=drive,
+                     **checks):
+            out = run(name, eng, spec, per_tick, drv)
+            scen[name] = chaos_check(name, out, base, **checks)
+            return out
+
+        # the dense K = 1 engine
+        base = run("clean_dense", engine())
+        nan_eng = engine()
+        nan = scenario("nan_logits@2:1", nan_eng, "nan_logits@2:1", base,
+                       monitor={"serving.poisoned": 1, "serving.faults": 1},
+                       dump="serving_poisoned_fault")
+        if nan["reasons"].count("poisoned") != 1 or \
+                not nan["monitor"].get("serving.quant_matmuls"):
+            raise AssertionError(f"5f nan_logits: {nan['reasons']}")
+        # every engine here is int8: the reference's quant_nan_logits
+        scen["nan_logits@2:1"]["also"] = "quant_nan_logits@2:1"
+        scenario("tick_stall@2:400", engine(
+            watchdog_timeout=0.2, retries=3, backoff_base=0.2),
+            "tick_stall@2:400", base, reasons=["length"] * n_req,
+            at_least={"serving.retries": 1}, monitor={"serving.faults": 0},
+            dump="serving_stall")
+        for kind in ("prefill_raise@0", "decode_raise@2"):
+            scenario(kind, engine(), kind, base, reasons=["length"] * n_req,
+                     monitor={"serving.faults": 1, "serving.retries": 1},
+                     dump=f"serving_{kind.split('_')[0]}_fault")
+        oom = scenario("oom@2", engine(), "oom@2", base,
+                       reasons=["length"] * n_req,
+                       monitor={"serving.oom_forensics": 1,
+                                "serving.faults": 1, "serving.retries": 1},
+                       dump="oom_forensics")
+        doc = [flight_recorder.load_dump(os.path.join(tmp, "oom@2",
+                                                      "flight", f))
+               for f in os.listdir(os.path.join(tmp, "oom@2", "flight"))
+               if "oom_forensics" in f][0]["config"]["oom_forensics"]
+        if not (doc["census"] and doc["ledger"]["components"]
+                and doc["ledger"]["total"] and doc["live_bytes"] > 0):
+            raise AssertionError(f"5f oom_forensics dump: {doc.keys()}")
+
+        def flood(eng):
+            accepted, rejected = [], 0
+            for i, p in enumerate(prompts):
+                try:
+                    accepted.append(eng.submit(p, CHAOS_NEW, temperature=(
+                        CHAOS_SAMPLED.get(i, (0.0, 0))[0]),
+                        top_k=CHAOS_SAMPLED.get(i, (0.0, 0))[1]))
+                except BackpressureError as e:
+                    rejected += 1
+                    if e.queue_depth != 2:
+                        raise AssertionError(f"rejected at depth "
+                                             f"{e.queue_depth}")
+            while eng.has_work():
+                eng.step()
+            return accepted
+        scenario("queue_flood_reject", engine(max_queue=2), None, base,
+                 drv=flood, monitor={"serving.rejected": n_req - 2},
+                 reasons=["length"] * 2)
+        scenario("queue_flood_shed", engine(max_queue=2,
+                                            queue_policy="shed_oldest"),
+                 None, base, monitor={"serving.evicted": n_req - 2},
+                 reasons=["evicted"] * (n_req - 2) + ["length"] * 2)
+
+        def cancel_deadline(eng):
+            reqs = [eng.submit(p, CHAOS_NEW,
+                               temperature=CHAOS_SAMPLED.get(i, (0.0, 0))[0],
+                               top_k=CHAOS_SAMPLED.get(i, (0.0, 0))[1],
+                               deadline_ticks=3 if i == 2 else None)
+                    for i, p in enumerate(prompts)]
+            eng.step()
+            eng.step()
+            victim = reqs[0]
+            if not victim.cancel():
+                raise AssertionError("cancel() refused a live request")
+            while eng.has_work():
+                eng.step()
+            return reqs
+        cd = scenario("cancel_deadline", engine(), None, base,
+                      drv=cancel_deadline,
+                      monitor={"serving.cancelled": 1,
+                               "serving.timeout": 1})
+        if cd["reasons"][0] != "cancelled" or \
+                cd["reasons"][2] != "timeout":
+            raise AssertionError(f"5f cancel_deadline: {cd['reasons']}")
+
+        # the K = 4 engine, a CUDA graph replay a dispatch
+        # (6 requests: 2 wait, and survive the hard reset in the queue)
+        base4 = run("clean_k4", engine(multi_tick=CHAOS_K), drv=drive6)
+        scenario("nan_logits@2:1_k4", engine(multi_tick=CHAOS_K),
+                 "nan_logits@2:1", base4, drv=drive6,
+                 monitor={"serving.poisoned": 1, "serving.faults": 1},
+                 dump="serving_poisoned_fault")
+        scenario("tick_stall@2:400_k4", engine(
+            multi_tick=CHAOS_K, watchdog_timeout=0.2, retries=3,
+            backoff_base=0.2), "tick_stall@2:400", base4, drv=drive6,
+            reasons=["length"] * CHAOS_K4_REQUESTS,
+            at_least={"serving.retries": 1}, dump="serving_stall")
+        eng = engine(multi_tick=CHAOS_K, retries=0)
+        reset = scenario("decode_raise@2_k4_hard_reset", eng,
+                         "decode_raise@2", base4, drv=drive6,
+                         captures=False,
+                         monitor={"serving.faults": 1,
+                                  "serving.evicted": CHAOS_SLOTS},
+                         dump="serving_hard_reset")
+        if reset["reasons"] != ["evicted"] * CHAOS_SLOTS + \
+                ["length"] * (CHAOS_K4_REQUESTS - CHAOS_SLOTS):
+            raise AssertionError(f"5f hard reset: {reset['reasons']}")
+        # fresh requests after the reset: the greedy ones of the clean
+        # run stream its tokens (a sampled stream keys on its request id)
+        greedy = [i for i in range(CHAOS_SLOTS) if i not in CHAOS_SAMPLED]
+        fresh = run("after_hard_reset", eng, drv=submit_all(
+            [prompts6[i] for i in greedy], {}, n=CHAOS_NEW_LONG))
+        if fresh["streams"] != [base4["streams"][i] for i in greedy]:
+            raise AssertionError("5f: fresh streams after the hard reset "
+                                 "differ from the clean run's")
+        scen["decode_raise@2_k4_hard_reset"]["fresh_equal"] = len(greedy)
+        scen["decode_raise@2_k4_hard_reset"]["graph_captures_all"] = \
+            eng.counters["graph_captures"]
+        del eng
+
+        # the paged engine
+        base_p = run("clean_paged", engine(**CHAOS_PAGED))
+        scenario("paged_nan_poison@2:1", engine(**CHAOS_PAGED),
+                 "nan_logits@2:1", base_p, monitor={"serving.poisoned": 1},
+                 dump="serving_poisoned_fault")
+        eng = engine(num_pages=25, **CHAOS_PAGED)
+        scenario("paged_pool_flood", eng, None, base_p,
+                 reasons=["length"] * n_req)
+        st = eng.pool_stats()
+        if st["pages_in_use"] or st["pages_reserved"]:
+            raise AssertionError(f"5f pool flood leaked: {st}")
+        aligned = chaos_prompts(cfg.vocab_size, 1, seed=99, lo=64, hi=64)[0]
+
+        def cow(eng):
+            donor = eng.submit(aligned, CHAOS_NEW)
+            while eng.has_work():
+                eng.step()
+            sharer = eng.submit(aligned, CHAOS_NEW)
+            while eng.has_work():
+                eng.step()
+            return [donor, sharer]
+        base_c = run("clean_cow", engine(**CHAOS_PAGED), drv=cow)
+        eng = engine(**CHAOS_PAGED)
+        scenario("cow_raise@0", eng, "cow_raise@0", base_c, drv=cow,
+                 reasons=["length", "length"],
+                 monitor={"serving.faults": 1, "serving.retries": 1},
+                 dump="serving_prefill_fault")
+        if eng.pool_stats()["pages_reserved"] or \
+                base_c["counters"]["cow_copies"] < 1:
+            raise AssertionError(f"5f cow: {eng.pool_stats()}")
+        del eng
+
+        # speculative decode, full-depth drafts
+        base_s = run("clean_spec", engine(**spec_kw), per_tick=spec_full,
+                     drv=drive_s)
+        draft = scenario("spec_draft_nan@2:1", engine(**spec_kw),
+                         "draft_nan@2:1", base_s, per_tick=spec_full,
+                         drv=drive_s,
+                         reasons=["length"] * n_req,
+                         monitor={"serving.poisoned": 0})
+        # the poisoned tick's row: fewer drafts kept than the clean run's
+        # same tick (a full-depth draft the verify keeps)
+        acc, acc0 = ([r["spec_accepted"] for r in o["ticks"]
+                      if r["tick"] == 2] for o in (draft, base_s))
+        if not acc[0] < acc0[0]:
+            raise AssertionError(f"5f draft_nan: tick 2 kept {acc} drafts, "
+                                 f"the clean run {acc0}: the fault never "
+                                 "bit")
+        scen["spec_draft_nan@2:1"]["tick2_spec_accepted"] = [acc[0],
+                                                             acc0[0]]
+        scenario("spec_nan_logits@2:1", engine(**spec_kw),
+                 "nan_logits@2:1", base_s, per_tick=spec_full, drv=drive_s,
+                 monitor={"serving.poisoned": 1},
+                 dump="serving_poisoned_fault")
+        parts["b"] = time.perf_counter() - t0
+
+        # (c) one request's span tree; the SLO alert of the nan run
+        t0 = time.perf_counter()
+        tracing.clear()
+        eng = engine(prefix_sharing=False, prefill_chunk=CHAOS_CHUNK,
+                     **CHAOS_PAGED)
+        req = eng.submit(chaos_prompts(cfg.vocab_size, 1, seed=41, lo=200,
+                                       hi=200)[0], CHAOS_NEW)
+        while eng.has_work():
+            eng.step()
+        tr = tracing.tracer()
+        spans = sorted(tr.spans(req.trace.trace_id),
+                       key=lambda s: s.span_id)
+        root = [s for s in spans if s.name == f"request-{req.id}"][0]
+        by = collections.defaultdict(list)
+        for s in spans:
+            by[s.name].append(s)
+        dec = by["decode"][0].span_id if by["decode"] else None
+        terms = tr.terminal_spans(req.trace.trace_id)
+        path = os.path.join(tmp, "trace.json")
+        tr.export_chrome_trace(path)
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+        tree_ok = (req.finish_reason == "length" and root.parent_id is None
+                   and len(by["queue"]) == 1 and len(by["prefill"]) >= 2
+                   and len(by["decode"]) == 1
+                   and all(s.parent_id == root.span_id
+                           for n in ("queue", "prefill", "decode")
+                           for s in by[n])
+                   and len(by["decode.tick"]) == CHAOS_NEW
+                   and all(s.parent_id == dec for s in by["decode.tick"])
+                   and len(terms) == 1
+                   and terms[0].attrs["reason"] == "length"
+                   and any(e.get("cat") == "terminal" for e in evs))
+        # the nan_logits run's SLO record and its poisoned finish
+        slo_path = os.path.join(tmp, "slo.jsonl")
+        nan_eng.export_slo_jsonl(slo_path)
+        mon = BurnRateMonitor(
+            [Objective("poisoned", "errors", "event", budget=0.01),
+             Objective("ttft", "ttft", "latency", threshold_ms=60e3,
+                       budget=0.01)], pairs=((300.0, 30.0),))
+        with open(slo_path) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec.get("kind") == "serving_slo":
+                    mon.feed_slo_record(rec)
+        mon.observe_events("errors",
+                           bad=nan["monitor"].get("serving.poisoned", 0),
+                           total=nan["monitor"].get(
+                               "serving.requests_completed", 0))
+        fdir = os.path.join(tmp, "slo_alert")
+        os.makedirs(fdir, exist_ok=True)
+        flight_recorder.recorder().set_dir(fdir)
+        try:
+            alerts = [a.objective for a in mon.check()]
+        finally:
+            flight_recorder.recorder().set_dir(None)
+        alert_dumps = [flight_recorder.load_dump(os.path.join(fdir, f))[
+            "reason"] for f in os.listdir(fdir)]
+        line = {"phase": "gpt_serving_chaos", "part": "tracing_slo",
+                "ok": tree_ok and alerts == ["poisoned"]
+                and "slo_burn_alert" in alert_dumps,
+                "prefill_spans": len(by["prefill"]),
+                "decode_ticks": len(by["decode.tick"]),
+                "terminal": [t.attrs["reason"] for t in terms],
+                "chrome_events": len(evs), "alerts": alerts,
+                "burn_rates": mon.burn_rates(), "dumps": alert_dumps}
+        log(json.dumps(line))
+        if not line["ok"]:
+            raise AssertionError(f"5f (c): {line}")
+        del eng, nan_eng
+        parts["c"] = time.perf_counter() - t0
+    finally:
+        flight_recorder.recorder().set_dir(old_flight)
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({"phase": "gpt_serving_chaos", "card": card,
+                    "scenarios": len(scen), "seconds_by_part": parts,
+                    "launches": launches, "replay_launches": replays,
+                    "telemetry": {k: {m: v for m, v in ln.items()
+                                      if m.startswith("tick_ms")}
+                                  for k, ln in tele.items()}}))
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, {"replays": replays}
 
 
 def llama_host_params():
@@ -2971,6 +3647,8 @@ def llama_serving(torch, qm, dev, card, cfg, params):
 
 
 # phase 5c: the paged and speculative Llama engines
+# new tokens a request of 5c's prompts (5c, and 5d's engines held to 5c)
+PAGED_NEW = 16
 PAGED = dict(kv_layout="paged", page_size=16, prefill_chunk=256,
              num_pages=513)
 SPEC = dict(spec_decode="spec", gamma=4, draft_layers=2)
@@ -3401,7 +4079,7 @@ def paged_serving(torch, qm, dev, card, cfg, params):
                         "seconds": time.perf_counter() - t0}))
         streams[label], summaries[label], launches[label] = run_engine(
             torch, qm, eng, prompts, label, card, per_pass,
-            spec_tick if eng.spec else per_pass)
+            spec_tick if eng.spec else per_pass, new_tokens=PAGED_NEW)
         summaries[label]["streams"] = streams[label]
         # the int8 tree (the same from every build) for the verdicts
         qp = eng._params if label == "dense_spec" else None
@@ -3723,7 +4401,8 @@ def multi_tick_serving(torch, qm, dev, card, cfg, params, k1):
                         "seconds": time.perf_counter() - t0}))
         streams, summary, launches[f"llama_{label}"] = run_engine(
             torch, qm, eng, prompts, label, card, per_pass,
-            spec_tick if eng.spec else per_pass)
+            spec_tick if eng.spec else per_pass,
+            new_tokens=64 if base == "serving" else PAGED_NEW)
         replays[f"llama_{label}"] = {
             "replays": summary["replay_launches"],
             "profiled": summary["profile"]["replay_launches_profiled"]}
@@ -6266,9 +6945,17 @@ def run(torch):
     moe_paths = {"gpt_moe_train": moe, "gpt_moe_gshard_step": moe_gshard}
     llama_launches, p4 = phase("llama_train", llama_training, torch, dev,
                                card)
-    serving_launches = {
-        "gpt_serving": sampling_phase("gpt_serving", serving, torch, qm,
-                                      dev, card)[0]}
+    # phases 5 and 5f share the host-drawn GPT weights and their int8
+    # rewrite
+    gcfg, gparams = gpt_host_params()
+    with quantize_once():
+        serving_launches = {
+            "gpt_serving": sampling_phase("gpt_serving", serving, torch, qm,
+                                          dev, card, gcfg, gparams)[0]}
+        serving_launches["gpt_serving_chaos"], chaos_replays = \
+            sampling_phase("gpt_serving_chaos", gpt_serving_chaos, torch,
+                           qm, dev, card, gcfg, gparams)
+    del gparams
     # phases 5b-5e share the host-drawn TinyLlama-width weights at
     # LLAMA_SERVE_LAYERS layers and their int8 rewrite
     lcfg, lparams = llama_host_params()
@@ -6285,6 +6972,7 @@ def run(torch):
             "llama_multi_tick", multi_tick_serving, torch, qm, dev, card,
             lcfg, lparams, k1c)
         serving_launches.update(mt_launches)
+        replay_launches["gpt_serving_chaos"] = chaos_replays
         tp_launches, tp_draws, tp_rows, _ = phase(
             "llama_tp2_serving", tp_serving, torch, qm, dev, card, lcfg,
             lparams, k1c)

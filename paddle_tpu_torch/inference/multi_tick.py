@@ -123,25 +123,40 @@ def resolve_multi_tick(knob=0, device=None) -> int:
 
 
 # ----------------------------------------------------------- tick bodies
+def _dispatch_row(rows):
+    """One TICK_FIELDS row a dispatch (the reference's): the counts
+    summed over the K ticks, `active` (index 1) the slots alive at the
+    dispatch's start, not slot-ticks."""
+    rows = torch.stack(rows)
+    out = rows.sum(dim=0)
+    out[1] = rows[0, 1]
+    return out
+
+
 @torch.no_grad()
-def multi_tick_ticks(params, cache, state, seed, eos_ids, max_new, *, fwd,
-                     cfg, max_top_k, sampling, guard, k_ticks, max_len,
-                     oor_pos=None):
+def multi_tick_ticks(params, cache, state, seed, eos_ids, max_new,
+                     poison=None, *, fwd, cfg, max_top_k, sampling, guard,
+                     k_ticks, max_len, oor_pos=None, tele=False):
     """K non-spec decode ticks over the engine's state tuple (the
     counterpart of multi_tick_scan; each step is serving._decode_tick
-    under the alive mask). `eos_ids` [N] (-1: no EOS check) and
-    `max_new` [N] are the early-exit inputs. Returns (emit [N, K] int32, the advanced state);
-    the cache is written in place."""
+    under the alive mask, with the same `poison` multiplier). `eos_ids`
+    [N] (-1: no EOS check) and `max_new` [N] are the early-exit inputs.
+    Returns (emit [N, K] int32, the advanced state), with the
+    dispatch's TICK_FIELDS row before the state under `tele`; the cache
+    is written in place."""
     from .serving import _decode_tick
 
     cur, pos, active, temps, top_ks, req_ids, gi = state
     alive = active
-    cols = []
+    cols, rows = [], []
     for _ in range(k_ticks):
-        nxt, (_, pos, _, _, _, _, gi) = _decode_tick(
+        out = _decode_tick(
             params, cache, (cur, pos, alive, temps, top_ks, req_ids, gi),
-            seed, fwd=fwd, cfg=cfg, max_top_k=max_top_k, sampling=sampling,
-            guard=guard, oor_pos=oor_pos)
+            seed, poison, fwd=fwd, cfg=cfg, max_top_k=max_top_k,
+            sampling=sampling, guard=guard, oor_pos=oor_pos, tele=tele)
+        nxt, (_, pos, _, _, _, _, gi) = out[0], out[-1]
+        if tele:
+            rows.append(out[1])
         cols.append(torch.where(alive, nxt, torch.full_like(nxt, MT_PAD)))
         # the host's finish rules: quarantine (-1), EOS, length budget,
         # position ceiling
@@ -150,32 +165,38 @@ def multi_tick_ticks(params, cache, state, seed, eos_ids, max_new, *, fwd,
         cur = torch.where(alive, nxt, cur)
         alive = alive & ~dead
     # `active` stays the host's mask: the host retires slots itself
-    return torch.stack(cols, dim=1), (cur, pos, active, temps, top_ks,
-                                      req_ids, gi)
+    emit = torch.stack(cols, dim=1)
+    new = (cur, pos, active, temps, top_ks, req_ids, gi)
+    return (emit, _dispatch_row(rows), new) if tele else (emit, new)
 
 
 @torch.no_grad()
-def multi_tick_spec_ticks(params, cache, state, seed, eos_ids, max_new, *,
-                          fwd, cfg, max_top_k, sampling, guard, gamma,
-                          draft_layers, k_ticks, max_len, oor_pos=None):
+def multi_tick_spec_ticks(params, cache, state, seed, eos_ids, max_new,
+                          poison=None, draft_poison=None, *, fwd, cfg,
+                          max_top_k, sampling, guard, gamma, draft_layers,
+                          k_ticks, max_len, oor_pos=None, tele=False):
     """K speculative rounds (spec_decode._spec_core) with the alive-mask
     early exit of `multi_tick_ticks`: a slot retires when a token it
     emitted in a block is its EOS, when the block's advance exhausts its
     budget or crosses max_len, or when the quarantine flags column 0.
     Returns (emit [N, K * (gamma+1)]: K blocks of gamma+1 columns, a
-    retired slot's later blocks all MT_PAD; the advanced state)."""
-    from .spec_decode import _spec_core
+    retired slot's later blocks all MT_PAD; the advanced state), with
+    the dispatch's TICK_FIELDS row before the state under `tele`."""
+    from .spec_decode import _spec_core, _spec_row
 
     cur, pos, active, temps, top_ks, req_ids, gi = state
     alive = active
     cols_idx = torch.arange(gamma + 1, device=cur.device)[None, :]
-    blocks = []
+    blocks, rows = [], []
     for _ in range(k_ticks):
         emit, new_tok, adv, m = _spec_core(
             params, cache, cur, pos, alive, temps, top_ks, req_ids, gi,
-            seed, fwd=fwd, cfg=cfg, max_top_k=max_top_k, sampling=sampling,
-            guard=guard, gamma=gamma, draft_layers=draft_layers,
-            oor_pos=oor_pos)
+            seed, poison, draft_poison, fwd=fwd, cfg=cfg,
+            max_top_k=max_top_k, sampling=sampling, guard=guard,
+            gamma=gamma, draft_layers=draft_layers, oor_pos=oor_pos)
+        if tele:
+            rows.append(_spec_row(emit, adv, m, pos, alive, temps,
+                                  sampling, gamma))
         # the core parks 0 in column 0 of a dead row; the host needs PAD
         # there to see that the slot retired in an earlier block
         blocks.append(torch.where(alive[:, None], emit,
@@ -188,5 +209,6 @@ def multi_tick_spec_ticks(params, cache, state, seed, eos_ids, max_new, *,
         dead = flagged | hit_eos | (gi >= max_new) | (pos >= max_len)
         cur = torch.where(alive, new_tok, cur)
         alive = alive & ~dead
-    return torch.cat(blocks, dim=1), (cur, pos, active, temps, top_ks,
-                                      req_ids, gi)
+    emit = torch.cat(blocks, dim=1)
+    new = (cur, pos, active, temps, top_ks, req_ids, gi)
+    return (emit, _dispatch_row(rows), new) if tele else (emit, new)

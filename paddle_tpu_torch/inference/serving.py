@@ -103,11 +103,51 @@ tensor ops on the device, with no host sync.
   host route two ranks sharing a card take
   ("gloo_cuda_via_all_reduce"): that combination raises at build.
 
-Every request resolves exactly once with a finish reason from
-TERMINAL_REASONS. Engine knobs of later slices (telemetry, tracing,
-watchdog and retries, queue bounds) raise NotImplementedError naming
-the ROADMAP item that ports them. The reference's fault-injection hooks
-are not carried (A7).
+Robustness (the reference's SLO guardrails). Every request resolves
+exactly once with a finish reason from TERMINAL_REASONS, through the
+one `_finish` seam:
+- **Admission.** `max_queue` bounds the queue: "reject" raises
+  BackpressureError at submit, "shed_oldest" evicts the oldest queued
+  request; `queue_ttl_s` times a waiting request out.
+- **Deadlines.** `deadline_s` / `deadline_ticks` bound a request's whole
+  lifetime (queue wait included): checked over the queue, at the head of
+  admission, and after each decode over every slot, mid-prefill ones
+  included; an expired request ends "timeout". `abort_pending` resolves
+  everything live.
+- **Self-healing.** A raising prefill rolls its slot back and retries
+  with backoff (`retries`, `backoff_base`, `backoff_max`); an exhausted
+  budget evicts the request. A raising decode re-runs from the host
+  mirrors: the device state (`_dstate`, or the K-tick static buffers)
+  reloads from them, so the re-run writes the same K/V at the same
+  positions. An exhausted budget, or a pull that outlives the watchdog
+  (`watchdog_timeout` > 0: `_pull` through parallel/resilience's
+  WatchdogPuller), hard-resets: in-flight requests end "evicted", the
+  cache is reallocated, the CUDA graphs that baked the old cache are
+  dropped and captured again, and queued requests admit into the fresh
+  cache. The reference also resets when a failed dispatch consumed its
+  donated cache (`_cache_dead`); a torch tensor is never consumed by a
+  failed call, so here only the retry budget and the watchdog lead
+  there. An allocation failure (`torch.OutOfMemoryError`, or an
+  injected RESOURCE_EXHAUSTED) first dumps `oom_forensics` (the memory
+  ledger, a census of the engine's tensors, pool and quant stats).
+- **Fault seam.** `_FAULT_HOOK` (testing/faults.py installs it) is
+  consulted once a tick for the serving fault kinds; `nan_logits` writes
+  nan into one lane of the `[N]` poison multiplier the tick's logits
+  are multiplied by (by 1.0 otherwise, which is exact), so injected and
+  organic non-finite logits meet the same quarantine.
+
+Observability. `serving.*` monitor counters, gauges and the
+queue_wait_ms histogram; `RecordEvent` spans around every prefill and
+decode dispatch; TTFT and inter-token samples (`slo_snapshot`,
+`export_slo_jsonl`); in-tick telemetry (`telemetry=`, on by default,
+profiler/serving_telemetry.py): the dispatch computes the TICK_FIELDS
+row on the device and packs it beside its tokens, so the one pull
+carries both (`tick_records()`, `telemetry_jsonl=`); request tracing
+(`tracing=True`, profiler/tracing.py): queue, prefill chunk and decode
+spans, a `decode.tick` instant a token, one terminal span.
+
+The fleet (router, autoscaler, journal, `snapshot_request` and
+`rebuild_on_mesh`) waits for ROADMAP A7 part 3.
 """
 from __future__ import annotations
 
@@ -115,6 +155,7 @@ import collections
 import dataclasses
 import functools
 import hashlib
+import json
 import sys
 import time
 from typing import Callable, List, Optional, Sequence
@@ -123,47 +164,53 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.decode_attention import attended_tokens
 from ..models.decode import prompt_bucket
+from ..profiler import RecordEvent, monitor
+from ..profiler.serving_telemetry import TICK_FIELDS, pack_tick_fields
 from . import prng
 
 __all__ = ["ServingEngine", "Request", "ModelFamily", "family_for",
            "create_serving_engine", "TERMINAL_REASONS",
-           "PoolExhaustedError"]
+           "BackpressureError", "PoolExhaustedError", "ServingFaultError"]
 
+# every submitted request ends in exactly one of these
 TERMINAL_REASONS = frozenset(
-    {"eos", "length", "cancelled", "poisoned", "evicted"})
+    {"eos", "length", "timeout", "cancelled", "poisoned", "evicted"})
+
+# fault-injection seam (testing.faults.install wires it): called with the
+# tick about to run, returns an action dict ({"poison_slot": i} |
+# {"draft_poison_slot": i} | {"stall_s": s} | {"raise_prefill": True} |
+# {"raise_decode": True} | {"raise_cow": True} | {"raise_oom": True}).
+# Production code never sets it.
+_FAULT_HOOK: Optional[Callable[[int], dict]] = None
 
 # device index -> the side stream every engine's multi-tick warm-ups and
 # CUDA graph captures run on: cuBLAS keeps a workspace for each stream it
 # has run on, so a stream per engine would leave one behind per build
 _CAPTURE_STREAMS: dict = {}
 
-# knob -> (values that leave the knob inert, the ROADMAP item porting it)
-_UNPORTED = {
-    "telemetry": (("auto", "off"), "A7 (serving telemetry)"),
-    "telemetry_jsonl": ((None,), "A7 (serving telemetry)"),
-    "telemetry_every": ((32,), "A7 (serving telemetry)"),
-    "tracing": ((False,), "A7 (request tracing)"),
-    "watchdog_timeout": ((0.0,), "A7 (watchdog and retries)"),
-    "retries": ((2,), "A7 (watchdog and retries)"),
-    "backoff_base": ((0.05,), "A7 (watchdog and retries)"),
-    "backoff_max": ((2.0,), "A7 (watchdog and retries)"),
-    "max_queue": ((0,), "A7 (admission queue bounds)"),
-    "queue_policy": (("reject",), "A7 (admission queue bounds)"),
-    "queue_ttl_s": ((0.0,), "A7 (admission queue bounds)"),
-}
+
+class BackpressureError(RuntimeError):
+    """submit() refused: the admission queue is at max_queue (policy
+    "reject"). Carries .queue_depth so a caller can report or shed."""
+
+    def __init__(self, msg: str, queue_depth: int = 0):
+        super().__init__(msg)
+        self.queue_depth = queue_depth
 
 
-def _check_unported(knobs: dict) -> None:
-    for name, value in knobs.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"ServingEngine got an unexpected keyword "
-                            f"argument {name!r}")
-        inert, item = _UNPORTED[name]
-        if value not in inert:
-            raise NotImplementedError(
-                f"ServingEngine {name}={value!r} is not ported yet "
-                f"(ROADMAP {item})")
+class ServingFaultError(RuntimeError):
+    """An injected serving fault (testing.faults prefill_raise,
+    decode_raise, cow_raise, oom), raised at the device-call seam, so the
+    retry path runs exactly what an organic dispatch failure would."""
+
+
+def _is_oom(exc: BaseException) -> bool:
+    """An allocation failure: torch's own, or one whose message carries
+    the reference backend's marker (the injected `oom` fault)."""
+    return (isinstance(exc, torch.OutOfMemoryError)
+            or "RESOURCE_EXHAUSTED" in str(exc))
 
 
 class PoolExhaustedError(RuntimeError):
@@ -339,25 +386,41 @@ class Request:
 
     __slots__ = ("id", "prompt", "max_new_tokens", "temperature", "top_k",
                  "eos_id", "tokens", "done", "finish_reason", "slot",
-                 "_engine", "_pf_next", "_pfx_keys", "shared_tokens")
+                 "deadline_s", "deadline_ticks", "t_submit", "_tick_submit",
+                 "_t_last", "_engine", "_pf_next", "_pfx_keys",
+                 "shared_tokens", "trace", "_sp_queue", "_sp_decode",
+                 "tenant", "priority")
 
     def __init__(self, req_id, prompt, max_new_tokens, temperature, top_k,
-                 eos_id):
+                 eos_id, deadline_s=None, deadline_ticks=None,
+                 tenant="default", priority=0):
         self.id = req_id
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
         self.top_k = top_k
         self.eos_id = eos_id
+        # multi-tenant labels: the engine carries them untouched (quotas
+        # and preemption are the fleet's policy, ROADMAP A7 part 3)
+        self.tenant = tenant
+        self.priority = int(priority)
+        self.deadline_s = deadline_s           # wall seconds from submit
+        self.deadline_ticks = deadline_ticks   # engine ticks from submit
         self.tokens: List[int] = []
         self.done = False
         self.finish_reason: Optional[str] = None
         self.slot: Optional[int] = None
+        self.t_submit = 0.0
+        self._tick_submit = 0
+        self._t_last = 0.0              # last emission (SLO samples)
         self._engine = None
         self._pf_next = None            # next chunked-prefill position
         self._pfx_keys = None           # memoized per-page prefix hashes
         self.shared_tokens = 0          # prompt tokens served from
         #                                 shared pages (prefix reuse)
+        self.trace = None               # RequestTrace (tracing=True)
+        self._sp_queue = None           # open queue-span id
+        self._sp_decode = None          # open decode-span id
 
     def cancel(self) -> bool:
         """Terminate this request now (finish_reason "cancelled")."""
@@ -413,32 +476,44 @@ def _sample(lg, temps, top_ks, seed, req_ids, gen_idx, max_top_k: int):
 # slot-state tuple riding through the decode tick (all [N] on the device)
 #   (cur_tok, positions, active, temps, top_ks, req_ids, gen_idx)
 @torch.no_grad()
-def _decode_tick(params, cache, state, seed, *, fwd, cfg, max_top_k,
-                 sampling, guard, oor_pos=None):
+def _decode_tick(params, cache, state, seed, poison=None, *, fwd, cfg,
+                 max_top_k, sampling, guard, oor_pos=None, tele=False):
     """All N slots advance one token; inactive slots compute too (fixed
     shape) but their output is masked. A dense inactive row writes its
     K/V at its stale position, which the next prefill of that slot
     overwrites; under the paged layout the pool is shared, so an
     inactive row (one mid-chunked-prefill maps real, possibly shared,
     pages) writes at `oor_pos` = max_pages * page_size instead: past the
-    table, onto the scratch page."""
+    table, onto the scratch page. `poison` [N] f32 multiplies the logits
+    under `guard` (ones, or nan in a lane the nan_logits fault poisons;
+    multiplying by 1.0 is exact). With `tele` the TICK_FIELDS int32 row
+    (profiler/serving_telemetry) is returned too: (nxt, row, state)."""
     toks, positions, active, temps, top_ks, req_ids, gen_idx = state
     fpos = positions if oor_pos is None else torch.where(
         active, positions, torch.full_like(positions, oor_pos))
     logits, cache = fwd(params, toks[:, None], cache, fpos, cfg)
     lg = logits[:, 0].float()
+    if guard and poison is not None:
+        lg = lg * poison[:, None]
     if sampling:
         nxt = _sample(lg, temps, top_ks, seed, req_ids, gen_idx, max_top_k)
     else:
         nxt = torch.argmax(lg, dim=-1).to(torch.int32)
     zero = torch.zeros_like(nxt)
     nxt = torch.where(active, nxt, zero)
+    bad = torch.zeros_like(active)
     if guard:
         bad = active & ~torch.isfinite(lg).all(dim=-1)
         nxt = torch.where(bad, zero - 1, nxt)
     inc = active.to(torch.int32)
-    return nxt, (nxt, positions + inc, active, temps, top_ks, req_ids,
-                 gen_idx + inc)
+    state = (nxt, positions + inc, active, temps, top_ks, req_ids,
+             gen_idx + inc)
+    if not tele:
+        return nxt, state
+    return nxt, pack_tick_fields(
+        tokens=(active & ~bad).sum(), active=active.sum(),
+        poisoned=bad.sum(), attended=attended_tokens(positions, active)), \
+        state
 
 
 @torch.no_grad()
@@ -492,6 +567,15 @@ def _prefill_chunk(params, cache, padded, true_len: int, start: int,
     return first
 
 
+def _packed(outs) -> torch.Tensor:
+    """A dispatch's outputs as the one int32 tensor the host pulls: the
+    emission matrix, flattened, then (under telemetry) the TICK_FIELDS
+    row."""
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([outs[0].reshape(-1), outs[1]])
+
+
 def _cow_copy(cache, src: int, dst: int) -> None:
     """Copy page `src` onto page `dst` in every layer of the pool, k and
     v: the copy-on-write materialization, in place."""
@@ -540,6 +624,15 @@ class ServingEngine:
     axis; see parallel/planner.py plan_serving_tp for the degree), one
     engine a rank, built and driven alike on every rank; `params` are
     the FULL tree, which each rank cuts to its shards.
+
+    Guardrails: `max_queue` (0: unbounded) with `queue_policy`
+    ("reject"|"shed_oldest"), `queue_ttl_s` (0: none), the isfinite
+    quarantine (`guardrails`), `watchdog_timeout` seconds on each pull
+    (0: none), `retries` of a failed device call with `backoff_base`
+    doubling up to `backoff_max` seconds. Observability: `telemetry`
+    ("auto"|"on"|"off"; env PADDLE_TPU_SERVING_TELEMETRY kills it),
+    `telemetry_jsonl` (a JSONL path) flushed every `telemetry_every`
+    records, `tracing` (request span trees).
     """
 
     def __init__(self, params, cfg, family="gpt", num_slots: int = 8,
@@ -551,8 +644,22 @@ class ServingEngine:
                  spec_decode: str = "auto", gamma: int = 4,
                  draft_layers: int = 0, multi_tick: int = 0,
                  host_kv_bytes: int = 0, mesh=None, tp_axis: str = "tp",
-                 **later_knobs):
-        _check_unported(later_knobs)
+                 max_queue: int = 0, queue_policy: str = "reject",
+                 queue_ttl_s: float = 0.0, watchdog_timeout: float = 0.0,
+                 retries: int = 2, backoff_base: float = 0.05,
+                 backoff_max: float = 2.0, telemetry: str = "auto",
+                 telemetry_jsonl: Optional[str] = None,
+                 telemetry_every: int = 32, tracing: bool = False):
+        if queue_policy not in ("reject", "shed_oldest"):
+            raise ValueError(f"queue_policy {queue_policy!r} "
+                             "(reject|shed_oldest)")
+        self.max_queue = int(max_queue)              # 0: unbounded
+        self.queue_policy = queue_policy
+        self.queue_ttl_s = float(queue_ttl_s)        # 0: no TTL
+        self.watchdog_timeout = float(watchdog_timeout)  # 0: no watchdog
+        self.retries = int(retries)                  # device-call retries
+        self.backoff_base = float(backoff_base)
+        self.backoff_max = float(backoff_max)
         self.family = (family_for(family) if isinstance(family, str)
                        else family)
         self.mesh = mesh
@@ -678,8 +785,7 @@ class ServingEngine:
                                          pin=self.device.type == "cuda")
             self._pool.on_evict = self._spill_page
         if not self.paged:
-            self._cache = self.family.init_cache(cfg, n, self.max_len,
-                                                 device=self.device)
+            self._cache = self._new_cache()
         # host mirrors of the slot state; the device copy is rebuilt
         # from them only when admission or a finish dirties them
         self._positions = np.zeros(n, np.int32)
@@ -745,6 +851,118 @@ class ServingEngine:
                 self._quant_info["head"]
             self._qmm_full = per * n_layers + head
             self._qmm_draft = per * self.spec_draft_layers + head
+
+        # the fault-injection multipliers of the target and draft logits:
+        # ones, written in place (a CUDA graph reads their addresses)
+        self._poison = torch.ones(n, dtype=torch.float32, device=self.device)
+        self._dpoison = torch.ones(n, dtype=torch.float32,
+                                   device=self.device)
+        self._raise_cow = False          # injected cow_raise, armed
+        self._actions: dict = {}         # the tick's injected faults
+        # SLO samples (host ms): TTFT includes the queue wait; inter-token
+        # latency a token, a multi-token pull's gap shared among them
+        self._slo_ttft: collections.deque = collections.deque(maxlen=8192)
+        self._slo_itl: collections.deque = collections.deque(maxlen=8192)
+        # in-tick telemetry: the dispatch packs the TICK_FIELDS row beside
+        # its tokens and the one pull carries both
+        from ..profiler.serving_telemetry import (ServingTelemetry,
+                                                  resolve_serving_telemetry)
+        self._tick_tele = resolve_serving_telemetry(telemetry)
+        self._tick_log = None
+        if self._tick_tele:
+            self._tick_log = ServingTelemetry(
+                path=telemetry_jsonl, every=telemetry_every,
+                meta={"family": self.family.name,
+                      "layout": "paged" if self.paged else "dense",
+                      "spec": bool(self.spec),
+                      "quant": "int8" if self.quant else "off",
+                      "multi_tick": self.mt_k, "tp": self.tp,
+                      "num_slots": self.num_slots, "max_len": self.max_len})
+        self._tracer = None
+        if tracing:
+            from ..profiler import tracing as _tracing
+            self._tracer = _tracing.tracer()
+        from ..profiler import flight_recorder
+        self._flight = flight_recorder.recorder()
+        self._puller = None            # the watchdog's worker, made lazily
+        self._init_metrics()
+
+    def _init_metrics(self) -> None:
+        """The reference's serving.* monitor stats (process-global: a
+        counter sums over engines; a gauge is the last engine's write)."""
+        self._m_occ = monitor.gauge("serving.slot_occupancy")
+        self._m_queue = monitor.gauge("serving.queue_depth")
+        self._m_qwait = monitor.histogram("serving.queue_wait_ms")
+        self._m_tok = monitor.counter("serving.tokens_emitted")
+        self._m_pre = monitor.counter("serving.prefills")
+        self._m_tick = monitor.counter("serving.decode_ticks")
+        self._m_sub = monitor.counter("serving.requests_submitted")
+        self._m_done = monitor.counter("serving.requests_completed")
+        self._m_rej = monitor.counter("serving.rejected")
+        self._m_retry = monitor.counter("serving.retries")
+        self._m_fault = monitor.counter("serving.faults")
+        self._reason_ctr = {
+            r: monitor.counter(f"serving.{r}")
+            for r in ("timeout", "cancelled", "poisoned", "evicted")}
+        # the kv pool (0 under the dense layout)
+        self._m_pages = monitor.gauge("serving.pages_in_use")
+        self._m_shared = monitor.gauge("serving.pages_shared")
+        self._m_cow = monitor.counter("serving.cow_copies")
+        self._m_chunks = monitor.counter("serving.prefill_chunks")
+        # the pool's device bytes: dense, the whole cache, set once;
+        # paged, pages in use x a page's bytes
+        self._m_kv_bytes = monitor.gauge("serving.kv_pool_bytes")
+        self._m_oom = monitor.counter("serving.oom_forensics")
+        kv_bytes = 2 * self._cache["k"].numel() * \
+            self._cache["k"].element_size()
+        if self.paged:
+            self._page_bytes = kv_bytes // self.num_pages
+            self._publish_pool_gauges()
+        else:
+            self._m_kv_bytes.set(kv_bytes)
+        self._m_kv_host = monitor.gauge("serving.kv_host_bytes")
+        self._m_ticks_pull = monitor.gauge("serving.ticks_per_pull")
+        self._m_ticks_pull.set(self.mt_k)
+        self._m_spill = monitor.counter("serving.host_spills")
+        self._m_swapin = monitor.counter("serving.host_swapins")
+        # speculative decode: the rate gauge is this engine's cumulative
+        # accepted / proposed
+        self._m_spec_prop = monitor.counter("serving.spec_proposed")
+        self._m_spec_acc = monitor.counter("serving.spec_accepted")
+        self._m_spec_rate = monitor.gauge("serving.spec_accept_rate")
+        self._spec_prop_total = 0
+        self._spec_acc_total = 0
+        # weight-only int8: this engine's weight bytes before and after
+        # the rewrite; the kernel's calls (K ticks' worth a dispatch)
+        self._m_qw = monitor.gauge("serving.quant_weights_bytes")
+        self._m_fpw = monitor.gauge("serving.fp_weights_bytes")
+        self._m_qmm = monitor.counter("serving.quant_matmuls")
+        if self._quant_info:
+            self._m_qw.set(self._quant_info["quant_bytes"])
+            self._m_fpw.set(self._quant_info["fp_bytes"])
+
+    def _publish_pool_gauges(self) -> None:
+        if not self.paged:
+            return
+        pages = int((self._pool.ref[1:] > 0).sum())
+        self._m_pages.set(pages)
+        self._m_shared.set(int((self._pool.ref[1:] > 1).sum()))
+        self._m_kv_bytes.set(pages * self._page_bytes)
+
+    def _publish_tier_gauges(self) -> None:
+        """Host-side gauges, published each tick with the pool gauges (no
+        device read)."""
+        self._m_ticks_pull.set(self.mt_k)
+        if self._host_tier is not None:
+            self._m_kv_host.set(self._host_tier.bytes)
+
+    def _new_cache(self) -> dict:
+        """A zeroed cache of this engine's layout: the page pool with its
+        table, or the dense slot cache."""
+        if self.paged:
+            return self._init_paged_cache()
+        return self.family.init_cache(self.cfg, self.num_slots,
+                                      self.max_len, device=self.device)
 
     # --------------------------------------------- tensor-parallel seams
     def _serving_table(self, params) -> dict:
@@ -879,14 +1097,54 @@ class ServingEngine:
                            if self._host_tier is not None else 0))
 
     def has_work(self) -> bool:
+        # a slot mid-chunked-prefill holds a request but is not active
         return (bool(self._queue) or bool(self._active.any())
                 or any(r is not None for r in self._slot_req))
 
+    def tick_records(self) -> list:
+        """The in-tick telemetry ring (serving_tick and serving_prefill
+        records, newest last); empty with telemetry off."""
+        return [] if self._tick_log is None else self._tick_log.records()
+
+    def flush_telemetry(self, timeout: Optional[float] = None) -> None:
+        """Block until every pending serving_tick record is on disk
+        (no-op without telemetry_jsonl=)."""
+        if self._tick_log is not None:
+            self._tick_log.flush(timeout=timeout)
+
+    def slo_snapshot(self) -> dict:
+        """The raw SLO samples (ms): time to first token (queue wait
+        included) and inter-token latency, bounded rings."""
+        return {"ttft_ms": [round(v, 3) for v in self._slo_ttft],
+                "itl_ms": [round(v, 3) for v in self._slo_itl]}
+
+    def export_slo_jsonl(self, path: str) -> None:
+        """Append one serving_slo record to a telemetry JSONL file and
+        drain the sample rings, so a periodic export never counts a
+        sample twice (tools/telemetry_report.py merges the records'
+        samples into TTFT / inter-token p50/p95/p99)."""
+        rec = {"kind": "serving_slo", "t": time.time(),
+               **self.slo_snapshot()}
+        self._slo_ttft.clear()
+        self._slo_itl.clear()
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
     # --------------------------------------------------------- admission
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
-               top_k: int = 0, eos_id: Optional[int] = None) -> Request:
+               top_k: int = 0, eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               deadline_ticks: Optional[int] = None,
+               tenant: str = "default", priority: int = 0,
+               _trace=None) -> Request:
         """Queue one request (prompt: 1-D int token ids). Returns the
-        live Request; its .tokens fill in as the engine steps."""
+        live Request; its .tokens fill in as the engine steps.
+        `deadline_s` / `deadline_ticks` bound its whole lifetime (queue
+        wait included) in wall seconds / engine ticks; past either it
+        ends "timeout". At max_queue, "reject" raises BackpressureError
+        and "shed_oldest" evicts the oldest queued request. `_trace`
+        threads a caller's RequestTrace through (with tracing=True and
+        none given the engine mints one)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         t0 = prompt.shape[0]
         if t0 < 1:
@@ -913,22 +1171,60 @@ class ServingEngine:
                     f"pool holds {self.num_pages - 1} allocatable pages "
                     f"(page_size={self.page_size})",
                     pages_needed=need, pages_total=self.num_pages - 1)
+        if self.max_queue > 0 and len(self._queue) >= self.max_queue:
+            if self.queue_policy == "shed_oldest":
+                self._finish(self._queue.popleft(), "evicted")
+            else:
+                self._m_rej.add()
+                raise BackpressureError(
+                    f"admission queue full ({len(self._queue)} waiting, "
+                    f"max_queue={self.max_queue})",
+                    queue_depth=len(self._queue))
         req = Request(self._next_id, prompt, int(max_new_tokens),
-                      float(temperature), int(top_k), eos_id)
+                      float(temperature), int(top_k), eos_id,
+                      deadline_s=(None if deadline_s is None
+                                  else float(deadline_s)),
+                      deadline_ticks=(None if deadline_ticks is None
+                                      else int(deadline_ticks)),
+                      tenant=tenant, priority=priority)
+        req.t_submit = time.perf_counter()
+        req._tick_submit = self._ticks
         req._engine = self
+        if _trace is not None:
+            req.trace = _trace
+        elif self._tracer is not None:
+            req.trace = self._tracer.trace(
+                f"request-{req.id}", request_id=req.id, prompt_len=t0,
+                max_new_tokens=int(max_new_tokens))
+        if req.trace is not None:
+            req._sp_queue = req.trace.begin(
+                "queue", queue_depth=len(self._queue),
+                attempt=req.trace.attempt)
         self._next_id += 1
         self._queue.append(req)
+        self._m_sub.add()
+        self._m_queue.set(len(self._queue))
         return req
 
     # --------------------------------------------------------- the tick
     def step(self):
-        """One engine tick: advance ONE mid-prefill slot by one chunk
-        (paged), admit queued requests into free slots (one bucketed
-        prefill each; under the paged layout only when the request's
-        page reservation fits, else it waits at the head of the queue),
-        then advance every active slot through the decode tick. Returns
-        this tick's (request, token) emissions."""
+        """One engine tick: consult the fault hook, expire queued
+        requests past their TTL or deadline, advance ONE mid-prefill
+        slot by one chunk (paged), admit queued requests into free slots
+        (one prefill each; under the paged layout only when the
+        request's page reservation fits, else it waits at the head of
+        the queue), advance every active slot through the decode
+        dispatch (quarantining poisoned rows), then enforce deadlines on
+        the survivors. Returns this tick's (request, token) emissions."""
         events: List[tuple] = []
+        # this tick's injected faults, consumed by the guarded calls
+        self._actions = {}
+        if _FAULT_HOOK is not None:
+            self._actions = _FAULT_HOOK(self._ticks) or {}
+        if self.paged and self._actions.pop("raise_cow", None):
+            self._raise_cow = True
+        now = time.perf_counter()
+        self._expire_queued(now)
         if self.paged:
             self._advance_prefill(events)
         while self._queue:
@@ -936,6 +1232,10 @@ class ServingEngine:
             if slot is None:
                 break
             head = self._queue[0]
+            if self._deadline_expired(head, now):
+                self._queue.popleft()
+                self._finish(head, "timeout")
+                continue
             if self.paged and (self._plan_admission(head)[4]
                                > self._pool.available()):
                 # FCFS: the head waits for pages to free; its host-tier
@@ -943,20 +1243,24 @@ class ServingEngine:
                 self._prefetch_host(head)
                 break
             self._queue.popleft()
-            try:
-                self._admit(slot, head, events)
-            except BaseException:
-                # no limbo: the request resolves before the error surfaces
-                self._rollback_slot(slot, head)
-                self._finish(head, "evicted")
-                raise
+            self._admit_guarded(slot, head, events)
         if self._active.any():
             self._decode(events)
+        # outside the decode branch: a slot mid-chunked-prefill honors
+        # its deadline even while no stream decodes
+        self._enforce_deadlines(time.perf_counter())
         self._ticks += 1
+        self._m_occ.set(int(self._active.sum()))
+        self._m_queue.set(len(self._queue))
+        self._publish_pool_gauges()
+        self._publish_tier_gauges()
         return events
 
     def drain(self, max_ticks: Optional[int] = None):
-        """Step until idle (or max_ticks); returns all emissions."""
+        """Step until idle (or max_ticks); returns all emissions. With
+        max_ticks live requests may remain: `abort_pending()` (or
+        `generate(..., max_ticks=)`, which calls it for its requests)
+        resolves them."""
         events = []
         ticks = 0
         while self.has_work():
@@ -966,15 +1270,39 @@ class ServingEngine:
                 break
         return events
 
+    def abort_pending(self, reason: str = "evicted") -> int:
+        """Resolve every live request, queued and in a slot, with the
+        terminal `reason`. Returns the number aborted."""
+        if reason not in TERMINAL_REASONS:
+            raise ValueError(f"reason {reason!r} not in "
+                             f"{sorted(TERMINAL_REASONS)}")
+        n = 0
+        while self._queue:
+            self._finish(self._queue.popleft(), reason)
+            n += 1
+        for req in list(self._slot_req):
+            if req is not None:
+                self._finish(req, reason)
+                n += 1
+        self._m_occ.set(int(self._active.sum()))
+        self._m_queue.set(len(self._queue))
+        return n
+
     def generate(self, prompts: Sequence, max_new_tokens: int,
                  temperature: float = 0.0, top_k: int = 0,
                  eos_id: Optional[int] = None,
+                 deadline_s: Optional[float] = None,
+                 deadline_ticks: Optional[int] = None,
                  max_ticks: Optional[int] = None) -> List[np.ndarray]:
         """Submit every prompt, drain, and return each request's
-        generated ids in submission order. What `max_ticks` left
-        undelivered resolves as "evicted" before returning."""
+        generated ids in submission order. What `max_ticks` (or a
+        deadline) left undelivered resolves ("evicted") before
+        returning: every request this call submitted is done."""
         reqs = [self.submit(p, max_new_tokens, temperature=temperature,
-                            top_k=top_k, eos_id=eos_id) for p in prompts]
+                            top_k=top_k, eos_id=eos_id,
+                            deadline_s=deadline_s,
+                            deadline_ticks=deadline_ticks)
+                for p in prompts]
         self.drain(max_ticks)
         for r in reqs:
             if not r.done:
@@ -984,6 +1312,7 @@ class ServingEngine:
                     except ValueError:
                         pass
                 self._finish(r, "evicted")
+        self._m_queue.set(len(self._queue))
         return [np.asarray(r.tokens, np.int32) for r in reqs]
 
     # ------------------------------------------------------ terminality
@@ -1016,10 +1345,16 @@ class ServingEngine:
             except ValueError:
                 pass
 
-    def _rollback_slot(self, slot: int, req: Request) -> None:
+    def _rollback_slot(self, slot: int, req: Request, n_tok: int) -> None:
+        """Undo a partial admission: the slot (its pages and reservation
+        under the paged layout) and the request's progress return to
+        their state before it, and the device state is marked stale."""
         if self._slot_req[slot] is req:
             self._clear_slot(slot)
         req.slot = None
+        req._pf_next = None
+        req.shared_tokens = 0
+        del req.tokens[n_tok:]
 
     def _finish(self, req: Request, reason: str) -> None:
         """THE terminal transition, exactly once per request."""
@@ -1030,6 +1365,13 @@ class ServingEngine:
         req.slot = None
         req.done = True
         req.finish_reason = reason
+        if req.trace is not None:
+            # the one terminal span (RequestTrace.finish is once-only)
+            req.trace.finish(reason, tokens=len(req.tokens))
+        self._m_done.add()
+        ctr = self._reason_ctr.get(reason)
+        if ctr is not None:
+            ctr.add()
 
     def cancel(self, req: Request) -> bool:
         """Resolve `req` as "cancelled" now. False when already done."""
@@ -1044,6 +1386,7 @@ class ServingEngine:
                 for key in self._prefix_keys(req):
                     self._host_stage.pop(key, None)
         self._finish(req, "cancelled")
+        self._m_queue.set(len(self._queue))
         return True
 
     def _maybe_finish(self, req: Request) -> None:
@@ -1057,9 +1400,183 @@ class ServingEngine:
             #                                check makes it unreachable
 
     def _poisoned(self, req: Request, where: str) -> None:
-        print(f"[serving] non-finite {where} logits (request {req.id}); "
-              "quarantined", file=sys.stderr, flush=True)
+        """Quarantine one request on its non-finite logits."""
+        self._on_fault("poisoned", RuntimeError(
+            f"non-finite {where} logits (request {req.id})"))
         self._finish(req, "poisoned")
+
+    # --------------------------------------------------------- deadlines
+    def _deadline_expired(self, req: Request, now: float) -> bool:
+        if (req.deadline_s is not None
+                and now - req.t_submit >= req.deadline_s):
+            return True
+        return (req.deadline_ticks is not None
+                and self._ticks - req._tick_submit >= req.deadline_ticks)
+
+    def _expire_queued(self, now: float) -> None:
+        if not self._queue:
+            return
+        keep: collections.deque = collections.deque()
+        for req in self._queue:
+            ttl_hit = (self.queue_ttl_s > 0.0
+                       and now - req.t_submit >= self.queue_ttl_s)
+            if ttl_hit or self._deadline_expired(req, now):
+                self._finish(req, "timeout")
+            else:
+                keep.append(req)
+        self._queue = keep
+
+    def _enforce_deadlines(self, now: float) -> None:
+        for req in list(self._slot_req):
+            if req is not None and self._deadline_expired(req, now):
+                self._finish(req, "timeout")
+
+    # ----------------------------------------------- self-healing calls
+    def _on_fault(self, kind: str, exc: BaseException) -> None:
+        """Every serving fault leaves a flight dump (no-op without a
+        flight directory) and a counter bump."""
+        self._m_fault.add()
+        self._flight.configure(last_serving_fault=f"{kind}: {exc}")
+        self._flight.note(serving_fault=kind, tick=self._ticks,
+                          error=str(exc))
+        self._flight.dump(f"serving_{kind}_fault")
+        print(f"[serving] {kind} fault at tick {self._ticks}: {exc}",
+              file=sys.stderr, flush=True)
+
+    def _backoff(self, attempt: int) -> None:
+        self._m_retry.add()
+        time.sleep(min(self.backoff_base * (2.0 ** attempt),
+                       self.backoff_max))
+
+    def _dump_oom_forensics(self, where: str, exc) -> None:
+        """The out-of-memory black box, before the retry or reset runs:
+        the memory ledger, a census of the engine's tensors (params,
+        cache), the pool and quant stats and the live configuration.
+        Best-effort: forensics never mask the failure."""
+        try:
+            from ..profiler.mem_audit import live_array_census
+            census = live_array_census(
+                trees={"params": self._params, "cache": self._cache})
+            self._m_oom.add()
+            self._flight.configure(oom_forensics={
+                "where": where, "tick": self._ticks,
+                "error": repr(exc)[:500], "ledger": self.memory_ledger(),
+                "census": census["rows"],
+                "live_bytes": census["total_bytes"],
+                "other_bytes": census["other_bytes"],
+                "pool": self.pool_stats(), "quant": self.quant_stats(),
+                "config": {"layout": "paged" if self.paged else "dense",
+                           "num_slots": self.num_slots,
+                           "max_len": self.max_len, "tp": self.tp}})
+            self._flight.note(oom_forensics=where, tick=self._ticks)
+            self._flight.dump("oom_forensics")
+        except Exception:                      # noqa: BLE001
+            pass
+
+    def _hard_reset(self, reason: str) -> None:
+        """The last resort after an exhausted retry budget or a hung
+        pull: every in-flight request ends "evicted" and the cache is
+        reallocated; queued requests stay queued and admit into the
+        fresh cache. The CUDA graphs baked the old cache's addresses, so
+        they are dropped with it and captured again at the next dispatch
+        of each sampling flag. Under the paged layout the pool starts
+        fresh (its prefix map named the old pages); the host tier
+        survives (its pages are functions of prompt and weights) and its
+        eviction tap re-attaches."""
+        for req in list(self._slot_req):
+            if req is not None:
+                self._finish(req, "evicted")
+        if self.paged:
+            self._pool = _PagePool(self.num_pages, self.page_size)
+            if self._host_tier is not None:
+                self._pool.on_evict = self._spill_page
+            self._host_stage.clear()
+            self._ptab[:] = 0
+            self._slot_reserve[:] = 0
+            self._prefilling.clear()
+            self._pt_dirty = False
+        if self.mt_k > 1:
+            self._graphs.clear()
+            self._graph_out.clear()
+            self._graph_held.clear()
+        self._cache = None               # frees the old cache first
+        self._cache = self._new_cache()
+        self._dstate = None
+        self._dirty = True
+        self._flight.configure(last_serving_fault=f"hard_reset: {reason}")
+        self._flight.dump("serving_hard_reset")
+        print(f"[serving] hard reset at tick {self._ticks} ({reason}): "
+              "cache reallocated", file=sys.stderr, flush=True)
+
+    def _pull(self, value, stall_s: float = 0.0):
+        """THE device-to-host pull of every prefill and every dispatch:
+        one int32 tensor (a dispatch's tokens with its TICK_FIELDS row
+        packed beside them) to a numpy array, under the watchdog when
+        `watchdog_timeout` > 0 (parallel/resilience.WatchdogPuller: the
+        same pull re-polled with backoff, never re-dispatched). The copy
+        runs on the caller's current stream whichever thread performs
+        it, so it orders after every launch and replay before it.
+        `stall_s` is the injected tick_stall: it sleeps inside the
+        watched pull."""
+        stream = (torch.cuda.current_stream(self.device)
+                  if value.device.type == "cuda" else None)
+
+        def src():
+            if stall_s > 0.0:
+                time.sleep(stall_s)
+            if stream is None:
+                return value.cpu().numpy()
+            with torch.cuda.stream(stream):
+                return value.cpu().numpy()
+        if self.watchdog_timeout > 0.0:
+            if self._puller is None:
+                from ..parallel.resilience import WatchdogPuller
+                self._puller = WatchdogPuller(label="serving tick")
+            return self._puller.pull(
+                src, self.watchdog_timeout, self.retries,
+                self.backoff_base, self.backoff_max,
+                on_retry=self._on_stall_retry)
+        return src()
+
+    def _on_stall_retry(self, attempt: int) -> None:
+        """The watchdog's backoff observer: count it, and leave a flight
+        dump at a tick's first stall (a pull that needed backoff is
+        worth a post-mortem even when it recovers)."""
+        self._m_retry.add()
+        self._flight.note(serving_stall_attempt=attempt, tick=self._ticks)
+        if attempt == 0:
+            self._flight.dump("serving_stall")
+
+    def _admit_guarded(self, slot: int, req: Request,
+                       events: list) -> None:
+        """Admission under the fault guard: a raising prefill rolls the
+        slot back and retries with backoff; an exhausted budget resolves
+        the request "evicted", never limbo. A hung pull is not
+        retryable (re-waiting the budget can only fail again): the
+        request is evicted and the engine hard-resets."""
+        from ..parallel.resilience import StepHungError
+        n_tok = len(req.tokens)
+        for attempt in range(self.retries + 1):
+            try:
+                if self._actions.pop("raise_prefill", None):
+                    raise ServingFaultError("injected prefill fault")
+                self._admit(slot, req, events)
+                return
+            except StepHungError as e:
+                self._rollback_slot(slot, req, n_tok)
+                self._on_fault("prefill_hang", e)
+                self._finish(req, "evicted")
+                self._hard_reset("prefill watchdog hang")
+                return
+            except Exception as e:                 # noqa: BLE001
+                self._rollback_slot(slot, req, n_tok)
+                if _is_oom(e):
+                    self._dump_oom_forensics("prefill", e)
+                self._on_fault("prefill", e)
+                if attempt >= self.retries:
+                    self._finish(req, "evicted")
+                    return
+                self._backoff(attempt)
 
     # ---------------------------------------------------------- plumbing
     def _free_slot(self) -> Optional[int]:
@@ -1078,21 +1595,35 @@ class ServingEngine:
         tb = prompt_bucket(t0, self.max_len, self.bucket_lo)
         padded = np.zeros((1, tb), np.int64)
         padded[0, :t0] = req.prompt
+        if req.trace is not None:
+            req.trace.end(req._sp_queue)
+            req._sp_queue = None
+            sp_pf = req.trace.begin("prefill", slot=slot, true_len=t0,
+                                    bucket=tb, attempt=req.trace.attempt)
         t_pf0 = time.perf_counter()
-        first = _prefill_slot(
-            self._params, self._cache, self._upload(padded), t0, slot,
-            self._upload([req.temperature], torch.float32),
-            self._upload([req.top_k], torch.int32),
-            self._upload([req.id], torch.int32), self.seed,
-            fwd=self.family.forward_cached,
-            init_cache=self.family.init_cache, cfg=self.cfg,
-            max_top_k=self.max_top_k, sampling=req.temperature > 0.0,
-            guard=self.guardrails)
-        tok = int(first.item())          # the admission's one host pull
-        self.prefill_ms.append((time.perf_counter() - t_pf0) * 1e3)
+        with RecordEvent("serving.prefill"):
+            first = _prefill_slot(
+                self._params, self._cache, self._upload(padded), t0, slot,
+                self._upload([req.temperature], torch.float32),
+                self._upload([req.top_k], torch.int32),
+                self._upload([req.id], torch.int32), self.seed,
+                fwd=self.family.forward_cached,
+                init_cache=self.family.init_cache, cfg=self.cfg,
+                max_top_k=self.max_top_k, sampling=req.temperature > 0.0,
+                guard=self.guardrails)
+            # the admission's one host pull, under the tick's watchdog
+            tok = int(self._pull(first))
+        pf_ms = (time.perf_counter() - t_pf0) * 1e3
+        self.prefill_ms.append(pf_ms)
+        if req.trace is not None:
+            req.trace.end(sp_pf, final=True)
+        if self._tick_log is not None:
+            self._tick_log.record_prefill(self._ticks, pf_ms, t0, tb, True,
+                                          slot)
         self.counters["prefills"] += 1
         self.counters["sampled_passes"] += req.temperature > 0.0
-        self.counters["quant_matmuls"] += self._qmm_full
+        self._count_qmm(self._qmm_full)
+        self._m_pre.add()
         if tok < 0:
             # never activated: the slot's cache row is masked garbage
             # until the next occupant's prefill overwrites it
@@ -1100,10 +1631,19 @@ class ServingEngine:
             return
         self._activate_slot(slot, req, tok, events)
 
+    def _count_qmm(self, n: int) -> None:
+        self.counters["quant_matmuls"] += n
+        if n:
+            self._m_qmm.add(n)
+
     def _activate_slot(self, slot: int, req: Request, tok: int,
                        events: list) -> None:
         """Prefill done: emit the first token, arm the host mirrors and
         hand the slot to the decode tick."""
+        now = time.perf_counter()
+        self._m_qwait.observe((now - req.t_submit) * 1e3)
+        self._slo_ttft.append((now - req.t_submit) * 1e3)
+        req._t_last = now
         req.slot = slot
         self._slot_req[slot] = req
         self._positions[slot] = len(req.prompt)
@@ -1116,53 +1656,134 @@ class ServingEngine:
         self._eos_ids[slot] = -1 if req.eos_id is None else int(req.eos_id)
         self._max_new[slot] = req.max_new_tokens
         self._dirty = True
+        if req.trace is not None:
+            req._sp_decode = req.trace.begin(
+                "decode", slot=slot, attempt=req.trace.attempt)
+            req.trace.instant("decode.tick", parent=req._sp_decode,
+                              tick=self._ticks, token=tok)
         req.tokens.append(tok)
         events.append((req, tok))
         self.counters["tokens_emitted"] += 1
+        self._m_tok.add()
         self._maybe_finish(req)
 
     def _decode(self, events: list) -> None:
-        if self.paged:
-            # every active slot's write pages for the whole dispatch must
-            # exist and be private before it scatters into them
-            self._prepare_tick_pages()
-            self._sync_page_table()
-        sampling = bool(np.any(self._temps[self._active] > 0.0))
-        t_dev0 = time.perf_counter()
-        emit = self._dispatch(sampling)
-        # ONE host pull per dispatch: the [N, K] emission matrix, K
-        # blocks of gamma+1 columns under spec decode
-        toks = emit.cpu().numpy().reshape(self.num_slots, -1)
-        self.tick_ms.append((time.perf_counter() - t_dev0) * 1e3)
+        """One decode dispatch under the fault guard. The host mirrors
+        advance only after a successful pull, so a failed attempt marks
+        the device state stale (the next dispatch reloads `_dstate` or
+        the static buffers from the mirrors) and re-runs: the same state
+        writes the same K/V at the same positions. A hung pull or an
+        exhausted budget hard-resets."""
+        from ..parallel.resilience import StepHungError
+        actions = self._actions
+        poison_slot = actions.pop("poison_slot", None)
+        draft_slot = actions.pop("draft_poison_slot", None)
+        stall_s = actions.pop("stall_s", 0.0)
+        for attempt in range(self.retries + 1):
+            try:
+                if actions.pop("raise_decode", None):
+                    raise ServingFaultError("injected decode fault")
+                if actions.pop("raise_oom", None):
+                    # the backend's marker in the message: the forensics
+                    # below take the path a real allocation failure takes
+                    raise ServingFaultError(
+                        "injected allocation failure: "
+                        "RESOURCE_EXHAUSTED: simulated out of memory")
+                if self.paged:
+                    # every active slot's write pages for the whole
+                    # dispatch exist and are private before it scatters
+                    # into them (a retry finds them allocated)
+                    self._prepare_tick_pages()
+                    self._sync_page_table()
+                sampling = bool(np.any(self._temps[self._active] > 0.0))
+                t_dev0 = time.perf_counter()
+                with RecordEvent("serving.decode_tick"):
+                    armed = self._arm_poison(poison_slot, draft_slot)
+                    poison_slot = draft_slot = None   # injected once
+                    try:
+                        out = self._dispatch(sampling)
+                    finally:
+                        if armed:
+                            # in stream order: after the dispatch read it
+                            self._poison.fill_(1.0)
+                            self._dpoison.fill_(1.0)
+                    flat = self._pull(out, stall_s)
+                tick_ms = (time.perf_counter() - t_dev0) * 1e3
+                break
+            except StepHungError as e:
+                # the pull may still land later; re-polling already spent
+                # the budget
+                self._on_fault("decode_hang", e)
+                self._hard_reset("watchdog hang")
+                return
+            except Exception as e:                 # noqa: BLE001
+                self._dirty = True        # reload the device state
+                if _is_oom(e):
+                    self._dump_oom_forensics("decode", e)
+                self._on_fault("decode", e)
+                if attempt >= self.retries:
+                    self._hard_reset("decode retries exhausted")
+                    return
+                self._backoff(attempt)
+        # ONE host pull per dispatch: the [N, K] emission matrix (K
+        # blocks of gamma+1 columns under spec decode), the TICK_FIELDS
+        # row after it with telemetry on
+        row = None
+        if self._tick_tele:
+            flat, row = flat[:-len(TICK_FIELDS)], flat[-len(TICK_FIELDS):]
+        toks = flat.reshape(self.num_slots, -1)
+        self.tick_ms.append(tick_ms)
         self.counters["decode_ticks"] += 1
         self.counters["sampled_dispatches"] += sampling
-        self.counters["quant_matmuls"] += self.mt_k * (
+        self._count_qmm(self.mt_k * (
             self._qmm_full
-            + (self.spec_gamma * self._qmm_draft if self.spec else 0))
+            + (self.spec_gamma * self._qmm_draft if self.spec else 0)))
+        self._m_tick.add()
+        if self._tick_log is not None:
+            host = {"queue_depth": len(self._queue)}
+            if self.paged:
+                host["prefilling"] = len(self._prefilling)
+                host["pages_in_use"] = int((self._pool.ref[1:] > 0).sum())
+            self._tick_log.record_tick(self._ticks, row, host, tick_ms)
+        tick_now = time.perf_counter()
         if self.spec:
-            self._apply_spec_emissions(toks, events)
+            self._apply_spec_emissions(toks, events, tick_now)
         else:
-            self._apply_multi_emissions(toks, events)
+            self._apply_multi_emissions(toks, events, tick_now)
 
     def _tick_kw(self, sampling: bool) -> dict:
         kw = dict(fwd=self.family.forward_cached, cfg=self.cfg,
                   max_top_k=self.max_top_k, sampling=sampling,
                   guard=self.guardrails,
                   oor_pos=(self.max_pages * self.page_size if self.paged
-                           else None))
+                           else None), tele=self._tick_tele)
         if self.spec:
             kw.update(gamma=self.spec_gamma,
                       draft_layers=self.spec_draft_layers)
         return kw
 
+    def _arm_poison(self, poison_slot, draft_slot) -> bool:
+        """An injected nan_logits / draft_nan: nan into one lane of the
+        target's poison multiplier (under guardrails) or the draft's
+        (under spec decode), for the next dispatch; True when armed."""
+        armed = False
+        if poison_slot is not None and self.guardrails:
+            self._poison[int(poison_slot) % self.num_slots] = float("nan")
+            armed = True
+        if draft_slot is not None and self.spec:
+            self._dpoison[int(draft_slot) % self.num_slots] = float("nan")
+            armed = True
+        return armed
+
     def _dispatch(self, sampling: bool):
-        """Run one dispatch on the device; returns the emission tensor.
-        K = 1: the eager tick over `_dstate`, re-uploaded from the host
-        mirrors when dirty. K >= 2: the K-tick function over the static
-        buffers, eagerly on the CPU; on the card the first dispatch of
-        each `sampling` flag runs it eagerly on a side stream and then
-        captures it in a CUDA graph, and every later one replays that
-        graph."""
+        """Run one dispatch on the device; returns the int32 tensor the
+        one pull fetches: the emission matrix, with the TICK_FIELDS row
+        after it under telemetry. K = 1: the eager tick over `_dstate`,
+        re-uploaded from the host mirrors when dirty. K >= 2: the K-tick
+        function over the static buffers, eagerly on the CPU; on the
+        card the first dispatch of each `sampling` flag runs it eagerly
+        on a side stream and then captures it in a CUDA graph, and every
+        later one replays that graph."""
         if self.mt_k == 1:
             if self._dirty:
                 self._dstate = (
@@ -1174,14 +1795,15 @@ class ServingEngine:
                 self._dirty = False
             if self.spec:
                 from .spec_decode import spec_tick
-                nxt, self._dstate = spec_tick(
+                out = spec_tick(
                     self._params, self._cache, self._dstate, self.seed,
-                    **self._tick_kw(sampling))
+                    self._poison, self._dpoison, **self._tick_kw(sampling))
             else:
-                nxt, self._dstate = _decode_tick(
+                out = _decode_tick(
                     self._params, self._cache, self._dstate, self.seed,
-                    **self._tick_kw(sampling))
-            return nxt
+                    self._poison, **self._tick_kw(sampling))
+            self._dstate = out[-1]
+            return _packed(out[:-1])
         if self._dirty:
             for buf, host in zip(self._gbufs, (
                     self._cur_tok, self._positions, self._active,
@@ -1225,31 +1847,49 @@ class ServingEngine:
     def _multi_ticks(self, sampling: bool):
         """The K-tick function over the static buffers: the ticks, then
         the advanced state copied back into the buffers in place (the
-        body a CUDA graph captures). Returns the emission matrix."""
+        body a CUDA graph captures). Returns the packed emission matrix
+        (and TICK_FIELDS row), so under a graph the row is one of the
+        graph's outputs."""
         from .multi_tick import multi_tick_spec_ticks, multi_tick_ticks
-        fn = multi_tick_spec_ticks if self.spec else multi_tick_ticks
         state, (eos_ids, max_new) = self._gbufs[:7], self._gbufs[7:]
-        emit, new = fn(self._params, self._cache, state, self.seed, eos_ids,
-                       max_new, k_ticks=self.mt_k, max_len=self.max_len,
-                       **self._tick_kw(sampling))
-        for buf, val in zip(state, new):
+        if self.spec:
+            out = multi_tick_spec_ticks(
+                self._params, self._cache, state, self.seed, eos_ids,
+                max_new, self._poison, self._dpoison, k_ticks=self.mt_k,
+                max_len=self.max_len, **self._tick_kw(sampling))
+        else:
+            out = multi_tick_ticks(
+                self._params, self._cache, state, self.seed, eos_ids,
+                max_new, self._poison, k_ticks=self.mt_k,
+                max_len=self.max_len, **self._tick_kw(sampling))
+        for buf, val in zip(state, out[-1]):
             buf.copy_(val)
-        return emit
+        return _packed(out[:-1])
 
-    def _emit_token(self, i: int, req: Request, tok: int,
-                    events: list) -> None:
+    def _emit_token(self, i: int, req: Request, tok: int, events: list,
+                    tick_now: float, itl_ms: Optional[float] = None) -> None:
         """Mirror exactly what the tick did on the device (position and
-        token index advanced under the active mask), record the token,
-        run the finish checks."""
+        token index advanced under the active mask), record the token
+        and its SLO sample, run the finish checks. `itl_ms` replaces the
+        wall-clock inter-token sample where a pull carried several of a
+        slot's tokens: the caller shares the gap among them."""
         self._positions[i] += 1
         self._cur_tok[i] = tok
         self._gen_idx[i] += 1
+        if req.trace is not None:
+            req.trace.instant("decode.tick", parent=req._sp_decode,
+                              tick=self._ticks, token=tok)
         req.tokens.append(tok)
         events.append((req, tok))
         self.counters["tokens_emitted"] += 1
+        self._m_tok.add()
+        self._slo_itl.append((tick_now - req._t_last) * 1e3
+                             if itl_ms is None else itl_ms)
+        req._t_last = tick_now
         self._maybe_finish(req)
 
-    def _apply_multi_emissions(self, toks, events: list) -> None:
+    def _apply_multi_emissions(self, toks, events: list,
+                               tick_now: float) -> None:
         """Non-spec bookkeeping over the [N, K] emission matrix: column j
         is the token tick j emitted, MT_PAD after the slot retired on the
         device, -1 the quarantine verdict. The columns replay through
@@ -1261,17 +1901,24 @@ class ServingEngine:
         from .multi_tick import MT_PAD
         for i in np.nonzero(self._active)[0]:
             req = self._slot_req[i]
-            for tok in toks[i].tolist():
-                if tok == MT_PAD:
-                    break
+            row = toks[i].tolist()
+            if MT_PAD in row:
+                row = row[:row.index(MT_PAD)]
+            share = None
+            if self.mt_k > 1:
+                share = (tick_now - req._t_last) * 1e3 / max(
+                    sum(1 for t in row if t >= 0), 1)
+            for tok in row:
                 if tok < 0:
                     self._poisoned(req, "decode")
                     break
-                self._emit_token(i, req, tok, events)
+                self._emit_token(i, req, tok, events, tick_now,
+                                 itl_ms=share)
                 if req.done:
                     break
 
-    def _apply_spec_emissions(self, toks, events: list) -> None:
+    def _apply_spec_emissions(self, toks, events: list,
+                              tick_now: float) -> None:
         """Spec bookkeeping over the emission matrix: K blocks of
         gamma+1 columns (one under the single tick). In a block, column 0
         is a real token or the -1 verdict and the accepted drafts follow;
@@ -1289,11 +1936,12 @@ class ServingEngine:
         for i in np.nonzero(self._active)[0]:
             req = self._slot_req[i]
             flat = toks[i].tolist()
-            emit, poisoned = [], False
+            emit, poisoned, blocks = [], False, 0
             for b in range(0, len(flat), width):
                 row = flat[b:b + width]
                 if b and row[0] == SPEC_PAD:
                     break
+                blocks += 1
                 if row[0] < 0:
                     poisoned = True
                     break
@@ -1301,13 +1949,24 @@ class ServingEngine:
                 if self._temps[i] <= 0.0:    # sampled slots never propose
                     self.counters["spec_proposed"] += self.spec_gamma
                     self.counters["spec_accepted"] += cut - 1
+                    self._spec_prop_total += self.spec_gamma
+                    self._spec_acc_total += cut - 1
+                    self._m_spec_prop.add(self.spec_gamma)
+                    self._m_spec_acc.add(cut - 1)
                 emit.extend(row[:cut])
+            # a multi-block pull shares the dispatch gap among its tokens
+            share = ((tick_now - req._t_last) * 1e3 / max(len(emit), 1)
+                     if blocks > 1 else None)
             for tok in emit:
-                self._emit_token(i, req, tok, events)
+                self._emit_token(i, req, tok, events, tick_now,
+                                 itl_ms=share)
                 if req.done:
                     break
             if poisoned and not req.done:
                 self._poisoned(req, "decode")
+        if self._spec_prop_total:
+            self._m_spec_rate.set(self._spec_acc_total
+                                  / self._spec_prop_total)
         if self.paged:
             for i in np.nonzero(self._active)[0]:
                 self._rollback_spec_pages(int(i))
@@ -1412,11 +2071,15 @@ class ServingEngine:
                     self._cache[name][:, pid].copy_(page)
                 self._pool.register(pid, key)
                 self._host_tier.swapins += 1
+                self._m_swapin.add()
         if matched:
             self._pt_dirty = True
         self.counters["prefix_hits"] += len(matched)
         req.shared_tokens = suffix_start
         req._pf_next = suffix_start
+        if req.trace is not None:
+            req.trace.end(req._sp_queue, shared_tokens=suffix_start)
+            req._sp_queue = None
         t0 = len(req.prompt)
         if aligned_full:
             # the suffix rewrites the last prompt token's K/V into the
@@ -1446,25 +2109,41 @@ class ServingEngine:
         padded[0, :clen] = req.prompt[start:end]
         self._sync_page_table()
         final = end == t0
+        sp_pf = None
+        if req.trace is not None:
+            sp_pf = req.trace.begin("prefill", slot=slot, chunk_start=start,
+                                    chunk_len=clen, bucket=cb, final=final,
+                                    attempt=req.trace.attempt)
         t_pf0 = time.perf_counter()
-        first = _prefill_chunk(
-            self._params, self._cache, self._upload(padded), clen, start,
-            slot, self._upload([req.temperature], torch.float32),
-            self._upload([req.top_k], torch.int32),
-            self._upload([req.id], torch.int32), self.seed,
-            fwd=self.family.forward_cached, cfg=self.cfg,
-            max_top_k=self.max_top_k,
-            sampling=final and req.temperature > 0.0, guard=self.guardrails)
-        tok = int(first.item()) if final else None    # the one host pull
-        self.prefill_ms.append((time.perf_counter() - t_pf0) * 1e3)
+        with RecordEvent("serving.prefill"):
+            first = _prefill_chunk(
+                self._params, self._cache, self._upload(padded), clen,
+                start, slot, self._upload([req.temperature], torch.float32),
+                self._upload([req.top_k], torch.int32),
+                self._upload([req.id], torch.int32), self.seed,
+                fwd=self.family.forward_cached, cfg=self.cfg,
+                max_top_k=self.max_top_k,
+                sampling=final and req.temperature > 0.0,
+                guard=self.guardrails)
+            # the final chunk's one host pull
+            tok = int(self._pull(first)) if final else None
+        pf_ms = (time.perf_counter() - t_pf0) * 1e3
+        self.prefill_ms.append(pf_ms)
+        if req.trace is not None:
+            req.trace.end(sp_pf)
+        if self._tick_log is not None:
+            self._tick_log.record_prefill(self._ticks, pf_ms, clen, cb,
+                                          final, slot)
         self.counters["prefill_chunks"] += 1
         self.counters["sampled_passes"] += final and req.temperature > 0.0
-        self.counters["quant_matmuls"] += self._qmm_full
+        self._count_qmm(self._qmm_full)
+        self._m_chunks.add()
         if not final:
             req._pf_next = end
             return
         req._pf_next = None
         self.counters["prefills"] += 1
+        self._m_pre.add()
         if tok < 0:
             # quarantined before registration: a poisoned prompt's pages
             # are never published
@@ -1485,15 +2164,38 @@ class ServingEngine:
             if req is None or req.done or req._pf_next is None:
                 self._prefilling.popleft()       # evicted or cancelled
                 continue
-            try:
-                self._run_chunk(slot, req, events)
-            except BaseException:
-                self._finish(req, "evicted")     # frees its pages
-                raise
+            self._chunk_guarded(slot, req, events)
             if req.done or req._pf_next is None:
                 if self._prefilling and self._prefilling[0] == slot:
                     self._prefilling.popleft()
             return
+
+    def _chunk_guarded(self, slot: int, req: Request,
+                       events: list) -> None:
+        """One chunk under the fault guard. A chunk re-run writes the
+        same K/V into the same pages, so a raising call retries with
+        backoff; an exhausted budget evicts the request (its pages free
+        in `_clear_slot`), a hung pull hard-resets."""
+        from ..parallel.resilience import StepHungError
+        for attempt in range(self.retries + 1):
+            try:
+                if self._actions.pop("raise_prefill", None):
+                    raise ServingFaultError("injected prefill fault")
+                self._run_chunk(slot, req, events)
+                return
+            except StepHungError as e:
+                self._on_fault("prefill_hang", e)
+                self._finish(req, "evicted")
+                self._hard_reset("prefill watchdog hang")
+                return
+            except Exception as e:                 # noqa: BLE001
+                if _is_oom(e):
+                    self._dump_oom_forensics("prefill", e)
+                self._on_fault("prefill", e)
+                if attempt >= self.retries:
+                    self._finish(req, "evicted")
+                    return
+                self._backoff(attempt)
 
     # ---------------------------------------------------- host KV tier
     def _spill_page(self, pid: int, key) -> None:
@@ -1502,9 +2204,9 @@ class ServingEngine:
         immutable (COW), so the copy is bit-equal to what a device hit
         would read. A key the tier holds already (a page that went host,
         device and is evicted again) is not copied twice."""
-        if key not in self._host_tier:
-            self._host_tier.put(key, self._cache["k"][:, pid],
-                                self._cache["v"][:, pid])
+        if key not in self._host_tier and self._host_tier.put(
+                key, self._cache["k"][:, pid], self._cache["v"][:, pid]):
+            self._m_spill.add()
 
     def _upload_pair(self, pair):
         """A host page pair on its way to the device: asynchronous from
@@ -1551,11 +2253,15 @@ class ServingEngine:
         pid = int(self._ptab[slot, j])
         if pid != 0 and not self._pool.is_frozen(pid):
             return pid
+        if pid != 0 and self._raise_cow:
+            self._raise_cow = False
+            raise ServingFaultError("injected cow fault")
         new = self._alloc_slot_page(slot, j)
         if pid != 0:
             _cow_copy(self._cache, pid, new)
             self._pool.release(pid)
             self.counters["cow_copies"] += 1
+            self._m_cow.add()
         return new
 
     def _prepare_tick_pages(self) -> None:

@@ -99,13 +99,16 @@ def resolve_spec(knob: str, device=None) -> bool:
 
 
 def _spec_core(params, cache, toks, positions, active, temps, top_ks,
-               req_ids, gen_idx, seed, *, fwd, cfg, max_top_k, sampling,
-               guard, gamma, draft_layers, oor_pos=None):
+               req_ids, gen_idx, seed, poison=None, draft_poison=None, *,
+               fwd, cfg, max_top_k, sampling, guard, gamma, draft_layers,
+               oor_pos=None):
     """One propose-and-verify round over the [N] slot arrays; the cache
-    is written in place. Returns (emit [N, gamma+1], new_tok [N], adv
-    [N], m [N]): the emission matrix, the last emitted token, the
-    position advance (m + 1 for active rows, else 0) and the raw
-    acceptance count."""
+    is written in place. `poison` [N] multiplies the verify logits under
+    `guard`, `draft_poison` [N] the draft rows (the fault multipliers:
+    ones, or nan in an injected lane). Returns (emit [N, gamma+1],
+    new_tok [N], adv [N], m [N]): the emission matrix, the last emitted
+    token, the position advance (m + 1 for active rows, else 0) and the
+    raw acceptance count."""
     from .serving import _sample
 
     def at(p):
@@ -122,6 +125,8 @@ def _spec_core(params, cache, toks, positions, active, temps, top_ks,
         lg_d, _ = fwd(params, d_tok[:, None], cache, at(positions + i), cfg,
                       layers=draft_layers)
         row = lg_d[:, 0].float()
+        if draft_poison is not None:
+            row = row * draft_poison[:, None]
         draft_ok = draft_ok & torch.isfinite(row).all(dim=-1)
         d_tok = torch.argmax(row, dim=-1).to(torch.int32)
         cols.append(d_tok)
@@ -131,6 +136,8 @@ def _spec_core(params, cache, toks, positions, active, temps, top_ks,
     vt = torch.cat([toks[:, None], draft], dim=1)
     logits, _ = fwd(params, vt, cache, at(positions), cfg)
     lg = logits.float()                                   # [N, gamma+1, V]
+    if guard and poison is not None:
+        lg = lg * poison[:, None, None]
     tgt = torch.argmax(lg, dim=-1).to(torch.int32)
     m = torch.where(draft_ok, greedy_accept(draft, tgt), 0).to(torch.int32)
     if sampling:
@@ -155,16 +162,41 @@ def _spec_core(params, cache, toks, positions, active, temps, top_ks,
     return emit, new_tok, adv, m
 
 
+def _spec_row(emit, adv, m, positions, active, temps, sampling, gamma):
+    """A spec round's TICK_FIELDS row (the reference's spec_tick): what
+    the device did, even where a mid-block host finish drops tail tokens
+    from the stream. Proposed counts greedy slots only (sampled slots
+    never speculate), accepted sums the kept drafts."""
+    from ..kernels.decode_attention import attended_tokens
+    from ..profiler.serving_telemetry import pack_tick_fields
+    flagged = active & (emit[:, 0] < 0)
+    greedy = (active & (temps <= 0.0)) if sampling else active
+    zero = torch.zeros_like(adv)
+    return pack_tick_fields(
+        tokens=torch.where(active & ~flagged, adv, zero).sum(),
+        active=active.sum(), poisoned=flagged.sum(),
+        attended=attended_tokens(positions, active),
+        spec_proposed=gamma * greedy.sum(),
+        spec_accepted=torch.where(greedy & ~flagged, m, zero).sum())
+
+
 @torch.no_grad()
-def spec_tick(params, cache, state, seed, *, fwd, cfg, max_top_k, sampling,
-              guard, gamma, draft_layers, oor_pos=None):
+def spec_tick(params, cache, state, seed, poison=None, draft_poison=None, *,
+              fwd, cfg, max_top_k, sampling, guard, gamma, draft_layers,
+              oor_pos=None, tele=False):
     """The speculative decode tick (serving._decode_tick's counterpart,
-    same state tuple): returns (emit [N, gamma+1], the advanced state)."""
+    same state tuple and fault multipliers): returns (emit [N, gamma+1],
+    the advanced state), with the TICK_FIELDS row before the state under
+    `tele`."""
     toks, positions, active, temps, top_ks, req_ids, gen_idx = state
-    emit, new_tok, adv, _ = _spec_core(
+    emit, new_tok, adv, m = _spec_core(
         params, cache, toks, positions, active, temps, top_ks, req_ids,
-        gen_idx, seed, fwd=fwd, cfg=cfg, max_top_k=max_top_k,
-        sampling=sampling, guard=guard, gamma=gamma,
+        gen_idx, seed, poison, draft_poison, fwd=fwd, cfg=cfg,
+        max_top_k=max_top_k, sampling=sampling, guard=guard, gamma=gamma,
         draft_layers=draft_layers, oor_pos=oor_pos)
-    return emit, (new_tok, positions + adv, active, temps, top_ks, req_ids,
-                  gen_idx + adv)
+    new = (new_tok, positions + adv, active, temps, top_ks, req_ids,
+           gen_idx + adv)
+    if not tele:
+        return emit, new
+    return emit, _spec_row(emit, adv, m, positions, active, temps, sampling,
+                           gamma), new

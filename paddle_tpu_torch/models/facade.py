@@ -505,6 +505,7 @@ class FacadeModel(nn.Module):
 
     def generate(self, prompts, max_new_tokens, num_slots=8, max_len=None,
                  temperature=0.0, top_k=0, eos_id=None, max_top_k=0, seed=0,
+                 deadline_s=None, deadline_ticks=None, max_ticks=None,
                  quant=None, **engine_kw):
         """Continuous-batching generation over this model's weights:
         `prompts` is a list of 1-D token-id sequences of mixed lengths;
@@ -513,9 +514,15 @@ class FacadeModel(nn.Module):
         the same. Other engine knobs pass through `engine_kw`: the cache
         layout (kv_layout, page_size, num_pages, prefill_chunk,
         prefix_sharing), speculative decode (spec_decode, gamma,
-        draft_layers) and tensor parallelism (mesh, tp_axis) among them;
-        a changed knob, a mesh of another topology or tp degree included,
-        rebuilds the engine."""
+        draft_layers), tensor parallelism (mesh, tp_axis) and the
+        guardrails and observability (max_queue, queue_policy,
+        queue_ttl_s, watchdog_timeout, retries, backoff_base,
+        backoff_max, guardrails, telemetry, telemetry_jsonl,
+        telemetry_every, tracing) among them; a changed knob, a mesh of
+        another topology or tp degree included, rebuilds the engine.
+        `deadline_s` / `deadline_ticks` bound each request and
+        `max_ticks` the drain; what they leave undelivered still
+        resolves."""
         if quant is not None:
             engine_kw["quant"] = quant
         knobs = dict(engine_kw)
@@ -538,7 +545,9 @@ class FacadeModel(nn.Module):
             self._engine_key = key
         return self._engine.generate(prompts, max_new_tokens,
                                      temperature=temperature, top_k=top_k,
-                                     eos_id=eos_id)
+                                     eos_id=eos_id, deadline_s=deadline_s,
+                                     deadline_ticks=deadline_ticks,
+                                     max_ticks=max_ticks)
 
 
 class GPTModel(FacadeModel):

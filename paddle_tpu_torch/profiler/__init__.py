@@ -6,7 +6,9 @@ Counterpart of paddle_tpu/profiler/__init__.py (`ProfilerState` :39,
 `export_chrome_trace` :159, `export_chrome_tracing` :192, `Profiler`
 :207, `get_profiler_spans` :332, `cost_analysis` :347) and of its
 submodules `monitor`, `timer`, `flight_recorder`, `mem_audit` (three
-functions) and `telemetry`.
+functions), `telemetry`, and the serving engine's `serving_telemetry`
+(the in-tick field row), `tracing` (request span trees) and `slo`
+(burn-rate alerts).
 
 Two recorders behind one API, as the reference's:
 - Host spans: `RecordEvent` keeps a process-local span log (name, wall
@@ -392,7 +394,8 @@ def cost_analysis(fn, *example_args, **kwargs):
 def __getattr__(name):
     # telemetry imports torch; loading it on attribute access keeps
     # `import paddle_tpu_torch.profiler` light
-    if name in ("telemetry", "flight_recorder", "mem_audit"):
+    if name in ("telemetry", "flight_recorder", "mem_audit",
+                "serving_telemetry", "tracing", "slo"):
         import importlib
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,6 +1,6 @@
-"""Deterministic fault injectors for the training fault-tolerance
-runtime — the port's counterpart of paddle_tpu/testing/faults.py, its
-training and elastic kinds.
+"""Deterministic fault injectors for the fault-tolerance runtime — the
+port's counterpart of paddle_tpu/testing/faults.py, its training,
+elastic and serving kinds.
 
 Faults are declared in a spec string (env `PADDLE_TPU_FAULTS`),
 injected at exact step and shard boundaries so drills are reproducible,
@@ -52,8 +52,34 @@ actions:
                              within-budget case: the run slows and must
                              not replan.
 
-The reference's serving, router and journal kinds are refused by name
-until their modules are ported (ROADMAP A7).
+Serving kinds: inference/serving.py consults `on_serving_tick` through
+`serving._FAULT_HOOK` once an engine tick; the "step" coordinate is the
+engine's tick, and each fires at most once by the same marker scheme:
+
+- ``nan_logits@T:S``  — poison decode slot S's logits with nan at tick T
+                        (a lane of the tick's poison multiplier, so
+                        injected and organic non-finite logits meet the
+                        same quarantine). S defaults to 0.
+- ``draft_nan@T:S``   — poison slot S's draft logits (spec decode) at
+                        tick T: the slot degrades to one token for that
+                        tick (acceptance 0), never quarantine. S defaults
+                        to 0; no-op on a non-spec engine.
+- ``tick_stall@T:MS`` — stall tick T's host pull MS milliseconds, inside
+                        the watchdog's clock (the budget/backoff path).
+- ``prefill_raise@T`` — raise at the prefill seam on tick T (the
+                        admission rollback and retry; the chunk retry
+                        under the paged layout).
+- ``decode_raise@T``  — raise at the decode seam on tick T (the re-run
+                        from the host mirrors).
+- ``cow_raise@T``     — raise at the next copy-on-write page copy at or
+                        after tick T (paged `_ensure_private`).
+- ``oom@T``           — raise a simulated allocation failure (its message
+                        carries RESOURCE_EXHAUSTED) at the decode seam on
+                        tick T: an `oom_forensics` dump, then the retry.
+
+The reference's router and journal kinds (`replica_preempt`,
+`migrate_raise`, `quota_flood`, `sigkill`, `journal_torn`) are refused by
+name until the fleet is ported (ROADMAP A7 part 3).
 
 File corruptors (`truncate_shard`, `bitflip_shard`, `remove_shard`)
 damage committed checkpoints in place and exempt them from the write
@@ -79,15 +105,16 @@ ENV_ONCE_DIR = "PADDLE_TPU_FAULTS_ONCE_DIR"
 KILL_EXIT = 37
 
 _ELASTIC_KINDS = ("device_loss", "collective_hang", "straggler")
-_TRAINING_KINDS = ("kill", "crash_shard", "nan", "hb_stale",
-                   "elastic_exit") + _ELASTIC_KINDS
+_SERVING_KINDS = ("nan_logits", "tick_stall", "prefill_raise",
+                  "decode_raise", "cow_raise", "draft_nan", "oom")
+_PORTED_KINDS = ("kill", "crash_shard", "nan", "hb_stale",
+                 "elastic_exit") + _ELASTIC_KINDS + _SERVING_KINDS
 # the reference's other kinds, and the ROADMAP item each waits for
 _WAITING = {
-    k: "ROADMAP A7 (the serving, router and journal fault kinds)"
-    for k in ("nan_logits", "tick_stall", "prefill_raise", "decode_raise",
-              "cow_raise", "draft_nan", "replica_preempt", "migrate_raise",
-              "oom", "quota_flood", "sigkill", "journal_torn")}
-_KINDS = _TRAINING_KINDS + tuple(_WAITING)
+    k: "ROADMAP A7 part 3 (the fleet: the router and journal fault kinds)"
+    for k in ("replica_preempt", "migrate_raise", "quota_flood", "sigkill",
+              "journal_torn")}
+_KINDS = _PORTED_KINDS + tuple(_WAITING)
 
 
 @dataclass
@@ -116,19 +143,21 @@ class FaultPlan:
                 kind, _, rest = token.partition("@")
                 a, _, b = rest.partition(":")
                 step, arg = int(a), int(b) if b else 1
+                if kind in ("nan_logits", "draft_nan") and not b:
+                    arg = 0            # default: poison slot 0
             except ValueError as e:
                 raise ValueError(
                     f"bad fault token {token!r} (grammar: kind@step[:arg], "
-                    f"kinds {_TRAINING_KINDS})") from e
+                    f"kinds {_PORTED_KINDS})") from e
             if kind in _WAITING:
                 raise ValueError(
                     f"fault kind {kind!r} in {token!r} is not ported yet: "
                     f"it waits for {_WAITING[kind]} (kinds: "
-                    f"{_TRAINING_KINDS})")
-            if kind not in _TRAINING_KINDS:
+                    f"{_PORTED_KINDS})")
+            if kind not in _PORTED_KINDS:
                 raise ValueError(
                     f"unknown fault kind {kind!r} in {token!r} "
-                    f"(kinds: {_TRAINING_KINDS})")
+                    f"(kinds: {_PORTED_KINDS})")
             f = _Fault(kind, step, arg, token=f"{i}.{kind}@{step}",
                        remaining=arg if kind == "nan" else 1)
             if self._already_fired(f):
@@ -234,6 +263,35 @@ class FaultPlan:
                 actions["stall_s"] = f.arg / 1000.0
         return actions
 
+    def on_serving_tick(self, tick: int) -> dict:
+        """serving._FAULT_HOOK: called with the engine tick about to run;
+        returns the action dict the engine applies this tick (keys
+        poison_slot, draft_poison_slot, stall_s, raise_prefill,
+        raise_decode, raise_cow, raise_oom). Each fault fires at most
+        once."""
+        actions: dict = {}
+        for f in self.faults:
+            if f.done or f.kind not in _SERVING_KINDS or tick < f.step:
+                continue
+            self._mark_fired(f)
+            print(f"[faults] {f.kind} at serving tick {tick} "
+                  f"(arg={f.arg})", file=sys.stderr, flush=True)
+            if f.kind == "nan_logits":
+                actions["poison_slot"] = f.arg
+            elif f.kind == "draft_nan":
+                actions["draft_poison_slot"] = f.arg
+            elif f.kind == "tick_stall":
+                actions["stall_s"] = f.arg / 1000.0
+            elif f.kind == "prefill_raise":
+                actions["raise_prefill"] = True
+            elif f.kind == "decode_raise":
+                actions["raise_decode"] = True
+            elif f.kind == "cow_raise":
+                actions["raise_cow"] = True
+            elif f.kind == "oom":
+                actions["raise_oom"] = True
+        return actions
+
 
 _PLAN: Optional[FaultPlan] = None
 
@@ -250,20 +308,24 @@ def install(spec: Optional[str] = None,
     once = once_dir if once_dir is not None \
         else os.environ.get(ENV_ONCE_DIR) or None
     plan = FaultPlan(spec, once_dir=once)
+    from ..inference import serving
     from ..parallel import checkpoint, elastic, resilience
     resilience._STEP_HOOK = plan.on_step
     checkpoint._SHARD_WRITE_HOOK = plan.on_shard_write
     elastic._FAULT_HOOK = plan.on_elastic
+    serving._FAULT_HOOK = plan.on_serving_tick
     _PLAN = plan
     return plan
 
 
 def uninstall() -> None:
     global _PLAN
+    from ..inference import serving
     from ..parallel import checkpoint, elastic, resilience
     resilience._STEP_HOOK = None
     checkpoint._SHARD_WRITE_HOOK = None
     elastic._FAULT_HOOK = None
+    serving._FAULT_HOOK = None
     _PLAN = None
 
 

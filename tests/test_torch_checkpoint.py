@@ -1056,14 +1056,30 @@ class TestFaultPlan:
             ("kill", 3, 1), ("crash_shard", 5, 2), ("nan", 7, 4)]
 
     @pytest.mark.parametrize("kind,waits", [
-        ("nan_logits", "A7"), ("journal_torn", "A7"), ("sigkill", "A7"),
-        ("tick_stall", "A7"), ("replica_preempt", "A7")])
+        ("migrate_raise", "A7 part 3"), ("journal_torn", "A7 part 3"),
+        ("sigkill", "A7 part 3"), ("quota_flood", "A7 part 3"),
+        ("replica_preempt", "A7 part 3")])
     def test_unported_kinds_refused_naming_what_they_wait_for(self, kind,
                                                               waits):
         from paddle_tpu.testing import faults as jfaults
         assert kind in jfaults._KINDS          # the reference's kind
         with pytest.raises(ValueError, match=f"waits for ROADMAP {waits}"):
             faults.FaultPlan(f"{kind}@3")
+
+    @pytest.mark.parametrize("token,arg", [
+        ("nan_logits@2:1", 1), ("nan_logits@2", 0), ("draft_nan@2:3", 3),
+        ("draft_nan@2", 0), ("tick_stall@2:400", 400),
+        ("prefill_raise@0", 1), ("decode_raise@2", 1), ("cow_raise@0", 1),
+        ("oom@2", 1)])
+    def test_serving_kinds_parse(self, token, arg):
+        """The serving kinds are ported (A7 part 2); the slot of a nan
+        kind defaults to 0, as the reference's does."""
+        from paddle_tpu.testing import faults as jfaults
+        plan = faults.FaultPlan(token)
+        want = jfaults.FaultPlan(token)
+        assert [(f.kind, f.step, f.arg) for f in plan.faults] == [
+            (f.kind, f.step, f.arg) for f in want.faults]
+        assert plan.faults[0].arg == arg
 
     @pytest.mark.parametrize("kind", ["device_loss", "collective_hang",
                                       "straggler"])

@@ -257,11 +257,18 @@ def test_cancel_and_poisoned_quarantine(setup):
 
 def test_unported_knobs_and_families_raise(setup):
     _, tc, params = setup
-    for knob in (dict(telemetry="on"), dict(retries=5),
-                 dict(queue_ttl_s=1.0), dict(max_queue=4),
-                 dict(tracing=True), dict(watchdog_timeout=1.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(params, tc, device="cpu", **knob)
+    # A7 part 2's knobs are ported: each builds and takes its value
+    for knob, attr, want in (
+            (dict(telemetry="on"), "_tick_tele", True),
+            (dict(retries=5), "retries", 5),
+            (dict(queue_ttl_s=1.0), "queue_ttl_s", 1.0),
+            (dict(max_queue=4), "max_queue", 4),
+            (dict(tracing=True), "_tracer", True),
+            (dict(watchdog_timeout=1.0), "watchdog_timeout", 1.0)):
+        eng = ServingEngine(params, tc, device="cpu", **knob)
+        got = getattr(eng, attr)
+        assert (got is not None if attr == "_tracer" else got == want), \
+            (knob, got)
     with pytest.raises(TypeError):
         ServingEngine(params, tc, device="cpu", not_a_knob=1)
     with pytest.raises(ValueError, match="unknown model family"):

@@ -53,7 +53,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "distributed.launch._boot", "distributed.launch.__main__",
                 "testing.faults", "profiler", "profiler.monitor",
                 "profiler.timer", "profiler.flight_recorder",
-                "profiler.mem_audit", "profiler.telemetry"):
+                "profiler.mem_audit", "profiler.telemetry",
+                "profiler.serving_telemetry", "profiler.tracing",
+                "profiler.slo"):
         assert f"paddle_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

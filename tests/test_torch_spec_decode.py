@@ -205,8 +205,11 @@ def test_spec_knobs_and_kill_switch(families, monkeypatch):
         _engine(params, tc, "llama", "paged",
                 mesh=types.SimpleNamespace(mesh_dim_names=("dp",),
                                            shape=(1,)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        _engine(params, tc, "llama", "paged", watchdog_timeout=1.0)
+    # the watchdog is ported (A7 part 2): the paged spec engine builds
+    # with it and takes its budget
+    eng = _engine(params, tc, "llama", "paged", spec_decode="spec",
+                  watchdog_timeout=1.0)
+    assert eng.spec and eng.paged and eng.watchdog_timeout == 1.0
 
 
 @pytest.mark.parametrize("layout", ["dense", "paged"])

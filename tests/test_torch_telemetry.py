@@ -476,6 +476,9 @@ class TestFlightRecorder:
         from paddle_tpu_torch.parallel.checkpoint import CheckpointManager
         from paddle_tpu_torch.profiler import flight_recorder
         fr = flight_recorder.recorder()
+        # the ring is process-global: an earlier test's notes (a serving
+        # engine's fault records) would sit among the trainer's steps
+        fr.clear()
         old_dir, old_every = fr.dir, fr.autodump_every
         fr.set_dir(str(tmp_path))
         fr.autodump_every = 0
