@@ -122,11 +122,11 @@ Phases, each failing the script (non-zero exit) when it fails:
    gradient leaf's cosine >= 0.999; each leaf's cosine printed beside
    the plain-vs-plain floor, and the leaves below it named); from one
    starting state (kept on
-   the host), 5 steps on each (trajectories within 1e-2); 2 warm-up and
-   10 timed steps through make_train_step (step ms p50/p90, tokens/s,
-   MFU, peak memory) with the exact kernel launches asserted; and 2
-   steps under torch.profiler (device busy share, device time by
-   kernel).
+   the host), 5 steps on the kernels and PLAIN_STEPS = 3 on the plain
+   versions (trajectories within 1e-2); 2 warm-up and 10 timed steps
+   through make_train_step (step ms p50/p90, tokens/s, MFU, peak
+   memory) with the exact kernel launches asserted; and 1 step under
+   torch.profiler (device busy share, device time by kernel).
 5. Serving: the int8 ServingEngine at the GPT width, 8 slots, 16
    requests (prompt lengths 16..512 from a seeded rng, 64 new tokens
    each, two of them sampled with top-k). Every request must end with
@@ -347,7 +347,7 @@ Phases, each failing the script (non-zero exit) when it fails:
    (mesh {sp 2}, context_parallel "ring" / "ulysses", 8 heads a
    Ulysses rank), each held to the unsharded step of its config with
    context_parallel "none", which rank 0 runs first, by 6b's gates over
-   GPT_PLAN_STEPS = 3 steps, with exactly gpt_step_launches a step a
+   GPT_PLAN_STEPS = 2 steps, with exactly gpt_step_launches a step a
    rank (no flash launch under the ring, whose f32 chunk updates are
    plain torch), the flash kernels at the plan's shape (a Ulysses
    rank's [8, 1024, 8, 64], checked in phase 2b) and the CE pair at
@@ -373,16 +373,16 @@ Phases, each failing the script (non-zero exit) when it fails:
    (a snapshot every 2 steps) runs steps 0-1; at step 2's boundary the
    workers write the world spec {n_devices: 1} and exit 101; the
    launcher relaunches one rank, which plans onto fsdp1, restores ckpt-2
-   and runs steps 2-3. Those equal, to the bit, a clean one-rank restore
+   and runs step 2. It equals, to the bit, a clean one-rank restore
    of ckpt-2 run in this process. The seconds from the loss to the first
    resumed step (detection and exit, the respawn, the boot, the
    restore, the step) and the bytes restored are printed. Then two
-   ranks again: the uninterrupted run, 4 steps under an 8 s step budget
-   with a 1 s straggler at step 2 (which must not replan), whose steps
-   2-3 the resumed ones lie within 1e-3 of; after a snapshot at step 4,
-   a 10 s collective hang past the budget must replan, in-process: rank
-   1 declared lost leaves with exit 103, rank 0 re-forms a world of one
-   on a fresh store, restores that snapshot onto fsdp1 and runs step 4.
+   ranks again: the uninterrupted run, 3 steps under an 8 s step budget
+   with a 1 s straggler at step 2 (which must not replan), whose step 2
+   the resumed one lies within 1e-3 of; after a snapshot at step 3, a
+   10 s collective hang past the budget must replan, in-process: rank 1
+   declared lost leaves with exit 103, rank 0 re-forms a world of one on
+   a fresh store, restores that snapshot onto fsdp1 and runs step 3.
    Each worker's kernel launches must be its steps' (4 flash forwards,
    2 of each backward, one CE pair and one update launch over 11 leaves
    a step). Every worker's flight directory is the one the launcher set
@@ -1594,9 +1594,9 @@ def update_check(torch, dev):
 
 # the serving phases with sampled requests, each of which must launch the
 # threefry kernel
-SAMPLING_PHASES = ("gpt_serving", "gpt_serving_chaos", "llama_serving",
-                   "llama_paged", "llama_multi_tick", "llama_tp2",
-                   "llama_tp2_spec")
+SAMPLING_PHASES = ("gpt_serving", "gpt_serving_chaos", "gpt_fleet",
+                   "llama_serving", "llama_paged", "llama_multi_tick",
+                   "llama_tp2", "llama_tp2_spec", "llama_tp2_preempt")
 # the serving sampler's draws: [slots, V] at the GPT and the Llama vocab
 THREEFRY_SHAPES = [(8, FULL["vocab_size"]), (8, LLAMA["vocab_size"])]
 # 32-bit integer operations a second: the data sheet's f32 rate (67
@@ -1730,7 +1730,7 @@ def plain_attention_block(block):
 
 
 def train_profile(torch, step, params, opt, tokens, card, label,
-                  n_steps=2):
+                  n_steps=1):
     """Where a train step's time goes: n_steps under torch.profiler.
     Prints the device busy share of the window and the device time by
     kernel name (top 12)."""
@@ -1832,10 +1832,16 @@ def host_state(params, opt):
     return restore
 
 
+# the plain versions' trajectory of phases 3 and 4: the kernels' first
+# steps against it (the kernels run 5)
+PLAIN_STEPS = 3
+
+
 def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
                 seed, per_step):
     """One family's train step at full width (phases 3 and 4): step 1
-    against the plain versions, 5-step trajectories, 10 timed steps with
+    against the plain versions, a 5-step trajectory on the kernels held
+    to PLAIN_STEPS on the plain versions, 10 timed steps with
     the launches per step asserted equal to `per_step`, a profile.
     `mod` is models.gpt or models.llama. Returns (launches over the 10
     timed steps, the "train" line, the tokens, the kernels' 5-step
@@ -1891,16 +1897,17 @@ def train_phase(torch, dev, card, label, mod, cfg, params, batch, seq,
         raise AssertionError(f"{label} step-1 gradient cosine < 0.999: "
                              f"{bad}")
 
-    # 5 steps from the same state on the kernels, then on the plain
-    # versions
+    # 5 steps from the same state on the kernels (6a holds its trajectory
+    # to them), then PLAIN_STEPS on the plain versions, held to the
+    # kernels' first PLAIN_STEPS
     traj = {}
-    for name, ctx in (("kernel", contextlib.nullcontext),
-                      ("plain", plain_versions)):
+    for name, ctx, n in (("kernel", contextlib.nullcontext, 5),
+                         ("plain", plain_versions, PLAIN_STEPS)):
         restore()
         with ctx():
             traj[name] = [float(mod.train_step(params, opt, tokens, cfg,
                                                **ADAMW)[0])
-                          for _ in range(5)]
+                          for _ in range(n)]
     rel = [abs(a - b) / abs(b) for a, b in zip(traj["kernel"],
                                                traj["plain"])]
     log(json.dumps({"phase": f"{label}_trajectory",
@@ -2488,6 +2495,24 @@ def moe_training(torch, dev, card):
     return launches, gshard_launches
 
 
+# phases 4, 6a and 6c (a) start from the same full-depth tree drawn from
+# seed 0 (~15 s of numpy draws each time): drawn once on the host and
+# kept until 6c (a) has copied it to the card
+_LLAMA_HOST = {}
+
+
+def llama_full_host():
+    """The TinyLlama-width tree at full depth from seed 0, as CPU tensors
+    (`init_llama_params(device="cpu")`, the draws every device copy of
+    it equals), drawn once. Callers copy it or only read it."""
+    if "params" not in _LLAMA_HOST:
+        from paddle_tpu_torch.models import llama
+        cfg = llama.LlamaConfig(**LLAMA)
+        _LLAMA_HOST["params"] = llama.init_llama_params(cfg, seed=0,
+                                                        device="cpu")
+    return _LLAMA_HOST["params"]
+
+
 def llama_training(torch, dev, card):
     """Phase 4, Llama at TinyLlama-1.1B widths, with the fused AdamW
     selected and the CE on its default route; then the primal-only eval
@@ -2498,7 +2523,7 @@ def llama_training(torch, dev, card):
     cfg = llama.LlamaConfig(**LLAMA, remat=True)
     L = cfg.num_layers
     t0 = time.perf_counter()
-    params = llama.init_llama_params(cfg, seed=0)
+    params = {k: v.to(dev) for k, v in llama_full_host().items()}
     shapes = {k: tuple(v.shape) for k, v in params.items()}
     if shapes != LLAMA_LEAVES:
         raise AssertionError(f"llama leaves {shapes} != {LLAMA_LEAVES}")
@@ -2532,6 +2557,32 @@ def llama_training(torch, dev, card):
     return launches, {"train": train_line, "trajectory": traj, "eval": line}
 
 
+# how long a profiled serving window stays open after its last sync
+PROFILE_TAIL_S = 0.25
+
+
+def listed_by_dispatch(prof, kernel, span="serving.decode_tick"):
+    """The device records whose name holds `kernel` in a finished
+    torch.profiler window, binned by their start against the starts of
+    the engine's `span` ranges (each dispatch's `RecordEvent`):
+    [before the first span, in the first, ...]. A dispatch ends in its
+    host pull, so its kernels start after its span opens and before the
+    next one does. None where the trace holds no such span."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    evs = prof.profiler.kineto_results.events()
+    starts = sorted(e.start_ns() for e in evs if e.name() == span
+                    and e.device_type() == DeviceType.CPU)
+    if not starts:
+        return None
+    bins = [0] * (len(starts) + 1)
+    for e in evs:
+        if e.device_type() == DeviceType.CUDA and kernel in e.name():
+            bins[bisect.bisect_right(starts, e.start_ns())] += 1
+    return bins
+
+
 def tick_profile(torch, eng, prompts, card, pre=""):
     """Where a decode tick's time goes: 8 slots decoding under
     torch.profiler, after their prefills and first tick: the 15 ticks
@@ -2545,9 +2596,13 @@ def tick_profile(torch, eng, prompts, card, pre=""):
     replay: so the replays ran `qmm_mma_kernel` (a replay of a plain
     version would list none; each capture's exact count is
     `check_launches`'s). Not exactly 100%: late in this script's process
-    the profiler drops a few device records of a graphed window (3-5 of
-    its ~2,480 int8 ones), while the same engine profiled in a fresh
-    process lists every one."""
+    the profiler has dropped a few device records of a window (3-5 of a
+    graphed window's ~2,480 int8 ones, once 8 of an eager window's 435),
+    while the same engine profiled in a fresh process lists every one.
+    The window stays open `PROFILE_TAIL_S` after its last sync, so the
+    profiler's collector has the window's last records before it stops,
+    and the line prints the listed int8 records by dispatch
+    (`listed_by_dispatch`), so a drop names where it fell."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2582,6 +2637,7 @@ def tick_profile(torch, eng, prompts, card, pre=""):
             eng.drain()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_TAIL_S)
     eager = qm.launches - n0
     n_disp = eng.counters["decode_ticks"] - c0["decode_ticks"]
     n_replay = eng.counters["graph_replays"] - c0["graph_replays"]
@@ -2601,15 +2657,19 @@ def tick_profile(torch, eng, prompts, card, pre=""):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     profiled = sum(n for _, n, k in rows if "qmm_mma" in k)
+    by_dispatch = listed_by_dispatch(prof, "qmm_mma")
     if not 0.99 * n_qmm <= profiled <= n_qmm or (
             mt and (n_replay != n_disp or eager)):
         raise AssertionError(
             f"{pre}tick_profile: the profiler lists {profiled} int8 kernel "
             f"launches, the engine counts {n_qmm} over {n_disp} dispatches "
-            f"({n_replay} graph replays, {eager} eager launches)")
+            f"({n_replay} graph replays, {eager} eager launches); listed "
+            f"by dispatch (before the first, then each): {by_dispatch}")
     out = {"phase": f"{pre}tick_profile", "card": card,
            "dispatches": n_disp, "ticks": n_disp * eng.mt_k,
            "slots": 8, "wall_ms": wall_ms,
+           "int8_listed": profiled, "int8_engine": n_qmm,
+           "int8_listed_by_dispatch": by_dispatch,
            "device_busy_ms": busy_ms if rows else "not measured",
            "device_busy_share": busy_ms / wall_ms if rows
            else "not measured",
@@ -3618,6 +3678,787 @@ def gpt_serving_chaos(torch, qm, dev, card, cfg, params):
     return launches, {"replays": replays}
 
 
+# phase 5g: the serving fleet over phase 5's GPT (its weights and int8
+# rewrite): routers of int8 replicas through replica death with live
+# migration, drain and autoscale, prefill/decode roles, tenant quotas, the
+# brownout ladder, a host spill flood and a SIGKILLed process replayed
+# from its journal
+FLEET_SLOTS = 4                 # every replica's slots
+FLEET_NEW = 8                   # new tokens a request
+FLEET_NEW_LONG = 12             # the K = 4 and brownout scenarios'
+FLEET_SPILL_NEW = 4             # host_spill_flood's (its pool is the point)
+FLEET_REQUESTS = 8
+FLEET_SAMPLED = {3: (0.8, 40)}  # live migration's sampled request
+FLEET_PAGED = dict(kv_layout="paged", page_size=16)
+FLEET_K = 4
+# the crash child's sigkill tick: its first wave (4 slots of 8) has
+# finished, the second is mid-decode
+FLEET_CRASH_KILL = FLEET_NEW + 2
+# a router tick's ms, serial and concurrent, in mirrored order
+FLEET_TIMED = (False, True, True, False)
+# the draws and int8 launches of the run in progress (`fleet_engine`'s
+# dispatch wrapper adds to it; `fleet_run` zeroes and reads it)
+FLEET_TALLY = {}
+
+
+def fleet_prompts(vocab):
+    return chaos_prompts(vocab, FLEET_REQUESTS, seed=51)
+
+
+def fleet_engine(params, cfg, dev, per_pass, made, num_slots=FLEET_SLOTS,
+                 **kw):
+    """An int8 replica of phase 5g (FLEET_SLOTS slots, max_len 1024), its
+    dispatches tallied into FLEET_TALLY: the int8 and threefry launches
+    an eager dispatch makes through the wrappers (K ticks of its tick's
+    calls; under multi-tick only each graph's warm-up), and the ones a
+    graph replay runs, by the tick body live at the dispatch (spec on or
+    off: `set_spec_drafts` flips it)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    eng = ServingEngine(params, cfg, family="gpt", num_slots=num_slots,
+                        max_len=1024, max_top_k=50, seed=0, quant="int8",
+                        device=dev, **kw)
+    dispatch = eng._dispatch
+    draft = sum(pass_calls(LEAF_KN, eng.spec_draft_layers).values())
+
+    def tallied(sampling):
+        tick = per_pass + (eng.spec_gamma * draft if eng.spec else 0)
+        replay = eng.mt_k > 1 and eng._graphed and sampling in eng._graphs
+        key = "replay" if replay else "eager"
+        FLEET_TALLY[key] = FLEET_TALLY.get(key, 0) + eng.mt_k * tick
+        if sampling:
+            FLEET_TALLY[key + "_draws"] = FLEET_TALLY.get(
+                key + "_draws", 0) + eng.mt_k
+        if eng.mt_k > 1 and not replay:
+            FLEET_TALLY["captured"] = FLEET_TALLY.get("captured", 0) + \
+                eng.mt_k * tick
+            FLEET_TALLY["captured_draws"] = FLEET_TALLY.get(
+                "captured_draws", 0) + eng.mt_k * bool(sampling)
+        return dispatch(sampling)
+    eng._dispatch = tallied
+    made.append(eng)
+    return eng
+
+
+def fleet_run(torch, qm, dev, label, make, drive, per_pass, made, sdir,
+              spec=None):
+    """One router run of phase 5g: `make()` builds the router (its
+    engines through `fleet_engine`, into `made`), then the flight
+    recorder points at sdir/label/flight, the fault `spec` installs with
+    a once-dir of its own, the kernels' counts and FLEET_TALLY zero, and
+    `drive(router)` runs (it may spawn more engines). Holds the int8
+    kernel's launches through the wrapper to the prefill passes and the
+    eager dispatches, its launches recorded under capture to the
+    captures, the engines' `serving.quant_matmuls` to the wrapper's plus
+    the replays', the threefry kernel's to the sampled passes and
+    dispatches (adding them to DRAWS), and every outer request to one
+    terminal reason and one terminal span. Returns the run's record."""
+    from paddle_tpu_torch.inference import TERMINAL_REASONS
+    from paddle_tpu_torch.kernels import threefry as tf
+    from paddle_tpu_torch.profiler import flight_recorder, tracing
+    from paddle_tpu_torch.testing import faults
+    rec = flight_recorder.recorder()
+    fdir = os.path.join(sdir, label, "flight")
+    os.makedirs(fdir, exist_ok=True)
+    n_made = len(made)
+    router = make()
+    rec.clear()
+    rec.set_dir(fdir)
+    tracing.clear()
+    mine = made[n_made:]
+    c0 = {id(e): dict(e.counters) for e in mine}
+    m0 = serving_counters()
+    cuda_sync(torch, dev)
+    FLEET_TALLY.clear()
+    qm.launches = 0                          # the main path starts here
+    cap0 = qm.captured
+    tf.launches["threefry_bits"] = 0
+    tf_cap0 = tf.captured
+    if spec:
+        faults.install(spec, once_dir=os.path.join(sdir, label, "once"))
+    t0 = time.perf_counter()
+    try:
+        reqs = drive(router)
+        cuda_sync(torch, dev)
+    finally:
+        if spec:
+            faults.uninstall()
+        rec.set_dir(None)
+    wall = time.perf_counter() - t0
+    launches = qm.launches                   # ... and ends here
+    draws = tf.launches["threefry_bits"]
+    mine = made[n_made:]
+    zero = dict.fromkeys(mine[0].counters, 0)
+    c = {k: sum(e.counters[k] - c0.get(id(e), zero)[k] for e in mine)
+         for k in zero}
+    passes = sum(e.counters[k] - c0.get(id(e), zero)[k] for e in mine
+                 for k in (("prefill_chunks",) if e.paged
+                           else ("prefills",)))
+    m = {k: v - m0.get(k, 0) for k, v in serving_counters().items()
+         if v - m0.get(k, 0)}
+    t = FLEET_TALLY
+    bad = []
+    if launches != per_pass * passes + t.get("eager", 0):
+        bad.append(f"int8 launches {launches} != {per_pass} x {passes} "
+                   f"passes + {t.get('eager', 0)} in eager dispatches")
+    if qm.captured - cap0 != t.get("captured", 0):
+        bad.append(f"{qm.captured - cap0} int8 launches captured != "
+                   f"{t.get('captured', 0)}")
+    if m.get("serving.quant_matmuls", 0) != c["quant_matmuls"] or \
+            c["quant_matmuls"] != launches + t.get("replay", 0):
+        bad.append(f"serving.quant_matmuls {m.get('serving.quant_matmuls')}"
+                   f", the engines' {c['quant_matmuls']}, the wrapper's "
+                   f"{launches} + {t.get('replay', 0)} in replays")
+    if draws != c["sampled_passes"] + t.get("eager_draws", 0) or \
+            tf.captured - tf_cap0 != t.get("captured_draws", 0):
+        bad.append(f"threefry launches {draws} != {c['sampled_passes']} "
+                   f"sampled passes + {t.get('eager_draws', 0)}, or "
+                   f"{tf.captured - tf_cap0} captured != "
+                   f"{t.get('captured_draws', 0)}")
+    tr = tracing.tracer()
+    for r in reqs:
+        terms = tr.terminal_spans(r.trace.trace_id)
+        if (not r.done or r.finish_reason not in TERMINAL_REASONS
+                or r.slot is not None or len(terms) != 1
+                or terms[0].attrs["reason"] != r.finish_reason):
+            bad.append(f"request {r.id} done={r.done} reason="
+                       f"{r.finish_reason} slot={r.slot}, {len(terms)} "
+                       "terminal spans")
+    if bad:
+        raise AssertionError(f"5g {label}: {bad}")
+    DRAWS["launches"] += draws
+    DRAWS["captured"] += tf.captured - tf_cap0
+    DRAWS["replayed"] += t.get("replay_draws", 0)
+    dumps = sorted(flight_recorder.load_dump(os.path.join(fdir, f))[
+        "reason"] for f in os.listdir(fdir))
+    return {"router": router, "reqs": reqs,
+            "streams": [list(map(int, r.tokens)) for r in reqs],
+            "reasons": [r.finish_reason for r in reqs],
+            "requeues": [r.requeues for r in reqs], "counters": c,
+            "monitor": m, "launches": launches,
+            "replays": t.get("replay", 0), "draws": draws, "dumps": dumps,
+            "fdir": fdir, "wall_s": wall}
+
+
+def fleet_check(name, out, base, reasons=None, monitor=None,
+                at_least=None, dumps=(), extra=None):
+    """A scenario's three invariants against `base`, the streams of an
+    undisturbed run of the same layout: every request ended in one
+    terminal reason and span (`fleet_run`); the finished streams equal
+    the base's to the bit, the others are prefixes; each of `dumps` is a
+    flight dump's reason. Then the serving.* counters: `monitor` exact
+    deltas, `at_least` lower bounds, and the reasons where given. Prints
+    the scenario's line and returns it."""
+    bad = []
+    for i, (got, want, why) in enumerate(zip(out["streams"], base,
+                                             out["reasons"])):
+        ok = (got == want if why in ("length", "eos")
+              else got == want[:len(got)])
+        if not ok:
+            bad.append(f"request {i} ({why}) {got[:6]} vs {want[:6]}")
+    if reasons is not None and out["reasons"] != reasons:
+        bad.append(f"reasons {out['reasons']} != {reasons}")
+    for k, v in (monitor or {}).items():
+        if out["monitor"].get(k, 0) != v:
+            bad.append(f"{k} moved {out['monitor'].get(k, 0)} != {v}")
+    for k, v in (at_least or {}).items():
+        if out["monitor"].get(k, 0) < v:
+            bad.append(f"{k} moved {out['monitor'].get(k, 0)} < {v}")
+    for d in dumps:
+        if d not in out["dumps"]:
+            bad.append(f"no {d!r} flight dump in {out['dumps']}")
+    line = {"phase": "gpt_fleet", "scenario": name, "ok": not bad,
+            "reasons": out["reasons"], "requeues": out["requeues"],
+            "router": {k[len("serving.router."):]: v
+                       for k, v in out["monitor"].items()
+                       if k.startswith("serving.router.")},
+            "autoscale": {k[len("serving.autoscale."):]: v
+                          for k, v in out["monitor"].items()
+                          if k.startswith("serving.autoscale.")},
+            "other": {k: v for k, v in out["monitor"].items()
+                      if k.startswith(("serving.brownout",
+                                       "serving.admission",
+                                       "serving.journal"))},
+            "dumps": out["dumps"], "launches": out["launches"],
+            "replay_launches": out["replays"], "draws": out["draws"],
+            "wall_s": out["wall_s"], **(extra or {})}
+    if bad:
+        line["misses"] = bad
+    log(json.dumps(line))
+    if bad:
+        raise AssertionError(f"5g {name}: {bad}")
+    return line
+
+
+def fleet_crash_child(workdir):
+    """Phase 5g's process_crash_replay child, started by the phase in the
+    background: a journaled router over one int8 replica (the tree the
+    phase saved), the phase's greedy workload, and `sigkill` at router
+    tick FLEET_CRASH_KILL; it dies there, and its fsynced journal is all
+    that is left."""
+    bind_to_script()
+    import torch
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.inference import EngineRouter, ServingEngine
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.quantization import serving as qs
+    from paddle_tpu_torch.testing import faults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tree = torch.load(os.path.join(workdir, "int8.pt"), mmap=True,
+                      weights_only=False)
+    qs.quantize_serving_params = lambda params, family: tree
+    cfg = GPTConfig(**FULL)
+    eng = ServingEngine({}, cfg, family="gpt", num_slots=FLEET_SLOTS,
+                        max_len=1024, max_top_k=50, seed=0, quant="int8")
+    faults.install(f"sigkill@{FLEET_CRASH_KILL}",
+                   once_dir=os.path.join(workdir, "once"))
+    router = EngineRouter([eng], concurrent=False,
+                          journal_dir=os.path.join(workdir, "journal"))
+    for p in fleet_prompts(cfg.vocab_size):
+        router.submit(p, FLEET_NEW)
+    print(f"[chip_smoke] fleet crash child: first tick at "
+          f"{time.time() - T_IMPORT:.1f} s", file=sys.stderr, flush=True)
+    router.drain(max_ticks=400)
+    print("[chip_smoke] fleet crash child outlived its sigkill",
+          file=sys.stderr, flush=True)
+    return 3
+
+
+def gpt_fleet(torch, qm, dev, card, cfg, params):
+    """Phase 5g: phase 5's GPT (FULL, seed 0, its int8 rewrite) served by
+    routers of int8 replicas alike (FLEET_SLOTS slots, the same layout in
+    a scenario), under the fleet scenarios of tools/chaos_serving.py
+    :695-1170, each held to the three invariants against an undisturbed
+    run of its layout (`fleet_check`), its kernels through `fleet_run`:
+    router_replica_death (replica_preempt@3:0 on 2 full replicas: the
+    requeue-replay path, and the burn alert); live migration on dense
+    replicas (a sampled request among them, held to an undisturbed
+    router), paged ones and K = 4 graphed ones (zero re-prefill, no
+    fallback, no new capture in the survivor); migrate_raise's fallback;
+    autoscale_flood; prefill_role_death; tenant_flood (quota_flood@2:6);
+    brownout_ladder (0 -> 3 -> 0 over a spec K = 4 replica whose drafts
+    flip); host_spill_flood; process_crash_replay (a child started at
+    the phase's start, SIGKILLed mid-run, its journal replayed here). Then
+    a router tick's ms serial and concurrent, alternated, and on K = 4
+    replicas stepped on threads. Returns (the int8 kernel's launches
+    through the wrapper, {"replays": launches inside graph replays})."""
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+
+    from paddle_tpu_torch.inference import (AutoscaleConfig, Autoscaler,
+                                            BrownoutConfig,
+                                            BrownoutController, EngineRouter,
+                                            QuotaExceededError, TenantQuota)
+    from paddle_tpu_torch.inference.journal import RequestJournal
+    from paddle_tpu_torch.profiler import flight_recorder
+    from paddle_tpu_torch.profiler.slo import BurnRateMonitor, Objective
+    from paddle_tpu_torch.quantization import serving as qs
+    per_pass = sum(pass_calls(LEAF_KN, cfg.num_layers).values())
+    prompts = fleet_prompts(cfg.vocab_size)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5g_")
+    old_flight = flight_recorder.recorder().dir
+    made, scen, parts = [], {}, {}
+    launches = replays = 0
+    t_phase = time.perf_counter()
+    child = None
+    try:
+        # the crash child first: a fresh process takes ~30 s to its
+        # first step, which the scenarios below overlap
+        cdir = os.path.join(tmp, "crash")
+        os.makedirs(cdir)
+        t0 = time.perf_counter()
+        torch.save(qs.quantize_serving_params(params, "gpt"),
+                   os.path.join(cdir, "int8.pt"))   # quantize_once's
+        env = dict(os.environ, PADDLE_TPU_FLIGHT_DIR=os.path.join(
+            cdir, "flight"))
+        errf = open(os.path.join(cdir, "stderr.txt"), "w")
+        child = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--fleet-crash-child", cdir], stdout=subprocess.DEVNULL,
+            stderr=errf, env=env)
+        parts["child_start"] = time.perf_counter() - t0
+
+        def engine(**kw):
+            return fleet_engine(params, cfg, dev, per_pass, made, **kw)
+
+        def router(n=2, kw=None, **rkw):
+            return EngineRouter([engine(**(kw or {})) for _ in range(n)],
+                                tracing=True,
+                                concurrent=rkw.pop("concurrent", False),
+                                **rkw)
+
+        def submit(r, n=FLEET_NEW, sampled=None, reqs=prompts, **kw):
+            sampled = sampled or {}
+            return [r.submit(p, n, temperature=sampled.get(i, (0.0, 0))[0],
+                             top_k=sampled.get(i, (0.0, 0))[1], **kw)
+                    for i, p in enumerate(reqs)]
+
+        def run(name, make, drive, spec=None):
+            nonlocal launches, replays
+            out = fleet_run(torch, qm, dev, name, make, drive, per_pass,
+                            made, tmp, spec=spec)
+            launches += out["launches"]
+            replays += out["replays"]
+            return out
+
+        def drained(n=FLEET_NEW, sampled=None, reqs=prompts):
+            def drive(r):
+                out = submit(r, n, sampled, reqs)
+                r.drain()
+                return out
+            return drive
+
+        def release():
+            del made[:]
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # the undisturbed runs: one replica a layout, greedy
+        t0 = time.perf_counter()
+        base = run("base_dense", lambda: router(1), drained())["streams"]
+        base_p = run("base_paged", lambda: router(1, FLEET_PAGED),
+                     drained())["streams"]
+        base_k = run("base_k4", lambda: router(1, dict(multi_tick=FLEET_K)),
+                     drained(FLEET_NEW_LONG))["streams"]
+        release()
+        parts["base"] = time.perf_counter() - t0
+
+        # router_replica_death: both replicas full, so the survivor has
+        # no free slot and the dead one's streams replay from scratch
+        t0 = time.perf_counter()
+        out = run("router_replica_death", lambda: router(2), drained(),
+                  spec="replica_preempt@3:0")
+        fleet_check("router_replica_death", out, base,
+                    reasons=["length"] * FLEET_REQUESTS,
+                    monitor={"serving.router.replica_deaths": 1,
+                             "serving.autoscale.migrations": 0},
+                    at_least={"serving.router.requeues": 1},
+                    dumps=["router_replica_death"])
+        requeued = out["monitor"]["serving.router.requeues"]
+        mon = BurnRateMonitor(
+            [Objective("requeues_rate", "requeues", "event", budget=0.001)],
+            pairs=((60.0, 5.0),), cooldown_s=0.0)
+        mon.observe_events("requeues", bad=requeued, total=FLEET_REQUESTS)
+        flight_recorder.recorder().set_dir(out["fdir"])
+        try:
+            alerts = [a.objective for a in mon.check()]
+        finally:
+            flight_recorder.recorder().set_dir(None)
+        alert_dumps = [flight_recorder.load_dump(os.path.join(
+            out["fdir"], f))["reason"] for f in os.listdir(out["fdir"])]
+        if alerts != ["requeues_rate"] or \
+                "slo_burn_alert" not in alert_dumps:
+            raise AssertionError(f"5g replica death burn alert: {alerts}, "
+                                 f"{alert_dumps}")
+        scen["router_replica_death"] = {"requeued": requeued,
+                                        "alerts": alerts}
+        release()
+
+        # live migration: 4 requests on 2 replicas, so the survivor has
+        # room for every stream of the one that dies
+        mig = {}
+
+        def migrate(kill_after, n, sampled=None):
+            def drive(r):
+                reqs = submit(r, n, sampled, prompts[:4])
+                for _ in range(kill_after):
+                    r.step()
+                victim = max(r.replicas, key=lambda rep: sum(
+                    1 for o in rep.inner.values() if not o.done))
+                survivor = r.replicas[1 - victim.idx].eng
+                live = sum(1 for o in victim.inner.values() if not o.done)
+                caps = survivor.counters.get("graph_captures", 0)
+                snap, restore = victim.eng.snapshot_request, \
+                    survivor.restore_request
+                timing = {"kv_bytes": [], "snapshot_ms": [],
+                          "restore_ms": []}
+
+                def timed_snap(req):
+                    cuda_sync(torch, dev)
+                    t_s = time.perf_counter()
+                    s = snap(req)
+                    timing["snapshot_ms"].append(
+                        (time.perf_counter() - t_s) * 1e3)
+                    if s is not None:
+                        timing["kv_bytes"].append(s["kv_bytes"])
+                    return s
+
+                def timed_restore(s, **kw):
+                    cuda_sync(torch, dev)
+                    t_s = time.perf_counter()
+                    got = restore(s, **kw)
+                    cuda_sync(torch, dev)
+                    timing["restore_ms"].append(
+                        (time.perf_counter() - t_s) * 1e3)
+                    return got
+                victim.eng.snapshot_request = timed_snap
+                survivor.restore_request = timed_restore
+                replayed = r.kill_replica(victim.idx)
+                del victim.eng.snapshot_request, survivor.restore_request
+                r.drain()
+                mig.update(live=live, replayed=replayed,
+                           survivor_captures=[
+                               caps, survivor.counters["graph_captures"]],
+                           **timing)
+                return reqs
+            return drive
+        for layout, kw, n, kill_after, want in (
+                ("dense", {}, FLEET_NEW, 3, base),
+                ("paged", FLEET_PAGED, FLEET_NEW, 3, base_p),
+                ("k4", dict(multi_tick=FLEET_K), FLEET_NEW_LONG, 1,
+                 base_k)):
+            sampled = FLEET_SAMPLED if layout == "dense" else None
+            if sampled:
+                # the sampled request's undisturbed stream: the same
+                # router, the same placements and engine ids
+                want = run("live_migration_clean", lambda: router(2),
+                           drained(n, sampled, prompts[:4]))["streams"]
+            out = run(f"live_migration_{layout}",
+                      lambda kw=kw: router(2, kw),
+                      migrate(kill_after, n, sampled))
+            caps = mig["survivor_captures"]
+            line = fleet_check(
+                f"live_migration_{layout}", out, want,
+                reasons=["length"] * 4,
+                monitor={"serving.router.replica_deaths": 1,
+                         "serving.autoscale.migrations": mig["live"],
+                         "serving.autoscale.migrate_fallbacks": 0,
+                         "serving.router.requeues": 0,
+                         "serving.prefills": 4},
+                dumps=["router_replica_death"],
+                extra={"migrated": mig["live"],
+                       "kv_bytes": mig["kv_bytes"],
+                       "snapshot_ms": mig["snapshot_ms"],
+                       "restore_ms": mig["restore_ms"],
+                       "survivor_captures": caps})
+            if mig["replayed"] or not mig["live"] or \
+                    (layout == "k4" and caps[0] != caps[1]):
+                raise AssertionError(f"5g live_migration_{layout}: "
+                                     f"{mig}")
+            scen[f"live_migration_{layout}"] = {
+                k: line[k] for k in ("migrated", "kv_bytes", "snapshot_ms",
+                                     "restore_ms", "survivor_captures")}
+            release()
+
+        # migrate_raise: the next migration fails once and the stream
+        # replays from scratch, its tokens never duplicated
+        out = run("migrate_raise", lambda: router(2),
+                  drained(reqs=prompts[:4]),
+                  spec="migrate_raise@2,replica_preempt@3:0")
+        fleet_check("migrate_raise", out, base,
+                    reasons=["length"] * 4,
+                    at_least={"serving.autoscale.migrate_fallbacks": 1,
+                              "serving.router.requeues": 1},
+                    dumps=["router_replica_death"])
+        if any(len(s) != FLEET_NEW for s in out["streams"]):
+            raise AssertionError("5g migrate_raise: a replayed stream "
+                                 "holds duplicated tokens")
+        release()
+        parts["death_and_migration"] = time.perf_counter() - t0
+
+        # autoscale_flood: the flood scales out, the idle drains to min
+        t0 = time.perf_counter()
+        clock = [0.0]
+
+        def autoscale(r):
+            sc = Autoscaler(r, spawn=engine, cfg=AutoscaleConfig(
+                min_replicas=1, max_replicas=3, breach_ticks=2,
+                idle_ticks=3, cooldown_s=1.0), clock=lambda: clock[0])
+            reqs = submit(r)
+            peak = 1
+            for _ in range(200):
+                if not r.has_work():
+                    break
+                r.step()
+                clock[0] += 2.0
+                sc.tick()
+                peak = max(peak, len(r.dispatchable()))
+            for _ in range(30):
+                if len(r.dispatchable()) == 1:
+                    break
+                r.step()
+                clock[0] += 2.0
+                sc.tick()
+            scen["autoscale_flood"] = {"peak": peak,
+                                       "end": len(r.dispatchable())}
+            return reqs
+        out = run("autoscale_flood",
+                  lambda: router(1, clock=lambda: clock[0]), autoscale)
+        fleet_check("autoscale_flood", out, base,
+                    reasons=["length"] * FLEET_REQUESTS,
+                    at_least={"serving.autoscale.scale_out": 1,
+                              "serving.autoscale.scale_in": 1},
+                    dumps=["autoscale_scale_out", "autoscale_scale_in"])
+        if scen["autoscale_flood"]["peak"] < 2 or \
+                scen["autoscale_flood"]["end"] != 1:
+            raise AssertionError(f"5g autoscale: {scen['autoscale_flood']}")
+        release()
+
+        # prefill_role_death: handoffs through the migration seam, then
+        # the prefill replica dies and the decode one serves everything
+        def roles(r):
+            reqs = submit(r, reqs=prompts[:4])
+            for _ in range(60):
+                r.step()
+                if r.stats()["handoffs"]:
+                    break
+            r.kill_replica(0, reason="chaos")
+            reqs += submit(r, reqs=prompts[4:])
+            r.drain(max_ticks=400)
+            return reqs
+        out = run("prefill_role_death",
+                  lambda: router(2, roles=["prefill", "decode"]), roles)
+        fleet_check("prefill_role_death", out, base,
+                    reasons=["length"] * FLEET_REQUESTS,
+                    monitor={"serving.router.replica_deaths": 1},
+                    at_least={"serving.router.handoffs": 1},
+                    dumps=["router_replica_death"])
+        release()
+
+        # tenant_flood: the flood tenant's bucket covers one of its 6
+        # injected requests; the paying streams are exact
+        def tenant(r):
+            reqs = submit(r)
+            r.drain(max_ticks=400)
+            try:
+                r.submit([1, 2, 3], 4, tenant="flood", priority=-1)
+            except QuotaExceededError as e:
+                scen["tenant_flood"] = {"retry_after_s": e.retry_after_s}
+            return reqs
+        # (on a frozen clock: the bucket never refills)
+        out = run("tenant_flood", lambda: router(1, clock=lambda: 0.0,
+                                                 admission={
+            "flood": TenantQuota(tokens_per_s=0.5, burst=7.0)}), tenant,
+            spec="quota_flood@2:6")
+        fleet_check("tenant_flood", out, base,
+                    reasons=["length"] * FLEET_REQUESTS,
+                    monitor={"serving.admission.rejected.flood": 6},
+                    extra=scen.get("tenant_flood"))
+        if not scen.get("tenant_flood", {}).get("retry_after_s", 0) > 0:
+            raise AssertionError("5g tenant_flood: no retry_after_s")
+        release()
+
+        # brownout_ladder: 0 -> 3 -> 0 over one spec K = 4 replica (2-layer
+        # drafts, which random weights seldom accept, so the streams still
+        # decode when the drafts go off), two priority classes in flight
+        bclock = [0.0]
+
+        class _Slo:
+            pairs = [(3600.0, 60.0)]
+            objectives = [Objective("ttft", "ttft", "latency",
+                                    threshold_ms=1.0, budget=0.01)]
+            burn = 0.0
+
+            def burn_rate(self, name, window, now=None):
+                return self.burn
+
+        def brownout(r):
+            slo = _Slo()
+            ctrl = BrownoutController(r, slo=slo, cfg=BrownoutConfig(
+                breach_ticks=2, recover_ticks=2, cooldown_s=0.0),
+                clock=lambda: bclock[0])
+            reqs = [r.submit(p, FLEET_NEW_LONG, priority=i % 2)
+                    for i, p in enumerate(prompts)]
+            levels = []
+            for burn in (2.0, 0.0):
+                slo.burn = burn
+                for _ in range(8):
+                    r.step()
+                    bclock[0] += 1.0
+                    ctrl.tick()
+                    levels.append(ctrl.level)
+            r.drain(max_ticks=400)
+            eng = r.replicas[0].eng
+            scen["brownout_ladder"] = {"levels": levels,
+                                       "graph_captures":
+                                       eng.counters["graph_captures"],
+                                       "spec": eng.spec}
+            return reqs
+        out = run("brownout_ladder", lambda: router(
+            1, dict(multi_tick=FLEET_K, spec_decode="spec", gamma=2,
+                    draft_layers=2), admission={}), brownout)
+        b = scen["brownout_ladder"]
+        fleet_check("brownout_ladder", out, base_k,
+                    reasons=["length"] * FLEET_REQUESTS,
+                    monitor={"serving.brownout.escalations": 3,
+                             "serving.brownout.recoveries": 3},
+                    at_least={"serving.admission.resumes": 1},
+                    dumps=["brownout_escalate", "brownout_recover"],
+                    extra=b)
+        if b["levels"][:8] != [0, 1, 1, 2, 2, 3, 3, 3] or \
+                b["levels"][-1] != 0 or not b["spec"] or \
+                not 2 <= b["graph_captures"] <= 4:
+            raise AssertionError(f"5g brownout: {b}")
+        release()
+        parts["control"] = time.perf_counter() - t0
+
+        # host_spill_flood (chaos_serving.py:925-968): prefix families
+        # oversubscribe a 5-page pool; evicted registered pages spill to
+        # the host tier and come back as swap-ins
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(11)
+        fam = []
+        for _ in range(3):
+            head = rng.integers(1, cfg.vocab_size - 1, 32)
+            for _ in range(2):
+                fam.append(np.concatenate(
+                    [head, rng.integers(1, cfg.vocab_size - 1, 8)]))
+        kw = dict(num_slots=1, kv_layout="paged", page_size=16,
+                  num_pages=6, prefix_sharing=True)
+
+        def tiers():
+            r = EngineRouter([engine(host_kv_bytes=1 << 28, **kw)],
+                             tracing=True, concurrent=False)
+            r.plain = EngineRouter([engine(**kw)], tracing=True,
+                                   concurrent=False)
+            return r
+
+        def flood(r):
+            for rnd in range(2):
+                pr = [r.plain.submit(p, FLEET_SPILL_NEW) for p in fam]
+                r.plain.drain()
+                reqs = [r.submit(p, FLEET_SPILL_NEW) for p in fam]
+                r.drain()
+                if [q.tokens for q in pr] != [q.tokens for q in reqs] or \
+                        any(q.finish_reason != "length" for q in pr + reqs):
+                    raise AssertionError(f"5g host_spill_flood round "
+                                         f"{rnd}: the tiered streams part")
+            return reqs
+        out = run("host_spill_flood", tiers, flood)
+        teng = out["router"].replicas[0].eng
+        st = teng.pool_stats()["host_tier"]
+        led = teng.memory_ledger()
+        ok = (st["spills"] > 0 and st["swapins"] > 0
+              and led["components"]["kv_pool_host"] == st["bytes"])
+        scen["host_spill_flood"] = dict(st, ok=ok,
+                                        launches=out["launches"],
+                                        wall_s=out["wall_s"])
+        log(json.dumps({"phase": "gpt_fleet", "scenario":
+                        "host_spill_flood", **scen["host_spill_flood"]}))
+        if not ok:
+            raise AssertionError(f"5g host_spill_flood: {st}, ledger "
+                                 f"{led['components']}")
+        del out, teng
+        release()
+        parts["host_spill"] = time.perf_counter() - t0
+
+        # process_crash_replay: collect the child, replay its journal
+        t0 = time.perf_counter()
+        child.wait(timeout=max(30.0, 600.0 - (time.perf_counter()
+                                             - t_phase)))
+        errf.close()
+        with open(os.path.join(cdir, "stderr.txt")) as f:
+            tail = f.read()[-3000:]
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(f"5g crash child exited "
+                                 f"{child.returncode}, not SIGKILL: {tail}")
+        jdir = os.path.join(cdir, "journal")
+        streams = {}
+
+        def replay(r):
+            reqs = list(r._pending)            # the journal's replays
+            while r.has_work():
+                for req, tok in r.step():
+                    streams.setdefault(req.id, []).append(int(tok))
+            r.close()
+            return reqs
+        out = run("process_crash_replay",
+                  lambda: router(1, journal_dir=jdir), replay)
+        wal = RequestJournal(jdir, fsync=False)
+        admits, ends = set(), {}
+        with open(wal.path, "rb") as f:
+            for ln in f:
+                rec = wal._parse(ln.rstrip(b"\n"))
+                if rec is None:
+                    raise AssertionError("5g crash replay: a torn record "
+                                         "in a recovered WAL")
+                if rec["ev"] == "admit":
+                    admits.add(rec["id"])
+                else:
+                    ends[rec["id"]] = ends.get(rec["id"], 0) + 1
+        wal.close()
+        bad = [i for i in admits if ends.get(i, 0) != 1]
+        ids = [r.id for r in out["reqs"]]
+        parted = [i for i in ids if streams.get(i) != base[i]]
+        line = {"phase": "gpt_fleet", "scenario": "process_crash_replay",
+                "child_exit": child.returncode, "admits": len(admits),
+                "replayed": ids, "ends": sum(ends.values()),
+                "reasons": out["reasons"],
+                "streams_equal": len(ids) - len(parted),
+                "launches": out["launches"], "wall_s": out["wall_s"],
+                "ok": (admits == set(range(FLEET_REQUESTS)) and not bad
+                       and not parted and 0 < len(ids) < FLEET_REQUESTS
+                       and out["reasons"] == ["length"] * len(ids))}
+        log(json.dumps(line))
+        if not line["ok"]:
+            raise AssertionError(f"5g crash replay: {line}, exactly-once "
+                                 f"misses {bad}, parted {parted}: {tail}")
+        scen["process_crash_replay"] = line
+        release()
+        parts["crash_replay"] = time.perf_counter() - t0
+
+        # a router tick's ms (after the crash child, which would share the
+        # card and the host): 2 replicas over 4 requests stepped serially
+        # and on threads, in mirrored order; then K = 4 replicas capturing
+        # on threads
+        t0 = time.perf_counter()
+        ticks = {False: [], True: []}
+        for conc in FLEET_TIMED:
+            def timed(r):
+                reqs = submit(r, reqs=prompts[:4])
+                while r.has_work():
+                    cuda_sync(torch, dev)
+                    t_s = time.perf_counter()
+                    r.step()
+                    cuda_sync(torch, dev)
+                    ticks[conc].append((time.perf_counter() - t_s) * 1e3)
+                return reqs
+            out = run(f"tick_{'concurrent' if conc else 'serial'}",
+                      lambda conc=conc: router(2, concurrent=conc), timed)
+            if out["streams"] != base[:4]:
+                raise AssertionError(f"5g timed run (concurrent={conc}): "
+                                     "streams part from the base run")
+            out["router"].close()
+            release()
+        out = run("k4_concurrent", lambda: router(
+            2, dict(multi_tick=FLEET_K), concurrent=True),
+            drained(FLEET_NEW_LONG))
+        caps = [e.counters["graph_captures"] for e in made]
+        fleet_check("k4_concurrent", out, base_k,
+                    reasons=["length"] * FLEET_REQUESTS,
+                    extra={"graph_captures": caps})
+        if caps != [1, 1]:
+            raise AssertionError(f"5g k4_concurrent captures {caps}")
+        out["router"].close()
+        release()
+        timing = {"tick_ms_p50_serial": statistics.median(ticks[False]),
+                  "tick_ms_p50_concurrent": statistics.median(ticks[True]),
+                  "ticks_timed": [len(ticks[False]), len(ticks[True])],
+                  # serving.router.dispatch_ms over the phase's routers
+                  # (process-wide: the reservoir histogram's snapshot)
+                  "dispatch_ms": out["router"]._m_disp_ms.value,
+                  "card": card}
+        scen["timing"] = timing
+        log(json.dumps({"phase": "gpt_fleet", "part": "router_tick",
+                        **timing}))
+        parts["timing"] = time.perf_counter() - t0
+
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        flight_recorder.recorder().set_dir(old_flight)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({"phase": "gpt_fleet", "card": card,
+                    "scenarios": len(scen), "seconds_by_part": parts,
+                    "launches": launches, "replay_launches": replays}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"replays": replays}
+
+
 def llama_host_params():
     """The TinyLlama-width config at LLAMA_SERVE_LAYERS layers and its
     weights, drawn on the host from seed 0 once for phases 5b-5e."""
@@ -4126,6 +4967,101 @@ TP_REQUESTS = (0, 1, 2, 3, 4, 5, 6, 7, 14, 15)
 TP_NEW_TOKENS = 16
 
 
+# 5e (b): serving_device_loss (tools/chaos_serving.py:890-923) on the
+# paged int8 tp2 engine: the preempt guard wedges the last rank's lease at
+# its poll 16, degrades tp2 -> tp1 through plan_serving_tp and rebuilds
+# (the reference's drill loses it at poll 3, over prompts of 3-20 tokens;
+# 5c's prompts prefill one 256-token chunk a tick, so at poll 3 most would
+# still be mid-prefill and end "evicted" instead of moving)
+TP_PREEMPT = "replica_preempt@16:1"
+
+
+def tp_preempt_drill(torch, qm, cfg, mesh, per_pass):
+    """5e (b) on this rank: the paged int8 engine (PAGED, no spec) over
+    5c's TP_REQUESTS with an EnginePreemptGuard polled after every tick
+    under TP_PREEMPT. The rank that stays rebuilds at tp1 and serves its
+    live streams on (one pull a dispatch after the rebuild, counted),
+    the one that leaves retires its engine. Launches and draws are
+    checked as `run_engine` checks them. Returns the rank's record."""
+    import tempfile
+    from paddle_tpu_torch.inference import EnginePreemptGuard, ServingEngine
+    from paddle_tpu_torch.kernels import threefry as tf
+    from paddle_tpu_torch.profiler import flight_recorder
+    from paddle_tpu_torch.testing import faults
+    fdir = tempfile.mkdtemp(prefix="chip_smoke_5e_preempt_")
+    rec = flight_recorder.recorder()
+    rec.clear()
+    rec.set_dir(fdir)
+    eng = ServingEngine({}, cfg, family="llama", num_slots=8, max_len=2048,
+                        max_top_k=50, seed=0, quant="int8", mesh=mesh,
+                        **PAGED)
+    prompts = tp_prompts("paged_prompts", cfg.vocab_size)
+    eng.generate([prompts[1][-12:]], 4)        # run_engine's warm-up
+    torch.cuda.synchronize()
+    c0 = dict(eng.counters)
+    guard = EnginePreemptGuard(eng, lease_timeout_s=5.0)
+    DRAWS.update(launches=0, captured=0, replayed=0)
+    qm.launches = 0                          # the main path starts here
+    cap0 = qm.captured
+    tf.launches["threefry_bits"] = 0
+    tf_cap0 = tf.captured
+    faults.install(TP_PREEMPT, once_dir=fdir + ".once")
+    new_tp, pulls, post, rebuild_s = 0, None, 0, None
+    t0 = time.perf_counter()
+    try:
+        reqs = [eng.submit(p, TP_NEW_TOKENS,
+                           temperature=SAMPLED.get(i, (0.0, 0))[0],
+                           top_k=SAMPLED.get(i, (0.0, 0))[1])
+                for i, p in enumerate(prompts)]
+        while eng.has_work():
+            eng.step()
+            if pulls is not None:
+                post += 1
+            t_p = time.perf_counter()
+            tp = guard.poll()
+            if tp:
+                torch.cuda.synchronize()
+                rebuild_s = time.perf_counter() - t_p
+                new_tp = tp
+                c_rb = dict(eng.counters)
+                pulls = [0]
+                pull = eng._pull
+
+                def counted(value, stall_s=0.0, pull=pull, n=pulls):
+                    n[0] += 1
+                    return pull(value, stall_s)
+                eng._pull = counted
+        torch.cuda.synchronize()
+    finally:
+        faults.uninstall()
+        rec.set_dir(None)
+    wall = time.perf_counter() - t0
+    launches = qm.launches                   # ... and ends here
+    c = {k: v - c0[k] for k, v in eng.counters.items()}
+    check_launches(eng, "tp2_preempt", c, launches, per_pass, per_pass, [],
+                   qm.captured - cap0)
+    check_draws(eng, "tp2_preempt", c, tf.launches["threefry_bits"],
+                tf.captured - tf_cap0)
+    dumps = sorted(flight_recorder.load_dump(os.path.join(fdir, f))[
+        "reason"] for f in os.listdir(fdir))
+    import shutil
+    shutil.rmtree(fdir, ignore_errors=True)
+    shutil.rmtree(fdir + ".once", ignore_errors=True)
+    after = ({k: eng.counters[k] - c_rb[k] for k in ("decode_ticks",
+                                                     "prefills")}
+             if pulls is not None else {})
+    return {"streams": [list(map(int, r.tokens)) for r in reqs],
+            "reasons": [r.finish_reason for r in reqs], "new_tp": new_tp,
+            "tp": eng.tp, "retired": eng._retired,
+            "has_work": eng.has_work(),
+            "pulls_after": None if pulls is None else pulls[0],
+            "ticks_after": post, "after": after, "rebuild_s": rebuild_s,
+            "wall_s": wall,
+            "decode_ticks": c["decode_ticks"],
+            "prefill_chunks": c["prefill_chunks"], "dumps": dumps,
+            "launches": launches, "draws": dict(DRAWS)}
+
+
 def tp_prompts(name, vocab):
     """The TP_REQUESTS of a prompt list (`llama_prompts` or
     `paged_prompts`)."""
@@ -4133,14 +5069,15 @@ def tp_prompts(name, vocab):
     return [prompts[i] for i in TP_REQUESTS]
 
 
-def _tp_serving_rank(rank, world, workdir):
+def _tp_serving_rank(rank, world, workdir, engines=None):
     """One rank of phase 5e, in its own process: joins the tp group
     through a file store (NCCL with a card a rank, gloo when the ranks
     share one), loads the int8 tree phase 5b quantized (handed to the
     engine in place of a second rewrite) and runs each of TP_ENGINES
-    over its prompts through `run_engine` (launches and draws checked
-    there, the pool after every step), the tp collectives of every
-    dispatch counted. Writes its results to workdir/rank<rank>.json."""
+    (or `engines`) over its prompts through `run_engine` (launches and
+    draws checked there, the pool after every step), the tp collectives
+    of every dispatch counted; then (b), `tp_preempt_drill`. Writes its
+    results to workdir/rank<rank>.json."""
     bind_to_script()
     import torch
     import torch.distributed as dist
@@ -4173,7 +5110,8 @@ def _tp_serving_rank(rank, world, workdir):
         out["start_s"] = time.perf_counter() - t0
         per_pass = sum(pass_calls(TP_LEAF_KN, cfg.num_layers).values())
         draft = sum(pass_calls(TP_LEAF_KN, SPEC["draft_layers"]).values())
-        for label, kw, prompts_fn in TP_ENGINES:
+        for label, kw, prompts_fn in (TP_ENGINES if engines is None
+                                      else engines):
             t_b = time.perf_counter()
             eng = ServingEngine({}, cfg, family="llama", num_slots=8,
                                 max_len=2048, max_top_k=50, seed=0,
@@ -4211,11 +5149,88 @@ def _tp_serving_rank(rank, world, workdir):
             del eng, counted
             gc.collect()
             torch.cuda.empty_cache()
+        out["tp2_preempt"] = tp_preempt_drill(torch, qm, cfg, mesh,
+                                              per_pass)
+        gc.collect()
+        torch.cuda.empty_cache()
         out["seconds"] = time.perf_counter() - t0
     finally:
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.destroy_process_group()
+
+
+def tp_preempt_check(torch, qm, cfg, dev, ranks, k1c, tree, qp=None):
+    """5e (b)'s verdict on the two ranks' `tp_preempt_drill` records: the
+    guard left rank 0 at tp1 and retired rank 1 (no work), one pull a
+    dispatch after the rebuild, the serving_preempt and serving_rebuild
+    dumps, every request "length" on rank 0 (or "evicted" mid-prefill,
+    its stream a prefix) and "migrated" or "evicted" on rank 1; rank
+    0's finished streams equal 5c's single-card paged engine's, or each
+    parting passes 5b's f64 verdict (`compare_streams`). Returns (both
+    ranks' int8 launches, their draws, the summary)."""
+    from paddle_tpu_torch.inference.serving import _to_device
+    stay, left = (r["tp2_preempt"] for r in ranks)
+    bad = []
+    if (stay["new_tp"], left["new_tp"], stay["tp"]) != (1, 1, 1) or \
+            stay["retired"] or not left["retired"] or left["has_work"]:
+        bad.append("the guard did not leave rank 0 at tp1 and retire "
+                   "rank 1")
+    # one pull a dispatch and one a finished prefill (the queued
+    # requests admit on the new mesh)
+    a = stay["after"]
+    if not a.get("decode_ticks") or \
+            stay["pulls_after"] != a["decode_ticks"] + a["prefills"]:
+        bad.append(f"{stay['pulls_after']} pulls after the rebuild, for "
+                   f"{a} dispatches and prefills")
+    if "serving_preempt" not in stay["dumps"] or \
+            "serving_rebuild" not in stay["dumps"]:
+        bad.append(f"dumps {stay['dumps']}")
+    if any(why not in ("length", "evicted") for why in stay["reasons"]) or \
+            any(why not in ("migrated", "evicted")
+                for why in left["reasons"]):
+        bad.append(f"reasons {stay['reasons']} / {left['reasons']}")
+    single = [k1c["paged"]["streams"][i][:TP_NEW_TOKENS]
+              for i in TP_REQUESTS]
+    done = [i for i, why in enumerate(stay["reasons"]) if why == "length"]
+    evicted = [i for i, why in enumerate(stay["reasons"])
+               if why == "evicted"]
+    if any(stay["streams"][i] != single[i][:len(stay["streams"][i])]
+           for i in evicted):
+        bad.append("an evicted stream is not a prefix of 5c's")
+    if bad:
+        raise AssertionError(f"5e (b) tp2_preempt: {bad}")
+    prompts = tp_prompts("paged_prompts", cfg.vocab_size)
+    if qp is None and [stay["streams"][i] for i in done] != \
+            [single[i] for i in done]:
+        qp = _to_device(tree[0], dev)
+    paged_path = {"layout": "paged", "page_size": 16, "chunk": 256}
+    verdict = compare_streams(
+        torch, qm, qp, cfg, dev, [prompts[i] for i in done],
+        [stay["streams"][i] for i in done], [single[i] for i in done],
+        "tp2_preempt_vs_single_card",
+        (("tp2_then_tp1", paged_path), ("single", paged_path)),
+        sampled={done.index(i): v for i, v in SAMPLED.items()
+                 if i in done})
+    summary = {
+        "spec": TP_PREEMPT, "new_tp": stay["new_tp"],
+        "reasons": stay["reasons"], "rebuild_s": [stay["rebuild_s"],
+                                                  left["rebuild_s"]],
+        "ticks_after": stay["ticks_after"], "after": stay["after"],
+        "pulls_after": stay["pulls_after"], "dumps": stay["dumps"],
+        "retired_rank_has_work": left["has_work"],
+        "launches_a_rank": [stay["launches"], left["launches"]],
+        "decode_ticks": [stay["decode_ticks"], left["decode_ticks"]],
+        "wall_s": [stay["wall_s"], left["wall_s"]],
+        "greedy_equal": verdict["greedy_equal"],
+        "greedy_requests": verdict["greedy_requests"],
+        "sampled_equal": verdict["sampled_equal"],
+        "partings": len(verdict["partings"]),
+        "verdict": "bit-identical to 5c's paged engine"
+        if not verdict["partings"] else "5b's f64 parting verdict"}
+    return (stay["launches"] + left["launches"],
+            {k: stay["draws"][k] + left["draws"][k] for k in stay["draws"]},
+            summary)
 
 
 def tp_kernel_check(torch, qm, dev):
@@ -4245,7 +5260,11 @@ def tp_serving(torch, qm, dev, card, cfg, params, k1c):
     each rank launches 29 int8 kernels a pass and 89 a spec tick; both
     ranks' streams are identical; each stream equals 5b's (dense) or
     5c's paged spec engine's, or its parting passes 5b's f64 verdict
-    along the single-card path. Returns (the int8 kernel's launches
+    along the single-card path. (b) Then each rank runs
+    `tp_preempt_drill` (serving_device_loss: TP_PREEMPT degrades tp2 ->
+    tp1 through the preempt guard, `rebuild_on_mesh` keeps rank 0's live
+    streams, rank 1 retires), judged by `tp_preempt_check` against 5c's
+    single-card paged engine. Returns (the int8 kernel's launches
     {path: both ranks'}, the threefry draws {path: ...}, the kernel rows
     at the tp shapes, the summary)."""
     import shutil
@@ -4327,6 +5346,10 @@ def tp_serving(torch, qm, dev, card, cfg, params, k1c):
             "greedy_equal": verdict["greedy_equal"],
             "sampled_equal": verdict["sampled_equal"],
             "partings": len(verdict["partings"])})
+    # (b) the preempt guard: rank 0 stays at tp1, rank 1 retires
+    launches["llama_tp2_preempt"], draws["llama_tp2_preempt"], \
+        line["tp2_preempt"] = tp_preempt_check(torch, qm, cfg, dev, ranks,
+                                               k1c, tree, qp)
     del qp, tree
     torch.cuda.empty_cache()
     log(json.dumps(line))
@@ -4711,7 +5734,7 @@ def sharded_one_rank(torch, dev, card, p4):
     try:
         plan = plan_train(cfg, 1, LLAMA_BATCH, dp=1, fsdp=1, tp=1)
         mesh = plan.build_mesh()
-        host = llama.init_llama_params(cfg, seed=0, device="cpu")
+        host = dict(llama_full_host())           # read only: shard_args
         tokens = train_tokens(torch, dev, cfg, LLAMA_BATCH, LLAMA_SEQ, 3)
         fpt = train_flops_per_token(sum(p.numel() for p in host.values()),
                                     cfg.num_layers, cfg.hidden_size,
@@ -5118,7 +6141,7 @@ def unsharded_reference(torch, llama, cfg, params, tokens):
 GPT_PLANS = {"ep2": ({"ep": 2}, dict(MOE)),
              "sp2_ring": ({"sp": 2}, {"context_parallel": "ring"}),
              "sp2_ulysses": ({"sp": 2}, {"context_parallel": "ulysses"})}
-GPT_PLAN_STEPS = 3
+GPT_PLAN_STEPS = 2
 GPT_PLAN_ATTN = {"ep2": ATTN_MAIN, "sp2_ring": None,
                  "sp2_ulysses": SHARDED_ATTN["gpt_sp2_ulysses"]}
 
@@ -5832,7 +6855,8 @@ def checkpoint_resume(torch, dev, card, p4):
     counted = {n: monitor.counter(n).value for n in CKPT_COUNTERS}
     clear_profiler_spans()
     cfg = llama.LlamaConfig(**LLAMA, remat=True)
-    params = llama.init_llama_params(cfg, seed=0)
+    params = {k: v.to(dev) for k, v in llama_full_host().items()}
+    _LLAMA_HOST.clear()                          # its last reader
     opt = init_opt_state(params)
     tokens = train_tokens(torch, dev, cfg, LLAMA_BATCH, LLAMA_SEQ, 3)
     nbytes = state_bytes(params, opt)
@@ -6158,7 +7182,7 @@ DRILL_COUNTERS = {"resilience_skip_step": 3, "resilience_rollback": 1,
 # through the port's launcher (python -m paddle_tpu_torch.distributed.
 # launch), each rank this script run as `--elastic-worker MODE DIR`; the
 # loss at step ELASTIC_LOSS_AT's boundary, after the snapshot there
-ELASTIC_STEPS = 4
+ELASTIC_STEPS = 3
 ELASTIC_LOSS_AT = 2
 ELASTIC_LOSS = f"device_loss@{ELASTIC_LOSS_AT}:1"
 ELASTIC_BUDGET_S = 8.0
@@ -6844,6 +7868,8 @@ def kernels_line(rows, attn_rows, ce_rows, pair_rows, upd_rows,
 def main():
     if len(sys.argv) > 3 and sys.argv[1] == "--elastic-worker":
         return elastic_worker(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 2 and sys.argv[1] == "--fleet-crash-child":
+        return fleet_crash_child(sys.argv[2])
     if len(sys.argv) > 1 and sys.argv[1] == "--launch":
         # 6d's launcher, bound to the script's life (`_launch`)
         bind_to_script()
@@ -6955,6 +7981,8 @@ def run(torch):
         serving_launches["gpt_serving_chaos"], chaos_replays = \
             sampling_phase("gpt_serving_chaos", gpt_serving_chaos, torch,
                            qm, dev, card, gcfg, gparams)
+        serving_launches["gpt_fleet"], fleet_replays = sampling_phase(
+            "gpt_fleet", gpt_fleet, torch, qm, dev, card, gcfg, gparams)
     del gparams
     # phases 5b-5e share the host-drawn TinyLlama-width weights at
     # LLAMA_SERVE_LAYERS layers and their int8 rewrite
@@ -6973,6 +8001,7 @@ def run(torch):
             lcfg, lparams, k1c)
         serving_launches.update(mt_launches)
         replay_launches["gpt_serving_chaos"] = chaos_replays
+        replay_launches["gpt_fleet"] = fleet_replays
         tp_launches, tp_draws, tp_rows, _ = phase(
             "llama_tp2_serving", tp_serving, torch, qm, dev, card, lcfg,
             lparams, k1c)

@@ -123,6 +123,13 @@ class HostKVTier:
             self._d.move_to_end(key)
         return pair
 
+    def pop(self, key) -> None:
+        """Drop `key`'s pair (a parked request the router resumed or
+        resolved)."""
+        pair = self._d.pop(key, None)
+        if pair is not None:
+            self.bytes -= _nbytes(pair[0]) + _nbytes(pair[1])
+
     def stats(self) -> dict:
         return {"entries": len(self._d), "bytes": self.bytes,
                 "spills": self.spills, "swapins": self.swapins,

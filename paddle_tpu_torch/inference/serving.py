@@ -146,8 +146,14 @@ carries both (`tick_records()`, `telemetry_jsonl=`); request tracing
 (`tracing=True`, profiler/tracing.py): queue, prefill chunk and decode
 spans, a `decode.tick` instant a token, one terminal span.
 
-The fleet (router, autoscaler, journal, `snapshot_request` and
-`rebuild_on_mesh`) waits for ROADMAP A7 part 3.
+The fleet seams (inference/router.py drives them): `snapshot_request`
+pulls a mid-decode request's K/V and decode-state mirror to the host,
+`restore_request` writes them into a free slot of another engine in
+place with zero re-prefilled tokens, `detach_request` releases a
+request that left without a terminal reason, `set_spec_drafts` toggles
+speculative drafts live (the brownout's first lever), and
+`rebuild_on_mesh` moves a tensor-parallel engine onto a smaller mesh
+with its live streams (inference/autoscale.py EnginePreemptGuard).
 """
 from __future__ import annotations
 
@@ -157,6 +163,7 @@ import functools
 import hashlib
 import json
 import sys
+import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -181,14 +188,18 @@ TERMINAL_REASONS = frozenset(
 # fault-injection seam (testing.faults.install wires it): called with the
 # tick about to run, returns an action dict ({"poison_slot": i} |
 # {"draft_poison_slot": i} | {"stall_s": s} | {"raise_prefill": True} |
-# {"raise_decode": True} | {"raise_cow": True} | {"raise_oom": True}).
-# Production code never sets it.
+# {"raise_decode": True} | {"raise_cow": True} | {"raise_oom": True} |
+# {"raise_migrate": True}). Production code never sets it.
 _FAULT_HOOK: Optional[Callable[[int], dict]] = None
 
 # device index -> the side stream every engine's multi-tick warm-ups and
 # CUDA graph captures run on: cuBLAS keeps a workspace for each stream it
 # has run on, so a stream per engine would leave one behind per build
 _CAPTURE_STREAMS: dict = {}
+# one warm-up and capture at a time in the process (engines stepped on a
+# router's threads share the side stream); a capture is thread-local, so
+# other threads' launches and pulls go on meanwhile
+_CAPTURE_LOCK = threading.Lock()
 
 
 class BackpressureError(RuntimeError):
@@ -401,7 +412,7 @@ class Request:
         self.top_k = top_k
         self.eos_id = eos_id
         # multi-tenant labels: the engine carries them untouched (quotas
-        # and preemption are the fleet's policy, ROADMAP A7 part 3)
+        # and preemption are the router's policy, inference/admission.py)
         self.tenant = tenant
         self.priority = int(priority)
         self.deadline_s = deadline_s           # wall seconds from submit
@@ -699,6 +710,9 @@ class ServingEngine:
         # explicit "spec" (inference/spec_decode.resolve_spec)
         from .spec_decode import resolve_spec
         self.spec = resolve_spec(spec_decode, self.device)
+        # only an engine built with spec on can turn its drafts back on
+        # (set_spec_drafts)
+        self._spec_capable = self.spec
         n_layers = int(cfg.num_layers)
         self.spec_gamma = int(gamma)
         self.spec_draft_layers = int(draft_layers) or max(1, n_layers // 2)
@@ -757,6 +771,9 @@ class ServingEngine:
                 self.family = dataclasses.replace(
                     self.family, forward_cached=functools.partial(
                         self.family.forward_cached, qmm=quant_matmul_ref))
+        # the family before a tp layout binds into it (rebuild_on_mesh
+        # binds the new mesh's)
+        self._family0 = self.family
         if mesh is None:
             self._params = _to_device(params, self.device)
         else:
@@ -815,6 +832,11 @@ class ServingEngine:
             self._graph_out: dict = {}       # sampling flag -> emit
             # sampling flag -> the family's held tensors the graph read
             self._graph_held: dict = {}
+            # the three maps for each spec state: set_spec_drafts swaps
+            # in the other state's, so each tick body keeps its graphs
+            # (at most 2 captures a state)
+            self._graph_sets = {bool(self.spec): (
+                self._graphs, self._graph_out, self._graph_held)}
         self._slot_req: List[Optional[Request]] = [None] * n
         self._queue: collections.deque = collections.deque()
         self._next_id = 0
@@ -858,6 +880,8 @@ class ServingEngine:
         self._dpoison = torch.ones(n, dtype=torch.float32,
                                    device=self.device)
         self._raise_cow = False          # injected cow_raise, armed
+        self._raise_migrate = False      # injected migrate_raise, armed
+        self._retired = False            # left its mesh (rebuild_on_mesh)
         self._actions: dict = {}         # the tick's injected faults
         # SLO samples (host ms): TTFT includes the queue wait; inter-token
         # latency a token, a multi-token pull's gap shared among them
@@ -1097,7 +1121,8 @@ class ServingEngine:
                            if self._host_tier is not None else 0))
 
     def has_work(self) -> bool:
-        # a slot mid-chunked-prefill holds a request but is not active
+        # a slot mid-chunked-prefill holds a request but is not active;
+        # a retired engine holds nothing
         return (bool(self._queue) or bool(self._active.any())
                 or any(r is not None for r in self._slot_req))
 
@@ -1217,12 +1242,16 @@ class ServingEngine:
         dispatch (quarantining poisoned rows), then enforce deadlines on
         the survivors. Returns this tick's (request, token) emissions."""
         events: List[tuple] = []
+        if self._retired:
+            return events
         # this tick's injected faults, consumed by the guarded calls
         self._actions = {}
         if _FAULT_HOOK is not None:
             self._actions = _FAULT_HOOK(self._ticks) or {}
         if self.paged and self._actions.pop("raise_cow", None):
             self._raise_cow = True
+        if self._actions.pop("raise_migrate", None):
+            self._raise_migrate = True       # the next snapshot raises
         now = time.perf_counter()
         self._expire_queued(now)
         if self.paged:
@@ -1495,10 +1524,7 @@ class ServingEngine:
             self._slot_reserve[:] = 0
             self._prefilling.clear()
             self._pt_dirty = False
-        if self.mt_k > 1:
-            self._graphs.clear()
-            self._graph_out.clear()
-            self._graph_held.clear()
+        self._drop_graphs()
         self._cache = None               # frees the old cache first
         self._cache = self._new_cache()
         self._dstate = None
@@ -1818,22 +1844,26 @@ class ServingEngine:
             graph.replay()
             self.counters["graph_replays"] += 1
             return self._graph_out[sampling]
-        side = _CAPTURE_STREAMS.get(self.device.index)
-        if side is None:
-            side = _CAPTURE_STREAMS[self.device.index] = torch.cuda.Stream(
-                self.device)
-        main = torch.cuda.current_stream(self.device)
-        # the warm-up: a real dispatch, eagerly on the capture's stream,
-        # which also sizes every workspace the graph will bake
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            emit = self._multi_ticks(sampling)
-        main.wait_stream(side)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            out = self._multi_ticks(sampling)    # recorded, not run
-        self.capture_ms.append((time.perf_counter() - t0) * 1e3)
+        with _CAPTURE_LOCK:
+            side = _CAPTURE_STREAMS.get(self.device.index)
+            if side is None:
+                side = _CAPTURE_STREAMS[self.device.index] = \
+                    torch.cuda.Stream(self.device)
+            main = torch.cuda.current_stream(self.device)
+            # the warm-up: a real dispatch, eagerly on the capture's
+            # stream, which also sizes every workspace the graph will bake
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                emit = self._multi_ticks(sampling)
+            main.wait_stream(side)
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            # thread-local: a router's other threads keep launching and
+            # pulling on their own streams while this one captures
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = self._multi_ticks(sampling)    # recorded, not run
+            self.capture_ms.append((time.perf_counter() - t0) * 1e3)
         self._graphs[sampling] = graph
         self._graph_out[sampling] = out
         # the memoized tensors the capture just read (the RoPE tables):
@@ -1970,6 +2000,366 @@ class ServingEngine:
         if self.paged:
             for i in np.nonzero(self._active)[0]:
                 self._rollback_spec_pages(int(i))
+
+    # ------------------------------------------------------ fleet seams
+    def set_spec_drafts(self, enabled: bool) -> bool:
+        """Toggle speculative drafts live (the brownout ladder's first
+        lever): off runs the plain tick, and greedy streams are the same
+        either way, so the switch frees capacity with nothing
+        user-visible. Only an engine built with spec on can turn them
+        back on (`enabled=True` is a no-op otherwise). Under multi-tick
+        on the card each state keeps its own CUDA graphs, so the first
+        flip each way captures once a sampling flag (4 captures at most,
+        then replays). Returns the live spec flag."""
+        want = bool(enabled) and self._spec_capable
+        if want == self.spec:
+            return self.spec
+        self.spec = want
+        self._tick_span = self.mt_k * ((self.spec_gamma + 1) if want
+                                       else 1)
+        if self.mt_k > 1:
+            self._graphs, self._graph_out, self._graph_held = \
+                self._graph_sets.setdefault(want, ({}, {}, {}))
+        return self.spec
+
+    def _drop_graphs(self) -> None:
+        """Every CUDA graph of every spec state (they baked the cache's
+        addresses)."""
+        if self.mt_k > 1:
+            for maps in self._graph_sets.values():
+                for m in maps:
+                    m.clear()
+
+    def snapshot_request(self, req: Request) -> Optional[dict]:
+        """The live state of a mid-decode request, on the host, for
+        migration to another engine: the K/V of every written position
+        as one layout-neutral [L, pos, heads, hd] block a side (dense:
+        the slot's rows; paged: its pages gathered through the page
+        table on the device), pulled once, in the cache's dtype, and the
+        decode-state mirror (pos, cur_tok, gen_idx and the PRNG id, so a
+        sampled stream continues to the bit). A tensor-parallel engine
+        snapshots its rank's heads. None when there is nothing to
+        migrate: the request is terminal, queued or mid-chunked-prefill.
+        Call between ticks. Raises ServingFaultError under the injected
+        migrate_raise."""
+        slot = req.slot
+        if (req.done or slot is None or req._pf_next is not None
+                or not self._active[slot]):
+            return None
+        if self._raise_migrate:
+            self._raise_migrate = False
+            raise ServingFaultError("injected migrate fault")
+        pos = int(self._positions[slot])
+        ck, cv = self._cache["k"], self._cache["v"]
+        if self.paged:
+            ps = self.page_size
+            npg = -(-pos // ps)
+            pids = self._upload(self._ptab[slot, :npg])
+            # [L, npg, ps, heads, hd] -> the position-ordered prefix
+            kv = torch.stack([ck.index_select(1, pids),
+                              cv.index_select(1, pids)])
+            kv = kv.reshape(2, ck.shape[0], npg * ps,
+                            *ck.shape[3:])[:, :, :pos]
+        else:
+            kv = torch.stack([ck[:, slot, :pos], cv[:, slot, :pos]])
+        kv = kv.cpu()                      # the snapshot's one pull
+        k, v = kv[0], kv[1]
+        return {"prompt": np.asarray(req.prompt, np.int32),
+                "tokens": list(req.tokens),
+                "max_new_tokens": int(req.max_new_tokens),
+                "temperature": float(req.temperature),
+                "top_k": int(req.top_k),
+                "eos_id": req.eos_id,
+                "tenant": req.tenant,
+                "priority": req.priority,
+                "pos": pos,
+                "cur_tok": int(self._cur_tok[slot]),
+                "gen_idx": int(self._gen_idx[slot]),
+                "prng_id": int(self._req_ids[slot]),
+                "kv_k": k, "kv_v": v,
+                "kv_bytes": 2 * k.numel() * k.element_size()}
+
+    def restore_request(self, snap: dict,
+                        deadline_s: Optional[float] = None,
+                        deadline_ticks: Optional[int] = None,
+                        _trace=None) -> Optional[Request]:
+        """Admit a migrated snapshot into this engine, past the queue
+        (the request is mid-flight): a free slot is claimed directly, a
+        paged restore reserves the request's remaining worst-case page
+        envelope through the admission accounting (the pages holding the
+        snapshot allocate now, the rest reserve), and the K/V uploads
+        with zero re-prefilled tokens. Deadlines are the remaining
+        budget (the caller re-scopes them). Returns the new live Request,
+        its .tokens seeded with the ids already generated, or None when
+        this engine cannot take it (no free slot or pages, shape
+        limits): the caller falls back to requeue-replay."""
+        prompt = np.asarray(snap["prompt"], np.int32).reshape(-1)
+        t0 = prompt.shape[0]
+        max_new = int(snap["max_new_tokens"])
+        if self._retired or t0 + max_new > self.max_len:
+            return None
+        if snap["top_k"] > self.max_top_k:
+            return None
+        slot = self._free_slot()
+        if slot is None:
+            return None
+        if self.paged:
+            need = self._pages_needed(t0, max_new)
+            if need > self._pool.available():
+                return None
+        req = Request(self._next_id, prompt, max_new,
+                      float(snap["temperature"]), int(snap["top_k"]),
+                      snap["eos_id"],
+                      deadline_s=(None if deadline_s is None
+                                  else float(deadline_s)),
+                      deadline_ticks=(None if deadline_ticks is None
+                                      else int(deadline_ticks)),
+                      tenant=str(snap.get("tenant", "default")),
+                      priority=int(snap.get("priority", 0)))
+        self._next_id += 1
+        req.t_submit = time.perf_counter()
+        req._tick_submit = self._ticks
+        req._engine = self
+        req.tokens = list(snap["tokens"])
+        req.trace = _trace
+        self._restore_into(req, snap, slot)
+        self._m_sub.add()
+        return req
+
+    def _restore_into(self, req: Request, snap: dict, slot: int) -> None:
+        """Write a snapshot's K/V into `slot` and arm every host mirror:
+        the shared tail of a cross-engine restore and of the mesh
+        rebuild. The K/V goes into the existing cache tensors in place
+        (`copy_` / `index_copy_`), never a new cache: a multi-tick
+        engine's CUDA graphs baked the cache's addresses, so a restored
+        stream continues inside their replays with no new capture. The
+        PRNG mirror carries the source engine's id, so a sampled
+        continuation is the undisturbed engine's."""
+        pos = int(snap["pos"])
+        ck, cv = self._cache["k"], self._cache["v"]
+        kv_k = torch.as_tensor(snap["kv_k"]).to(self.device, ck.dtype)
+        kv_v = torch.as_tensor(snap["kv_v"]).to(self.device, cv.dtype)
+        if self.paged:
+            ps = self.page_size
+            npg = -(-pos // ps)
+            need = self._pages_needed(len(req.prompt),
+                                      req.max_new_tokens)
+            L = kv_k.shape[0]
+            pids = []
+            for j in range(npg):
+                pid = self._pool.alloc()
+                self._ptab[slot, j] = pid
+                pids.append(pid)
+            idx = self._upload(pids, torch.int64)
+            for cache, kv in ((ck, kv_k), (cv, kv_v)):
+                pad = torch.zeros((L, npg * ps) + tuple(kv.shape[2:]),
+                                  dtype=cache.dtype, device=self.device)
+                pad[:, :pos] = kv
+                cache.index_copy_(1, idx, pad.reshape(
+                    (L, npg, ps) + tuple(kv.shape[2:])))
+            reserve = max(need - npg, 0)
+            self._slot_reserve[slot] = reserve
+            self._pool.reserved += reserve
+            self._pt_dirty = True
+        else:
+            ck[:, slot, :pos].copy_(kv_k)
+            cv[:, slot, :pos].copy_(kv_v)
+        now = time.perf_counter()
+        req.slot = slot
+        req._t_last = now
+        self._slot_req[slot] = req
+        self._positions[slot] = pos
+        self._active[slot] = True
+        self._cur_tok[slot] = int(snap["cur_tok"])
+        self._temps[slot] = req.temperature
+        self._top_ks[slot] = req.top_k
+        self._req_ids[slot] = int(snap["prng_id"])
+        self._gen_idx[slot] = int(snap["gen_idx"])
+        self._eos_ids[slot] = (-1 if req.eos_id is None
+                               else int(req.eos_id))
+        self._max_new[slot] = int(req.max_new_tokens)
+        self._dirty = True
+        if req.trace is not None:
+            req._sp_decode = req.trace.begin(
+                "decode", slot=slot, migrated=True,
+                attempt=req.trace.attempt)
+
+    def detach_request(self, req: Request) -> bool:
+        """Non-terminal release, the migration seam: drop `req` from this
+        engine (slot, pages, reservation, queue) without the terminal
+        transition, since it continues on another engine: its trace stays
+        open (only the decode span closes) and no terminal-reason counter
+        fires. finish_reason is the sentinel "migrated", not in
+        TERMINAL_REASONS. requests_completed still advances, so
+        submitted - completed stays the in-flight count. False when the
+        request already resolved."""
+        if req.done:
+            return False
+        if req.slot is not None:
+            self._clear_slot(req.slot)
+        else:
+            try:
+                self._queue.remove(req)
+            except ValueError:
+                pass
+        req.slot = None
+        req.done = True
+        req.finish_reason = "migrated"
+        if req.trace is not None and req._sp_decode is not None:
+            req.trace.end(req._sp_decode)
+            req._sp_decode = None
+        self._m_done.add()
+        self._m_occ.set(int(self._active.sum()))
+        self._m_queue.set(len(self._queue))
+        return True
+
+    def rebuild_on_mesh(self, mesh) -> int:
+        """Preemption recovery of a tensor-parallel engine: every rank of
+        the old mesh calls this together with the survivors' `mesh`
+        (built on every rank of the world: forming it is collective).
+        Each live slot snapshots its rank's heads; while the old tp group
+        is still whole, the ranks gather over it the snapshots' missing
+        KV heads and every parameter shard, so a survivor holds the full
+        K/V and the full (int8) tree; then a survivor re-cuts its shards
+        for the new mesh (`_shard_params`), allocates a fresh cache for
+        its new heads, drops its CUDA graphs, and restores the snapshots
+        in place onto the same Request objects: callers' handles keep
+        filling, zero re-prefilled tokens. Requests mid-chunked-prefill
+        end "evicted"; queued requests stay queued and prefill on the new
+        mesh. A rank outside `mesh` retires its engine: its requests
+        leave ("migrated": they live on in the survivors' copies),
+        `has_work()` is False, and it returns 0. Else returns the number
+        of live streams moved."""
+        from ..parallel.collective import all_gather
+        from ..parallel.mesh import (_entry_axes, axis_group, axis_names,
+                                     axis_size)
+        if self.mesh is None:
+            raise ValueError("rebuild_on_mesh needs a tp-sharded engine "
+                             "(mesh=)")
+        if self.tp_axis not in axis_names(mesh):
+            raise ValueError(f"mesh {dict(zip(axis_names(mesh), mesh.shape))}"
+                             f" has no {self.tp_axis!r} axis")
+        if self.family.serving_specs is None:
+            raise ValueError(
+                f"family {self.family.name!r} has no "
+                "SERVING_PARAM_SPECS — it cannot run tensor-parallel")
+
+        def split_dim(spec):
+            for d, e in enumerate(spec):
+                if self.tp_axis in _entry_axes(e):
+                    return d
+            return None
+        snaps = []
+        for req in list(self._slot_req):
+            if req is None:
+                continue
+            try:
+                snap = self.snapshot_request(req)
+            except Exception as e:             # noqa: BLE001
+                self._on_fault("migrate", e)
+                snap = None
+            if snap is None:
+                self._finish(req, "evicted")
+            else:
+                self._clear_slot(req.slot)     # the old pool's accounting
+                req.slot = None
+                snaps.append((req, snap))
+        # over the old group while it is whole: the snapshots' heads and
+        # every leaf, in one order on every rank
+        old = axis_group(self.mesh, self.tp_axis)
+        old_tp = self.tp
+        heads_dim = split_dim(self._cache_pins["k"].spec)
+        if old is not None and heads_dim is not None:
+            for _, snap in snaps:
+                for key in ("kv_k", "kv_v"):
+                    # [L, pos, heads, hd]: the dense cache's head axis
+                    # less its slot axis
+                    snap[key] = all_gather(snap[key].to(self.device), old,
+                                           dim=heads_dim - 1).cpu()
+        full = {}
+        for name, value in self._params.items():
+            d = split_dim(self._param_pins[name].spec)
+            if old is not None and d is not None:
+                value = all_gather(value, old, dim=d)
+            # undo the family's stored column order (GPT's head-grouped
+            # qkv): the permutation the order applies to the columns
+            cols = torch.arange(value.shape[-1], device=value.device)
+            perm = self.family.serving_order(name, cols[None], old_tp)[0]
+            if not torch.equal(perm, cols):
+                value = value.index_select(value.dim() - 1,
+                                           torch.argsort(perm))
+            full[name] = value
+        self._params = None
+        self._cache = None
+        self._drop_graphs()
+        self._dstate = None
+        self._dirty = True
+        if mesh.get_coordinate() is None:
+            return self._retire(snaps, mesh)
+        self.mesh = mesh
+        self.tp = axis_size(mesh, self.tp_axis)
+        self.family = self._family0
+        self._params = self._shard_params(full)
+        del full
+        if self.paged:
+            self._pool = _PagePool(self.num_pages, self.page_size)
+            if self._host_tier is not None:
+                self._pool.on_evict = self._spill_page
+            self._host_stage.clear()
+            self._ptab[:] = 0
+            self._slot_reserve[:] = 0
+            self._prefilling.clear()
+            self._pt_dirty = False
+        self._cache = self._new_cache()
+        kv_bytes = 2 * self._cache["k"].numel() * \
+            self._cache["k"].element_size()
+        if self.paged:
+            self._page_bytes = kv_bytes // self.num_pages
+        else:
+            self._m_kv_bytes.set(kv_bytes)
+        heads_dim = split_dim(self._cache_pins["k"].spec)
+        for req, snap in snaps:
+            if heads_dim is not None:
+                # this rank's heads of the new mesh
+                pin = self._cache_pins["k"]
+                i, n = pin.local_index()[heads_dim]
+                for key in ("kv_k", "kv_v"):
+                    t = snap[key]
+                    h = t.shape[2] // n
+                    snap[key] = t.narrow(2, i * h, h)
+            self._restore_into(req, snap, self._free_slot())
+        self._publish_pool_gauges()
+        self._flight.note(serving_rebuild={self.tp_axis: self.tp},
+                          tick=self._ticks, migrated=len(snaps))
+        self._flight.dump("serving_rebuild")
+        print(f"[serving] rebuilt on mesh {{{self.tp_axis!r}: {self.tp}}} "
+              f"at tick {self._ticks}: {len(snaps)} live stream(s) "
+              "migrated", file=sys.stderr, flush=True)
+        return len(snaps)
+
+    def _retire(self, snaps, mesh) -> int:
+        """This rank left the mesh: its live and queued requests leave
+        the engine without a terminal reason (each lives on in a
+        survivor's copy of the same scheduler), and the engine holds
+        nothing from here on."""
+        for req, _ in snaps:
+            req.done = True
+            req.finish_reason = "migrated"
+            if req.trace is not None and req._sp_decode is not None:
+                req.trace.end(req._sp_decode)
+                req._sp_decode = None
+            self._m_done.add()
+        while self._queue:
+            self.detach_request(self._queue[0])
+        self.mesh = mesh
+        self._retired = True
+        self._m_occ.set(0)
+        self._m_queue.set(0)
+        self._flight.note(serving_retired=True, tick=self._ticks,
+                          left=len(snaps))
+        print(f"[serving] left the mesh at tick {self._ticks}: engine "
+              "retired", file=sys.stderr, flush=True)
+        return 0
 
     # ------------------------------------------------- paged scheduling
     def _sync_page_table(self) -> None:

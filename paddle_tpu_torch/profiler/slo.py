@@ -81,8 +81,9 @@ class BurnRateMonitor:
     """Multi-window burn-rate evaluation over declared objectives.
 
     Consumers: the alerting path (check() -> flight dump); the fleet's
-    autoscaler (ROADMAP A7 part 3) reads the short-window `burn_rate`
-    per objective as a scale-out signal."""
+    autoscaler (inference/autoscale.py) and brownout ladder
+    (inference/brownout.py) read the short-window `burn_rate` per
+    objective as a scale-out and a degrade signal."""
 
     def __init__(self, objectives: Sequence[Objective],
                  pairs: Sequence[Tuple[float, float]] = DEFAULT_PAIRS,

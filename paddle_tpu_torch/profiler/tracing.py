@@ -16,7 +16,7 @@ OpenTelemetry-shaped tracer does.
   terminal `_finish`. Spans open and close by id, instants record point
   events (each emitted token), and `finish()` emits the one terminal
   span, once only by construction.
-- Replica death (a fleet, ROADMAP A7 part 3): `sever()` closes every
+- Replica death (inference/router.py): `sever()` closes every
   open span of the tree (tagged `severed`) without finishing it, and
   `link_replay()` records the replay link, so a replayed request shows
   attempt 0 cut short and attempt 1 carrying it to its terminal span.

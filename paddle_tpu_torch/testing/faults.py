@@ -1,6 +1,6 @@
 """Deterministic fault injectors for the fault-tolerance runtime — the
-port's counterpart of paddle_tpu/testing/faults.py, its training,
-elastic and serving kinds.
+port's counterpart of paddle_tpu/testing/faults.py, with all of its
+kinds: training, elastic, serving, router and journal.
 
 Faults are declared in a spec string (env `PADDLE_TPU_FAULTS`),
 injected at exact step and shard boundaries so drills are reproducible,
@@ -77,9 +77,37 @@ engine's tick, and each fires at most once by the same marker scheme:
                         carries RESOURCE_EXHAUSTED) at the decode seam on
                         tick T: an `oom_forensics` dump, then the retry.
 
-The reference's router and journal kinds (`replica_preempt`,
-`migrate_raise`, `quota_flood`, `sigkill`, `journal_torn`) are refused by
-name until the fleet is ported (ROADMAP A7 part 3).
+- ``migrate_raise@T``  — at the engine hook: the next `snapshot_request`
+                        at or after tick T raises once (the router takes
+                        the requeue-replay fallback).
+- ``sigkill@T``       — at serving or router tick T: a real SIGKILL to
+                        this process (no flush, no atexit). The marker is
+                        fsynced first, so a restart runs clean; the
+                        request journal is all that survives.
+
+Router kinds (inference/router.py consults `on_router_tick` through
+`router._FAULT_HOOK` once a router tick; inference/autoscale.py's
+EnginePreemptGuard consults the same method through
+`autoscale._FAULT_HOOK`, where the tick is the guard's poll index):
+
+- ``replica_preempt@T:R`` — at the router: kill replica R at tick T
+                        (migration first, replay fallback). At the
+                        preempt guard: wedge the last R leases of the
+                        engine's mesh. At most one fires a consult.
+- ``migrate_raise@T``   — the next router migration at or after tick T
+                        fails once (fallback, migrate_fallbacks).
+- ``quota_flood@T:N``   — at router tick T, N low-priority submissions
+                        of the "flood" tenant through the router's own
+                        submit (quota and backpressure rejects
+                        swallowed). N defaults to 1.
+- ``sigkill@T``         — as above, at the router tick.
+
+Journal kind (inference/journal.py consults `on_journal_recover` through
+`journal._FAULT_HOOK` once a WAL recovery, before reading):
+
+- ``journal_torn@N``    — truncate N bytes off the request WAL's tail
+                        (the coordinate is the byte count): the torn
+                        record drops, everything before it replays.
 
 File corruptors (`truncate_shard`, `bitflip_shard`, `remove_shard`)
 damage committed checkpoints in place and exempt them from the write
@@ -106,15 +134,17 @@ KILL_EXIT = 37
 
 _ELASTIC_KINDS = ("device_loss", "collective_hang", "straggler")
 _SERVING_KINDS = ("nan_logits", "tick_stall", "prefill_raise",
-                  "decode_raise", "cow_raise", "draft_nan", "oom")
-_PORTED_KINDS = ("kill", "crash_shard", "nan", "hb_stale",
-                 "elastic_exit") + _ELASTIC_KINDS + _SERVING_KINDS
-# the reference's other kinds, and the ROADMAP item each waits for
-_WAITING = {
-    k: "ROADMAP A7 part 3 (the fleet: the router and journal fault kinds)"
-    for k in ("replica_preempt", "migrate_raise", "quota_flood", "sigkill",
-              "journal_torn")}
-_KINDS = _PORTED_KINDS + tuple(_WAITING)
+                  "decode_raise", "cow_raise", "draft_nan", "migrate_raise",
+                  "oom", "sigkill")
+_ROUTER_KINDS = ("replica_preempt", "migrate_raise", "quota_flood",
+                 "sigkill")
+_JOURNAL_KINDS = ("journal_torn",)
+# the reference's kind order (paddle_tpu/testing/faults.py _KINDS)
+_KINDS = ("kill", "crash_shard", "nan", "hb_stale", "elastic_exit",
+          "nan_logits", "tick_stall", "prefill_raise", "decode_raise",
+          "cow_raise", "draft_nan", "device_loss", "collective_hang",
+          "straggler", "replica_preempt", "migrate_raise", "oom",
+          "quota_flood", "sigkill", "journal_torn")
 
 
 @dataclass
@@ -148,16 +178,11 @@ class FaultPlan:
             except ValueError as e:
                 raise ValueError(
                     f"bad fault token {token!r} (grammar: kind@step[:arg], "
-                    f"kinds {_PORTED_KINDS})") from e
-            if kind in _WAITING:
-                raise ValueError(
-                    f"fault kind {kind!r} in {token!r} is not ported yet: "
-                    f"it waits for {_WAITING[kind]} (kinds: "
-                    f"{_PORTED_KINDS})")
-            if kind not in _PORTED_KINDS:
+                    f"kinds {_KINDS})") from e
+            if kind not in _KINDS:
                 raise ValueError(
                     f"unknown fault kind {kind!r} in {token!r} "
-                    f"(kinds: {_PORTED_KINDS})")
+                    f"(kinds: {_KINDS})")
             f = _Fault(kind, step, arg, token=f"{i}.{kind}@{step}",
                        remaining=arg if kind == "nan" else 1)
             if self._already_fired(f):
@@ -267,8 +292,8 @@ class FaultPlan:
         """serving._FAULT_HOOK: called with the engine tick about to run;
         returns the action dict the engine applies this tick (keys
         poison_slot, draft_poison_slot, stall_s, raise_prefill,
-        raise_decode, raise_cow, raise_oom). Each fault fires at most
-        once."""
+        raise_decode, raise_cow, raise_migrate, raise_oom; sigkill kills
+        the process). Each fault fires at most once."""
         actions: dict = {}
         for f in self.faults:
             if f.done or f.kind not in _SERVING_KINDS or tick < f.step:
@@ -288,8 +313,70 @@ class FaultPlan:
                 actions["raise_decode"] = True
             elif f.kind == "cow_raise":
                 actions["raise_cow"] = True
+            elif f.kind == "migrate_raise":
+                actions["raise_migrate"] = True
             elif f.kind == "oom":
                 actions["raise_oom"] = True
+            elif f.kind == "sigkill":
+                # the marker is already durable (above): a restart will
+                # not fire it again. A real SIGKILL: no flush, no atexit,
+                # the journal's fsynced WAL is all that survives
+                import signal
+                os.kill(os.getpid(), signal.SIGKILL)
+        return actions
+
+    def on_router_tick(self, tick: int) -> dict:
+        """router._FAULT_HOOK and autoscale._FAULT_HOOK: called with the
+        router tick (or the preempt guard's poll index) about to run;
+        returns the action dict the consumer applies (keys
+        replica_preempt: the replica index at the router, the lease
+        count at the guard; raise_migrate; quota_flood). Each fault fires
+        at most once, and at most one replica_preempt a consult, so
+        stacked preemptions land on successive ticks."""
+        actions: dict = {}
+        for f in self.faults:
+            if f.done or f.kind not in _ROUTER_KINDS or tick < f.step:
+                continue
+            if f.kind == "replica_preempt":
+                if "replica_preempt" in actions:
+                    continue
+                self._mark_fired(f)
+                print(f"[faults] replica_preempt at tick {tick} "
+                      f"(arg={f.arg})", file=sys.stderr, flush=True)
+                # verbatim: a replica index at the router (0 is legal,
+                # spelled `:0`), a lease count at the preempt guard
+                actions["replica_preempt"] = f.arg
+            elif f.kind == "migrate_raise":
+                self._mark_fired(f)
+                print(f"[faults] migrate_raise at tick {tick}",
+                      file=sys.stderr, flush=True)
+                actions["raise_migrate"] = True
+            elif f.kind == "quota_flood":
+                self._mark_fired(f)
+                print(f"[faults] quota_flood at tick {tick} "
+                      f"(n={max(f.arg, 1)})", file=sys.stderr, flush=True)
+                actions["quota_flood"] = max(f.arg, 1)
+            elif f.kind == "sigkill":
+                self._mark_fired(f)
+                print(f"[faults] sigkill at router tick {tick}",
+                      file=sys.stderr, flush=True)
+                import signal
+                os.kill(os.getpid(), signal.SIGKILL)
+        return actions
+
+    def on_journal_recover(self) -> dict:
+        """journal._FAULT_HOOK: consulted once a request-WAL recovery,
+        before the file is read; returns {"journal_torn": nbytes} to
+        truncate the WAL's tail first (`journal_torn@N`'s coordinate is
+        the byte count, not a tick). Fires at most once."""
+        actions: dict = {}
+        for f in self.faults:
+            if f.done or f.kind not in _JOURNAL_KINDS:
+                continue
+            self._mark_fired(f)
+            print(f"[faults] journal_torn: truncating {max(f.step, 0)} "
+                  f"bytes off the WAL tail", file=sys.stderr, flush=True)
+            actions["journal_torn"] = max(f.step, 0)
         return actions
 
 
@@ -308,24 +395,30 @@ def install(spec: Optional[str] = None,
     once = once_dir if once_dir is not None \
         else os.environ.get(ENV_ONCE_DIR) or None
     plan = FaultPlan(spec, once_dir=once)
-    from ..inference import serving
+    from ..inference import autoscale, journal, router, serving
     from ..parallel import checkpoint, elastic, resilience
     resilience._STEP_HOOK = plan.on_step
     checkpoint._SHARD_WRITE_HOOK = plan.on_shard_write
     elastic._FAULT_HOOK = plan.on_elastic
     serving._FAULT_HOOK = plan.on_serving_tick
+    router._FAULT_HOOK = plan.on_router_tick
+    autoscale._FAULT_HOOK = plan.on_router_tick
+    journal._FAULT_HOOK = plan.on_journal_recover
     _PLAN = plan
     return plan
 
 
 def uninstall() -> None:
     global _PLAN
-    from ..inference import serving
+    from ..inference import autoscale, journal, router, serving
     from ..parallel import checkpoint, elastic, resilience
     resilience._STEP_HOOK = None
     checkpoint._SHARD_WRITE_HOOK = None
     elastic._FAULT_HOOK = None
     serving._FAULT_HOOK = None
+    router._FAULT_HOOK = None
+    autoscale._FAULT_HOOK = None
+    journal._FAULT_HOOK = None
     _PLAN = None
 
 

@@ -1055,16 +1055,22 @@ class TestFaultPlan:
         assert [(f.kind, f.step, f.arg) for f in plan.faults] == [
             ("kill", 3, 1), ("crash_shard", 5, 2), ("nan", 7, 4)]
 
-    @pytest.mark.parametrize("kind,waits", [
-        ("migrate_raise", "A7 part 3"), ("journal_torn", "A7 part 3"),
-        ("sigkill", "A7 part 3"), ("quota_flood", "A7 part 3"),
-        ("replica_preempt", "A7 part 3")])
-    def test_unported_kinds_refused_naming_what_they_wait_for(self, kind,
-                                                              waits):
+    @pytest.mark.parametrize("token,step,arg", [
+        ("migrate_raise@3", 3, 1), ("journal_torn@40", 40, 1),
+        ("sigkill@5", 5, 1), ("quota_flood@2:6", 2, 6),
+        ("replica_preempt@3:0", 3, 0)])
+    def test_fleet_kinds_parse_as_the_reference(self, token, step, arg):
+        """The fleet's kinds are ported: each parses to the step and
+        argument the reference's plan gives it (replica_preempt's `:0`
+        names replica 0; journal_torn's coordinate is a byte count)."""
         from paddle_tpu.testing import faults as jfaults
+        kind = token.split("@")[0]
         assert kind in jfaults._KINDS          # the reference's kind
-        with pytest.raises(ValueError, match=f"waits for ROADMAP {waits}"):
-            faults.FaultPlan(f"{kind}@3")
+        got = [(f.kind, f.step, f.arg)
+               for f in faults.FaultPlan(token).faults]
+        ref = [(f.kind, f.step, f.arg)
+               for f in jfaults.FaultPlan(token).faults]
+        assert got == ref == [(kind, step, arg)]
 
     @pytest.mark.parametrize("token,arg", [
         ("nan_logits@2:1", 1), ("nan_logits@2", 0), ("draft_nan@2:3", 3),

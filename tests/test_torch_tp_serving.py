@@ -28,7 +28,16 @@ unsharded engines on the same params and requests:
   MQA cache stays whole on each rank;
 - a mesh without a tp axis is refused; a K >= 2 engine on the host
   route two ranks sharing a card take raises naming it; the facade's
-  engine cache tells a tp engine from the single-device one.
+  engine cache tells a tp engine from the single-device one;
+- the fleet over tp engines (inference/autoscale.py, router.py): the
+  preempt guard under `replica_preempt@4:1` degrades tp2 -> tp1 through
+  the planner and `rebuild_on_mesh` keeps the survivor's live streams
+  equal to the JAX unsharded engine's, with one pull a dispatch after
+  it, while the rank that left retires its engine; a direct rebuild
+  onto tp1, dense and paged with chunked prefill, moves every decoding
+  stream and evicts only the mid-prefill one; a router over two tp2
+  replicas survives `replica_preempt@3:0` by live migration, both ranks'
+  streams identical and equal to the JAX engine's.
 """
 import os
 import tempfile
@@ -256,6 +265,101 @@ def _rank_refusals(mesh):
     return out
 
 
+# the fleet on the tp world (tests/test_autoscale.py TestPreemptGuard
+# and the tp case of TestLiveMigration, at tp2 -> tp1): name ->
+# (prompt lengths, prompt seed, engine knobs)
+FLEET_NEW = 16
+FLEET = {"guard": ([5, 9], 19, {}),
+         "dense": ([5, 9, 13], 20, {}),
+         "paged": ([5, 9, 13], 20, dict(kv_layout="paged", page_size=8,
+                                        prefill_chunk=4)),
+         "router": ([5, 9, 7, 6], 11, {})}
+
+
+def _fleet_prompts(name):
+    lens, seed, _ = FLEET[name]
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, V, n).astype(np.int32) for n in lens]
+
+
+def _fleet_engine(mesh, name, **kw):
+    from paddle_tpu_torch.inference import ServingEngine
+    return ServingEngine(_numpy_params("gpt", GPT_SHAPE),
+                         _tcfg("gpt", GPT_SHAPE), family="gpt",
+                         max_len=32, mesh=mesh, device="cpu",
+                         **FLEET[name][2], **kw)
+
+
+def _rank_fleet(mesh):
+    """The preempt guard's drill, the direct rebuilds and the tp router
+    on this rank."""
+    from paddle_tpu_torch.inference import EnginePreemptGuard, create_router
+    from paddle_tpu_torch.parallel.mesh import build_mesh
+    from paddle_tpu_torch.testing import faults
+    out = {}
+    eng = _fleet_engine(mesh, "guard", num_slots=3)
+    reqs = [eng.submit(p, FLEET_NEW) for p in _fleet_prompts("guard")]
+    guard = EnginePreemptGuard(eng, lease_timeout_s=5.0)
+    faults.install("replica_preempt@4:1", once_dir=None)
+    new_tp, pulls, post, polls = 0, None, 0, 0
+    try:
+        while eng.has_work():
+            eng.step()
+            if pulls is not None:
+                post += 1
+            tp = guard.poll()
+            polls += 1
+            if tp:
+                new_tp = tp
+                pulls = [0]
+                pull = eng._pull
+
+                def counted(value, stall_s=0.0, pull=pull, n=pulls):
+                    n[0] += 1
+                    return pull(value, stall_s)
+                eng._pull = counted
+    finally:
+        faults.uninstall()
+    out["guard"] = {"new_tp": new_tp, "tp": eng.tp, "polls": polls,
+                    "pulls": pulls[0] if pulls else None,
+                    "post_ticks": post, "has_work": eng.has_work(),
+                    "retired": eng._retired,
+                    "cache_heads": (None if eng._cache is None
+                                    else tuple(eng._cache["k"].shape)),
+                    "streams": [list(map(int, r.tokens)) for r in reqs],
+                    "reasons": [r.finish_reason for r in reqs]}
+    for name in ("dense", "paged"):
+        eng = _fleet_engine(mesh, name, num_slots=3)
+        reqs = [eng.submit(p, FLEET_NEW) for p in _fleet_prompts(name)]
+        for _ in range(6):
+            eng.step()
+        n = eng.rebuild_on_mesh(build_mesh({"tp": 1}, devices=[0],
+                                           device_type="cpu"))
+        while eng.has_work():
+            eng.step()
+        out[name] = {"moved": n, "tp": eng.tp, "has_work": eng.has_work(),
+                     "retired": eng._retired,
+                     "streams": [list(map(int, r.tokens)) for r in reqs],
+                     "reasons": [r.finish_reason for r in reqs]}
+    router = create_router(_numpy_params("gpt", GPT_SHAPE),
+                           _tcfg("gpt", GPT_SHAPE), replicas=2,
+                           family="gpt", meshes=[mesh, mesh], num_slots=4,
+                           max_len=32, concurrent=True, device="cpu")
+    mig0 = router._m_mig.value
+    faults.install("replica_preempt@3:0", once_dir=None)
+    try:
+        reqs = [router.submit(p, 14) for p in _fleet_prompts("router")]
+        router.drain()
+    finally:
+        faults.uninstall()
+    out["router"] = {"migrations": router._m_mig.value - mig0,
+                     "requeues": [r.requeues for r in reqs],
+                     "live": len(router.live()),
+                     "streams": [list(map(int, r.tokens)) for r in reqs],
+                     "reasons": [r.finish_reason for r in reqs]}
+    return out
+
+
 def _rank_main(rank, world, workdir):
     torch.set_num_threads(1)
     os.environ["PADDLE_TRAINER_ID"] = str(rank)
@@ -271,6 +375,7 @@ def _rank_main(rank, world, workdir):
         for name in CASES:
             out[name] = _rank_case(mesh, name)
         out["refusals"] = _rank_refusals(mesh)
+        out["fleet"] = _rank_fleet(mesh)
     except BaseException as e:                  # recorded for the test
         out["error"] = repr(e)
     finally:
@@ -299,6 +404,20 @@ def _jax_streams(name):
     return [list(map(int, np.asarray(r.tokens))) for r in reqs]
 
 
+def _jax_fleet_streams():
+    """The JAX unsharded engine's greedy streams of every fleet case."""
+    import jax.numpy as jnp
+    from paddle_tpu.inference.serving import ServingEngine as JaxEngine
+    from paddle_tpu.models import gpt as jgpt
+    jc = jgpt.GPTConfig(**GPT_SHAPE, sequence_parallel=False, remat=False,
+                        dtype=jnp.float32)
+    eng = JaxEngine(_numpy_params("gpt", GPT_SHAPE), jc, family="gpt",
+                    num_slots=4, max_len=32)
+    return {name: [list(map(int, t)) for t in eng.generate(
+        _fleet_prompts(name), 14 if name == "router" else FLEET_NEW)]
+        for name in FLEET}
+
+
 @pytest.fixture(scope="module")
 def world():
     """The 2-rank world's results beside the JAX engines' streams (run
@@ -311,6 +430,7 @@ def world():
     for p in procs:
         p.start()
     jax_out = {name: _jax_streams(name) for name in CASES}
+    jax_out["fleet"] = _jax_fleet_streams()
     for p in procs:
         p.join(300)
         if p.is_alive():
@@ -503,3 +623,56 @@ def test_quant_specs_equal_the_reference_qspecs(family):
     got = quant_specs(tspecs, qparams)
     for k in qparams:
         assert tuple(got.get(k, ())) == tuple(want.get(k, ())), k
+
+
+# ------------------------------------------------- the fleet over tp engines
+def test_preempt_guard_degrades_tp2_to_tp1_streams_survive(world):
+    """tests/test_autoscale.py TestPreemptGuard's acceptance drill at tp2
+    -> tp1: the guard rebuilds through the planner on the rank that
+    stays, its streams equal the JAX unsharded engine's, one pull a
+    dispatch after the rebuild; the rank that left retires."""
+    want = world["jax"]["fleet"]["guard"]
+    stay, left = (r["fleet"]["guard"] for r in world["ranks"])
+    assert stay["new_tp"] == left["new_tp"] == 1
+    assert stay["tp"] == 1 and not stay["retired"]
+    assert stay["pulls"] == stay["post_ticks"] > 0
+    assert stay["cache_heads"][3] == GPT_SHAPE["num_heads"]
+    assert stay["streams"] == want
+    assert stay["reasons"] == ["length"] * len(want)
+    assert left["retired"] and not left["has_work"]
+    assert left["cache_heads"] is None
+    assert set(left["reasons"]) == {"migrated"}
+    # up to the rebuild both ranks served the same tokens
+    for a, b in zip(left["streams"], stay["streams"]):
+        assert b[:len(a)] == a
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_rebuild_on_mesh_moves_decoding_streams(world, layout):
+    """TestPreemptGuard.test_rebuild_on_mesh_direct at tp2 -> tp1: every
+    decoding stream moves in place and equals the JAX engine's; only a
+    request still mid-prefill ends "evicted"."""
+    want = world["jax"]["fleet"][layout]
+    stay, left = (r["fleet"][layout] for r in world["ranks"])
+    assert stay["moved"] >= 2 and left["moved"] == 0
+    assert left["retired"] and not left["has_work"]
+    survived = 0
+    for got, w, why in zip(stay["streams"], want, stay["reasons"]):
+        if why == "evicted":
+            continue
+        assert why == "length" and got == w
+        survived += 1
+    assert survived == stay["moved"]
+
+
+def test_router_over_tp_replicas_survives_replica_preempt(world):
+    """A router over two tp2 replicas on both ranks: replica 0's
+    preemption at tick 3 migrates its live streams into replica 1's
+    shards on each rank, and every stream equals the JAX engine's."""
+    want = world["jax"]["fleet"]["router"]
+    a, b = (r["fleet"]["router"] for r in world["ranks"])
+    assert a["streams"] == b["streams"] == want
+    for r in (a, b):
+        assert r["migrations"] > 0 and r["live"] == 1
+        assert r["requeues"] == [0] * len(want)
+        assert r["reasons"] == ["length"] * len(want)

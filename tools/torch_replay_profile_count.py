@@ -3,16 +3,19 @@
 replays of the multi-tick engine, against the engine's own count.
 
     python3 tools/torch_replay_profile_count.py [--layers N] [--label NAME]
+        [--rounds R]
 
 Builds chip_smoke.py's phase 5d dense engine (its host-drawn
 TinyLlama-width weights at `--layers` of 22, int8, 8 slots, max_len
 2048, multi_tick=4), serves phase 5b's requests so that both sampling
 flags' graphs exist, then profiles windows of 4 dispatches (each a graph
 replay) in fresh requests: opened straight onto the first replay, after
-0.25 s of an idle device, and behind a profiler schedule with one
-warm-up step; and once through chip_smoke's own `tick_profile`. Prints
+0.25 s of an idle device, held open `PROFILE_TAIL_S` after its last
+sync, and behind a profiler schedule with one warm-up step, `--rounds`
+times over; and once through chip_smoke's own `tick_profile`. Prints
 one JSON line: for each window the `qmm_mma` records the profiler
-lists, the engine's int8 count and the replays. chip_smoke.py's tick
+lists (also by dispatch, chip_smoke's `listed_by_dispatch`), the
+engine's int8 count and the replays. chip_smoke.py's tick
 profile holds the listed count to 99-100% of the engine's; this shows
 what a fresh process lists. Exits non-zero without a card.
 """
@@ -29,6 +32,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=22)
     ap.add_argument("--label", default="")
+    ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -97,19 +101,26 @@ def main():
                     for _ in range(4):
                         eng.step()
                     torch.cuda.synchronize()
+                    if how == "tail":
+                        time.sleep(cs.PROFILE_TAIL_S)
                 n = listed(prof.key_averages())
-            rec = {"listed": n, "engine": eng.counters["quant_matmuls"]
+            rec = {"listed": n, "by_dispatch": None if how == "schedule"
+                   else cs.listed_by_dispatch(prof, "qmm_mma"),
+                   "engine": eng.counters["quant_matmuls"]
                    - c0["quant_matmuls"], "replays":
                    eng.counters["graph_replays"] - c0["graph_replays"]}
             eng.drain()
             return rec
-        for how in ("straight", "idle_gap", "schedule", "straight_again"):
-            out[how] = window(how.replace("_again", ""))
+        for r in range(args.rounds):
+            for how in ("straight", "idle_gap", "tail", "schedule"):
+                out.setdefault(how, []).append(window(how))
         try:
             line = cs.tick_profile(torch, eng, prompts, out["card"],
                                    "count_")
-            out["tick_profile"] = {"listed": line[
-                "replay_launches_profiled"], "replays": line["graph_replays"]}
+            out["tick_profile"] = {
+                "listed": line["replay_launches_profiled"],
+                "by_dispatch": line["int8_listed_by_dispatch"],
+                "replays": line["graph_replays"]}
         except AssertionError as e:
             out["tick_profile"] = str(e)
     print(json.dumps(out))
